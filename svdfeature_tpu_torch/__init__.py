@@ -1,0 +1,13 @@
+"""svdfeature_tpu_torch: the PyTorch / CUDA port of svdfeature_tpu.
+
+The JAX package ``svdfeature_tpu`` is the reference this package is held
+against; this one imports torch and numpy and never jax.  It mirrors the
+JAX package's module paths.  Ported so far: the base solver on the
+random-order format (basicMF, binaryClassification, neighborhoodModel),
+from config and buffers through training, checkpoints and RMSE eval, with
+the batched SGD step as a hand-written CUDA kernel for Hopper
+(``ops/cuda_embed.py``, ``csrc/fused_embed.cu``).  The numpy-only modules
+(config, params, data, utils) are verbatim copies of the JAX package's.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,61 @@
+"""numpy -> port containers, on an explicit device.
+
+The trainer builds its state, decay tables and staged batches through
+these, and the tests hand the same numpy arrays to the JAX package's
+``TrainState`` / ``TrainConsts`` / stacked batches and to the port's, so
+both compute the same thing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .ops.embed import TrainConsts, TrainState
+
+
+def _f32(x, device: torch.device) -> torch.Tensor:
+    # a fresh copy: the state is updated in place, the input stays as it was
+    return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+
+def _i32(x, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.int32)).to(device)
+
+
+def state_from_numpy(w, b, g, step, ref_ui, ref_g, device: torch.device) -> TrainState:
+    """TrainState from dummy-padded ``w [N+1,k]``, ``b [N+1]``, ``g [G+1]``,
+    the sample counter and the lazy-decay refs."""
+    return TrainState(
+        w=_f32(w, device),
+        b=_f32(b, device),
+        g=_f32(g, device),
+        step=_i32(step, device).reshape(()),
+        ref_ui=_i32(ref_ui, device),
+        ref_g=_i32(ref_g, device),
+    )
+
+
+def consts_from_numpy(
+    wd_u_row, wd_i_row, wd_g_row, wd_user_bias, wd_item_bias, device: torch.device
+) -> TrainConsts:
+    return TrainConsts(
+        wd_u_row=_f32(wd_u_row, device),
+        wd_i_row=_f32(wd_i_row, device),
+        wd_g_row=_f32(wd_g_row, device),
+        wd_user_bias=_f32(wd_user_bias, device).reshape(()),
+        wd_item_bias=_f32(wd_item_bias, device).reshape(()),
+    )
+
+
+def stacked_from_numpy(
+    arrays: Dict[str, np.ndarray], device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """Stage ``PackedBatches.arrays()`` (``[T, B(, S)]`` planes: int32
+    indices, f32 values) on ``device``."""
+    return {
+        name: (_i32 if name.endswith("_idx") else _f32)(a, device)
+        for name, a in arrays.items()
+    }

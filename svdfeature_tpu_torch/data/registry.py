@@ -1,0 +1,69 @@
+"""Input-source registry: input_type + config keys -> in-memory dataset.
+
+The random-order part of svdfeature_tpu/data/registry.py
+(create_csr_iterator, apex_svd_data.cpp:1303-1335): binary buffers,
+auto-created from ``data_in`` text when missing
+(SVDFeatureCSRFactory::init, apex_svd_data.cpp:227-238), and the text
+sources.  The other inputs raise NotImplementedError naming their ROADMAP
+item.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from ..params import input_type as it
+from .buffer import read_csr_buffer, write_csr_buffer
+from .csr import CSRDataset
+from .text import load_basic_text, load_feature_text
+
+
+class IteratorConfig:
+    """Collects iterator-level config keys via set_param replay."""
+
+    def __init__(self) -> None:
+        self.buffer_feature: Optional[str] = None
+        self.data_in: Optional[str] = None
+        self.scale_score = 1.0
+        self.feature_batch = 1000
+        self.silent = 0
+        self.streaming = 0
+
+    def set_param(self, name: str, val: str) -> None:
+        if name in ("buffer_feature", "data_in"):
+            setattr(self, name, val)
+        elif name == "scale_score":
+            self.scale_score = float(val)
+        elif name in ("feature_batch", "silent", "streaming"):
+            setattr(self, name, int(val))
+
+
+def load_csr_source(dtype: int, cfg: IteratorConfig) -> CSRDataset:
+    if dtype == it.BINARY_PAGE:
+        raise NotImplementedError("binary pages (input_type=5) are ROADMAP Queue 1 item 11")
+    if dtype == it.BINARY_BUFFER and cfg.streaming:
+        raise NotImplementedError("streaming=1 is ROADMAP Queue 1 item 11")
+    if dtype == it.BINARY_BUFFER:
+        path = cfg.buffer_feature or "svdfeature_buf"
+        if not os.path.exists(path):
+            if not cfg.silent:
+                print(f"can't open buffer {path}, creating from data_in={cfg.data_in}")
+            ds = load_feature_text(cfg.data_in, cfg.scale_score)
+            write_csr_buffer(path, ds, cfg.feature_batch)
+            return ds
+        ds, _ = read_csr_buffer(path)
+        return ds
+    if dtype == it.TEXT_FEATURE:
+        return load_feature_text(cfg.data_in, cfg.scale_score)
+    if dtype == it.TEXT_BASIC:
+        return load_basic_text(cfg.data_in, cfg.scale_score)
+    raise ValueError(f"unknown iterator type {dtype}")
+
+
+def load_plus_source(dtype: int, cfg: IteratorConfig):
+    """User-group sources (plain, composed and pair-rank) feed the SVD++
+    and ranking solvers."""
+    raise NotImplementedError(
+        "user-group sources are ROADMAP Queue 1 items 7 (SVD++) and 8 (pairwiseRank)"
+    )

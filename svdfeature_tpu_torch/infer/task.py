@@ -1,0 +1,163 @@
+"""Inference task: RMSE eval over a model sequence, and prediction.
+
+Counterpart of the eval and pred paths of svdfeature_tpu/infer/task.py
+(SVDInferTask, svd_feature_infer.cpp:35-398, with the dispatch the fork
+commented out restored: pred>=0 -> task_pred, else task_eval).
+``test:``-prefixed keys route to the test iterator (:198-220).  The
+ranker path (``use_ranker=1``) is ROADMAP Queue 1 item 8.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import sys
+from typing import List, Optional
+
+import numpy as np
+
+from ..config import ConfigSaver
+from ..data.registry import IteratorConfig, load_csr_source, load_plus_source
+from ..params import SVDTypeParam, input_type, svd_type
+from ..solvers.registry import create_svd_ranker, create_svd_trainer
+
+
+class SVDInferTask:
+    def __init__(self) -> None:
+        self.cfg = ConfigSaver()
+        self.mtype = SVDTypeParam()
+        self.input_type = input_type.BINARY_BUFFER
+        self.scale_score = 1.0
+        self.name_pred = "pred.txt"
+        self.name_eval: Optional[str] = None
+        self.name_model_in_folder = "models"
+        self.start = 0
+        self.end = 1 << 30
+        self.step = 1
+        self.pred_model = -1
+        self.pred_binary = 0
+        self.use_ranker = 0
+        self.silent = 0
+        self.inferencer = None
+        self.dataset = None
+
+    def set_param_inner(self, name: str, val: str) -> None:
+        if name == "model_out_folder":
+            self.name_model_in_folder = val
+        if name == "log_eval":
+            self.name_eval = val
+        if name == "name_pred":
+            self.name_pred = val
+        if name == "start":
+            self.start = int(val)
+        if name == "end":
+            self.end = int(val)
+        if name == "focus":
+            self.start = int(val)
+            self.end = self.start + 1
+        if name == "pred":
+            self.pred_model = int(val)
+            self.start = int(val)
+            self.end = self.start + 1
+        if name == "pred_binary":
+            self.pred_binary = int(val)
+        if name == "step":
+            self.step = int(val)
+        if name == "silent":
+            self.silent = int(val)
+        if name == "scale_score":
+            self.scale_score = float(val)
+        if name == "test:input_type":
+            self.input_type = int(val)
+        if name == "use_ranker":
+            self.use_ranker = int(val)
+
+    def configure(self, conf_path: str, cli_args: List[str]) -> None:
+        self.cfg.load_file(conf_path)
+        self.cfg.load_cli(cli_args)
+        for name, val in self.cfg:
+            self.set_param_inner(name, val)
+        self.mtype.decide_format(
+            svd_type.USER_GROUP_FORMAT if self.input_type == 2 else svd_type.AUTO_DETECT
+        )
+
+    def _model_path(self, i: int) -> str:
+        return os.path.join(self.name_model_in_folder, "%04d.model" % i)
+
+    def _init_model(self, i: int) -> None:
+        path = self._model_path(i)
+        if not os.path.exists(path):
+            raise SystemExit(f'can not open file "{path}"')
+        with open(path, "rb") as f:
+            self.mtype = SVDTypeParam.from_bytes(f.read(4))
+            create = create_svd_ranker if self.use_ranker else create_svd_trainer
+            self.inferencer = create(self.mtype)
+            for name, val in self.cfg:
+                self.inferencer.set_param(name, val)
+            self.inferencer.load_model(f)
+
+    def _load_model(self, i: int) -> bool:
+        path = self._model_path(i)
+        if not os.path.exists(path):
+            return False
+        with open(path, "rb") as f:
+            f.read(4)
+            self.inferencer.load_model(f)
+            self.inferencer.init_trainer()
+        return True
+
+    def _configure_iterator(self) -> None:
+        icfg = IteratorConfig()
+        for name, val in self.cfg:
+            # only accept test:-prefixed keys + compat keys (svd_feature_infer.cpp:198-220)
+            if name.startswith("test:"):
+                icfg.set_param(name[5:], val)
+            if name == "data_test":
+                icfg.set_param("data_in", val)
+            if name in ("scale_score", "silent"):
+                icfg.set_param(name, val)
+        if self.mtype.format_type == svd_type.USER_GROUP_FORMAT:
+            self.dataset = load_plus_source(self.input_type, icfg)
+        else:
+            self.dataset = load_csr_source(self.input_type, icfg)
+
+    def init(self) -> None:
+        self._init_model(self.start)
+        self.inferencer.init_trainer()
+        self._configure_iterator()
+
+    # ---- tasks ----------------------------------------------------------------
+    def task_eval(self) -> None:
+        fo = open(self.name_eval, "a") if self.name_eval else sys.stdout
+        try:
+            i = self.start
+            while i < self.end and self._load_model(i):
+                p = self.inferencer.predict_all(self.dataset)
+                diff = (p - self.dataset.labels) * self.scale_score
+                rmse = math.sqrt(float(np.mean(diff * diff)))
+                fo.write("%d\t%f\n" % (i, rmse))
+                i += self.step
+        finally:
+            if fo is not sys.stdout:
+                fo.close()
+
+    def task_pred(self) -> None:
+        if not self._load_model(self.pred_model):
+            raise RuntimeError(f"fail to load model {self.pred_model}")
+        p = self.inferencer.predict_all(self.dataset) * self.scale_score
+        with open(self.name_pred, "wb" if self.pred_binary else "w") as fo:
+            if self.pred_binary:
+                fo.write(np.asarray(p, "<f4").tobytes())
+            else:
+                for v in p:
+                    fo.write("%f\n" % v)
+        if not self.silent:
+            print(f"prediction end, results stored to {self.name_pred}")
+
+    def run(self, conf_path: str, cli_args: List[str]) -> None:
+        self.configure(conf_path, cli_args)
+        self.init()
+        if self.pred_model >= 0:
+            self.task_pred()
+        else:
+            self.task_eval()

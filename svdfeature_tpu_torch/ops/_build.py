@@ -1,0 +1,93 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+nvcc compiles every source under ``svdfeature_tpu_torch/csrc/`` into one
+shared library with a plain C interface,
+``build/kernels/libsvdfeature_kernels.so`` at the repository root, which
+is loaded with ctypes.  The build runs at first use, and again whenever a
+source or the flags change (a stamp file beside the library holds their
+hash).  Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libsvdfeature_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / spills of each kernel, kept in nvcc.log
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of each C entry point in csrc/ (pointers and the stream as void*)
+SIGNATURES = {
+    "sgd_accumulate": [_P] * 14 + [_I] * 7 + [ctypes.c_float, _P],
+    "sgd_apply": [_P] * 11 + [_I] * 6 + [_P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = pathlib.Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return str(path)
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels if the library is missing or stale; returns
+    its path.  Raises RuntimeError if nvcc fails; its output is kept in
+    ``build/kernels/nvcc.log``."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = _digest(sources)
+    lib = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "nvcc.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    stamp.write_text(digest)
+    return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argtypes and restype declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

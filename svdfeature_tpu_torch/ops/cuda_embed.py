@@ -1,0 +1,311 @@
+"""Multi-round batched SGD of the base solver: the Hopper kernel and its
+plain PyTorch version.
+
+Replaces the TPU kernel svdfeature_tpu/ops/pallas_embed.py::_make_kernel
+(``train_rounds_pallas``), which runs the whole R x T training run as one
+Pallas call with the table resident in VMEM and one-hot MXU matmuls for
+gathers and scatters (Mosaic cannot gather rows).  None of that carries
+over: on the H100 the table and a ``[N, k+3]`` accumulator sit in L2, and
+each step is two launches of csrc/fused_embed.cu on PyTorch's current
+stream — ``sgd_accumulate`` (one warp per example: gather, dot, error,
+atomic scatter) then ``sgd_apply`` (one warp per row: add, decay, zero the
+accumulator).  The kernel is bound by L2 traffic and atomics, not by
+arithmetic; see the source for what its design does about that.
+
+Semantics (per step, f32 throughout) are those of the JAX package's fused
+step (ops/embed.py:393-478 with ``_update_global``):
+  score = base + sum_s g[g_idx]*g_val + i_val*b[i] (+ u_val*b[u]) + p_u.p_i
+  err = cal_grad(label, map_active(score)) * weight
+  w[u] += lr*err*u_val*p_i ; w[i] += lr*err*i_val*p_u   (duplicates sum)
+  b[i] += lr*err*i_val (; b[u] += lr*err*u_val)
+  w *= exp(cu*log(1-lr*wd_u) + ci*log(1-lr*wd_i))  (cu/ci: touch counts)
+  b *= exp(ci*log(1-lr*wd_ib) (+ cu*log(1-lr*wd_ub)))
+  g = (g + lr*S/(1 + lr*C2)) * exp(cg*log(1-lr*wd_g))  (S: sum err*v,
+      C2: sum v^2; ``exact_global`` drops the damping)
+and the dummy row / slot stays exactly 0.  The TPU kernel reads the table
+in bf16 by default; the port is f32 everywhere, so ``pallas_precise`` has
+no counterpart.
+
+Both versions update ``state.w``, ``state.b`` and ``state.g`` in place
+(the JAX package donates the state) and return the new TrainState.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .. import losses
+from .embed import HyperParams, TrainConsts, TrainState
+
+# tables above this many rows (dummy included) go to the big-table route
+# of the JAX package (ops/embed.py:273); not ported yet
+MAX_TABLE_ROWS = 1 << 13
+MAX_GLOBAL_ENTRIES = 8
+MAX_GLOBAL_SLOTS = 1024
+KERNEL_ACTIVE_TYPES = (
+    losses.LINEAR, losses.SIGMOID_L2, losses.SIGMOID_LIKELIHOOD,
+    losses.SIGMOID_RANK, losses.SIGMOID_QSGRAD,
+)
+_GENERAL_STEP = "the general train step (ROADMAP Queue 1 item 4)"
+
+
+def gate_failure(hp: HyperParams, state: TrainState, stacked) -> Optional[str]:
+    """Why the kernel path cannot run this configuration, or None.
+
+    The semantic conditions of ``pallas_supported``
+    (pallas_embed.py:47-68) without its TPU layout limits, plus the
+    table-size cap above which the JAX package takes its big-table route.
+    """
+    n = state.w.shape[0]
+    if hp.reg_method != 0 or hp.reg_global != 0:
+        return f"reg_method/reg_global other than 0 (eager L2) need {_GENERAL_STEP}"
+    if hp.user_nonnegative or hp.item_nonnegative:
+        return f"nonnegative factors need {_GENERAL_STEP}"
+    if hp.active_type not in KERNEL_ACTIVE_TYPES:
+        return f"active_type {hp.active_type} needs {_GENERAL_STEP}"
+    if stacked["u_idx"].shape[-1] != 1 or stacked["i_idx"].shape[-1] != 1:
+        return (
+            "multi-entry user/item segments (hierarchical side features) "
+            f"need {_GENERAL_STEP}"
+        )
+    if stacked["g_idx"].shape[-1] > MAX_GLOBAL_ENTRIES:
+        return f"more than {MAX_GLOBAL_ENTRIES} global entries per example need {_GENERAL_STEP}"
+    if state.g.shape[0] > MAX_GLOBAL_SLOTS:
+        return f"a global table over {MAX_GLOBAL_SLOTS} slots needs {_GENERAL_STEP}"
+    if n > MAX_TABLE_ROWS:
+        return (
+            f"tables over {MAX_TABLE_ROWS} rows need the big-table route "
+            "(ROADMAP Queue 1 item 9)"
+        )
+    return None
+
+
+def kernel_supported(hp: HyperParams, state: TrainState, stacked) -> bool:
+    return gate_failure(hp, state, stacked) is None
+
+
+def _log1m(x: torch.Tensor) -> torch.Tensor:
+    # clamp at a tiny positive so lr*wd == 1 decays to exactly 0 instead
+    # of giving -inf * 0 = nan for untouched rows (pallas_embed.py:310-314)
+    return torch.log(torch.clamp(1.0 - x, min=1e-38))
+
+
+def _decay_logs(lrs: torch.Tensor, consts: TrainConsts) -> Dict[str, torch.Tensor]:
+    """Per-round log decay tables, shared by the kernel and the plain
+    version: u/i ``[R, N]``, g ``[R, G+1]``, bu/bi ``[R]``."""
+    lr = lrs[:, None]
+    return {
+        "u": _log1m(lr * consts.wd_u_row[None, :]).contiguous(),
+        "i": _log1m(lr * consts.wd_i_row[None, :]).contiguous(),
+        "g": _log1m(lr * consts.wd_g_row[None, :]).contiguous(),
+        "bu": _log1m(lrs * consts.wd_user_bias).contiguous(),
+        "bi": _log1m(lrs * consts.wd_item_bias).contiguous(),
+    }
+
+
+def _new_state(state: TrainState, stacked, R: int) -> TrainState:
+    nstep = state.step + (stacked["weight"] > 0).sum().to(torch.int32) * R
+    return TrainState(
+        w=state.w, b=state.b, g=state.g, step=nstep,
+        ref_ui=state.ref_ui, ref_g=state.ref_g,
+    )
+
+
+@torch.no_grad()
+def train_rounds_reference(
+    state: TrainState,
+    stacked: Dict[str, torch.Tensor],
+    lrs: torch.Tensor,
+    consts: TrainConsts,
+    hp: HyperParams,
+) -> TrainState:
+    """The plain PyTorch version of the kernel: R rounds over the T stacked
+    batches, one step per batch, with ``index_add_`` for the scatters."""
+    w, b, g = state.w, state.b, state.g
+    T, B = stacked["label"].shape
+    N = w.shape[0]
+    NG = g.shape[0]
+    with_g = NG > 1
+    with_ub = not hp.no_user_bias
+    logs = _decay_logs(lrs, consts)
+    dev = w.device
+    ones = torch.ones(B, dtype=torch.float32, device=dev)
+    for r in range(lrs.shape[0]):
+        lr = lrs[r]
+        for t in range(T):
+            u = stacked["u_idx"][t, :, 0].long()
+            i = stacked["i_idx"][t, :, 0].long()
+            uv = stacked["u_val"][t, :, 0]
+            iv = stacked["i_val"][t, :, 0]
+            p_u = uv[:, None] * w[u]
+            p_i = iv[:, None] * w[i]
+            score = torch.full((B,), hp.base_score, dtype=torch.float32, device=dev)
+            if with_g:
+                gi = stacked["g_idx"][t].long()
+                gv = stacked["g_val"][t]
+                score = score + (gv * g[gi]).sum(dim=1)
+            score = score + iv * b[i]
+            if with_ub:
+                score = score + uv * b[u]
+            score = score + (p_u * p_i).sum(dim=1)
+            pred = losses.map_active(score, hp.active_type)
+            err = losses.cal_grad(stacked["label"][t], pred, hp.active_type)
+            err = err * stacked["weight"][t]
+            lr_err = lr * err
+            coef_u = lr_err * uv
+            coef_i = lr_err * iv
+
+            if with_g:
+                flat = gi.reshape(-1)
+                S = torch.zeros(NG, dtype=torch.float32, device=dev).index_add_(
+                    0, flat, (err[:, None] * gv).reshape(-1))
+                cg = torch.zeros(NG, dtype=torch.float32, device=dev).index_add_(
+                    0, flat, torch.ones_like(gv).reshape(-1))
+                if hp.exact_global:
+                    g.add_(lr * S)
+                else:
+                    C2 = torch.zeros(NG, dtype=torch.float32, device=dev).index_add_(
+                        0, flat, (gv * gv).reshape(-1))
+                    g.add_(lr * S / (1.0 + lr * C2))
+                g.mul_(torch.exp(cg * logs["g"][r]))
+                g[-1] = 0.0
+
+            dw = torch.zeros_like(w).index_add_(0, u, coef_u[:, None] * p_i)
+            dw.index_add_(0, i, coef_i[:, None] * p_u)
+            db = torch.zeros_like(b).index_add_(0, i, coef_i)
+            if with_ub:
+                db.index_add_(0, u, coef_u)
+            cu = torch.zeros(N, dtype=torch.float32, device=dev).index_add_(0, u, ones)
+            ci = torch.zeros(N, dtype=torch.float32, device=dev).index_add_(0, i, ones)
+            w.add_(dw).mul_(torch.exp(cu * logs["u"][r] + ci * logs["i"][r])[:, None])
+            sb = ci * logs["bi"][r]
+            if with_ub:
+                sb = sb + cu * logs["bu"][r]
+            b.add_(db).mul_(torch.exp(sb))
+            w[-1] = 0.0
+            b[-1] = 0.0
+    return _new_state(state, stacked, lrs.shape[0])
+
+
+def _check_inputs(state: TrainState, planes: Dict[str, torch.Tensor],
+                  lrs: torch.Tensor, consts: TrainConsts) -> None:
+    """Device, dtype, shape, contiguity and index bounds of everything
+    the kernel dereferences; raises ValueError on what it does not take."""
+    dev = state.w.device
+    N, k = state.w.shape
+    NG = state.g.shape[0]
+    n = planes["label"].numel()
+    want = {
+        "w": (state.w, torch.float32, (N, k)),
+        "b": (state.b, torch.float32, (N,)),
+        "g": (state.g, torch.float32, (NG,)),
+        "lrs": (lrs, torch.float32, (lrs.shape[0],)),
+        "wd_u_row": (consts.wd_u_row, torch.float32, (N,)),
+        "wd_i_row": (consts.wd_i_row, torch.float32, (N,)),
+        "wd_g_row": (consts.wd_g_row, torch.float32, (NG,)),
+    }
+    for p in ("u_idx", "i_idx"):
+        want[p] = (planes[p], torch.int32, (n,))
+    for p in ("u_val", "i_val", "label", "weight"):
+        want[p] = (planes[p], torch.float32, (n,))
+    SG = planes["g_idx"].numel() // max(n, 1)
+    want["g_idx"] = (planes["g_idx"], torch.int32, (n * SG,))
+    want["g_val"] = (planes["g_val"], torch.float32, (n * SG,))
+    for name, (x, dtype, shape) in want.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, the table on {dev}")
+        if x.dtype != dtype:
+            raise ValueError(f"{name} has dtype {x.dtype}, the kernel takes {dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if n == 0 or k == 0 or lrs.shape[0] == 0:
+        raise ValueError("empty batch, table or round schedule")
+    ui = torch.cat([planes["u_idx"], planes["i_idx"]])
+    bounds = torch.stack([ui.min(), ui.max()])
+    if SG:
+        bounds = torch.cat([bounds, torch.stack([planes["g_idx"].min(), planes["g_idx"].max()])])
+    bounds = bounds.tolist()  # one host sync per call
+    if bounds[0] < 0 or bounds[1] >= N:
+        raise ValueError(f"user/item index outside the {N}-row table")
+    if SG and (bounds[2] < 0 or bounds[3] >= NG):
+        raise ValueError(f"global index outside the {NG}-slot table")
+
+
+@torch.no_grad()
+def train_rounds_kernel(
+    state: TrainState,
+    stacked: Dict[str, torch.Tensor],
+    lrs: torch.Tensor,
+    consts: TrainConsts,
+    hp: HyperParams,
+) -> TrainState:
+    """R rounds of the stacked batches through csrc/fused_embed.cu.
+
+    On CUDA tensors this launches the kernel (2 launches per step, each
+    counted in ``train_rounds_kernel.launches``) and raises on anything it
+    cannot run; there is no fallback.  Tensors on the CPU take the plain
+    version, ``train_rounds_reference``.
+    """
+    if state.w.device.type == "cpu":
+        return train_rounds_reference(state, stacked, lrs, consts, hp)
+    if state.w.device.type != "cuda":
+        raise ValueError(f"no kernel for device {state.w.device}")
+    reason = gate_failure(hp, state, stacked)
+    if reason is not None:
+        raise ValueError(f"kernel cannot run this configuration: {reason}")
+    from ._build import load_library
+
+    lib = load_library()
+    T, B = stacked["label"].shape
+    N, k = state.w.shape
+    NG = state.g.shape[0]
+    R = lrs.shape[0]
+    SG = stacked["g_idx"].shape[-1] if NG > 1 else 0
+    planes = {
+        "u_idx": stacked["u_idx"][..., 0].reshape(-1),
+        "i_idx": stacked["i_idx"][..., 0].reshape(-1),
+        "u_val": stacked["u_val"][..., 0].reshape(-1),
+        "i_val": stacked["i_val"][..., 0].reshape(-1),
+        "label": stacked["label"].reshape(-1),
+        "weight": stacked["weight"].reshape(-1),
+        "g_idx": stacked["g_idx"][..., :SG].reshape(-1),
+        "g_val": stacked["g_val"][..., :SG].reshape(-1),
+    }
+    planes = {p: x.contiguous() for p, x in planes.items()}
+    _check_inputs(state, planes, lrs, consts)
+    logs = _decay_logs(lrs, consts)
+    dev = state.w.device
+    acc = torch.zeros((N, k + 3), dtype=torch.float32, device=dev)
+    gacc = torch.zeros((NG, 3), dtype=torch.float32, device=dev)
+    p = {name: x.data_ptr() for name, x in planes.items()}
+    lp = {name: x.data_ptr() for name, x in logs.items()}
+    w, b, g = state.w.data_ptr(), state.b.data_ptr(), state.g.data_ptr()
+    lr_p, acc_p, gacc_p = lrs.data_ptr(), acc.data_ptr(), gacc.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with_ub = 0 if hp.no_user_bias else 1
+    n_global = NG if SG else 0
+    for r in range(R):
+        for t in range(T):
+            err = lib.sgd_accumulate(
+                w, b, g, p["u_idx"], p["u_val"], p["i_idx"], p["i_val"],
+                p["label"], p["weight"], p["g_idx"], p["g_val"], lr_p, acc_p, gacc_p,
+                k, B, SG, t, r, hp.active_type, with_ub, hp.base_score, stream,
+            )
+            if err:
+                raise RuntimeError(f"sgd_accumulate launch failed: CUDA error {err}")
+            train_rounds_kernel.launches += 1
+            err = lib.sgd_apply(
+                w, b, g, acc_p, gacc_p, lr_p, lp["u"], lp["i"], lp["g"], lp["bu"], lp["bi"],
+                N, k, n_global, r, with_ub, int(hp.exact_global), stream,
+            )
+            if err:
+                raise RuntimeError(f"sgd_apply launch failed: CUDA error {err}")
+            train_rounds_kernel.launches += 1
+    return _new_state(state, stacked, R)
+
+
+train_rounds_kernel.launches = 0

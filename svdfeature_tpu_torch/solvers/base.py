@@ -1,0 +1,279 @@
+"""Base SGD solver: the random-order-format trainer on PyTorch.
+
+Counterpart of svdfeature_tpu/solvers/base.py (class SVDFeature,
+apex_svd_base.h:79-479).  The trainer owns the model, appends the dummy
+padding rows, packs a dataset into fixed-shape stacked batches once,
+stages them on its device, and trains every round through
+``ops.cuda_embed.train_rounds_kernel`` (the Hopper kernel on a CUDA
+device, its plain version on the CPU).
+
+The device is explicit: config key ``device`` (default ``cuda``).  With
+``device=cuda`` and no card the trainer raises instead of running on the
+CPU.  ``use_pallas=0`` selects the plain PyTorch version on the device,
+as it selects the jnp path in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import BinaryIO, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..convert import consts_from_numpy, stacked_from_numpy
+from ..data.batching import pack_csr
+from ..data.csr import CSRDataset
+from ..model import SVDModel
+from ..ops.cuda_embed import gate_failure, train_rounds_kernel, train_rounds_reference
+from ..ops.embed import HyperParams, TrainConsts, TrainState, predict_batches
+from ..params import ParameterSet, SVDModelParam, SVDTrainParam, SVDTypeParam
+from ..utils.sparse_feature_array import SparseFeatureArray
+
+DEFAULT_BATCH_SIZE = 1024
+
+
+def resolve_device(name: str) -> torch.device:
+    """The training device named by config key ``device``; a CUDA device
+    without a card is an error, never a silent CPU run."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={name} but no CUDA device is available (pass device=cpu to train on the CPU)"
+        )
+    return dev
+
+
+class SVDFeatureTrainer:
+    """Random-order-format trainer (ISVDTrainer contract, apex_svd.h:33-107)."""
+
+    def __init__(self, mtype: SVDTypeParam):
+        self.mtype = mtype
+        self.mparam = SVDModelParam()
+        self.tparam = SVDTrainParam()
+        self.u_param = ParameterSet("up:", "uip:")
+        self.i_param = ParameterSet("ip:", "uip:")
+        self.g_param = ParameterSet("gp:", "gp:")
+        self.name_feat_user: Optional[str] = None
+        self.name_feat_item: Optional[str] = None
+        self.feat_user: Optional[SparseFeatureArray] = None
+        self.feat_item: Optional[SparseFeatureArray] = None
+        self.batch_size = DEFAULT_BATCH_SIZE
+        # the hand-written kernel (ops/cuda_embed.py); use_pallas=0 runs
+        # its plain PyTorch version on the same device
+        self.use_pallas = True
+        self.seed = 10
+        # exact_rng=1: init draws from the bit-exact apex_random port
+        self.exact_rng = False
+        self.device_name = "cuda"
+        self.mesh_data = 1
+        self.mesh_model = 1
+        self.round_counter = 0
+        self.learning_rate: float = 0.01
+        self.model: Optional[SVDModel] = None
+        self.state: Optional[TrainState] = None
+        self.consts: Optional[TrainConsts] = None
+        self.hp: Optional[HyperParams] = None
+        self._space_allocated = False
+        self._pack_cache: Dict[int, Tuple[Dict[str, torch.Tensor], int]] = {}
+
+    # ---- configuration -----------------------------------------------------
+    def set_param(self, name: str, val: str) -> None:
+        if name == "feature_user":
+            self.name_feat_user = val
+        if name == "feature_item":
+            self.name_feat_item = val
+        if name == "batch_size":
+            self.batch_size = int(val)
+        if name == "use_pallas":
+            self.use_pallas = bool(int(val))
+        if name == "mesh_data":
+            self.mesh_data = int(val)
+        if name == "mesh_model":
+            self.mesh_model = int(val)
+        if name == "seed":
+            self.seed = int(val)
+        if name == "exact_rng":
+            self.exact_rng = bool(int(val))
+        if name == "device":
+            self.device_name = val
+        self.tparam.set_param(name, val)
+        self.u_param.set_param(name, val)
+        self.i_param.set_param(name, val)
+        self.g_param.set_param(name, val)
+        if not self._space_allocated:
+            self.mparam.set_param(name, val)
+
+    @property
+    def device(self) -> torch.device:
+        return resolve_device(self.device_name)
+
+    # ---- model lifecycle ----------------------------------------------------
+    def init_model(self) -> None:
+        self.model = SVDModel.rand_init(
+            self.mparam, self.mtype, device=self.device, seed=self.seed,
+            exact_rng=self.exact_rng,
+        )
+        self.mparam = self.model.param  # base_score transformed
+        self._space_allocated = True
+
+    def load_model(self, f: BinaryIO) -> None:
+        self.model = SVDModel.load(f, self.mtype, device=self.device)
+        self.mparam = self.model.param
+        self._space_allocated = True
+
+    def save_model(self, f: BinaryIO) -> None:
+        self._sync_model_from_state()
+        self.model.save(f)
+
+    def _sync_model_from_state(self) -> None:
+        if self.state is not None:
+            n = self.model.num_rows  # excludes the dummy row
+            # copies: training goes on updating the state in place
+            self.model.w = self.state.w[:n].clone()
+            self.model.b = self.state.b[:n].clone()
+            self.model.g = self.state.g[:-1].clone()
+
+    # ---- trainer lifecycle ---------------------------------------------------
+    def init_trainer(self) -> None:
+        if self.mesh_data * self.mesh_model > 1:
+            raise NotImplementedError(
+                "mesh_data/mesh_model > 1: multi-GPU is ROADMAP Queue 1 item 12"
+            )
+        if self.name_feat_user and self.name_feat_user != "NULL":
+            self.feat_user = SparseFeatureArray.load(self.name_feat_user)
+        if self.name_feat_item and self.name_feat_item != "NULL":
+            self.feat_item = SparseFeatureArray.load(self.name_feat_item)
+        m = self.model
+        dev = m.w.device
+        n = m.num_rows
+        k = m.num_factor
+        # dummy row appended for padding targets
+        self.state = TrainState(
+            w=torch.cat([m.w, torch.zeros((1, k), dtype=torch.float32, device=dev)]),
+            b=torch.cat([m.b, torch.zeros((1,), dtype=torch.float32, device=dev)]),
+            g=torch.cat([m.g, torch.zeros((1,), dtype=torch.float32, device=dev)]),
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+            ref_ui=torch.zeros((n + 1,), dtype=torch.int32, device=dev),
+            ref_g=torch.zeros((m.param.num_global + 1,), dtype=torch.int32, device=dev),
+        )
+        self.consts = self._build_consts()
+        self.hp = self._build_hp()
+        self.learning_rate = self.tparam.learning_rate
+        self.round_counter = 0
+
+    def _build_hp(self) -> HyperParams:
+        p = self.model.param
+        return HyperParams(
+            active_type=self.mtype.active_type,
+            no_user_bias=p.no_user_bias,
+            reg_method=self.tparam.reg_method,
+            reg_global=self.tparam.reg_global,
+            user_nonnegative=p.user_nonnegative,
+            item_nonnegative=p.item_nonnegative,
+            base_score=float(p.base_score),
+            # batch_size=1 selects the reference's plain global update
+            # (apex_svd_base.h:384-387); larger batches use the damped one
+            exact_global=(self.batch_size == 1),
+        )
+
+    def _build_consts(self) -> TrainConsts:
+        """Densify per-row weight-decay tables (ParameterSet ranges override
+        the scalar wd over id ranges; apex_svd_base.h:33-75,188-283)."""
+        m = self.model
+        p = m.param
+        n = m.num_rows
+        wd_u = np.zeros(n + 1, np.float32)
+        wd_i = np.zeros(n + 1, np.float32)
+        # ids reaching reg_user are user-local ids; table rows off_user+id
+        wd_u[m.off_user : m.off_user + p.num_user] = self.u_param.wd_table(
+            p.num_user, self.tparam.wd_user
+        )
+        wd_i[m.off_item : m.off_item + p.num_item] = self.i_param.wd_table(
+            p.num_item, self.tparam.wd_item
+        )
+        wd_g = np.zeros(p.num_global + 1, np.float32)
+        if p.num_global:
+            wd_g[: p.num_global] = self.g_param.wd_table(
+                p.num_global, self.tparam.wd_global
+            )
+            wd_g[: self.tparam.num_regfree_global] = 0.0
+        return consts_from_numpy(
+            wd_u, wd_i, wd_g, self.tparam.wd_user_bias, self.tparam.wd_item_bias,
+            device=self.model.w.device,
+        )
+
+    def set_round(self, nround: int) -> None:
+        """Learning-rate decay schedule (apex_svd_base.h:470-478)."""
+        if self.tparam.decay_learning_rate:
+            if self.round_counter > nround:
+                raise ValueError("round counter restriction")
+            while self.round_counter < nround:
+                self.learning_rate *= self.tparam.decay_rate
+                self.round_counter += 1
+
+    def finish_round(self) -> None:
+        pass
+
+    def synchronize(self) -> None:
+        """Wait for the training device: a host clock read after this
+        call covers the work enqueued before it."""
+        if self.state is not None and self.state.w.is_cuda:
+            torch.cuda.synchronize(self.state.w.device)
+
+    # ---- data packing ---------------------------------------------------------
+    def _pack(self, ds: CSRDataset) -> Tuple[Dict[str, torch.Tensor], int]:
+        key = id(ds)
+        if key not in self._pack_cache:
+            m = self.model
+            packed = pack_csr(
+                ds,
+                self.batch_size,
+                m.num_rows,
+                m.param.num_global,
+                m.off_user,
+                m.off_item,
+                feat_user=self.feat_user,
+                feat_item=self.feat_item,
+                num_user=m.param.num_user,
+                num_item=m.param.num_item,
+            )
+            arrays = stacked_from_numpy(packed.arrays(), self.state.w.device)
+            self._pack_cache[key] = (arrays, ds.num_row)
+        return self._pack_cache[key]
+
+    # ---- training / prediction --------------------------------------------------
+    def _train(self, stacked: Dict[str, torch.Tensor], lrs: List[float]) -> None:
+        reason = gate_failure(self.hp, self.state, stacked)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        lr_t = torch.tensor(lrs, dtype=torch.float32, device=self.state.w.device)
+        fn = train_rounds_kernel if self.use_pallas else train_rounds_reference
+        self.state = fn(self.state, stacked, lr_t, self.consts, self.hp)
+
+    def update_all(self, ds: CSRDataset) -> None:
+        """One pass over the dataset (one round)."""
+        stacked, _ = self._pack(ds)
+        self._train(stacked, [self.learning_rate])
+
+    def update_rounds(self, ds: CSRDataset, num_rounds: int) -> None:
+        """Run num_rounds full passes, applying the per-round lr decay
+        schedule (set_round semantics) on the host."""
+        stacked, _ = self._pack(ds)
+        lrs = []
+        for _ in range(num_rounds):
+            lrs.append(self.learning_rate)
+            if self.tparam.decay_learning_rate:
+                self.learning_rate *= self.tparam.decay_rate
+                self.round_counter += 1
+        self._train(stacked, lrs)
+
+    def predict_all(self, ds: CSRDataset) -> np.ndarray:
+        state = self.state_or_model()
+        stacked, nrow = self._pack(ds)
+        preds = predict_batches(state, stacked, self.hp)
+        return preds.reshape(-1)[:nrow].cpu().numpy()
+
+    def state_or_model(self) -> TrainState:
+        if self.state is None:
+            self.init_trainer()
+        return self.state

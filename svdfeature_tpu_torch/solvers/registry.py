@@ -1,0 +1,40 @@
+"""Solver registry: extend_type/format_type -> trainer class.
+
+Counterpart of svdfeature_tpu/solvers/registry.py (create_svd_trainer /
+create_svd_ranker, apex_svd.cpp:32-47).  The port has the base solver on
+the random-order format so far; every other solver raises
+NotImplementedError naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from ..params import SVDTypeParam, svd_type
+
+_NOT_PORTED = {
+    1: "SVD++ (extend_type=1) is ROADMAP Queue 1 item 7",
+    2: "multi-IMFB (extend_type=2) is ROADMAP Queue 1 item 10",
+    15: "bilinear (extend_type=15) is ROADMAP Queue 1 item 10",
+    30: "GBRT (extend_type=30) is ROADMAP Queue 1 item 10",
+    31: "GBRT (extend_type=31) is ROADMAP Queue 1 item 10",
+}
+
+
+def create_svd_trainer(mtype: SVDTypeParam):
+    """apex_svd.cpp:32-44 dispatch."""
+    from .base import SVDFeatureTrainer
+
+    et = mtype.extend_type
+    if et in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[et])
+    if et != 0:
+        raise ValueError(f"unknown extension type {et}")
+    if mtype.format_type == svd_type.USER_GROUP_FORMAT:
+        raise NotImplementedError(
+            "the user-group format (SVD++ solver) is ROADMAP Queue 1 item 7"
+        )
+    return SVDFeatureTrainer(mtype)
+
+
+def create_svd_ranker(mtype: SVDTypeParam):
+    """apex_svd.cpp:45-47."""
+    raise NotImplementedError("the ranker (use_ranker=1) is ROADMAP Queue 1 item 8")

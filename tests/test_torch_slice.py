@@ -1,0 +1,166 @@
+"""The whole slice, both packages, through their user entry points.
+
+make_feature_buffer -> SVDTrainTask -> %04d.model per round ->
+SVDInferTask (log_eval), on the first 10k rows of ML-100K (basicMF and
+neighborhoodModel confs, num_factor=16, batch_size=1024, 3 rounds).  The
+port runs with device=cpu (its kernel path takes the plain version
+there).  Every checkpoint agrees (w/b/g atol 1e-5) and so does every
+round's eval RMSE (1e-5).
+"""
+
+import gzip
+import io
+import pathlib
+
+import numpy as np
+import pytest
+
+from svdfeature_tpu.cli import make_feature_buffer as jbuf_cli
+from svdfeature_tpu.infer.task import SVDInferTask as JInfer
+from svdfeature_tpu.model import SVDModel as JModel
+from svdfeature_tpu.params import SVDTypeParam
+from svdfeature_tpu.train.loop import SVDTrainTask as JTrain
+from svdfeature_tpu_torch.cli import make_feature_buffer as tbuf_cli
+from svdfeature_tpu_torch.infer.task import SVDInferTask as TInfer
+from svdfeature_tpu_torch.ops import cuda_embed
+from svdfeature_tpu_torch.train.loop import SVDTrainTask as TTrain
+
+FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
+ROUNDS = 3
+CONFS = {
+    "basicMF": ("ml100k.base.feature.gz", "ml100k.test.feature.gz", "num_global = 0\n"),
+    "neighborhoodModel": ("ml100k.base.nb.feature.gz", "ml100k.test.nb.feature.gz",
+                          "num_global = 6\nwd_global = 0.001\n"),
+}
+
+
+def _head(name, n, dst):
+    with gzip.open(FIXTURES / name, "rt") as f:
+        dst.write_text("".join(line for _, line in zip(range(n), f)))
+
+
+def _read_model(path):
+    with open(path, "rb") as f:
+        m = JModel.load(f, SVDTypeParam.from_bytes(f.read(4)))
+    return {k: np.asarray(getattr(m, k)) for k in ("w", "b", "g")}
+
+
+@pytest.mark.parametrize("demo", sorted(CONFS))
+def test_slice_matches_jax(demo, tmp_path):
+    train_fx, test_fx, extra = CONFS[demo]
+    _head(train_fx, 10000, tmp_path / "train.feature")
+    _head(test_fx, 2000, tmp_path / "test.feature")
+    out = {}
+    for tag, buf_cli, train_cls, infer_cls, dev in (
+        ("jax", jbuf_cli, JTrain, JInfer, []),
+        ("torch", tbuf_cli, TTrain, TInfer, ["device=cpu"]),
+    ):
+        d = tmp_path / tag
+        d.mkdir()
+        for split in ("train", "test"):
+            buf_cli.main([str(tmp_path / f"{split}.feature"), str(d / f"{split}.buffer")])
+        conf = d / f"{demo}.conf"
+        conf.write_text(
+            "base_score = 3\nlearning_rate = 0.005\nwd_user = 0.004\nwd_item = 0.004\n"
+            f"num_user = 943\nnum_item = 1682\nnum_factor = 16\nactive_type = 0\n{extra}"
+            f'buffer_feature = "{d}/train.buffer"\ntest:buffer_feature = "{d}/test.buffer"\n'
+            f'model_out_folder = "{d}/models"\nbatch_size = 1024\nsilent = 1\n'
+        )
+        before = cuda_embed.train_rounds_kernel.launches
+        train_cls().run(str(conf), [f"num_round={ROUNDS}", *dev])
+        infer_cls().run(str(conf), ["start=0", f"end={ROUNDS + 1}",
+                                    f"log_eval={d}/rmse.tsv", *dev])
+        assert cuda_embed.train_rounds_kernel.launches == before  # CPU: plain version
+        rmse = np.loadtxt(d / "rmse.tsv")
+        out[tag] = dict(
+            models=[_read_model(d / "models" / f"{r:04d}.model") for r in range(ROUNDS + 1)],
+            rmse=rmse,
+        )
+    assert out["torch"]["rmse"].shape == (ROUNDS + 1, 2)
+    np.testing.assert_allclose(out["torch"]["rmse"], out["jax"]["rmse"], atol=1e-5, rtol=0)
+    for r in range(ROUNDS + 1):
+        for k in ("w", "b", "g"):
+            np.testing.assert_allclose(out["torch"]["models"][r][k], out["jax"]["models"][r][k],
+                                       atol=1e-5, rtol=0, err_msg=f"round {r} {k}")
+    # it trained, and the eval improved on the init
+    assert out["torch"]["rmse"][-1, 1] < out["torch"]["rmse"][0, 1]
+    if demo == "neighborhoodModel":
+        assert np.abs(out["torch"]["models"][-1]["g"]).max() > 0
+
+
+def test_cuda_device_without_card_raises():
+    """device=cuda (the default) on a host without a card is an error,
+    never a silent CPU run."""
+    import torch
+
+    from svdfeature_tpu_torch.params import SVDTypeParam as TType
+    from svdfeature_tpu_torch.solvers.base import SVDFeatureTrainer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    tr = SVDFeatureTrainer(TType())
+    for k, v in (("num_user", "3"), ("num_item", "4"), ("num_factor", "2")):
+        tr.set_param(k, v)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tr.init_model()
+
+
+@pytest.mark.parametrize("key,val,item", [
+    ("reg_method", "1", "item 4"),
+    ("active_type", "5", "item 4"),
+    ("user_nonnegative", "1", "item 4"),
+    ("extend_type", "1", "item 7"),
+    ("mesh_data", "2", "item 12"),
+])
+def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
+    """Configurations the port does not run yet raise NotImplementedError
+    naming their ROADMAP item instead of training something else."""
+    feat = tmp_path / "train.feature"
+    feat.write_text("".join(f"{i % 5 + 1} 0 1 1 {i % 7}:1 {i % 11}:1\n" for i in range(40)))
+    conf = tmp_path / "t.conf"
+    conf.write_text(
+        f'input_type = 1\ndata_in = "{feat}"\nnum_user = 7\nnum_item = 11\n'
+        f'num_factor = 4\nbase_score = 0.5\nbatch_size = 8\nsilent = 1\n'
+        f'model_out_folder = "{tmp_path}/m"\n'
+    )
+    with pytest.raises(NotImplementedError, match=item):
+        TTrain().run(str(conf), ["num_round=1", "device=cpu", f"{key}={val}"])
+
+
+def test_update_rounds_matches_jax(tmp_path):
+    """update_rounds (R rounds in one wrapper call, the lr decay schedule
+    built on the host) against the JAX trainer's update_rounds, then
+    predict_all; the CLI path above covers update_all."""
+    from svdfeature_tpu.data.text import load_feature_text as jload
+    from svdfeature_tpu.params import SVDTypeParam as JType
+    from svdfeature_tpu.solvers.base import SVDFeatureTrainer as JTrainer
+    from svdfeature_tpu_torch.data.text import load_feature_text as tload
+    from svdfeature_tpu_torch.params import SVDTypeParam as TType
+    from svdfeature_tpu_torch.solvers.base import SVDFeatureTrainer as TTrainer
+
+    _head("ml100k.base.nb.feature.gz", 6000, tmp_path / "train.feature")
+    text = (tmp_path / "train.feature").read_text()
+    params = [("num_user", "943"), ("num_item", "1682"), ("num_global", "6"),
+              ("num_factor", "8"), ("base_score", "3"), ("learning_rate", "0.01"),
+              ("wd_user", "0.004"), ("wd_item", "0.004"), ("wd_global", "0.001"),
+              ("wd_item_bias", "0.002"), ("decay_learning_rate", "1"),
+              ("decay_rate", "0.9"), ("batch_size", "512"), ("device", "cpu")]
+    out = {}
+    for tag, trainer_cls, mtype, load in (("jax", JTrainer, JType(), jload),
+                                          ("torch", TTrainer, TType(), tload)):
+        tr = trainer_cls(mtype)
+        for k, v in params:
+            tr.set_param(k, v)
+        tr.init_model()
+        tr.init_trainer()
+        ds = load("x", text=text)
+        tr.update_rounds(ds, 3)
+        pred = np.asarray(tr.predict_all(ds))
+        st = tr.state
+        out[tag] = dict(pred=pred, lr=tr.learning_rate, step=int(st.step),
+                        **{k: np.asarray(getattr(st, k)) for k in ("w", "b", "g")})
+    assert out["torch"]["lr"] == pytest.approx(out["jax"]["lr"])
+    assert out["torch"]["step"] == out["jax"]["step"] == 3 * 6000
+    for k in ("w", "b", "g", "pred"):
+        np.testing.assert_allclose(out["torch"][k], out["jax"][k], atol=1e-5, rtol=0,
+                                   err_msg=k)
