@@ -8,7 +8,7 @@ both compute the same thing.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -59,3 +59,14 @@ def stacked_from_numpy(
         name: (_i32 if name.endswith("_idx") else _f32)(a, device)
         for name, a in arrays.items()
     }
+
+
+def pool_from_numpy(
+    fb: Dict[str, np.ndarray], fb_overlap: np.ndarray, device: torch.device
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Stage the SVD++ feedback pools of ``PackedPlusBatches``
+    (``fb_arrays()``: ``fb_idx`` / ``fb_val`` / ``fb_block`` ``[C, F]``) and
+    the overlap matrices ``fb_overlap [C, G+1, G+1]`` on ``device``: int32
+    rows and users, f32 values."""
+    pool = {name: (_f32 if name == "fb_val" else _i32)(a, device) for name, a in fb.items()}
+    return pool, _f32(fb_overlap, device)

@@ -17,8 +17,9 @@
 //     from the reduced score and scatters its own columns of
 //     [coef * p_other | coef | count_u | count_i] with atomicAdd, so
 //     duplicate rows in a batch sum exactly as the reference's scatter-add.
-//   * sgd_apply: one warp per table row; rows no example touched are left
-//     alone (their update is exactly the identity), touched rows get
+//   * sgd_apply: one warp per table row (sgd::apply_row, sgd_common.cuh);
+//     rows no example touched are left alone (their update is exactly the
+//     identity), touched rows get
 //     w = (w + dw) * exp(cu * log(1 - lr wd_u) + ci * log(1 - lr wd_i)),
 //     the bias its decay, and the accumulator is zeroed for the next step.
 //     Block 0 also applies the damped global update.
@@ -33,32 +34,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sgd_common.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
-
-// losses.py: 1 / (1 + exp(-x)), full-precision expf
-__device__ __forceinline__ float sigmoid_ref(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// cal_grad(label, map_active(score)) of the kernel's active types
-// (losses.py; the gate admits 0, 1, 2, 3 and 7 only)
-__device__ __forceinline__ float active_grad(float score, float label, int active_type) {
-  switch (active_type) {
-    case 1: {  // SIGMOID_L2
-      const float p = sigmoid_ref(score);
-      return (label - p) * p * (1.0f - p);
-    }
-    case 2:  // SIGMOID_LIKELIHOOD: pred = sigmoid(score), grad = r - pred
-    case 3:  // SIGMOID_RANK: pred = score, grad = r - sigmoid(pred)
-    case 7:  // SIGMOID_QSGRAD: as SIGMOID_RANK
-      return label - sigmoid_ref(score);
-    default:  // LINEAR
-      return label - score;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads) sgd_accumulate_kernel(
     const float* __restrict__ w, const float* __restrict__ b,
@@ -95,7 +76,7 @@ __global__ void __launch_bounds__(kThreads) sgd_accumulate_kernel(
   score += iv * b[it];
   if (with_user_bias) score += uv * b[u];
   score += dot;
-  const float err = active_grad(score, label[x], active_type) * weight[x];
+  const float err = sgd::active_grad(score, label[x], active_type) * weight[x];
   const float lr_err = lrs[r] * err;
   const float coef_u = lr_err * uv;
   const float coef_i = lr_err * iv;
@@ -147,30 +128,10 @@ __global__ void __launch_bounds__(kThreads) sgd_apply_kernel(
       ga[2] = 0.0f;
     }
   }
-  const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (n >= N) return;
-  float* a = acc + (int64_t)n * (k + 3);
-  const float cu = a[k + 1];
-  const float ci = a[k + 2];
-  // untouched row: zero accumulator, decay factor exp(0) = 1
-  if (cu == 0.0f && ci == 0.0f) return;
-  const bool dummy = (n == N - 1);
-  const float fac = expf(cu * log_u[(int64_t)r * N + n] + ci * log_i[(int64_t)r * N + n]);
-  float* wn = w + (int64_t)n * k;
-  for (int c = lane; c < k; c += 32) {
-    wn[c] = dummy ? 0.0f : (wn[c] + a[c]) * fac;
-    a[c] = 0.0f;
-  }
-  __syncwarp();  // every lane has read the counts before lane 0 clears them
-  if (lane == 0) {
-    float sb = ci * log_bi[r];
-    if (with_user_bias) sb += cu * log_bu[r];
-    b[n] = dummy ? 0.0f : (b[n] + a[k]) * expf(sb);
-    a[k] = 0.0f;
-    a[k + 1] = 0.0f;
-    a[k + 2] = 0.0f;
-  }
+  sgd::apply_row(w, b, acc, log_u, log_i, log_bu, log_bi, N, k, r, with_user_bias, n,
+                 threadIdx.x & 31);
 }
 
 }  // namespace

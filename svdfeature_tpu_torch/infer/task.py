@@ -127,13 +127,19 @@ class SVDInferTask:
         self._configure_iterator()
 
     # ---- tasks ----------------------------------------------------------------
+    def _labels(self) -> np.ndarray:
+        """Labels in dataset-row order (a user-group dataset keeps its rows
+        in ``rows``)."""
+        ds = self.dataset
+        return ds.rows.labels if hasattr(ds, "rows") else ds.labels
+
     def task_eval(self) -> None:
         fo = open(self.name_eval, "a") if self.name_eval else sys.stdout
         try:
             i = self.start
             while i < self.end and self._load_model(i):
                 p = self.inferencer.predict_all(self.dataset)
-                diff = (p - self.dataset.labels) * self.scale_score
+                diff = (p - self._labels()) * self.scale_score
                 rmse = math.sqrt(float(np.mean(diff * diff)))
                 fo.write("%d\t%f\n" % (i, rmse))
                 i += self.step

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-nvcc compiles every source under ``svdfeature_tpu_torch/csrc/`` into one
-shared library with a plain C interface,
+nvcc compiles every source under ``svdfeature_tpu_torch/csrc/`` (``*.cu``,
+which include the shared ``*.cuh``) into one shared library with a plain C interface,
 ``build/kernels/libsvdfeature_kernels.so`` at the repository root, which
 is loaded with ctypes.  The build runs at first use, and again whenever a
 source or the flags change (a stamp file beside the library holds their
@@ -33,6 +33,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sgd_accumulate": [_P] * 14 + [_I] * 7 + [ctypes.c_float, _P],
     "sgd_apply": [_P] * 11 + [_I] * 6 + [_P],
+    "svdpp_flush": [_P] * 6 + [_I] * 5 + [_P],
+    "svdpp_gather": [_P] * 8 + [_I] * 5 + [_P],
+    "svdpp_step": [_P] * 17 + [_I] * 9 + [ctypes.c_float, _P],
+    "svdpp_apply": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 
@@ -60,7 +64,7 @@ def build() -> pathlib.Path:
     its path.  Raises RuntimeError if nvcc fails; its output is kept in
     ``build/kernels/nvcc.log``."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = _digest(sources)
+    digest = _digest(sources + sorted(CSRC_DIR.glob("*.cuh")))
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:

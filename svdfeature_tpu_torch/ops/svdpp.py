@@ -1,0 +1,237 @@
+"""SVD++ (user-group) train epoch and prediction in plain PyTorch.
+
+Counterpart of svdfeature_tpu/ops/svdpp.py (SVDPPFeature,
+apex_svd_base.h:484-592) in f32: ``_fb_aggregates``, ``_fb_writeback``,
+``train_epoch_plus`` (the overlap-carried form) and
+``predict_batches_plus``.  Segment sums and scatters are ``index_add_``;
+the one-hot matmul forms of the JAX package exist only because TPU
+scatters serialize and have no counterpart here.  The per-batch refresh
+form (``train_epoch_plus_refresh``, for common_feedback_space=1) is not
+ported yet (ROADMAP Queue 1 item 7b).
+
+Layout (data/batching_plus.py): step t holds up to M rows of each of G
+users (slot s = g*M + m); chunk c owns a feedback pool ``[F]`` of
+(row, value, user) entries, a user's entries contiguous, padding at the
+end with user G and value 0, and the overlap matrix ``O[c] [G+1, G+1]``.
+
+The update is in place: ``state.w`` / ``state.b`` change (the JAX package
+donates the state) and the returned TrainState holds them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import losses
+from .embed import HyperParams, TrainConsts, TrainState, _gather_sum, forward_scores
+
+_PLANES = ("g_idx", "g_val", "u_idx", "u_val", "i_idx", "i_val", "label", "weight")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlusHyper:
+    """Static switches of the user-group path, beside HyperParams."""
+
+    rows_per_user: int = 1  # M: rows of each user trained per step
+    # first user row; rows [0, off_user) hold the feedback pool (0: the
+    # feedback space is shared with the user rows)
+    off_user: int = 0
+    scale_lr_ufeedback: float = 1.0
+    wd_ufeedback: float = 0.0
+    wd_ufeedback_bias: float = 0.0
+
+
+def _fb_aggregates(
+    w: torch.Tensor, b: torch.Tensor, cfb: Dict[str, torch.Tensor], nseg: int, with_bias: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(fb_sum [nseg, k], norm [nseg], fb_bias [nseg]) of one chunk's pool:
+    per user, sum val*w[row], sum val^2 and sum val*b[row]."""
+    fval = cfb["fb_val"]
+    idx = cfb["fb_idx"].long()
+    blk = cfb["fb_block"].long()
+    zeros = torch.zeros((nseg,), dtype=torch.float32, device=w.device)
+    fb_sum = torch.zeros((nseg, w.shape[1]), dtype=torch.float32, device=w.device)
+    fb_sum.index_add_(0, blk, w[idx] * fval[:, None])
+    norm = zeros.clone().index_add_(0, blk, fval * fval)
+    fb_bias = zeros.index_add_(0, blk, b[idx] * fval) if with_bias else zeros
+    return fb_sum, norm, fb_bias
+
+
+def _fb_writeback(
+    w: torch.Tensor,
+    b: torch.Tensor,
+    cfb: Dict[str, torch.Tensor],
+    delta: torch.Tensor,
+    delta_b: Optional[torch.Tensor],
+) -> None:
+    """In place: w[fb_idx] += delta[fb_block] * fval (and the bias analogue
+    when ``delta_b`` is given)."""
+    fval = cfb["fb_val"]
+    idx = cfb["fb_idx"].long()
+    blk = cfb["fb_block"].long()
+    w.index_add_(0, idx, delta[blk] * fval[:, None])
+    if delta_b is not None:
+        b.index_add_(0, idx, delta_b[blk] * fval)
+
+
+def _row_update(
+    w: torch.Tensor,
+    b: torch.Tensor,
+    batch: Dict[str, torch.Tensor],
+    lr: torch.Tensor,
+    consts: TrainConsts,
+    hp: HyperParams,
+    p_u_extra: torch.Tensor,
+    bias_extra: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the u/i row updates with the feedback term, in place
+    (ops/svdpp._row_update with eager L2 decay, no global segment: the
+    path's gate, ops/cuda_svdpp.gate_failure).  Returns (err, p_i)."""
+    N, k = w.shape
+    u, i = batch["u_idx"].long(), batch["i_idx"].long()
+    uv, iv = batch["u_val"], batch["i_val"]
+    p_u = _gather_sum(w, u, uv) + p_u_extra
+    p_i = _gather_sum(w, i, iv)
+    score = hp.base_score + _gather_sum(b, i, iv)
+    if not hp.no_user_bias:
+        score = score + _gather_sum(b, u, uv) + bias_extra
+    score = score + (p_u * p_i).sum(dim=1)
+    pred = losses.map_active(score, hp.active_type)
+    err = losses.cal_grad(batch["label"], pred, hp.active_type) * batch["weight"]
+    lr_err = lr * err
+    coef_u = lr_err[:, None] * uv  # [GS, Su]
+    coef_i = lr_err[:, None] * iv  # [GS, Si]
+
+    dw = torch.zeros_like(w)
+    dw.index_add_(0, u.reshape(-1), (coef_u[..., None] * p_i[:, None, :]).reshape(-1, k))
+    dw.index_add_(0, i.reshape(-1), (coef_i[..., None] * p_u[:, None, :]).reshape(-1, k))
+    db = torch.zeros_like(b).index_add_(0, i.reshape(-1), coef_i.reshape(-1))
+    if not hp.no_user_bias:
+        db.index_add_(0, u.reshape(-1), coef_u.reshape(-1))
+    ones = torch.ones(u.numel(), dtype=torch.float32, device=w.device)
+    cu = torch.zeros(N, dtype=torch.float32, device=w.device).index_add_(0, u.reshape(-1), ones)
+    ones = torch.ones(i.numel(), dtype=torch.float32, device=w.device)
+    ci = torch.zeros(N, dtype=torch.float32, device=w.device).index_add_(0, i.reshape(-1), ones)
+    fac = torch.pow(1.0 - lr * consts.wd_u_row, cu) * torch.pow(1.0 - lr * consts.wd_i_row, ci)
+    w.add_(dw).mul_(fac[:, None])
+    fac_b = torch.pow(1.0 - lr * consts.wd_item_bias, ci)
+    if not hp.no_user_bias:
+        fac_b = fac_b * torch.pow(1.0 - lr * consts.wd_user_bias, cu)
+    b.add_(db).mul_(fac_b)
+    w[-1] = 0.0
+    b[-1] = 0.0
+    return err, p_i
+
+
+def _is_first(chunk_id: np.ndarray) -> np.ndarray:
+    """Whether each step starts a chunk."""
+    cid = np.asarray(chunk_id)
+    return np.concatenate([[True], cid[1:] != cid[:-1]])
+
+
+@torch.no_grad()
+def train_epoch_plus(
+    state: TrainState,
+    stacked: Dict[str, torch.Tensor],
+    chunk_id: np.ndarray,
+    fb: Dict[str, torch.Tensor],
+    fb_overlap: torch.Tensor,
+    lr: torch.Tensor,
+    consts: TrainConsts,
+    hp: HyperParams,
+    ph: PlusHyper,
+) -> TrainState:
+    """One pass over the ``[T, G*M]`` steps with the pool touched twice
+    per chunk (svdfeature_tpu/ops/svdpp.train_epoch_plus, which holds the
+    derivation): at a chunk's first step the previous chunk's accumulated
+    deltas are written back to the pool and the new chunk's aggregates
+    gathered; within the chunk they evolve in closed form,
+    ``fb_sum += O @ delta``.  ``chunk_id`` is host numpy."""
+    w, b = state.w, state.b
+    T, GS = stacked["label"].shape
+    M = ph.rows_per_user
+    G = GS // M
+    k = w.shape[1]
+    dev = w.device
+    lr_fb = lr * ph.scale_lr_ufeedback
+    d = 1.0 - lr_fb * ph.wd_ufeedback
+    db = 1.0 - lr_fb * ph.wd_ufeedback_bias
+    with_bias = not hp.no_user_bias
+    cid = np.asarray(chunk_id)
+    first = _is_first(cid)
+    dacc = torch.zeros((G + 1, k), dtype=torch.float32, device=dev)
+    dbacc = torch.zeros((G + 1,), dtype=torch.float32, device=dev)
+
+    def pool(c: int) -> Dict[str, torch.Tensor]:
+        return {name: a[c] for name, a in fb.items()}
+
+    pc = int(cid[0])
+    for t in range(T):
+        c = int(cid[t])
+        if first[t]:
+            _fb_writeback(w, b, pool(pc), dacc, dbacc if with_bias else None)
+            s, nrm, sb = _fb_aggregates(w, b, pool(c), G + 1, with_bias)
+            fb_sum, fb_bias, norm = s[:G], sb[:G], nrm[:G]
+            inv = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
+            O = fb_overlap[c, :G, :G]
+            dacc.zero_()
+            dbacc.zero_()
+        pc = c
+        batch = {p: stacked[p][t] for p in _PLANES}
+        fb_slot = fb_sum.repeat_interleave(M, dim=0)
+        fbb_slot = fb_bias.repeat_interleave(M) if with_bias else None
+        err, p_i = _row_update(w, b, batch, lr, consts, hp, fb_slot, fbb_slot)
+        m_g = batch["weight"].reshape(G, M).sum(dim=1)  # present rows of each user
+        errpi = (err[:, None] * p_i).reshape(G, M, k).sum(dim=1)
+        err_g = err.reshape(G, M).sum(dim=1)
+        if M > 1:
+            # implicit damping of the M-wide within-user Jacobi step
+            frac = torch.where(m_g > 0, (m_g - 1.0) / torch.clamp(m_g, min=1.0), 0.0)
+            pip2 = (p_i * p_i).sum(dim=1).reshape(G, M).sum(dim=1)
+            errpi = errpi / (1.0 + lr_fb * norm * pip2 * frac)[:, None]
+            err_g = err_g / (1.0 + lr_fb * norm * (m_g - 1.0) * (m_g > 0))
+        dtmp = fb_sum * (torch.pow(d, m_g) - 1.0)[:, None] + lr_fb * norm[:, None] * errpi
+        delta = dtmp * inv[:, None]
+        dacc[:G] += delta
+        fb_sum = fb_sum + O @ delta
+        if with_bias:
+            delta_b = (fb_bias * (torch.pow(db, m_g) - 1.0) + lr_fb * norm * err_g) * inv
+            dbacc[:G] += delta_b
+            fb_bias = fb_bias + O @ delta_b
+    _fb_writeback(w, b, pool(pc), dacc, dbacc if with_bias else None)
+    nstep = state.step + (stacked["weight"] > 0).sum().to(torch.int32)
+    return dataclasses.replace(state, step=nstep)
+
+
+@torch.no_grad()
+def predict_batches_plus(
+    state: TrainState,
+    stacked: Dict[str, torch.Tensor],
+    chunk_id: np.ndarray,
+    fb: Dict[str, torch.Tensor],
+    hp: HyperParams,
+    rows_per_user: int = 1,
+) -> torch.Tensor:
+    """Forward-only predictions -> ``[T, G*M]``; the tables are static, so
+    the feedback aggregates are gathered once per chunk."""
+    w, b, g = state.w, state.b, state.g
+    T, GS = stacked["label"].shape
+    M = rows_per_user
+    G = GS // M
+    with_bias = not hp.no_user_bias
+    cid = np.asarray(chunk_id)
+    first = _is_first(cid)
+    preds = []
+    for t in range(T):
+        if first[t]:
+            c = int(cid[t])
+            s, _, sb = _fb_aggregates(w, b, {n: a[c] for n, a in fb.items()}, G + 1, with_bias)
+            fb_slot = s[:G].repeat_interleave(M, dim=0)
+            fbb_slot = sb[:G].repeat_interleave(M) if with_bias else None
+        batch = {p: stacked[p][t] for p in _PLANES}
+        preds.append(forward_scores(w, b, g, batch, hp, fb_slot, fbb_slot))
+    return torch.stack(preds)

@@ -2,8 +2,9 @@
 
 Counterpart of svdfeature_tpu/solvers/registry.py (create_svd_trainer /
 create_svd_ranker, apex_svd.cpp:32-47).  The port has the base solver on
-the random-order format so far; every other solver raises
-NotImplementedError naming its ROADMAP item.
+the random-order format and the SVD++ solver (extend_type=1, or the
+user-group format) so far; every other solver raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -11,7 +12,6 @@ from __future__ import annotations
 from ..params import SVDTypeParam, svd_type
 
 _NOT_PORTED = {
-    1: "SVD++ (extend_type=1) is ROADMAP Queue 1 item 7",
     2: "multi-IMFB (extend_type=2) is ROADMAP Queue 1 item 10",
     15: "bilinear (extend_type=15) is ROADMAP Queue 1 item 10",
     30: "GBRT (extend_type=30) is ROADMAP Queue 1 item 10",
@@ -22,16 +22,15 @@ _NOT_PORTED = {
 def create_svd_trainer(mtype: SVDTypeParam):
     """apex_svd.cpp:32-44 dispatch."""
     from .base import SVDFeatureTrainer
+    from .svdpp import SVDPPFeatureTrainer
 
     et = mtype.extend_type
     if et in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[et])
+    if et == 1 or (et == 0 and mtype.format_type == svd_type.USER_GROUP_FORMAT):
+        return SVDPPFeatureTrainer(mtype)
     if et != 0:
         raise ValueError(f"unknown extension type {et}")
-    if mtype.format_type == svd_type.USER_GROUP_FORMAT:
-        raise NotImplementedError(
-            "the user-group format (SVD++ solver) is ROADMAP Queue 1 item 7"
-        )
     return SVDFeatureTrainer(mtype)
 
 

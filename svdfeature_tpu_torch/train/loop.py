@@ -108,6 +108,12 @@ class SVDTrainTask:
         else:
             self.dataset = load_csr_source(self.input_type, icfg)
 
+    def dataset_rows(self) -> int:
+        """Training rows of the dataset (a user-group dataset keeps them in
+        ``rows``)."""
+        ds = self.dataset
+        return ds.rows.num_row if hasattr(ds, "rows") else ds.num_row
+
     def save_model(self) -> None:
         os.makedirs(self.name_model_out_folder or ".", exist_ok=True)
         with open(self._model_path(self.start_counter), "wb") as f:
@@ -155,7 +161,7 @@ class SVDTrainTask:
                 self.trainer.finish_round()
             self.trainer.synchronize()
             self.round_seconds.append(time.perf_counter() - round_t0)
-            total_examples += self.dataset.num_row * self.train_repeat
+            total_examples += self.dataset_rows() * self.train_repeat
             if not self.silent:
                 eps = total_examples / max(sum(self.round_seconds), 1e-9)
                 print(

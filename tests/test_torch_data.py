@@ -4,8 +4,8 @@ The port carries verbatim copies of the JAX package's numpy-only modules
 (a GPU host need not have JAX, and importing any module of
 svdfeature_tpu imports jax).  These tests keep the copies identical to
 their originals, and check on the ML-100K fixtures that both give
-byte-identical arrays: text parse, buffer write/read, pack_csr, rand_init,
-and ``%04d.model`` bytes in both directions.
+byte-identical arrays: text parse, buffer write/read, pack_csr, pack_plus,
+rand_init, and ``%04d.model`` bytes in both directions.
 """
 
 import gzip
@@ -18,6 +18,7 @@ import torch
 
 from svdfeature_tpu import model as jmodel
 from svdfeature_tpu.data import batching as jbatching
+from svdfeature_tpu.data import batching_plus as jbatching_plus
 from svdfeature_tpu.data import buffer as jbuffer
 from svdfeature_tpu.data import text as jtext
 from svdfeature_tpu.ops import embed as jembed
@@ -25,6 +26,7 @@ from svdfeature_tpu.params import SVDModelParam, SVDTypeParam, svd_type
 from svdfeature_tpu_torch import model as tmodel
 from svdfeature_tpu_torch import params as tparams
 from svdfeature_tpu_torch.data import batching as tbatching
+from svdfeature_tpu_torch.data import batching_plus as tbatching_plus
 from svdfeature_tpu_torch.data import buffer as tbuffer
 from svdfeature_tpu_torch.data import text as ttext
 
@@ -35,7 +37,7 @@ COPIES = [
     "config.py", "params.py", "utils/sparse_feature_array.py", "utils/apex_random.py",
     "data/csr.py", "data/text.py", "data/native.py", "data/buffer.py",
     "data/batching.py", "cli/svd_feature.py", "cli/svd_feature_infer.py",
-    "cli/make_feature_buffer.py",
+    "cli/make_feature_buffer.py", "data/batching_plus.py", "cli/make_ugroup_buffer.py",
 ]
 ML100K = dict(num_user=943, num_item=1682, num_factor=64, base_score=3.0)
 
@@ -101,6 +103,26 @@ def test_pack_csr_identical(datasets, name, num_global):
     for k in ja:
         assert ja[k].dtype == ta[k].dtype and ja[k].tobytes() == ta[k].tobytes(), k
     assert ta["label"].shape == (23, 4096)
+
+
+@pytest.mark.parametrize("sort_blocks,rows_per_user", [(False, 1), (True, 8)])
+def test_pack_plus_identical(sort_blocks, rows_per_user):
+    """The ML-100K user-group set (implicitFeedback demo) parsed and packed
+    by both packages: every plane, pool and overlap byte-identical."""
+    kw = dict(text=_text("ml100k.base.group.feature.gz"),
+              feedback_text=_text("ml100k.base.feedback.gz"))
+    args = (128, 4307, 0, 1682, 2625, 0)
+    pkw = dict(num_user=943, num_item=1682, num_ufeedback=1682, sort_blocks=sort_blocks,
+               rows_per_user=rows_per_user)
+    jp = jbatching_plus.pack_plus(jtext.load_plus_text("x", "y", **kw), *args, **pkw)
+    tp = tbatching_plus.pack_plus(ttext.load_plus_text("x", "y", **kw), *args, **pkw)
+    ja = dict(jp.device_arrays(), **jp.fb_arrays(), fb_overlap=jp.fb_overlap, perm=jp.perm)
+    ta = dict(tp.device_arrays(), **tp.fb_arrays(), fb_overlap=tp.fb_overlap, perm=tp.perm)
+    assert ja.keys() == ta.keys()
+    for k in ja:
+        assert ja[k].dtype == ta[k].dtype and ja[k].tobytes() == ta[k].tobytes(), k
+    T = 159 if sort_blocks else 4088
+    assert ta["label"].shape == (T, 128 * rows_per_user) and ta["fb_overlap"].shape == (8, 129, 129)
 
 
 @pytest.mark.parametrize("exact_rng", [False, True])
