@@ -29,8 +29,21 @@ result line):
      rounds, sort_blocks=1 rows_per_user=8, device=cuda), SVDInferTask;
      the final test RMSE must lie in the GOLDEN.json band and every step
      must have gone through the kernel (launch count 40*(2T + 2*chunks));
-     once more with use_pallas=0.
-Then one JSON line describing the kernels (with each one's bound: the
+     once more with use_pallas=0;
+  6. the big-table kernels against their plain versions at bigTable
+     shapes (2,048,577 rows, k=64): K5 and K6 on 2^21 rows (~20% on the
+     dummy row) bit for bit, with the library call's time; K4 on the plan
+     of one B=2^20 batch of bigTable's data (reg_method 0 and 4) and on a
+     40,960-row table (reg_method 0-5, no_user_bias with the nonnegative
+     clamps), with times and a profile;
+  7. bigTable (bench.py's synthetic KDD-Cup-scale workload, numpy only)
+     through the port's entry points, 3 rounds each: (a) batch 2^20, the
+     tile sweep (K4), (b) the same with use_pallas=0, (c) batch 4096,
+     sorted dedup (K5), (d) batch 2^20 with big_sweep=0 (K5); exact launch
+     counts, the probe RMSE falls and lies within 1e-4 of the JAX
+     package's CPU figure (scripts/bigtable_jax_reference.py), (a) and (b)
+     agree, examples/s beside the reference C++ baseline, peak memory.
+Each phase prints its time.  Then one JSON line describing the kernels (with each one's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 the H100 SXM's published rates at 700 W) and, last, one JSON line naming
 the device.
@@ -58,12 +71,56 @@ BATCH = 4096
 ATOL, RTOL = 1e-5, 1e-4  # kernel vs plain: atomics sum in a varying order
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
+# phase 7: bench.py's bigTable workload (bench.py:826-912), the
+# KDD-Cup-2011-scale synthetic; one table of NU users, NI items and the dummy
+BIG_NU, BIG_NI, BIG_K = 1_000_000, 1_048_576, 64
+BIG_EX = 1 << 21  # training examples per round
+BIG_PROBE = 4096  # test rows: the first training rows (bench.py:870)
+BIG_ROUNDS = 3
+BIG_CONF = {  # bench.py:859-868
+    "base_score": "3", "learning_rate": "0.005", "wd_item": "0.004", "wd_user": "0.004",
+    "num_item": str(BIG_NI), "num_user": str(BIG_NU), "num_factor": str(BIG_K),
+}
 DEMOS = {
     # name: (train fixture, test fixture)
     "basicMF": ("ml100k.base.feature.gz", "ml100k.test.feature.gz"),
     "binaryClassification": ("ml100k.base.bin.feature.gz", "ml100k.test.bin.feature.gz"),
     "neighborhoodModel": ("ml100k.base.nb.feature.gz", "ml100k.test.nb.feature.gz"),
 }
+
+
+def bigtable_arrays(nu=BIG_NU, ni=BIG_NI, ex=BIG_EX):
+    """bench.py's bigTable data, numpy only (bench.py:836-858): ex
+    (user, item) examples drawn from default_rng(7) with labels from a
+    planted rank-8 structure, as the arrays of a 3-segment CSR dataset."""
+    brng = np.random.default_rng(7)
+    uu = brng.integers(0, nu, ex).astype(np.uint32)
+    ii = brng.integers(0, ni, ex).astype(np.uint32)
+    pu = brng.standard_normal((nu, 8), dtype=np.float32) * 0.25
+    qi = brng.standard_normal((ni, 8), dtype=np.float32) * 0.25
+    labels = 3.0 + np.einsum("ek,ek->e", pu[uu], qi[ii])
+    row_ptr = np.zeros(3 * ex + 1, np.int32)
+    row_ptr[1:] = np.cumsum(np.tile(np.array([0, 1, 1], np.int32), ex))
+    index = np.empty(2 * ex, np.uint32)
+    index[0::2] = uu
+    index[1::2] = ii
+    return dict(labels=labels.astype(np.float32), row_ptr=row_ptr, index=index,
+                value=np.ones(2 * ex, np.float32))
+
+
+def write_bigtable(csr_dataset, write_csr_buffer, d, arrays):
+    """Write bigTable's train buffer (``arrays`` of bigtable_arrays), its
+    probe (the first BIG_PROBE rows) as the test buffer and its conf into
+    directory ``d`` with a package's own CSRDataset and buffer writer;
+    returns (conf path, dataset)."""
+    ds = csr_dataset(**arrays)
+    write_csr_buffer(str(d / "train.buffer"), ds)
+    write_csr_buffer(str(d / "test.buffer"), ds.slice_rows(0, BIG_PROBE))
+    conf = d / "bigTable.conf"
+    conf.write_text("".join(f"{k} = {v}\n" for k, v in BIG_CONF.items())
+                    + f'buffer_feature = "{d}/train.buffer"\n'
+                    + f'test:buffer_feature = "{d}/test.buffer"\nsilent = 1\n')
+    return conf, ds
 
 
 def card_line() -> str:
@@ -242,31 +299,35 @@ def _short(kernel_name: str) -> str:
     return re.split(r"[(<]", name, maxsplit=1)[0].strip().split(" ")[-1][-48:]
 
 
-def device_profile(torch, run, steps):
+def device_profile(torch, run, steps, top=4):
     """Where one R-round run, ``run()``, spends its time on the card
     (torch.profiler): device busy time per step, its share of the run's
-    elapsed time, and the device time of each of the run's busiest kernels."""
+    elapsed time, and the device time of each of the run's ``top`` busiest
+    kernels.  A session that records no device events is run once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        run()
-        end.record()
+    for _ in range(2):
         torch.cuda.synchronize()
-    elapsed_us = start.elapsed_time(end) * 1e3
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = per_kernel.get(e.name, (0, 0.0))
-            per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+        elapsed_us = start.elapsed_time(end) * 1e3
+        per_kernel = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = per_kernel.get(e.name, (0, 0.0))
+                per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if per_kernel:
+            break
     busy = sum(us for _, us in per_kernel.values())
     if not per_kernel:
         return "device time not measured (the profiler recorded no device events)"
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:4]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
     tops = "; ".join(f"{_short(name)} {n} x {us / n:.2f} us" for name, (n, us) in top)
     return (f"device busy {busy / steps:.2f} us/step of {elapsed_us / steps:.2f} us/step "
             f"elapsed under the profiler (busy share {busy / elapsed_us:.3f}); {tops}")
@@ -275,9 +336,12 @@ def device_profile(torch, run, steps):
 # ---- phases 3 and 5: the slices ----------------------------------------------
 def kernel_wrappers():
     from svdfeature_tpu_torch.ops.cuda_embed import train_rounds_kernel
+    from svdfeature_tpu_torch.ops.cuda_scatter import row_reader, row_writer
     from svdfeature_tpu_torch.ops.cuda_svdpp import train_rounds_svdpp_kernel
+    from svdfeature_tpu_torch.ops.cuda_sweep import sweep_update
 
-    return {"K1": train_rounds_kernel, "K2": train_rounds_svdpp_kernel}
+    return {"K1": train_rounds_kernel, "K2": train_rounds_svdpp_kernel,
+            "K4": sweep_update, "K5": row_writer, "K6": row_reader}
 
 
 def run_demo(name, d, tag, extra):
@@ -546,11 +610,329 @@ def phase_svdpp_kernel(torch, dev, failures):
     return max_err, timing
 
 
+# ---- phase 6: the big-table kernels vs plain at bigTable shapes -------------
+BIG_ATOL, BIG_RTOL = 1e-6, 1e-5  # K4 vs plain: run sums in plan order vs index_add_
+BIG_ROWS_E = 1 << 21  # K5 / K6 rows per call
+
+
+def timed(torch, fns, inner=5, turns=3):
+    """ms per call of each zero-argument callable in ``fns``: CUDA events
+    around ``inner`` calls, in turns (a b b a ...) ``turns`` times after a
+    warm-up call of each; the median."""
+    names = list(fns)
+    for name in names:
+        fns[name]()
+    samples = {name: [] for name in names}
+    for name in (names + names[::-1]) * turns:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fns[name]()
+        end.record()
+        torch.cuda.synchronize()
+        samples[name].append(start.elapsed_time(end) / inner)
+    return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+def big_sweep_case(torch, dev, n, u, i, seed):
+    """K4's arguments for one batch on an n-row table (rows < n-1 random
+    factors and bias with lazy refs, the dummy and pad rows 0): the
+    pack-time plan and run starts of the batch's (u, i) rows, a payload
+    [dw | db | cnt_u | cnt_i] of the size the bigTable step makes."""
+    from svdfeature_tpu_torch.ops import big_embed, tile_sweep
+
+    tile, e_cap, k = tile_sweep.SWEEP_TILE, tile_sweep.SWEEP_ECAP, BIG_K
+    rng = np.random.default_rng(seed)
+    n_pad = -(-n // tile) * tile
+    tbl = np.zeros((n_pad, big_embed.aug_width(k)), np.float32)
+    tbl[: n - 1, : k + 1] = rng.standard_normal((n - 1, k + 1), dtype=np.float32) * 0.01
+    tbl[: n - 1, k + 1] = rng.integers(0, 3 * BIG_EX, n - 1, dtype=np.int32).view(np.float32)
+    E = u.size + i.size
+    payload = rng.standard_normal((E, k + 3), dtype=np.float32) * 1e-4
+    payload[:, k + 1] = np.arange(E) < u.size
+    payload[:, k + 2] = np.arange(E) >= u.size
+    plan = tile_sweep.attach_sweep_plans({"u_idx": u[None, :, None], "i_idx": i[None, :, None]},
+                                         n_pad, tile, e_cap)
+    plan = tile_sweep.attach_sweep_runs(plan, tile, e_cap)
+    wd_u = np.zeros(n_pad, np.float32)
+    wd_i = np.zeros(n_pad, np.float32)
+    wd_u[: int(u.max()) + 1] = 0.004
+    wd_i[int(i.min()): n - 1] = 0.004
+    f32 = dict(dtype=torch.float32, device=dev)
+    return dict(
+        w=torch.from_numpy(tbl).to(dev),
+        args=({key: torch.from_numpy(plan[key][0]).to(dev) for key in tile_sweep.SWEEP_KEYS},
+              torch.from_numpy(payload).to(dev), torch.tensor(wd_u, **f32),
+              torch.tensor(wd_i, **f32), torch.tensor([0.005, 0.001, 0.002, 0.0], **f32),
+              torch.tensor([3 * BIG_EX], dtype=torch.int32, device=dev)),
+        touched=len(np.unique(np.concatenate([u, i]))), n=n)
+
+
+def sweep_bound(case):
+    """K4's bound for one call: bytes of the payload, the plan and the run
+    starts read once, each touched row read and written once with its two
+    decay rates; operations: the k+3 sums of each entry and about 4k + 20
+    per touched row (decay, clamps, bias)."""
+    plan, payload = case["args"][0], case["args"][1]
+    E, C = payload.shape
+    U, W = case["touched"], case["w"].shape[1]
+    moved = 4 * (E * C + sum(x.numel() for x in plan.values()) + U * (2 * W + 2) + 5)
+    return bound(moved, E * C + U * (4 * BIG_K + 20), 1)
+
+
+def phase_big_kernels(torch, dev, big, failures):
+    """K5 and K6 on E = 2^21 rows of the bigTable table (unique targets,
+    ~20% of them on the dummy row, which receives zero rows), bit for bit
+    against their plain versions, with the library call's time; K4 on the
+    plan of one B=2^20 batch of bigTable's data (reg_method 0 and 4) and on
+    a 40,960-row table (reg_method 0-5, no_user_bias with the nonnegative
+    clamps), against its plain version within atol + rtol, ref bits exact."""
+    from svdfeature_tpu_torch.ops import big_embed, cuda_scatter, cuda_sweep
+    from svdfeature_tpu_torch.ops.embed import HyperParams
+
+    out = {}
+    n = BIG_NU + BIG_NI + 1
+    W = big_embed.aug_width(BIG_K)
+    E = BIG_ROWS_E
+    rng = np.random.default_rng(11)
+    on_dummy = rng.random(E) < 0.2
+    idx_np = np.full(E, n - 1, np.int32)
+    idx_np[~on_dummy] = rng.permutation(n - 1)[: int((~on_dummy).sum())]
+    vals_np = rng.standard_normal((E, W), dtype=np.float32)
+    vals_np[idx_np == n - 1] = 0.0
+    U = len(np.unique(idx_np))
+    tbl = torch.from_numpy(rng.standard_normal((n, W), dtype=np.float32)).to(dev)
+    tbl[-1] = 0.0
+    idx, vals = torch.from_numpy(idx_np).to(dev), torch.from_numpy(vals_np).to(dev)
+    idx_long = idx.long()
+    got = cuda_scatter.row_writer(tbl.clone(), idx, vals)
+    want = cuda_scatter.row_writer_reference(tbl.clone(), idx, vals)
+    read = cuda_scatter.row_reader(tbl, idx)
+    torch.cuda.synchronize()
+    ok5 = torch.equal(got, want) and bool((got[-1] == 0).all())
+    ok6 = torch.equal(read, cuda_scatter.row_reader_reference(tbl, idx))
+    del got, want, read
+    work = tbl.clone()
+    t5 = timed(torch, {"plain": lambda: cuda_scatter.row_writer_reference(work, idx, vals),
+                       "kernel": lambda: cuda_scatter.row_writer(work, idx, vals),
+                       "library": lambda: work.index_copy_(0, idx_long, vals)})
+    t5["bound"], t5["bound_by"] = bound(4 * (E + E * W + U * W), 0, 1)
+    t6 = timed(torch, {"plain": lambda: cuda_scatter.row_reader_reference(tbl, idx),
+                       "kernel": lambda: cuda_scatter.row_reader(tbl, idx),
+                       "library": lambda: torch.index_select(tbl, 0, idx_long)})
+    t6["bound"], t6["bound_by"] = bound(4 * (E + U * W + E * W), 0, 1)
+    for kid, ok, t in (("K5", ok5, t5), ("K6", ok6, t6)):
+        if not ok:
+            failures.append(f"{kid} vs plain")
+        print(f"phase 6 {'ok' if ok else 'FAIL'}: {kid} E={E} rows of W={W} into n={n} "
+              f"({U} distinct targets) bit for bit against its plain version; ms per call "
+              f"kernel {t['kernel']:.4f} plain {t['plain']:.4f} library {t['library']:.4f} "
+              f"bound {t['bound']:.4f} ({t['bound_by']})", flush=True)
+    # one session holds the kernel and its plain version (a session with
+    # nothing but one ctypes launch has recorded no device events)
+    print(f"phase 6 profile: K5 row_writer then its plain version "
+          f"{device_profile(torch, lambda: (cuda_scatter.row_writer(work, idx, vals), cuda_scatter.row_writer_reference(work, idx, vals)), 1, top=3)}",
+          flush=True)
+    del work, tbl, idx, vals, idx_long
+    out["K5"] = dict(t5, err=0.0)
+    out["K6"] = dict(t6, err=0.0)
+
+    # K4: one B=2^20 batch of bigTable's data (users [0, NU), items above)
+    B = 1 << 20
+    u = big["index"][0:2 * B:2].astype(np.int32)
+    i = (BIG_NU + big["index"][1:2 * B:2]).astype(np.int32)
+    small_rng = np.random.default_rng(12)
+    small_n = 40_960
+    half = (small_n - 1) // 2
+    cases = [("bigTable", u, i, dict(reg_method=0)), ("bigTable", u, i, dict(reg_method=4))]
+    su = small_rng.integers(0, half, 16_384).astype(np.int32)
+    si = (half + small_rng.integers(0, half, 16_384)).astype(np.int32)
+    cases += [("40960-row", su, si, dict(reg_method=m)) for m in range(6)]
+    cases += [("40960-row", su, si, dict(reg_method=4, no_user_bias=1, user_nonnegative=1,
+                                         item_nonnegative=1))]
+    max_err, full = 0.0, None
+    for name, cu_, ci_, kw in cases:
+        n_case = n if name == "bigTable" else small_n
+        if full is None or full["n"] != n_case:
+            full = big_sweep_case(torch, dev, n_case, cu_, ci_, seed=13)
+        hp = HyperParams(big_table=True, num_factor=BIG_K, sweep_table=True, **kw)
+        got = cuda_sweep.sweep_update(full["w"].clone(), *full["args"], hp)
+        want = cuda_sweep.sweep_update_reference(full["w"].clone(), *full["args"], hp)
+        torch.cuda.synchronize()
+        k = BIG_K
+        err = float((got[:, :k + 1] - want[:, :k + 1]).abs().max())
+        ok = (bool(((got[:, :k + 1] - want[:, :k + 1]).abs()
+                    <= BIG_ATOL + BIG_RTOL * want[:, :k + 1].abs()).all())
+              and torch.equal(big_embed.ref_column(got, k), big_embed.ref_column(want, k))
+              and bool((got[full["n"] - 1, :k + 1] == 0).all())
+              and bool((got[full["n"]:] == 0).all()) and bool(torch.isfinite(got).all())
+              and not torch.equal(got, full["w"]))
+        max_err = max(max_err, err)
+        if not ok:
+            failures.append(f"K4 vs plain {name} {kw}")
+        print(f"phase 6 {'ok' if ok else 'FAIL'}: K4 {name} table n={full['n']} "
+              f"(E={full['args'][1].shape[0]}, {full['touched']} touched rows, "
+              f"G={full['args'][0]['sw_tids'].numel()} cells) {kw} max|d|={err:.3e} "
+              f"(atol {BIG_ATOL:g} + rtol {BIG_RTOL:g}; ref bits, dummy and pad rows exact)",
+              flush=True)
+        if name == "bigTable" and kw["reg_method"] == 0:
+            work = full["w"].clone()
+            t4 = timed(torch, {
+                "plain": lambda: cuda_sweep.sweep_update_reference(work, *full["args"], hp),
+                "kernel": lambda: cuda_sweep.sweep_update(work, *full["args"], hp)})
+            t4["bound"], t4["bound_by"] = sweep_bound(full)
+            print(f"phase 6 time: K4 bigTable B=2^20 reg_method=0 ms per call kernel "
+                  f"{t4['kernel']:.4f} plain {t4['plain']:.4f} bound {t4['bound']:.4f} "
+                  f"({t4['bound_by']})", flush=True)
+            print(f"phase 6 profile: K4 sweep_update then its plain version "
+                  f"{device_profile(torch, lambda: (cuda_sweep.sweep_update(work, *full['args'], hp), cuda_sweep.sweep_update_reference(work, *full['args'], hp)), 1, top=3)}",
+                  flush=True)
+            del work
+        del got, want
+    out["K4"] = dict(t4, err=max_err)
+    return out
+
+
+# ---- phase 7: the bigTable slice ---------------------------------------------
+# Test RMSE on the probe after BIG_ROUNDS rounds, the JAX package on the
+# CPU, same data and conf (scripts/bigtable_jax_reference.py):
+#   JAX_PLATFORMS=cpu python scripts/bigtable_jax_reference.py --batch-size 1048576 --big-sweep 0
+#   JAX_PLATFORMS=cpu python scripts/bigtable_jax_reference.py --batch-size 4096
+JAX_BIG_RMSE = {1 << 20: 0.170827, 4096: 0.170851}
+JAX_BIG_RMSE0 = 0.176042  # round 0 (the seeded init), both runs
+BIG_JAX_TOL = 1e-4
+BIG_AB_TOL = 1e-5  # K4 against its plain version end to end
+
+
+def big_run(conf, d, tag, extra, through_tasks):
+    """One bigTable training run of BIG_ROUNDS rounds, every kernel's
+    launch count set to 0 just before it and read just after.  Through
+    SVDTrainTask + SVDInferTask (the probe's RMSE at rounds 0 and
+    BIG_ROUNDS from the checkpoints), or, sparing the 532 MB saves, the
+    task's trainer driven directly as bench.py drives it (predict_all on
+    the probe before and after)."""
+    import torch
+
+    from svdfeature_tpu_torch.data.buffer import read_csr_buffer
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = [f"model_out_folder={d}/models_{tag}", "device=cuda", f"num_round={BIG_ROUNDS}", *extra]
+    wrappers = kernel_wrappers()
+    task = SVDTrainTask()
+    t0 = time.perf_counter()
+    if through_tasks:
+        for fn in wrappers.values():
+            fn.launches = 0
+        task.run(str(conf), args)
+        launches = {kid: fn.launches for kid, fn in wrappers.items()}
+        secs = task.round_seconds
+        # where a round's time goes: one more round under the profiler,
+        # after the counts are read and the checkpoints written
+        steps = -(-task.dataset_rows() // task.trainer.batch_size)
+        profile_line = device_profile(
+            torch, lambda: task.trainer.update_all(task.dataset), steps, top=8)
+        log = d / f"rmse_{tag}.tsv"
+        SVDInferTask().run(str(conf), args + ["start=0", f"end={BIG_ROUNDS + 1}",
+                                              f"step={BIG_ROUNDS}", f"log_eval={log}"])
+        rmse = dict(line.split() for line in log.read_text().splitlines())
+        rmse0, rmse1 = float(rmse["0"]), float(rmse[str(BIG_ROUNDS)])
+        shutil.rmtree(d / f"models_{tag}")
+    else:
+        task.configure(str(conf), args)
+        task.init()
+        tr = task.trainer
+        probe, _ = read_csr_buffer(str(d / "test.buffer"))
+
+        def probe_rmse():
+            return float(np.sqrt(np.mean((tr.predict_all(probe) - probe.labels) ** 2)))
+
+        rmse0 = probe_rmse()
+        for fn in wrappers.values():
+            fn.launches = 0
+        secs = []
+        for r in range(BIG_ROUNDS):
+            tr.set_round(r)
+            t1 = time.perf_counter()
+            tr.update_all(task.dataset)
+            tr.synchronize()
+            secs.append(time.perf_counter() - t1)
+        launches = {kid: fn.launches for kid, fn in wrappers.items()}
+        rmse1 = probe_rmse()
+        profile_line = None
+        del tr
+    hp = task.trainer.hp
+    rows = task.dataset_rows()
+    res = dict(rmse0=rmse0, rmse1=rmse1, launches=launches, secs=secs,
+               eps=rows * (len(secs) - 1) / sum(secs[1:]),
+               steps=BIG_ROUNDS * -(-rows // task.trainer.batch_size),
+               route="sweep" if hp.sweep_table else "dedup", kernels=bool(hp.row_dma),
+               batch=task.trainer.batch_size, peak=torch.cuda.max_memory_allocated(),
+               seconds=time.perf_counter() - t0, profile=profile_line)
+    del task
+    return res
+
+
+def phase_bigtable(work, big, card, failures):
+    """bigTable through the port's entry points: (a) batch 2^20 (auto:
+    the tile sweep, K4), (b) the same with use_pallas=0 (plain versions),
+    (c) batch 4096 (auto: sorted dedup with K5), (d) batch 2^20 with
+    big_sweep=0 (K5).  Gates: exact launch counts (one K4 or K5 launch
+    per step), the probe RMSE falls, (a) and (b) agree within BIG_AB_TOL,
+    each kernel run lies within BIG_JAX_TOL of the JAX package's figure."""
+    from svdfeature_tpu_torch.data.buffer import write_csr_buffer
+    from svdfeature_tpu_torch.data.csr import CSRDataset
+
+    d = work / "bigTable"
+    d.mkdir()
+    conf, _ = write_bigtable(CSRDataset, write_csr_buffer, d, big)
+    runs = (("a", ["batch_size=1048576"], True), ("b", ["batch_size=1048576", "use_pallas=0"], False),
+            ("c", ["batch_size=4096"], True), ("d", ["batch_size=1048576", "big_sweep=0"], False))
+    ref_eps = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["bigTable"]["examples_per_sec_cpu"]
+    results = {}
+    for tag, extra, through_tasks in runs:
+        r = big_run(conf, d, tag, extra, through_tasks)
+        results[tag] = r
+        kid = ("K4" if r["route"] == "sweep" else "K5") if r["kernels"] else None
+        want = {key: 0 for key in r["launches"]}
+        if kid:
+            want[kid] = r["steps"]
+        jax = JAX_BIG_RMSE[r["batch"]]
+        ok = (r["launches"] == want and r["rmse1"] < r["rmse0"] and math.isfinite(r["rmse1"])
+              and (kid is None or abs(r["rmse1"] - jax) < BIG_JAX_TOL))
+        d_jax = f"{r['rmse1'] - jax:+.6f}"
+        if not ok:
+            failures.append(f"bigTable run ({tag})")
+        print(f"phase 7 {'ok' if ok else 'FAIL'}: bigTable ({tag}) batch {r['batch']} route "
+              f"{r['route']} {'kernels' if r['kernels'] else 'plain versions'} "
+              f"{'through SVDTrainTask/SVDInferTask' if through_tasks else 'trainer driven directly'}: "
+              f"probe RMSE {r['rmse0']:.6f} -> {r['rmse1']:.6f} after {BIG_ROUNDS} rounds "
+              f"(minus JAX CPU {d_jax}, tol {BIG_JAX_TOL:g}); launches {r['launches']} "
+              f"(want {want}: one per step, {r['steps']} steps); training "
+              f"{r['eps']:,.0f} examples/s rounds 2-{BIG_ROUNDS} (reference C++ {ref_eps:,}/s), "
+              f"round seconds {[round(x, 3) for x in r['secs']]}; peak device memory "
+              f"{r['peak'] / 2**30:.2f} GiB; run {r['seconds']:.1f} s; on {card}", flush=True)
+        if r["profile"]:
+            print(f"phase 7 profile: bigTable ({tag}) one more round: {r['profile']}", flush=True)
+    diff = abs(results["a"]["rmse1"] - results["b"]["rmse1"])
+    if diff >= BIG_AB_TOL:
+        failures.append("bigTable (a) vs (b)")
+    print(f"phase 7 {'ok' if diff < BIG_AB_TOL else 'FAIL'}: bigTable K4 (a) against its plain "
+          f"version (b) end to end: |d RMSE| {diff:.2e} (tol {BIG_AB_TOL:g})", flush=True)
+    return {"K4": results["a"]["launches"]["K4"],
+            "K5": results["c"]["launches"]["K5"] + results["d"]["launches"]["K5"],
+            "K6": sum(r["launches"]["K6"] for r in results.values())}
+
+
 def kernel_line(name, source, replaces, launches, max_err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": timing["kernel"],
             "plain_ms": timing["plain"], "bound_ms": timing["bound"],
-            "bound_by": timing["bound_by"], "library_ms": None}
+            "bound_by": timing["bound_by"], "library_ms": timing.get("library")}
 
 
 def main() -> int:
@@ -579,12 +961,28 @@ def main() -> int:
             print(f"phase 1 ptxas: {line.strip()}")
 
     failures = []
+    clock = {"t": time.perf_counter()}
+
+    def phase_time(name):
+        now = time.perf_counter()
+        print(f"{name} took {now - clock['t']:.1f} s", flush=True)
+        clock["t"] = now
+
     k1_err, k1_timing = phase_kernel(torch, dev, failures)
+    phase_time("phase 2")
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         k1_launches = phase_slice(pathlib.Path(work), card, failures)
+        phase_time("phase 3")
         k2_err, k2_timing = phase_svdpp_kernel(torch, dev, failures)
+        phase_time("phase 4")
         k2_launches = phase_svdpp_slice(pathlib.Path(work), card, failures)
+        phase_time("phase 5")
+        big = bigtable_arrays()
+        big_timing = phase_big_kernels(torch, dev, big, failures)
+        phase_time("phase 6")
+        big_launches = phase_bigtable(pathlib.Path(work), big, card, failures)
+        phase_time("phase 7")
 
     if failures:
         print(f"FAILED phases: {failures}", flush=True)
@@ -597,6 +995,15 @@ def main() -> int:
         kernel_line("fused_svdpp (svdpp_flush + svdpp_gather + svdpp_step + svdpp_apply)",
                     "svdfeature_tpu_torch/csrc/fused_svdpp.cu",
                     "svdfeature_tpu/ops/pallas_svdpp.py:110", k2_launches, k2_err, k2_timing),
+        kernel_line("tile_sweep (sweep_apply)", "svdfeature_tpu_torch/csrc/tile_sweep.cu",
+                    "svdfeature_tpu/ops/tile_sweep.py:143", big_launches["K4"],
+                    big_timing["K4"]["err"], big_timing["K4"]),
+        kernel_line("row_writer (row_write)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
+                    "svdfeature_tpu/ops/pallas_scatter.py:43", big_launches["K5"],
+                    big_timing["K5"]["err"], big_timing["K5"]),
+        kernel_line("row_reader (row_read)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
+                    "svdfeature_tpu/ops/pallas_scatter.py:111", big_launches["K6"],
+                    big_timing["K6"]["err"], big_timing["K6"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .ops.big_embed import aug_width, ref_column
 from .ops.embed import TrainConsts, TrainState
 
 
@@ -56,9 +57,28 @@ def stacked_from_numpy(
     """Stage ``PackedBatches.arrays()`` (``[T, B(, S)]`` planes: int32
     indices, f32 values) on ``device``."""
     return {
-        name: (_i32 if name.endswith("_idx") else _f32)(a, device)
+        name: (_i32 if name.endswith("_idx") or name.startswith("sw_") else _f32)(a, device)
         for name, a in arrays.items()
     }
+
+
+def augmented_from_numpy(aug, k: int, device: torch.device) -> torch.Tensor:
+    """The port's augmented big-route table from any augmented numpy table
+    ``[N, >= k+2]`` rows ``[factors | bias | ref_bits | ...]``, the JAX
+    package's 128-lane one included: factors and bias as floats, the ref
+    column as its int32 bits, exactly."""
+    aug = np.asarray(aug, np.float32)
+    out = torch.zeros((aug.shape[0], aug_width(k)), dtype=torch.float32)
+    out[:, : k + 1] = torch.from_numpy(np.ascontiguousarray(aug[:, : k + 1]))
+    ref_column(out, k)[:] = torch.from_numpy(np.ascontiguousarray(aug[:, k + 1]).view(np.int32))
+    return out.to(device)
+
+
+def augmented_to_numpy(aug: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(w [N, k], b [N], ref_ui [N] int32)`` of an augmented table, the
+    ref counters bit for bit."""
+    a = aug.detach().cpu()
+    return (a[:, :k].numpy().copy(), a[:, k].numpy().copy(), ref_column(a, k).numpy().copy())
 
 
 def pool_from_numpy(

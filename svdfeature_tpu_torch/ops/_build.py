@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 nvcc compiles every source under ``svdfeature_tpu_torch/csrc/`` (``*.cu``,
-which include the shared ``*.cuh``) into one shared library with a plain C interface,
-``build/kernels/libsvdfeature_kernels.so`` at the repository root, which
-is loaded with ctypes.  The build runs at first use, and again whenever a
-source or the flags change (a stamp file beside the library holds their
-hash).  Nothing is built when a module is imported.
+which include the shared ``*.cuh``), one process per source, all started
+together, and links the objects into one shared library with a plain C
+interface, ``build/kernels/libsvdfeature_kernels.so`` at the repository
+root, which is loaded with ctypes.  The build runs at first use, and again
+whenever a source or the flags change (a stamp file beside the library
+holds their hash).  Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ import subprocess
 CSRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libsvdfeature_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills of each kernel, kept in nvcc.log
 )
 
@@ -37,6 +38,9 @@ SIGNATURES = {
     "svdpp_gather": [_P] * 8 + [_I] * 5 + [_P],
     "svdpp_step": [_P] * 17 + [_I] * 9 + [ctypes.c_float, _P],
     "svdpp_apply": [_P] * 10 + [_I] * 6 + [_P],
+    "row_write": [_P] * 3 + [_I] * 3 + [_P],
+    "row_read": [_P] * 3 + [_I] * 3 + [_P],
+    "sweep_apply": [_P] * 10 + [_I] * 11 + [_P],
 }
 
 
@@ -70,16 +74,26 @@ def build() -> pathlib.Path:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [" ".join(cmd) + "\n" + proc.communicate()[0] for cmd, proc in zip(cmds, procs)]
+    failed = [cmd[-1] for cmd, proc in zip(cmds, procs) if proc.returncode != 0]
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    if not failed:
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(" ".join(link) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append("the link")
+    (BUILD_DIR / "nvcc.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{''.join(logs)[-4000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
     stamp.write_text(digest)
     return lib

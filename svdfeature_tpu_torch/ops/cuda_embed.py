@@ -37,11 +37,12 @@ from typing import Dict, Optional
 import torch
 
 from .. import losses
-from .embed import HyperParams, TrainConsts, TrainState
+from .embed import BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState
 
-# tables above this many rows (dummy included) go to the big-table route
-# of the JAX package (ops/embed.py:273); not ported yet
-MAX_TABLE_ROWS = 1 << 13
+# tables above this many rows (dummy included) take the big-table route
+# (ops/big_embed.py, ops/tile_sweep.py), which the base solver selects by
+# itself; the cap only guards direct callers of this kernel
+MAX_TABLE_ROWS = BIG_TABLE_ROWS
 MAX_GLOBAL_ENTRIES = 8
 MAX_GLOBAL_SLOTS = 1024
 KERNEL_ACTIVE_TYPES = (
@@ -56,7 +57,7 @@ def gate_failure(hp: HyperParams, state: TrainState, stacked) -> Optional[str]:
 
     The semantic conditions of ``pallas_supported``
     (pallas_embed.py:47-68) without its TPU layout limits, plus the
-    table-size cap above which the JAX package takes its big-table route.
+    table-size cap above which the solver takes the big-table route.
     """
     n = state.w.shape[0]
     if hp.reg_method != 0 or hp.reg_global != 0:
@@ -76,8 +77,9 @@ def gate_failure(hp: HyperParams, state: TrainState, stacked) -> Optional[str]:
         return f"a global table over {MAX_GLOBAL_SLOTS} slots needs {_GENERAL_STEP}"
     if n > MAX_TABLE_ROWS:
         return (
-            f"tables over {MAX_TABLE_ROWS} rows need the big-table route "
-            "(ROADMAP Queue 1 item 9)"
+            f"tables over {MAX_TABLE_ROWS} rows take the big-table route "
+            "(ops/big_embed.train_step_big, ops/tile_sweep.train_step_sweep; "
+            "ROADMAP Queue 1 item 9), which the base solver selects for them"
         )
     return None
 

@@ -72,8 +72,9 @@ def gate_failure(
         return f"global features on the user-group path need {_GENERAL_STEP}"
     if n > MAX_TABLE_ROWS:
         return (
-            f"tables over {MAX_TABLE_ROWS} rows need the big-table route "
-            "(ROADMAP Queue 1 item 9)"
+            f"tables over {MAX_TABLE_ROWS} rows need big-table SVD++ "
+            "(ops/svdpp_big.py, the user-carry epoch): the next slice of "
+            "ROADMAP Queue 1 item 9"
         )
     if M > MAX_ROWS_PER_USER:
         return f"rows_per_user above {MAX_ROWS_PER_USER} (one warp per slot of a user's block)"

@@ -1,0 +1,179 @@
+"""The tile-sweep update: the Hopper kernel K4 and its plain PyTorch version.
+
+Replaces the TPU kernel svdfeature_tpu/ops/tile_sweep.py
+::_make_sweep_kernel (``sweep_update``), which walks the plan's grid
+cells in tile order, lands each cell's [1024, W] payload on its [2048, W]
+table tile with a one-hot MXU matmul (Mosaic has no row gather), keeps the
+tile's sum in VMEM scratch and applies the regularization on the tile's
+last visit.  None of that carries over: a [2048, 128] f32 tile is 1 MiB,
+a block has 227 KB of shared memory, and the one-hot matmul only worked
+around the missing gather.  csrc/tile_sweep.cu instead runs one warp per
+run of a touched row's entries (contiguous in plan order, run starts
+found at pack time: ops/tile_sweep.attach_sweep_runs), sums the run's
+``[dw | db | cu | ci]`` payload rows in plan order (deterministic, no
+atomics), reads the payload through the plan's ``sw_src`` instead of a
+materialized plan-ordered copy, and writes the touched row in place.
+Untouched rows are left alone, which is what the TPU kernel's rewrite of
+them amounts to.  It is bound by bytes (the payload, the plan and the
+touched rows, read once and written once).
+
+Semantics, per touched row with sums dw, db, cu, ci (reg_method m, the
+TPU kernel's exp(c * log1m(.)) forms, tile_sweep.py:137-140,190-271):
+  m 4/5 (lazy): base = x * exp(el * log1m(lam)) | soft(x, lam * el),
+      el = step - ref, lam = lr * (cu > 0 ? wd_u : wd_i); w = base + dw;
+      ref = step (the int32 bits of the ref column)
+  m 0: w = (x + dw) * exp(cu log1m(lr wd_u) + ci log1m(lr wd_i))
+  m 1: w = soft(x + dw, lr (wd_u cu + wd_i ci))
+  m 2: w = (x + dw) scaled onto the ball |w|^2 <= (cu > 0 ? wd_u : wd_i)
+  m 3: w = soft(x + dw, lr wd_u cu) * exp(ci log1m(lr wd_i))
+  then the nonnegative clamps (cu > 0 / ci > 0) and
+  b = (b + db) * exp(ci log1m(lr wd_ib) (+ cu log1m(lr wd_ub))).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .big_embed import _soft_threshold
+from .cuda_embed import _log1m
+from .cuda_scatter import _device, check_tensors
+
+# the kernel keeps a row's k+3 payload sums in registers, 32 columns a chunk
+MAX_PAYLOAD_COLUMNS = 8 * 32
+
+
+@torch.no_grad()
+def sweep_update_reference(w: torch.Tensor, plan: Dict[str, torch.Tensor], payload: torch.Tensor,
+                           wdu: torch.Tensor, wdi: torch.Tensor, scal: torch.Tensor,
+                           stepi: torch.Tensor, hp) -> torch.Tensor:
+    """The plain version of K4: what ``_make_sweep_kernel`` computes, on the
+    whole (padded) table at once.  Gathers the plan-ordered payload, sums
+    it per row with ``index_add_``, applies the last-visit math to every
+    touched row in place; returns ``w``.
+
+    w [n_pad, W] augmented table; plan ``sw_tids`` [G], ``sw_lids`` /
+    ``sw_src`` [G*e_cap] (``sw_runs`` is the kernel's); payload [E, k+3];
+    wdu / wdi [n_pad]; scal [4] f32 (lr, wd_user_bias, wd_item_bias, 0);
+    stepi [1] i32, the pre-batch sample counter.
+    """
+    k = hp.num_factor
+    m = hp.reg_method
+    C = k + 3
+    lids = plan["sw_lids"].long()
+    pay = torch.cat([payload, torch.zeros((1, C), dtype=payload.dtype, device=payload.device)])
+    pay_plan = pay[plan["sw_src"].long()]
+    rows = plan["sw_tids"].long().repeat_interleave(hp.sweep_ecap) * hp.sweep_tile + lids
+    real = lids >= 0
+    acc = torch.zeros((w.shape[0], C), dtype=torch.float32, device=w.device)
+    acc.index_add_(0, rows[real], pay_plan[real])
+    dw, db, cu, ci = acc[:, :k], acc[:, k], acc[:, k + 1], acc[:, k + 2]
+    touched = (cu + ci) > 0.0
+    lr, wd_ub, wd_ib = scal[0], scal[1], scal[2]
+    x_w = w[:, :k]
+    ref = w.view(torch.int32)[:, k + 1]
+
+    if m >= 4:
+        el = (stepi[0] - ref).to(torch.float32)
+        lam = lr * torch.where(cu > 0.0, wdu, wdi)
+        if m == 4:
+            base = x_w * torch.exp(el * _log1m(lam))[:, None]
+        else:
+            base = _soft_threshold(x_w, (lam * el)[:, None])
+        new_w = base + dw
+    else:
+        new_w = x_w + dw
+        if m == 0:
+            new_w = new_w * torch.exp(cu * _log1m(lr * wdu) + ci * _log1m(lr * wdi))[:, None]
+        elif m == 1:
+            new_w = _soft_threshold(new_w, (lr * (wdu * cu + wdi * ci))[:, None])
+        elif m == 2:
+            wd_row = torch.where(cu > 0.0, wdu, wdi)
+            sq = torch.sum(new_w * new_w, dim=1)
+            scale = torch.where(sq > wd_row, torch.sqrt(wd_row / torch.clamp(sq, min=1e-30)), 1.0)
+            new_w = new_w * scale[:, None]
+        elif m == 3:
+            new_w = _soft_threshold(new_w, (lr * wdu * cu)[:, None])
+            new_w = new_w * torch.exp(ci * _log1m(lr * wdi))[:, None]
+        else:
+            raise ValueError(f"unknown reg_method {m}")
+    if hp.user_nonnegative:
+        new_w = torch.where((cu > 0.0)[:, None], torch.clamp(new_w, min=0.0), new_w)
+    if hp.item_nonnegative:
+        new_w = torch.where((ci > 0.0)[:, None], torch.clamp(new_w, min=0.0), new_w)
+    logb = ci * _log1m(lr * wd_ib)
+    if not hp.no_user_bias:
+        logb = logb + cu * _log1m(lr * wd_ub)
+    new_b = (w[:, k] + db) * torch.exp(logb)
+
+    w[:, :k] = torch.where(touched[:, None], new_w, x_w)
+    w[:, k] = torch.where(touched, new_b, w[:, k])
+    if m >= 4:
+        ref.copy_(torch.where(touched, stepi[0], ref))
+    return w
+
+
+def _check(w, plan, payload, wdu, wdi, scal, stepi, hp) -> None:
+    """Device, dtype, shape and contiguity of everything the kernel
+    dereferences; raises ValueError on what it does not take.  Plan
+    indices outside their ranges fault on the device (the kernel traps)."""
+    n_pad, W = w.shape
+    k = hp.num_factor
+    G = plan["sw_tids"].shape[0]
+    want = {
+        "w": (w, torch.float32, (n_pad, W)),
+        "sw_tids": (plan["sw_tids"], torch.int32, (G,)),
+        "sw_lids": (plan["sw_lids"], torch.int32, (G * hp.sweep_ecap,)),
+        "sw_src": (plan["sw_src"], torch.int32, (G * hp.sweep_ecap,)),
+        "sw_runs": (plan["sw_runs"], torch.int32, (plan["sw_runs"].shape[0],)),
+        "payload": (payload, torch.float32, (payload.shape[0], k + 3)),
+        "wdu": (wdu, torch.float32, (n_pad,)),
+        "wdi": (wdi, torch.float32, (n_pad,)),
+        "scal": (scal, torch.float32, (4,)),
+        "stepi": (stepi, torch.int32, (1,)),
+    }
+    check_tensors(want, w.device)
+    if hp.reg_method not in range(6):
+        raise ValueError(f"unknown reg_method {hp.reg_method}")
+    if not 0 < k <= W - 2:
+        raise ValueError("the augmented layout requires 0 < hp.num_factor <= W - 2")
+    if k + 3 > MAX_PAYLOAD_COLUMNS:
+        raise ValueError(f"num_factor above {MAX_PAYLOAD_COLUMNS - 3} (payload sums in registers)")
+    if n_pad % hp.sweep_tile or n_pad >= 2**31:
+        raise ValueError(f"the table must hold whole tiles of {hp.sweep_tile} rows, under 2^31")
+    if plan["sw_runs"].shape[0] < 1:
+        raise ValueError("sw_runs needs its end sentinel")
+
+
+def sweep_update(w: torch.Tensor, plan: Dict[str, torch.Tensor], payload: torch.Tensor,
+                 wdu: torch.Tensor, wdi: torch.Tensor, scal: torch.Tensor,
+                 stepi: torch.Tensor, hp) -> torch.Tensor:
+    """The sweep update through csrc/tile_sweep.cu: one launch per call,
+    counted in ``sweep_update.launches``; the arguments of
+    ``sweep_update_reference``, which CPU tensors take instead.  Raises on
+    anything the kernel does not take; there is no fallback."""
+    if not _device(w):
+        return sweep_update_reference(w, plan, payload, wdu, wdi, scal, stepi, hp)
+    _check(w, plan, payload, wdu, wdi, scal, stepi, hp)
+    n_runs = plan["sw_runs"].shape[0] - 1
+    if n_runs == 0:
+        return w
+    from ._build import load_library
+
+    err = load_library().sweep_apply(
+        w.data_ptr(), plan["sw_tids"].data_ptr(), plan["sw_lids"].data_ptr(),
+        plan["sw_src"].data_ptr(), plan["sw_runs"].data_ptr(), payload.data_ptr(),
+        wdu.data_ptr(), wdi.data_ptr(), scal.data_ptr(), stepi.data_ptr(),
+        n_runs, payload.shape[0], w.shape[0], w.shape[1], hp.num_factor, hp.sweep_tile,
+        hp.sweep_ecap, hp.reg_method, int(hp.user_nonnegative), int(hp.item_nonnegative),
+        0 if hp.no_user_bias else 1,
+        torch.cuda.current_stream(w.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"sweep_apply launch failed: CUDA error {err}")
+    sweep_update.launches += 1
+    return w
+
+
+sweep_update.launches = 0

@@ -22,6 +22,12 @@ import torch
 
 from .. import losses
 
+# Tables of more than this many rows (dummy row included) take the
+# big-table route (ops/big_embed.py, ops/tile_sweep.py): the JAX package's
+# ONEHOT_THRESHOLD (ops/embed.py:273), kept so that the port picks the
+# route, and so the trajectory, that the JAX CLI picks for the same conf.
+BIG_TABLE_ROWS = 1 << 13
+
 
 @dataclasses.dataclass(frozen=True)
 class HyperParams:
@@ -37,6 +43,21 @@ class HyperParams:
     # plain (undamped) global-bias update — exact reference semantics
     # (apex_svd_base.h:384-387); selected at batch_size=1
     exact_global: bool = False
+    # big-table route: the writes of the step go through the hand-written
+    # kernels (K5 ops/cuda_scatter.row_writer, K4 ops/cuda_sweep.sweep_update)
+    # on CUDA tensors; False (use_pallas=0) runs their plain versions
+    row_dma: bool = False
+    # route to the sorted-dedup big-table step (ops/big_embed.py), set by
+    # the solver above BIG_TABLE_ROWS; num_factor carries k (the augmented
+    # rows are wider than k)
+    big_table: bool = False
+    num_factor: int = 0
+    # tile-sweep write path for dense big batches (ops/tile_sweep.py):
+    # needs the pack-time sweep plan in the batch dict and the augmented
+    # table padded to a multiple of sweep_tile
+    sweep_table: bool = False
+    sweep_tile: int = 2048
+    sweep_ecap: int = 1024
 
 
 @dataclasses.dataclass
@@ -66,6 +87,32 @@ class TrainState:
     # carries them through unchanged
     ref_ui: torch.Tensor  # [N+1] i32
     ref_g: torch.Tensor  # [G+1] i32
+
+
+def _slot_sums(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``sum vals`` per slot of an ``n``-slot table -> [n] f32.  A table of
+    one slot (no global features: only the dummy) is a plain reduction, not
+    ``index_add_`` (on the card, B atomics on one address)."""
+    if n == 1:
+        return vals.sum().reshape(1)
+    return torch.zeros(n, dtype=torch.float32, device=vals.device).index_add_(
+        0, idx.reshape(-1).long(), vals.reshape(-1))
+
+
+def _touch_counts(n: int, idx: torch.Tensor) -> torch.Tensor:
+    """How often each of ``n`` slots occurs in ``idx`` -> [n] f32."""
+    return _slot_sums(n, idx, torch.ones(idx.shape, dtype=torch.float32, device=idx.device))
+
+
+def _update_global(g, g_idx, g_val, err, lr, exact: bool = False) -> torch.Tensor:
+    """Global-bias update (embed.py:230-254): the reference's plain step
+    ``g += lr*S`` with ``exact`` (batch_size=1), else the damped batched
+    step ``g += lr*S / (1 + lr*C2)`` (S: sum err*v, C2: sum v^2 per slot)."""
+    n_g = g.shape[0]
+    S = _slot_sums(n_g, g_idx, err[:, None] * g_val)
+    if exact:
+        return g + lr * S
+    return g + lr * S / (1.0 + lr * _slot_sums(n_g, g_idx, g_val * g_val))
 
 
 def _gather_sum(tab: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,180 @@
+"""Tile-sweep large-table step: pack-time sort plans + one write pass.
+
+PyTorch counterpart of svdfeature_tpu/ops/tile_sweep.py.  The batch's
+entry->row map is fixed across rounds (training data is packed once), so
+the sort, the tile grouping and the run structure are computed ONCE on the
+host at pack time (``make_sweep_plan`` / ``attach_sweep_plans``, numpy
+copies of the JAX package's, and ``attach_sweep_runs``, the port's run
+starts).  The runtime step (``train_step_sweep``) then runs the shared
+forward half (ops/big_embed._forward_entries) and hands the payload and
+the plan to the sweep update K4 (ops/cuda_sweep.sweep_update), which sums
+each touched row's run of entries and applies the regularization / clamp
+math of the TPU kernel's last tile visit, in place.  Semantics are those
+of big_embed.train_step_big (same reference citations), pinned by
+tests/test_torch_big_sweep.py against the JAX package's interpret-mode
+``train_step_sweep``.
+
+When it wins: the TPU sweep touched every tile holding an entry, so the
+solver's auto rule (solvers/base.py) selects it for batches dense enough
+that most tiles are touched anyway (e.g. B >= 256k on a 2M-row table);
+sparse batches keep the sorted-dedup step.  The port keeps the rule, so
+it picks the route the JAX CLI picks for the same conf.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .embed import TrainConsts, TrainState
+
+# Entries per grid cell.  1-D int32 blocks narrower than ~1024 lanes
+# crash the remote Mosaic compiler (measured: 256 fails, 1024 works).
+SWEEP_ECAP = 1024
+# Table rows per tile (VMEM block height of the sweep).
+SWEEP_TILE = 2048
+# the batch-dict keys of a sweep plan, with the run starts of the port
+SWEEP_KEYS = ("sw_tids", "sw_lids", "sw_src", "sw_runs")
+
+
+# --------------------------------------------------------------------------
+# pack-time plan
+# --------------------------------------------------------------------------
+def make_sweep_plan(ent_idx, n_pad_rows: int, tile: int, e_cap: int):
+    """Host-side sweep plan for one batch's fixed entry->row map.
+
+    ent_idx: [E] row id per entry, batch order (concat of u_idx.ravel()
+    and i_idx.ravel() — must match big_embed._forward_entries).
+
+    Returns numpy arrays:
+      sw_tids [G]        tile index per grid cell; equal tiles are
+                         consecutive (the kernel derives first/last
+                         visit from transitions)
+      sw_lids [G*e_cap]  row id local to the cell's tile, -1 = padding
+      sw_src  [G*e_cap]  batch-order entry position feeding the cell's
+                         payload row, E = padding (a zero payload row)
+    """
+    ent = np.asarray(ent_idx).reshape(-1).astype(np.int64)
+    E = ent.shape[0]
+    order = np.argsort(ent, kind="stable")
+    si = ent[order]
+    tl = si // tile
+    uniq, counts = np.unique(tl, return_counts=True)
+    cells_per = -(-counts // e_cap)
+    G = int(cells_per.sum())
+    tids = np.repeat(uniq, cells_per).astype(np.int32)
+    lids = np.full(G * e_cap, -1, np.int32)
+    src = np.full(G * e_cap, E, np.int32)
+    run_start = np.repeat(np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+    r = np.arange(E, dtype=np.int64) - run_start
+    cell_base = np.repeat(
+        np.concatenate([[0], np.cumsum(cells_per)[:-1]]), counts
+    )
+    pos = (cell_base + r // e_cap) * e_cap + r % e_cap
+    lids[pos] = (si - tl * tile).astype(np.int32)
+    src[pos] = order.astype(np.int32)
+    assert n_pad_rows % tile == 0
+    return {"sw_tids": tids, "sw_lids": lids, "sw_src": src}
+
+
+def attach_sweep_plans(batches, n_pad_rows: int, tile: int, e_cap: int):
+    """Add stacked plan arrays to a stacked batch dict.
+
+    batches["u_idx"]/["i_idx"] are [T, B, S]; per-batch plans are padded
+    to a common cell count G with passthrough cells on the last (pad)
+    tile — their finalize sees zero touch counts and rewrites the tile
+    unchanged.
+    """
+    u = np.asarray(batches["u_idx"])
+    i = np.asarray(batches["i_idx"])
+    T = u.shape[0]
+    E = u[0].size + i[0].size
+    plans = [
+        make_sweep_plan(
+            np.concatenate([u[t].reshape(-1), i[t].reshape(-1)]),
+            n_pad_rows,
+            tile,
+            e_cap,
+        )
+        for t in range(T)
+    ]
+    Gm = max(p["sw_tids"].shape[0] for p in plans)
+    pad_tile = n_pad_rows // tile - 1
+    tids = np.full((T, Gm), pad_tile, np.int32)
+    lids = np.full((T, Gm * e_cap), -1, np.int32)
+    src = np.full((T, Gm * e_cap), E, np.int32)
+    for t, p in enumerate(plans):
+        g = p["sw_tids"].shape[0]
+        tids[t, :g] = p["sw_tids"]
+        lids[t, : g * e_cap] = p["sw_lids"]
+        src[t, : g * e_cap] = p["sw_src"]
+    out = dict(batches)
+    out["sw_tids"] = tids
+    out["sw_lids"] = lids
+    out["sw_src"] = src
+    return out
+
+
+def make_sweep_runs(tids, lids, tile: int, e_cap: int) -> np.ndarray:
+    """Run starts of one batch's plan: the plan positions where a touched
+    row's entries begin, then the plan length as the end sentinel ->
+    [n_runs + 1] int32.  The plan sorts entries stably by row and groups
+    them by tile, so each touched row's entries are one contiguous run;
+    padding slots (lids -1) start no run and the sweep skips them."""
+    lids = np.asarray(lids).reshape(-1)
+    rows = np.repeat(np.asarray(tids, np.int64).reshape(-1), e_cap) * tile + lids
+    real = np.flatnonzero(lids >= 0)
+    r = rows[real]
+    new = np.ones(r.shape, bool)
+    new[1:] = r[1:] != r[:-1]
+    return np.concatenate([real[new], [lids.size]]).astype(np.int32)
+
+
+def attach_sweep_runs(batches, tile: int, e_cap: int):
+    """Add ``sw_runs`` [T, R+1] (``make_sweep_runs`` of each batch, padded
+    with empty runs at the end sentinel) to a batch dict that holds stacked
+    sweep plans."""
+    tids, lids = np.asarray(batches["sw_tids"]), np.asarray(batches["sw_lids"])
+    runs = [make_sweep_runs(tids[t], lids[t], tile, e_cap) for t in range(tids.shape[0])]
+    out = np.full((len(runs), max(r.size for r in runs)), lids.shape[1], np.int32)
+    for t, r in enumerate(runs):
+        out[t, : r.size] = r
+    return dict(batches, sw_runs=out)
+
+
+# --------------------------------------------------------------------------
+# the step
+# --------------------------------------------------------------------------
+@torch.no_grad()
+def train_step_sweep(state: TrainState, batch: Dict[str, torch.Tensor], lr,
+                     consts: TrainConsts, hp) -> TrainState:
+    """train_step_big semantics with the tile-sweep write path.
+
+    Requires the sweep plan and run starts in the batch dict
+    (``attach_sweep_plans`` + ``attach_sweep_runs``), the augmented table
+    padded to a multiple of hp.sweep_tile and the consts' row tables padded
+    to match (solvers/base.py arranges all three).  ``hp.row_dma`` routes
+    the write to the kernel wrapper K4, else to its plain version.  Updates
+    ``state.w`` in place.
+    """
+    from .big_embed import _forward_entries
+    from .cuda_sweep import sweep_update, sweep_update_reference
+
+    w = state.w
+    if w.shape[0] % hp.sweep_tile:
+        raise ValueError(f"the sweep needs whole tiles of {hp.sweep_tile} rows")
+    g, ref_g, _ent, payload, _ru, _ri, _wu, _wi, nstep, _err, _pi = (
+        _forward_entries(state, batch, lr, consts, hp)
+    )
+    scal = torch.stack([
+        torch.as_tensor(lr, dtype=torch.float32, device=w.device),
+        consts.wd_user_bias, consts.wd_item_bias,
+        torch.zeros((), dtype=torch.float32, device=w.device),
+    ])
+    stepi = state.step.reshape(1).to(torch.int32)
+    plan = {key: batch[key] for key in SWEEP_KEYS}
+    fn = sweep_update if hp.row_dma else sweep_update_reference
+    fn(w, plan, payload, consts.wd_u_row, consts.wd_i_row, scal, stepi, hp)
+    return TrainState(w=w, b=state.b, g=g, step=nstep, ref_ui=state.ref_ui, ref_g=ref_g)

@@ -7,6 +7,15 @@ stages them on its device, and trains every round through
 ``ops.cuda_embed.train_rounds_kernel`` (the Hopper kernel on a CUDA
 device, its plain version on the CPU).
 
+Tables of more than ``BIG_TABLE_ROWS`` rows (dummy included) take the
+big-table route of the JAX solver (solvers/base.py:293-331): the state
+moves to the augmented row layout (ops/big_embed.augment_state) and each
+round runs a host loop of steps, ``train_step_sweep`` (kernel K4) for
+batches dense enough that most table tiles are touched, else
+``train_step_big`` (sorted dedup, kernel K5).  Config key ``big_sweep``
+overrides the auto rule: -1 auto, 0 off, 1 on.  Checkpoints and
+prediction read the de-augmented state.
+
 The device is explicit: config key ``device`` (default ``cuda``).  With
 ``device=cuda`` and no card the trainer raises instead of running on the
 CPU.  ``use_pallas=0`` selects the plain PyTorch version on the device,
@@ -24,8 +33,9 @@ from ..convert import consts_from_numpy, stacked_from_numpy
 from ..data.batching import pack_csr
 from ..data.csr import CSRDataset
 from ..model import SVDModel
+from ..ops import big_embed, tile_sweep
 from ..ops.cuda_embed import gate_failure, train_rounds_kernel, train_rounds_reference
-from ..ops.embed import HyperParams, TrainConsts, TrainState, predict_batches
+from ..ops.embed import BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState, predict_batches
 from ..params import ParameterSet, SVDModelParam, SVDTrainParam, SVDTypeParam
 from ..utils.sparse_feature_array import SparseFeatureArray
 
@@ -46,6 +56,10 @@ def resolve_device(name: str) -> torch.device:
 class SVDFeatureTrainer:
     """Random-order-format trainer (ISVDTrainer contract, apex_svd.h:33-107)."""
 
+    # large tables take the augmented-row big-table route; a derived solver
+    # whose epoch drives the state itself opts out until its route is ported
+    SUPPORTS_BIG_TABLE = True
+
     def __init__(self, mtype: SVDTypeParam):
         self.mtype = mtype
         self.mparam = SVDModelParam()
@@ -65,6 +79,10 @@ class SVDFeatureTrainer:
         # exact_rng=1: init draws from the bit-exact apex_random port
         self.exact_rng = False
         self.device_name = "cuda"
+        # big_sweep: tile-sweep write path of the big-table step
+        # (ops/tile_sweep.py).  -1 = auto (on for batches dense enough that
+        # most tiles are touched anyway), 0 = off, 1 = force on
+        self.big_sweep = -1
         self.mesh_data = 1
         self.mesh_model = 1
         self.round_counter = 0
@@ -96,6 +114,8 @@ class SVDFeatureTrainer:
             self.exact_rng = bool(int(val))
         if name == "device":
             self.device_name = val
+        if name == "big_sweep":
+            self.big_sweep = int(val)
         self.tparam.set_param(name, val)
         self.u_param.set_param(name, val)
         self.i_param.set_param(name, val)
@@ -125,13 +145,24 @@ class SVDFeatureTrainer:
         self._sync_model_from_state()
         self.model.save(f)
 
+    def _std_state(self) -> TrainState:
+        """The state in the standard (w, b, ref) layout whatever the
+        big-table packing (views of the augmented table)."""
+        if self.hp is not None and self.hp.big_table:
+            return big_embed.deaugment_state(
+                self.state, self.hp.num_factor, n_rows=self.model.num_rows + 1
+            )
+        return self.state
+
     def _sync_model_from_state(self) -> None:
         if self.state is not None:
+            st = self._std_state()
             n = self.model.num_rows  # excludes the dummy row
-            # copies: training goes on updating the state in place
-            self.model.w = self.state.w[:n].clone()
-            self.model.b = self.state.b[:n].clone()
-            self.model.g = self.state.g[:-1].clone()
+            # contiguous copies: training goes on updating the state in place
+            copy = dict(memory_format=torch.contiguous_format)
+            self.model.w = st.w[:n].clone(**copy)
+            self.model.b = st.b[:n].clone(**copy)
+            self.model.g = st.g[:-1].clone(**copy)
 
     # ---- trainer lifecycle ---------------------------------------------------
     def init_trainer(self) -> None:
@@ -160,10 +191,31 @@ class SVDFeatureTrainer:
         self.hp = self._build_hp()
         self.learning_rate = self.tparam.learning_rate
         self.round_counter = 0
+        if self.hp.big_table:
+            # the sweep needs whole tiles; the decay-rate row tables are
+            # padded to match (pad rows decay by 0 and are never addressed)
+            tile = self.hp.sweep_tile if self.hp.sweep_table else 0
+            self.state = big_embed.augment_state(self.state, k, pad_rows_to=tile)
+            pad = (0, self.state.w.shape[0] - self.consts.wd_u_row.shape[0])
+            self.consts.wd_u_row = torch.nn.functional.pad(self.consts.wd_u_row, pad)
+            self.consts.wd_i_row = torch.nn.functional.pad(self.consts.wd_i_row, pad)
 
     def _build_hp(self) -> HyperParams:
         p = self.model.param
+        n_tbl = self.model.num_rows + 1
+        big = self.SUPPORTS_BIG_TABLE and n_tbl > BIG_TABLE_ROWS
+        # tile-sweep auto rule: worthwhile once the batch's entries would
+        # touch most tiles anyway (>= ~ECAP/2 entries per tile on average
+        # at the minimum 2 entries/example); sparse batches keep the
+        # sorted-dedup step, which touches only its rows
+        n_tiles = -(-n_tbl // tile_sweep.SWEEP_TILE)
+        sweep_auto = 2 * self.batch_size >= n_tiles * tile_sweep.SWEEP_ECAP // 2
+        sweep = big and (self.big_sweep == 1 or (self.big_sweep == -1 and sweep_auto))
         return HyperParams(
+            big_table=big,
+            num_factor=p.num_factor if big else 0,
+            sweep_table=sweep,
+            row_dma=big and self.use_pallas,
             active_type=self.mtype.active_type,
             no_user_bias=p.no_user_bias,
             reg_method=self.tparam.reg_method,
@@ -237,16 +289,34 @@ class SVDFeatureTrainer:
                 num_user=m.param.num_user,
                 num_item=m.param.num_item,
             )
-            arrays = stacked_from_numpy(packed.arrays(), self.state.w.device)
+            arrays = packed.arrays()
+            if self.hp is not None and self.hp.sweep_table:
+                hp = self.hp
+                arrays = tile_sweep.attach_sweep_plans(
+                    arrays, int(self.state.w.shape[0]), hp.sweep_tile, hp.sweep_ecap
+                )
+                arrays = tile_sweep.attach_sweep_runs(arrays, hp.sweep_tile, hp.sweep_ecap)
+            arrays = stacked_from_numpy(arrays, self.state.w.device)
             self._pack_cache[key] = (arrays, ds.num_row)
         return self._pack_cache[key]
 
     # ---- training / prediction --------------------------------------------------
     def _train(self, stacked: Dict[str, torch.Tensor], lrs: List[float]) -> None:
+        lr_t = torch.tensor(lrs, dtype=torch.float32, device=self.state.w.device)
+        if self.hp.big_table:
+            # a host loop of R x T steps (the JAX solver scans the same
+            # step, solvers/base.py:245-251); hp.row_dma (use_pallas) sends
+            # their writes through the kernels K4 / K5
+            step = tile_sweep.train_step_sweep if self.hp.sweep_table else big_embed.train_step_big
+            T = stacked["label"].shape[0]
+            batches = [{name: x[t] for name, x in stacked.items()} for t in range(T)]
+            for lr in lr_t:
+                for batch in batches:
+                    self.state = step(self.state, batch, lr, self.consts, self.hp)
+            return
         reason = gate_failure(self.hp, self.state, stacked)
         if reason is not None:
             raise NotImplementedError(reason)
-        lr_t = torch.tensor(lrs, dtype=torch.float32, device=self.state.w.device)
         fn = train_rounds_kernel if self.use_pallas else train_rounds_reference
         self.state = fn(self.state, stacked, lr_t, self.consts, self.hp)
 
@@ -276,4 +346,4 @@ class SVDFeatureTrainer:
     def state_or_model(self) -> TrainState:
         if self.state is None:
             self.init_trainer()
-        return self.state
+        return self._std_state()

@@ -12,8 +12,8 @@ version on the device.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
 common_feedback_space=1 (item 7b), pairwise-rank sources (item 8),
-tables over 8192 rows (item 9), streaming buffers (item 11) and
-``mesh_*`` > 1 (item 12).
+tables over 8192 rows (big-table SVD++, item 9), streaming buffers
+(item 11) and ``mesh_*`` > 1 (item 12).
 """
 
 from __future__ import annotations
@@ -44,6 +44,10 @@ class PlusEntry:
 
 
 class SVDPPFeatureTrainer(SVDFeatureTrainer):
+    # big-table SVD++ (ops/svdpp_big.py) is the next slice: the state keeps
+    # the standard layout and the kernel gate names it for big tables
+    SUPPORTS_BIG_TABLE = False
+
     def __init__(self, mtype):
         super().__init__(mtype)
         self.users_per_batch = 128

@@ -1,0 +1,239 @@
+"""The big-table route's kernels K4 (ops/cuda_sweep.py), K5 and K6
+(ops/cuda_scatter.py): their plain versions against the JAX package on
+the CPU, and the CUDA kernels against their plain versions on the card.
+
+K5's counterpart in the JAX package on the CPU is
+``write_rows_unique(..., row_dma=False)`` (``.at[].set``) and K6's the row
+gather (``pallas_scatter`` uses TPU-only DMA primitives and has no
+interpret mode); both must agree bit for bit, repeated zero writes to the
+dummy row included.  K4's plain version is held to the JAX package's
+interpret-mode sweep in tests/test_torch_big_sweep.py.
+
+The ``cuda`` cases run on the card only: K5 / K6 bit for bit against
+``w[idx] = vals`` / ``index_select``, K4 within atol 1e-6 + rtol 1e-5 of
+its plain version (the kernel sums a row's entries in plan order, the
+plain version with ``index_add_``'s atomics, in another order) with the
+ref bits and the pad rows exact, and the two big-table steps with the
+kernels against the same steps with the plain versions, with exact
+launch counts.  This file imports jax lazily, so the card, which has no
+jax, still collects it.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from svdfeature_tpu_torch import convert
+from svdfeature_tpu_torch.ops import big_embed, cuda_scatter, cuda_sweep, tile_sweep
+from svdfeature_tpu_torch.ops.embed import HyperParams
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package, imported here and not at the top: a GPU host
+    without JAX still collects this file and runs the card cases."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from svdfeature_tpu.ops import big_embed as jbig
+
+    return SimpleNamespace(jnp=jnp, jbig=jbig)
+
+
+def row_inputs(n=257, W=8, E=120, dummy_share=0.2, seed=0):
+    """A table, E targets (unique apart from ~dummy_share on the dummy
+    row n-1, which receives zero rows) and their values."""
+    rng = np.random.RandomState(seed)
+    w = rng.normal(0, 1, (n, W)).astype(np.float32)
+    w[-1] = 0.0
+    idx = rng.permutation(n - 1)[:E].astype(np.int32)
+    idx[rng.rand(E) < dummy_share] = n - 1
+    vals = rng.normal(0, 1, (E, W)).astype(np.float32)
+    vals[idx == n - 1] = 0.0
+    return w, idx, vals
+
+
+def test_row_writer_plain_matches_jax(jx):
+    w, idx, vals = row_inputs()
+    assert (idx == w.shape[0] - 1).sum() > 5
+    want = jx.jbig.write_rows_unique(jx.jnp.asarray(w), jx.jnp.asarray(idx),
+                                     jx.jnp.asarray(vals), row_dma=False)
+    before = cuda_scatter.row_writer.launches
+    got = cuda_scatter.row_writer(torch.from_numpy(w.copy()), torch.from_numpy(idx),
+                                  torch.from_numpy(vals))
+    assert cuda_scatter.row_writer.launches == before  # CPU: the plain version
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[-1] == 0).all()
+
+
+def test_row_reader_plain_matches_jax(jx):
+    w, idx, _ = row_inputs(seed=1)
+    want = jx.jbig.gather_rows(jx.jnp.asarray(w), jx.jnp.asarray(idx))
+    before = cuda_scatter.row_reader.launches
+    got = cuda_scatter.row_reader(torch.from_numpy(w), torch.from_numpy(idx))
+    assert cuda_scatter.row_reader.launches == before
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(big_embed.gather_rows(torch.from_numpy(w),
+                                                        torch.from_numpy(idx)).numpy(),
+                                  np.asarray(want))
+
+
+def test_sweep_wrapper_is_plain_version_on_cpu():
+    """On CPU tensors K4's wrapper is its plain version and launches nothing."""
+    x = sweep_inputs(n=200, k=4, B=64, tile=16, e_cap=8, seed=3)
+    hp = x["hp"](reg_method=4)
+    a, b = x["w"].clone(), x["w"].clone()
+    before = cuda_sweep.sweep_update.launches
+    cuda_sweep.sweep_update(a, *x["args"], hp)
+    cuda_sweep.sweep_update_reference(b, *x["args"], hp)
+    assert cuda_sweep.sweep_update.launches == before
+    assert torch.equal(a, b) and not torch.equal(a, x["w"])
+
+
+def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU):
+    """K4's arguments for one batch on an n-row table (users [0, n/2),
+    items above, dummy n-1), padded to whole tiles: a random augmented
+    table with lazy refs, a payload [dw | db | cnt_u | cnt_i] of realistic
+    size, the pack-time plan and run starts."""
+    rng = np.random.RandomState(seed)
+    half = (n - 1) // 2
+    n_pad = -(-n // tile) * tile
+    st = dict(w=rng.normal(0, 0.05, (n, k)), b=rng.normal(0, 0.05, n), g=np.zeros(1),
+              step=0, ref_ui=rng.randint(0, 5000, n), ref_g=np.zeros(1))
+    st["w"][-1] = st["b"][-1] = st["ref_ui"][-1] = 0
+    aug = big_embed.augment_state(convert.state_from_numpy(**st, device=device), k,
+                                  pad_rows_to=tile).w
+    u = rng.randint(0, half, (B, Su))
+    i = half + rng.randint(0, half, (B, Si))
+    u[-3:] = i[-3:] = n - 1  # padding examples
+    ent = np.concatenate([u.ravel(), i.ravel()])
+    E = ent.size
+    cnt_u = (np.arange(E) < u.size).astype(np.float32)
+    payload = np.concatenate([rng.normal(0, 1e-3, (E, k + 1)), cnt_u[:, None],
+                              1 - cnt_u[:, None]], 1).astype(np.float32)
+    payload[ent == n - 1, : k + 1] = 0.0
+    plan = tile_sweep.attach_sweep_plans({"u_idx": u[None], "i_idx": i[None]}, n_pad, tile, e_cap)
+    plan = tile_sweep.attach_sweep_runs(plan, tile, e_cap)
+    plan = {key: torch.from_numpy(plan[key][0]).to(device) for key in tile_sweep.SWEEP_KEYS}
+    wd_u = np.zeros(n_pad, np.float32)
+    wd_i = np.zeros(n_pad, np.float32)
+    wd_u[:half] = 0.004
+    wd_i[half:n - 1] = 0.004
+    f32 = dict(dtype=torch.float32, device=device)
+    args = (plan, torch.from_numpy(payload).to(device), torch.tensor(wd_u, **f32),
+            torch.tensor(wd_i, **f32), torch.tensor([0.05, 0.002, 0.003, 0.0], **f32),
+            torch.tensor([6000], dtype=torch.int32, device=device))
+
+    def hp(**kw):
+        return HyperParams(big_table=True, num_factor=k, sweep_table=True, sweep_tile=tile,
+                           sweep_ecap=e_cap, **kw)
+
+    return dict(w=aug, args=args, hp=hp, n=n)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m pytest --noconftest -m cuda)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [68, 7])
+def test_row_kernels_match_plain_on_card(W):
+    """K5 and K6 bit for bit against their plain versions, 16-byte rows
+    (W=68, k=64's augmented width) and rows of another width (W=7)."""
+    dev = _card()
+    w, idx, vals = row_inputs(n=300_001, W=W, E=100_000, seed=4)
+    w, idx, vals = (torch.from_numpy(a).to(dev) for a in (w, idx, vals))
+    before = (cuda_scatter.row_writer.launches, cuda_scatter.row_reader.launches)
+    got = cuda_scatter.row_writer(w.clone(), idx, vals)
+    read = cuda_scatter.row_reader(w, idx)
+    torch.cuda.synchronize()
+    assert (cuda_scatter.row_writer.launches, cuda_scatter.row_reader.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, cuda_scatter.row_writer_reference(w.clone(), idx, vals))
+    assert torch.equal(read, cuda_scatter.row_reader_reference(w, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["r0", "r1", "r2", "r3", "r4", "r5", "nub-nonneg", "seg2"])
+def test_sweep_kernel_matches_plain_on_card(case):
+    """K4 against its plain version on a 40,960-row table (20 tiles of
+    2048, k=64), every reg mode, no_user_bias with the nonnegative clamps,
+    and 2-entry user segments."""
+    dev = _card()
+    x = sweep_inputs(n=40_960, k=64, B=16_384, tile=2048, e_cap=1024, seed=5,
+                     Su=2 if case == "seg2" else 1, device=dev)
+    if case == "nub-nonneg":
+        hp = x["hp"](reg_method=0, no_user_bias=1, user_nonnegative=1, item_nonnegative=1)
+    else:
+        hp = x["hp"](reg_method=int(case[1]) if case.startswith("r") else 4)
+    before = cuda_sweep.sweep_update.launches
+    got = cuda_sweep.sweep_update(x["w"].clone(), *x["args"], hp)
+    torch.cuda.synchronize()
+    assert cuda_sweep.sweep_update.launches == before + 1
+    want = cuda_sweep.sweep_update_reference(x["w"].clone(), *x["args"], hp)
+    k = hp.num_factor
+    torch.testing.assert_close(got[:, : k + 1], want[:, : k + 1], atol=1e-6, rtol=1e-5)
+    assert torch.equal(big_embed.ref_column(got, k), big_embed.ref_column(want, k))
+    # the dummy row's factors and bias stay 0 (in the lazy modes its ref is
+    # stamped, as the TPU kernel stamps it), the pad rows stay 0 entirely
+    n = x["n"]
+    assert (got[n - 1, : k + 1] == 0).all() and (got[n:] == 0).all()
+    assert not torch.equal(got, x["w"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", [False, True])
+def test_big_steps_with_kernels_match_plain_on_card(sweep):
+    """Two train steps through K5 (sorted dedup) or K4 (sweep) against the
+    same steps through the plain versions (use_pallas=0), one launch per
+    step; de-augmented states within atol 1e-6 + rtol 1e-5."""
+    dev = _card()
+    n, k, B, tile, e_cap = 50_001, 64, 8192, 2048, 1024
+    rng = np.random.RandomState(6)
+    st = dict(w=rng.normal(0, 0.01, (n, k)), b=np.zeros(n), g=np.zeros(1), step=0,
+              ref_ui=np.zeros(n), ref_g=np.zeros(1))
+    st["w"][-1] = 0
+    half = (n - 1) // 2
+    wd = np.zeros(n, np.float32)
+    wd[:-1] = 0.004
+    stacked = dict(
+        label=rng.randint(1, 6, (2, B)).astype(np.float32), weight=np.ones((2, B), np.float32),
+        g_idx=np.zeros((2, B, 1), np.int32), g_val=np.zeros((2, B, 1), np.float32),
+        u_idx=rng.randint(0, half, (2, B, 1)).astype(np.int32), u_val=np.ones((2, B, 1)),
+        i_idx=(half + rng.randint(0, half, (2, B, 1))).astype(np.int32), i_val=np.ones((2, B, 1)),
+    )
+    n_pad = -(-n // tile) * tile if sweep else n
+    if sweep:
+        stacked = tile_sweep.attach_sweep_runs(
+            tile_sweep.attach_sweep_plans(stacked, n_pad, tile, e_cap), tile, e_cap)
+        wd = np.pad(wd, (0, n_pad - n))
+    stacked = convert.stacked_from_numpy(stacked, dev)
+    consts = convert.consts_from_numpy(wd, wd, np.zeros(1), 0.001, 0.002, device=dev)
+    step = tile_sweep.train_step_sweep if sweep else big_embed.train_step_big
+    out = []
+    for row_dma in (True, False):
+        hp = HyperParams(big_table=True, num_factor=k, sweep_table=sweep, row_dma=row_dma,
+                         base_score=3.0, reg_method=4)
+        state = big_embed.augment_state(convert.state_from_numpy(**st, device=dev), k,
+                                        pad_rows_to=tile if sweep else 0)
+        counter = cuda_sweep.sweep_update if sweep else cuda_scatter.row_writer
+        before = counter.launches
+        for t in range(2):
+            state = step(state, {p: x[t] for p, x in stacked.items()},
+                         torch.tensor(0.005, device=dev), consts, hp)
+        torch.cuda.synchronize()
+        assert counter.launches - before == (2 if row_dma else 0)
+        out.append(big_embed.deaugment_state(state, k, n_rows=n))
+    got, want = out
+    for name in ("w", "b"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), atol=1e-6, rtol=1e-5)
+    assert torch.equal(got.ref_ui, want.ref_ui) and int(got.step) == int(want.step) == 2 * B
+    assert not torch.equal(got.w, torch.from_numpy(st["w"]).float().to(dev))

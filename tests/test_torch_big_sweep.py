@@ -1,0 +1,160 @@
+"""The port's tile-sweep step (ops/tile_sweep.py, plain K4) against the JAX
+package's ``train_step_sweep``, whose Pallas kernel runs in interpret mode
+on the CPU as tests/test_tile_sweep.py runs it (TILE=16, ECAP=8).
+
+Same numpy inputs (tests/test_big_embed.py patterns), two chained steps
+on each side, each with its own pack-time plan; compared de-augmented:
+w / b / g within atol 1e-6 (the TPU kernel sums a tile's entries with an
+f32 one-hot matmul, the plain version with ``index_add_``; measured up to
+1.2e-7), refs and the counter exactly, pad rows exactly 0.  The copied
+plan functions give arrays identical to the JAX package's.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from svdfeature_tpu.ops import big_embed as jbig
+from svdfeature_tpu.ops import embed as jembed
+from svdfeature_tpu.ops import tile_sweep as jsw
+from svdfeature_tpu_torch import convert
+from svdfeature_tpu_torch.ops import big_embed as tbig
+from svdfeature_tpu_torch.ops import tile_sweep as tsw
+
+from test_torch_big_embed import CPU, K, assert_same, big_hp, two_batches
+
+TILE = 16
+ECAP = 8
+
+
+def plan_for(batch, n_pad, module):
+    stacked = {key: np.asarray(v)[None] for key, v in batch.items()}
+    return module.attach_sweep_plans(stacked, n_pad, TILE, ECAP)
+
+
+def sweep_both(st, batches, cs, hp, lr=0.05):
+    """Both packages' sweep steps over the batches -> de-augmented numpy
+    states (JAX, port) and the port's padded table."""
+    n = st["w"].shape[0]
+    n_pad = -(-n // TILE) * TILE
+    hp = dataclasses.replace(hp, sweep_table=True, sweep_tile=TILE, sweep_ecap=ECAP)
+    cs_p = dict(cs, wd_u_row=np.pad(cs["wd_u_row"], (0, n_pad - n)),
+                wd_i_row=np.pad(cs["wd_i_row"], (0, n_pad - n)))
+    js = jbig.augment_state(jembed.TrainState(**{k: jnp.asarray(v) for k, v in st.items()}), K,
+                            pad_rows_to=TILE)
+    jconsts = jembed.TrainConsts(**{k: jnp.asarray(v) for k, v in cs_p.items()})
+    jhp = jembed.HyperParams(**dataclasses.asdict(hp))
+    ts = tbig.augment_state(convert.state_from_numpy(**st, device=CPU), K, pad_rows_to=TILE)
+    tconsts = convert.consts_from_numpy(**cs_p, device=CPU)
+    for batch in batches:
+        planned = plan_for(batch, n_pad, jsw)
+        jb = {k: jnp.asarray(v[0]) for k, v in planned.items()}
+        js = jsw.train_step_sweep(js, jb, jnp.float32(lr), jconsts, jhp)
+        planned = tsw.attach_sweep_runs(plan_for(batch, n_pad, tsw), TILE, ECAP)
+        tb = convert.stacked_from_numpy({k: v[0] for k, v in planned.items()}, CPU)
+        ts = tsw.train_step_sweep(ts, tb, torch.tensor(lr), tconsts, hp)
+    jo = jbig.deaugment_state(js, K, n_rows=n)
+    to = tbig.deaugment_state(ts, K, n_rows=n)
+    return ({k: np.asarray(getattr(jo, k)) for k in ("w", "b", "g", "step", "ref_ui", "ref_g")},
+            {k: getattr(to, k).numpy() for k in ("w", "b", "g", "step", "ref_ui", "ref_g")},
+            ts.w.numpy())
+
+
+def check(st, batches, cs, hp):
+    want, got, table = sweep_both(st, batches, cs, hp)
+    assert_same(got, want)
+    n = st["w"].shape[0]
+    assert (table[n:] == 0).all(), "pad rows must stay untouched"
+    assert not np.allclose(got["w"], st["w"])  # it trained
+    return got
+
+
+@pytest.mark.parametrize("reg", [0, 1, 2, 3, 4, 5])
+def test_sweep_matches_jax_two_steps(reg):
+    st, batches, cs = two_batches(reg + 21)
+    check(st, batches, cs, big_hp(reg_method=reg))
+
+
+def test_sweep_no_user_bias_nonneg_matches_jax():
+    st, batches, cs = two_batches(31)
+    check(st, batches, cs, big_hp(no_user_bias=1, user_nonnegative=1, item_nonnegative=1))
+
+
+@pytest.mark.parametrize("reg", [0, 4])
+def test_sweep_heavy_duplicates_match_jax(reg):
+    """Row collisions far beyond e_cap force multi-cell tile runs and runs
+    of one row across cells."""
+    st, batches, cs = two_batches(33, B=64, Su=2, Si=2)
+    rng = np.random.RandomState(7)
+    for b in batches:
+        b["u_idx"] = rng.randint(0, 3, (64, 2)).astype(np.int32)
+        b["i_idx"] = rng.randint(20, 24, (64, 2)).astype(np.int32)
+    check(st, batches, cs, big_hp(reg_method=reg))
+
+
+@pytest.mark.parametrize("reg", [0, 4])
+def test_sweep_padding_entries_match_jax(reg):
+    st, batches, cs = two_batches(35)
+    n, ng = st["w"].shape[0], st["g"].shape[0]
+    for b in batches:
+        b["weight"][-4:] = 0.0
+        b["u_idx"][-4:] = n - 1
+        b["i_idx"][-4:] = n - 1
+        b["g_idx"][-4:] = ng - 1
+    got = check(st, batches, cs, big_hp(reg_method=reg))
+    assert (got["w"][n - 1] == 0).all() and got["b"][n - 1] == 0
+
+
+def _plan_inputs(seed, T=3, B=40, Su=2, Si=1, n=90):
+    rng = np.random.RandomState(seed)
+    u = rng.randint(0, 12, (T, B, Su)).astype(np.int32)
+    i = rng.randint(12, n - 1, (T, B, Si)).astype(np.int32)
+    u[:, -3:] = n - 1  # padding examples on the dummy row
+    i[:, -3:] = n - 1
+    i[1] = rng.randint(40, 44, (B, Si))  # a dense batch: long runs
+    return {"u_idx": u, "i_idx": i, "label": np.ones((T, B), np.float32)}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plan_functions_identical_to_jax(seed):
+    batches = _plan_inputs(seed)
+    n_pad = 96
+    ent = np.concatenate([batches["u_idx"][0].ravel(), batches["i_idx"][0].ravel()])
+    jp = jsw.make_sweep_plan(ent, n_pad, TILE, ECAP)
+    tp = tsw.make_sweep_plan(ent, n_pad, TILE, ECAP)
+    ja = jsw.attach_sweep_plans(batches, n_pad, TILE, ECAP)
+    ta = tsw.attach_sweep_plans(batches, n_pad, TILE, ECAP)
+    for key in ("sw_tids", "sw_lids", "sw_src"):
+        assert tp[key].dtype == jp[key].dtype
+        np.testing.assert_array_equal(tp[key], jp[key])
+        assert ta[key].dtype == ja[key].dtype
+        np.testing.assert_array_equal(ta[key], ja[key])
+    assert (tsw.SWEEP_TILE, tsw.SWEEP_ECAP) == (jsw.SWEEP_TILE, jsw.SWEEP_ECAP)
+
+
+def test_sweep_runs_partition_the_plan():
+    """Each touched row's entries form exactly one run: the run starts
+    cover every real plan slot once, a run holds one row, and padded run
+    lists end in empty runs at the sentinel."""
+    batches = _plan_inputs(2)
+    planned = tsw.attach_sweep_runs(tsw.attach_sweep_plans(batches, 96, TILE, ECAP), TILE, ECAP)
+    T, L = planned["sw_lids"].shape
+    for t in range(T):
+        tids, lids, src = (planned[k][t] for k in ("sw_tids", "sw_lids", "sw_src"))
+        runs = planned["sw_runs"][t]
+        assert runs[-1] == L and (np.diff(runs) >= 0).all()
+        rows = np.repeat(tids.astype(np.int64), ECAP) * TILE + lids
+        seen = []
+        for p0, p1 in zip(runs[:-1], runs[1:]):
+            if p0 == p1:
+                continue
+            real = lids[p0:p1] >= 0
+            assert real[0] and len(set(rows[p0:p1][real])) == 1
+            assert (src[p0:p1][~real] == batches["u_idx"][t].size + batches["i_idx"][t].size).all()
+            seen.append(rows[p0])
+        ent = np.concatenate([batches["u_idx"][t].ravel(), batches["i_idx"][t].ravel()])
+        assert sorted(seen) == sorted(set(ent.tolist()))
