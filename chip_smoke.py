@@ -32,7 +32,9 @@ result line):
      once more with use_pallas=0;
   6. the big-table kernels against their plain versions at bigTable
      shapes (2,048,577 rows, k=64): K5 and K6 on 2^21 rows (~20% on the
-     dummy row) bit for bit, with the library call's time; K4 on the plan
+     dummy row) bit for bit, with the library call's time, and K5 once more
+     at the E=8192 rows of one batch-4096 step (bigTable (c)'s calls, whose
+     time the kernel line reports); K4 on the plan
      of one B=2^20 batch of bigTable's data (reg_method 0 and 4) and on a
      40,960-row table (reg_method 0-5, no_user_bias with the nonnegative
      clamps), with times and a profile;
@@ -42,7 +44,21 @@ result line):
      sorted dedup (K5), (d) batch 2^20 with big_sweep=0 (K5); exact launch
      counts, the probe RMSE falls and lies within 1e-4 of the JAX
      package's CPU figure (scripts/bigtable_jax_reference.py), (a) and (b)
-     agree, examples/s beside the reference C++ baseline, peak memory.
+     agree, examples/s beside the reference C++ baseline, peak memory;
+  8. the stacked multi-IMFB kernel K3 (csrc/fused_imfb.cu with K2's flush,
+     gather and apply) against its plain version, R=2: at the slice's
+     shapes (the depth-2 ML-100K set, 128 units x 8 rows, T=449, D=2,
+     nseg=129) and on synthetic stacked sets with no_user_bias=1 and
+     ufeedback_disable_level=1 at rows_per_user 1 and 2, with both times,
+     the bound and a profile;
+  9. the stacked slice: the depth-2 transform of the implicitFeedback train
+     set (write_plus_buffer) and the stock test buffer (make_ugroup_buffer
+     -fd), SVDTrainTask (extend_type=2 rows_per_user=8, 8 rounds,
+     device=cuda) and SVDInferTask, once through K3 and once with
+     use_pallas=0; the round-8 test RMSE must lie within 1e-4 of the JAX
+     package's CPU figure (scripts/imfb_jax_reference.py) and within 0.008
+     of the reference binary's (golden/multi_imfb_stacked.rmse.tsv), the
+     two runs within 1e-5 of each other, with exact launch counts.
 Each phase prints its time.  Then one JSON line describing the kernels (with each one's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 the H100 SXM's published rates at 700 W) and, last, one JSON line naming
@@ -121,6 +137,64 @@ def write_bigtable(csr_dataset, write_csr_buffer, d, arrays):
                     + f'buffer_feature = "{d}/train.buffer"\n'
                     + f'test:buffer_feature = "{d}/test.buffer"\nsilent = 1\n')
     return conf, ds
+
+
+# phases 8 and 9: the stacked multi-IMFB slice (bench.py:626-659): the
+# implicitFeedback conf with extend_type=2, file order, rows_per_user=8
+IMFB_ROUNDS = 8
+# test RMSE after IMFB_ROUNDS rounds, the JAX package on the CPU, same data
+# and conf (scripts/imfb_jax_reference.py --rows-per-user 8)
+JAX_IMFB_RMSE = 0.952257
+IMFB_JAX_TOL = 1e-4
+IMFB_GOLDEN_TOL = 0.008  # bench.py:703, against golden/multi_imfb_stacked.rmse.tsv
+IMFB_AB_TOL = 1e-5  # K3 against its plain version end to end
+
+
+def stack_depth2(ds, csr):
+    """The depth-2 transform of the stacked golden (bench.py:626-654), built
+    with ``csr``'s PlusBlock / PlusDataset: per block of two rows or more,
+    START (its feedback, the first half of its rows) keeps the user context
+    open, a DEFAULT sub-block (half its feedback, the rest) trains under
+    both, END (the START list, no rows) pops; smaller blocks stay as they
+    are."""
+    blocks = []
+    for blk in ds.blocks():
+        n = blk.data.num_row
+        if n >= 2:
+            h = n // 2
+            half = max(1, len(blk.fb_index) // 2)
+            blocks += [
+                csr.PlusBlock(blk.fb_index, blk.fb_value, blk.data.slice_rows(0, h),
+                              extend_tag=csr.TAG_START),
+                csr.PlusBlock(blk.fb_index[:half], blk.fb_value[:half],
+                              blk.data.slice_rows(h, n - h)),
+                csr.PlusBlock(blk.fb_index, blk.fb_value, blk.data.slice_rows(n, 0),
+                              extend_tag=csr.TAG_END),
+            ]
+        else:
+            blocks.append(blk)
+    return csr.PlusDataset.from_blocks(blocks)
+
+
+def fixture_text(name):
+    with gzip.open(ROOT / "tests" / "fixtures" / name, "rt") as f:
+        return f.read()
+
+
+def write_imfb(d, load_plus_text, csr, write_plus_buffer, make_ugroup_main):
+    """Write the stacked slice's buffers into directory ``d`` with a
+    package's own parser, classes and writers: the depth-2 transform of the
+    implicitFeedback train set as train.buffer, the stock test set as
+    test.buffer (make_ugroup_buffer -fd, as the reference's infer reads
+    it); returns the train dataset."""
+    ds = stack_depth2(load_plus_text("x", "y", text=fixture_text("ml100k.base.group.feature.gz"),
+                                     feedback_text=fixture_text("ml100k.base.feedback.gz")), csr)
+    write_plus_buffer(str(d / "train.buffer"), ds)
+    for src, dst in (("ml100k.test.ug.feature.gz", "test.feature"),
+                     ("ml100k.test.feedback.gz", "test.feedback")):
+        (d / dst).write_text(fixture_text(src))
+    make_ugroup_main([str(d / "test.feature"), str(d / "test.buffer"), "-fd", str(d / "test.feedback")])
+    return ds
 
 
 def card_line() -> str:
@@ -336,12 +410,14 @@ def device_profile(torch, run, steps, top=4):
 # ---- phases 3 and 5: the slices ----------------------------------------------
 def kernel_wrappers():
     from svdfeature_tpu_torch.ops.cuda_embed import train_rounds_kernel
+    from svdfeature_tpu_torch.ops.cuda_imfb import train_rounds_imfb_kernel
     from svdfeature_tpu_torch.ops.cuda_scatter import row_reader, row_writer
     from svdfeature_tpu_torch.ops.cuda_svdpp import train_rounds_svdpp_kernel
     from svdfeature_tpu_torch.ops.cuda_sweep import sweep_update
 
     return {"K1": train_rounds_kernel, "K2": train_rounds_svdpp_kernel,
-            "K4": sweep_update, "K5": row_writer, "K6": row_reader}
+            "K3": train_rounds_imfb_kernel, "K4": sweep_update, "K5": row_writer,
+            "K6": row_reader}
 
 
 def run_demo(name, d, tag, extra):
@@ -735,8 +811,31 @@ def phase_big_kernels(torch, dev, big, failures):
     print(f"phase 6 profile: K5 row_writer then its plain version "
           f"{device_profile(torch, lambda: (cuda_scatter.row_writer(work, idx, vals), cuda_scatter.row_writer_reference(work, idx, vals)), 1, top=3)}",
           flush=True)
-    del work, tbl, idx, vals, idx_long
-    out["K5"] = dict(t5, err=0.0)
+    # K5 at the shape of bigTable (c)'s calls, 1,536 of its launches on the
+    # main path: one batch-4096 dedup step writes E = 8192 rows (its u and i
+    # entries in sorted order, each run's last entry to its row, the rest
+    # as zeros to the dummy row; big_embed.apply_entries)
+    ent = np.sort(np.concatenate([big["index"][0:2 * 4096:2].astype(np.int64),
+                                  BIG_NU + big["index"][1:2 * 4096:2].astype(np.int64)]))
+    last = np.append(ent[1:] != ent[:-1], True)
+    Ec, Uc = ent.size, int(last.sum()) + 1  # distinct rows written, the dummy included
+    idx_c = torch.from_numpy(np.where(last, ent, n - 1).astype(np.int32)).to(dev)
+    vals_c = torch.from_numpy(np.where(last[:, None], vals_np[:Ec], 0.0).astype(np.float32)).to(dev)
+    idx_c_long = idx_c.long()
+    ok5c = torch.equal(cuda_scatter.row_writer(tbl.clone(), idx_c, vals_c),
+                       cuda_scatter.row_writer_reference(tbl.clone(), idx_c, vals_c))
+    t5c = timed(torch, {"plain": lambda: cuda_scatter.row_writer_reference(work, idx_c, vals_c),
+                        "kernel": lambda: cuda_scatter.row_writer(work, idx_c, vals_c),
+                        "library": lambda: work.index_copy_(0, idx_c_long, vals_c)}, inner=50)
+    t5c["bound"], t5c["bound_by"] = bound(4 * (Ec + Ec * W + Uc * W), 0, 1)
+    if not ok5c:
+        failures.append("K5 vs plain at E=8192")
+    print(f"phase 6 {'ok' if ok5c else 'FAIL'}: K5 at bigTable (c)'s call shape E={Ec} rows "
+          f"({Uc} distinct targets) bit for bit against its plain version; ms per call kernel "
+          f"{t5c['kernel']:.4f} plain {t5c['plain']:.4f} library {t5c['library']:.4f} bound "
+          f"{t5c['bound']:.6f} ({t5c['bound_by']})", flush=True)
+    del work, tbl, idx, vals, idx_long, idx_c, vals_c, idx_c_long
+    out["K5"] = dict(t5c, err=0.0)
     out["K6"] = dict(t6, err=0.0)
 
     # K4: one B=2^20 batch of bigTable's data (users [0, NU), items above)
@@ -928,6 +1027,258 @@ def phase_bigtable(work, big, card, failures):
             "K6": sum(r["launches"]["K6"] for r in results.values())}
 
 
+# ---- phase 8: K3 vs plain ----------------------------------------------------
+def imfb_synth_text(seed, n_users=943):
+    """(rows, feedback) text of a synthetic user-group set on the ML-100K
+    layout: 1-12 rows per user on random items, 2-30 feedback ids each."""
+    rng = np.random.RandomState(seed)
+    rows, fbs = [], []
+    for u in range(n_users):
+        r = rng.randint(1, 13)
+        for _ in range(r):
+            rows.append(f"{rng.randint(1, 6)} 0 1 1 {u}:1 {rng.randint(0, 1682)}:1")
+        nf = rng.randint(2, 31)
+        ids = rng.choice(1682, size=nf, replace=False)
+        fbs.append(f"{r} {nf} " + " ".join(f"{j}:{1.0 / np.sqrt(nf):.4f}" for j in ids))
+    return "\n".join(rows) + "\n", "\n".join(fbs) + "\n"
+
+
+def imfb_inputs(rows_per_user, seed, synthetic, levels=()):
+    """numpy inputs of one K3 case on the implicitFeedback layout (feedback
+    rows [0, 1682), users [1682, 2625), items [2625, 4307), dummy 4307;
+    k=64): the depth-2 transform of the ML-100K train set, or of a
+    synthetic set, packed by the port's pack_imfb with 128 units per step,
+    its context overlaps and the update gate with depths ``levels``
+    disabled."""
+    from svdfeature_tpu_torch.data import csr
+    from svdfeature_tpu_torch.data.batching_imfb import pack_imfb
+    from svdfeature_tpu_torch.data.batching_plus import compute_fb_overlap
+    from svdfeature_tpu_torch.data.text import load_plus_text
+    from svdfeature_tpu_torch.params import SVDTypeParam
+    from svdfeature_tpu_torch.solvers.multi_imfb import SVDPPMultiIMFBTrainer
+
+    if synthetic:
+        rows, fbs = imfb_synth_text(seed)
+    else:
+        rows, fbs = (fixture_text("ml100k.base.group.feature.gz"),
+                     fixture_text("ml100k.base.feedback.gz"))
+    ds = stack_depth2(load_plus_text("x", "y", text=rows, feedback_text=fbs), csr)
+    packed = pack_imfb(ds, 128, 4307, 0, 1682, 2625, 0, num_user=943, num_item=1682,
+                       num_ufeedback=1682, rows_per_user=rows_per_user)
+    trainer = SVDPPMultiIMFBTrainer(SVDTypeParam(format_type=1, extend_type=2))
+    trainer.disable_levels = set(levels)
+    rng = np.random.RandomState(seed)
+    N, k = 4308, 64
+    w = rng.normal(0, 0.01, (N, k)).astype(np.float32)
+    b = rng.normal(0, 0.01, (N,)).astype(np.float32)
+    w[-1] = 0.0
+    b[-1] = 0.0
+    wd_u = np.zeros(N, np.float32)
+    wd_i = np.zeros(N, np.float32)
+    wd_u[1682:2625] = 0.004
+    wd_i[2625:N - 1] = 0.004
+    stacked = packed.device_arrays()
+    chunk_id = stacked.pop("chunk_id")
+    return dict(
+        st=dict(w=w, b=b, g=np.zeros(1, np.float32), step=np.int32(0),
+                ref_ui=np.zeros(N, np.int32), ref_g=np.zeros(1, np.int32)),
+        cs=dict(wd_u_row=wd_u, wd_i_row=wd_i, wd_g_row=np.zeros(1, np.float32),
+                wd_user_bias=np.float32(0.002), wd_item_bias=np.float32(0.002)),
+        stacked=stacked, chunk_id=chunk_id, fb=packed.fb_arrays(),
+        overlap=compute_fb_overlap(packed.fb_idx, packed.fb_val, packed.fb_ctx,
+                                   packed.ctx_depth.shape[1]),
+        enabled=trainer._imfb_enabled(packed.ctx_depth),
+        lrs=np.array([0.005, 0.0045], np.float32), RM=rows_per_user)
+
+
+def imfb_bound(x):
+    """K3's bound for one R-round call: each input read once (the live pool
+    entries only), each output written once; operations counted from this
+    run's data: per live slot (9 + 2D) k (K2's slot work with one item
+    entry, plus reading and adding into its D contexts), per step
+    2 nnz(O[c]) (k+1) for O @ delta over the chunk's nonzero overlaps of
+    non-pad contexts plus 6 (k+1) per context, per touched row 2k, and per
+    chunk start 4 (k+2) per live pool entry (gather and flush)."""
+    st, stacked, fb = x["st"], x["stacked"], x["fb"]
+    R = len(x["lrs"])
+    N, k = st["w"].shape
+    T, GS = stacked["label"].shape
+    D = stacked["ctx_slots"].shape[-1]
+    G = x["enabled"].shape[1] - 1  # non-pad contexts
+    cid = x["chunk_id"]
+    live = stacked["weight"] > 0
+    nnz = [np.count_nonzero(x["overlap"][c, :G, :G]) for c in range(x["overlap"].shape[0])]
+    pool_live = (fb["fb_ctx"] < G).sum(axis=1)
+    starts = np.concatenate([[True], cid[1:] != cid[:-1]])
+    rows = touched_rows(np.where(live[..., None], stacked["u_idx"], -1),
+                        np.where(live[..., None], stacked["i_idx"], -1))
+    flops = R * (int(live.sum()) * (9 + 2 * D) * k
+                 + sum(2 * nnz[c] * (k + 1) + 6 * G * (k + 1) for c in cid)
+                 + rows * 2 * k
+                 + int(pool_live[cid[starts]].sum()) * 4 * (k + 2))
+    moved = 4 * (2 * N * (k + 1) + T * GS * (6 + D) + 3 * int(pool_live.sum())
+                 + x["overlap"].size + x["enabled"].size + 2 * N + 3 * R)
+    return bound(moved, flops, R * T)
+
+
+def phase_imfb_kernel(torch, dev, failures):
+    from svdfeature_tpu_torch import convert
+    from svdfeature_tpu_torch.ops.cuda_imfb import (
+        launches_per_call, train_rounds_imfb_kernel, train_rounds_imfb_reference,
+    )
+    from svdfeature_tpu_torch.ops.embed import HyperParams
+    from svdfeature_tpu_torch.ops.svdpp import PlusHyper
+
+    def device_inputs(x):
+        fb, overlap = convert.pool_from_numpy(x["fb"], x["overlap"], dev)
+        return (convert.state_from_numpy(**x["st"], device=dev),
+                convert.stacked_from_numpy(x["stacked"], dev), x["chunk_id"], fb, overlap,
+                convert.gate_from_numpy(x["enabled"], dev), torch.tensor(x["lrs"], device=dev),
+                convert.consts_from_numpy(**x["cs"], device=dev))
+
+    def hyper(x, nub):
+        return (HyperParams(no_user_bias=nub, base_score=3.0),
+                PlusHyper(rows_per_user=x["RM"], off_user=1682, wd_ufeedback=0.004,
+                          wd_ufeedback_bias=0.002))
+
+    max_err = 0.0
+    cases = (  # (setting, synthetic, rows_per_user, no_user_bias, disabled depths)
+        ("slice", False, 8, 0, ()),
+        ("synthetic", True, 1, 1, (1,)),
+        ("synthetic", True, 2, 1, (1,)),
+    )
+    for setting, synthetic, RM, nub, levels in cases:
+        x = imfb_inputs(RM, 30 + RM, synthetic, levels)
+        hp, ph = hyper(x, nub)
+        before = train_rounds_imfb_kernel.launches
+        got = train_rounds_imfb_kernel(*device_inputs(x), hp, ph)
+        torch.cuda.synchronize()
+        launched = train_rounds_imfb_kernel.launches - before
+        want = train_rounds_imfb_reference(*device_inputs(x), hp, ph)
+        errs, ok = {}, launched == launches_per_call(x["chunk_id"], len(x["lrs"]))
+        for name in ("w", "b"):
+            a, b = getattr(got, name), getattr(want, name)
+            errs[name] = float((a - b).abs().max())
+            ok &= bool(torch.isfinite(a).all()) and bool(((a - b).abs() <= ATOL + RTOL * b.abs()).all())
+        ok &= int(got.step) == int(want.step)
+        ok &= bool((got.w[:1682] != torch.from_numpy(x["st"]["w"][:1682]).to(dev)).any())
+        max_err = max(max_err, *errs.values())
+        if not ok:
+            failures.append(f"imfb kernel vs plain {setting} RM={RM} nub={nub}")
+        T, GS = x["stacked"]["label"].shape
+        print(f"phase 8 {'ok' if ok else 'FAIL'}: {setting} (T={T}, GS={GS}, RM={RM}, "
+              f"D={x['stacked']['ctx_slots'].shape[-1]}, nseg={x['enabled'].shape[1]}, "
+              f"C={x['fb']['fb_idx'].shape[0]}, F={x['fb']['fb_idx'].shape[1]}) "
+              f"no_user_bias={nub} disabled depths={list(levels)} max|dw|={errs['w']:.3e} "
+              f"max|db|={errs['b']:.3e} (atol {ATOL:g} + rtol {RTOL:g}) launches {launched}",
+              flush=True)
+
+    # times at the slice's shapes: CUDA events around whole R=2 runs, after
+    # a warm-up, in turns
+    x = imfb_inputs(8, 38, False)
+    hp, ph = hyper(x, 0)
+    T = x["stacked"]["label"].shape[0]
+    R = len(x["lrs"])
+    fns = {"plain": train_rounds_imfb_reference, "kernel": train_rounds_imfb_kernel}
+    samples = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel"):
+        fns[name](*device_inputs(x), hp, ph)
+    for name in ("plain", "kernel", "kernel", "plain") * 3:
+        inputs = device_inputs(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fns[name](*inputs, hp, ph)
+        end.record()
+        torch.cuda.synchronize()
+        samples[name].append(start.elapsed_time(end) / (R * T))
+    timing = {n: float(np.median(v)) for n, v in samples.items()}
+    timing["bound"], timing["bound_by"] = imfb_bound(x)
+    print(f"phase 8 time: slice ms per step (GS=1024, nseg={x['enabled'].shape[1]}, median of 6 "
+          f"R={R} runs): kernel {timing['kernel']:.4f} plain {timing['plain']:.4f} "
+          f"bound {timing['bound']:.6f} ({timing['bound_by']}); library call: none (no "
+          f"PyTorch call computes a stacked step)", flush=True)
+    for name in ("kernel", "plain"):
+        inputs = device_inputs(x)
+        print(f"phase 8 profile: slice path={name} "
+              f"{device_profile(torch, lambda: fns[name](*inputs, hp, ph), R * T)}", flush=True)
+    return max_err, timing
+
+
+# ---- phase 9: the stacked slice ------------------------------------------------
+def phase_imfb_slice(work, card, failures):
+    """The stacked multi-IMFB slice through SVDTrainTask / SVDInferTask,
+    once through K3 and once with use_pallas=0 (the plain version)."""
+    import torch
+
+    from svdfeature_tpu_torch.cli import make_ugroup_buffer
+    from svdfeature_tpu_torch.data import csr
+    from svdfeature_tpu_torch.data.buffer import write_plus_buffer
+    from svdfeature_tpu_torch.data.text import load_plus_text
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+    from svdfeature_tpu_torch.ops.cuda_imfb import launches_per_call
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    d = work / "multiIMFBStacked"
+    d.mkdir()
+    write_imfb(d, load_plus_text, csr, write_plus_buffer, make_ugroup_buffer.main)
+    conf = str(ROOT / "demo" / "implicitFeedback" / "implicitFeedback.conf")
+    golden = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["multiIMFBStacked"]
+    ref_rmse = float((ROOT / "golden" / "multi_imfb_stacked.rmse.tsv").read_text().split()[-1])
+    results = {}
+    for path, extra in (("kernel", []), ("plain", ["use_pallas=0"])):
+        common = [f"buffer_feature={d}/train.buffer", f"test:buffer_feature={d}/test.buffer",
+                  f"model_out_folder={d}/models_{path}", "device=cuda", "silent=1",
+                  "extend_type=2", "rows_per_user=8", *extra]
+        wrappers = kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        task = SVDTrainTask()
+        task.run(conf, common + [f"num_round={IMFB_ROUNDS}"])
+        launches = {kid: fn.launches for kid, fn in wrappers.items()}
+        tr = task.trainer
+        entry = tr._pack_plus(task.dataset)
+        cid = entry.chunk_id
+        # where a round's time goes: one more round under the profiler,
+        # after the counts are read and the checkpoints written
+        profile_line = device_profile(torch, lambda: tr.update_all(task.dataset), len(cid), top=5)
+        log = d / f"rmse_{path}.tsv"
+        SVDInferTask().run(conf, common + [f"start={IMFB_ROUNDS}", f"end={IMFB_ROUNDS + 1}",
+                                           f"log_eval={log}"])
+        rmse = float(log.read_text().split()[-1])
+        rows = task.dataset_rows()
+        secs = task.round_seconds
+        eps = rows * (len(secs) - 1) / sum(secs[1:])
+        want = {kid: 0 for kid in launches}
+        if path == "kernel":
+            want["K3"] = IMFB_ROUNDS * launches_per_call(cid, 1)
+        ok = (launches == want and math.isfinite(rmse) and abs(rmse - JAX_IMFB_RMSE) < IMFB_JAX_TOL
+              and abs(rmse - ref_rmse) < IMFB_GOLDEN_TOL and type(tr).__name__ == "SVDPPMultiIMFBTrainer")
+        if not ok:
+            failures.append(f"stacked slice ({path})")
+        results[path] = dict(rmse=rmse, launches=launches)
+        starts = int(np.count_nonzero(np.concatenate([[True], cid[1:] != cid[:-1]])))
+        print(f"phase 9 {'ok' if ok else 'FAIL'}: multiIMFBStacked path={path} test RMSE after "
+              f"{IMFB_ROUNDS} rounds {rmse:.6f} (minus JAX CPU {rmse - JAX_IMFB_RMSE:+.6f}, tol "
+              f"{IMFB_JAX_TOL:g}; minus reference binary {rmse - ref_rmse:+.6f}, tol "
+              f"{IMFB_GOLDEN_TOL:g}) launches {launches} (want {want}: "
+              f"{IMFB_ROUNDS}*(3T + 2*chunk starts), T={len(cid)}, chunk starts={starts}) "
+              f"training {eps:,.0f} examples/s rounds 2-{IMFB_ROUNDS} (reference C++ "
+              f"{golden['examples_per_sec_cpu']:,}/s), round seconds "
+              f"{[round(x, 3) for x in secs]} on {card}", flush=True)
+        print(f"phase 9 profile: multiIMFBStacked path={path} one more round: {profile_line}",
+              flush=True)
+        shutil.rmtree(d / f"models_{path}")
+        del task, tr, entry
+    diff = abs(results["kernel"]["rmse"] - results["plain"]["rmse"])
+    if diff >= IMFB_AB_TOL:
+        failures.append("stacked slice kernel vs plain")
+    print(f"phase 9 {'ok' if diff < IMFB_AB_TOL else 'FAIL'}: K3 against its plain version end "
+          f"to end: |d RMSE| {diff:.2e} (tol {IMFB_AB_TOL:g})", flush=True)
+    return results["kernel"]["launches"]["K3"]
+
+
 def kernel_line(name, source, replaces, launches, max_err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": timing["kernel"],
@@ -983,6 +1334,10 @@ def main() -> int:
         phase_time("phase 6")
         big_launches = phase_bigtable(pathlib.Path(work), big, card, failures)
         phase_time("phase 7")
+        k3_err, k3_timing = phase_imfb_kernel(torch, dev, failures)
+        phase_time("phase 8")
+        k3_launches = phase_imfb_slice(pathlib.Path(work), card, failures)
+        phase_time("phase 9")
 
     if failures:
         print(f"FAILED phases: {failures}", flush=True)
@@ -995,6 +1350,9 @@ def main() -> int:
         kernel_line("fused_svdpp (svdpp_flush + svdpp_gather + svdpp_step + svdpp_apply)",
                     "svdfeature_tpu_torch/csrc/fused_svdpp.cu",
                     "svdfeature_tpu/ops/pallas_svdpp.py:110", k2_launches, k2_err, k2_timing),
+        kernel_line("fused_imfb (imfb_step + imfb_delta, with svdpp_flush + svdpp_gather + "
+                    "svdpp_apply)", "svdfeature_tpu_torch/csrc/fused_imfb.cu",
+                    "svdfeature_tpu/ops/pallas_svdpp.py:110", k3_launches, k3_err, k3_timing),
         kernel_line("tile_sweep (sweep_apply)", "svdfeature_tpu_torch/csrc/tile_sweep.cu",
                     "svdfeature_tpu/ops/tile_sweep.py:143", big_launches["K4"],
                     big_timing["K4"]["err"], big_timing["K4"]),

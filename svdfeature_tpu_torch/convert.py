@@ -55,9 +55,11 @@ def stacked_from_numpy(
     arrays: Dict[str, np.ndarray], device: torch.device
 ) -> Dict[str, torch.Tensor]:
     """Stage ``PackedBatches.arrays()`` (``[T, B(, S)]`` planes: int32
-    indices, f32 values) on ``device``."""
+    indices, sweep plans and context ids ``ctx_slots``, f32 values) on
+    ``device``."""
     return {
-        name: (_i32 if name.endswith("_idx") or name.startswith("sw_") else _f32)(a, device)
+        name: (_i32 if name.endswith("_idx") or name.startswith("sw_") or name == "ctx_slots"
+               else _f32)(a, device)
         for name, a in arrays.items()
     }
 
@@ -84,9 +86,17 @@ def augmented_to_numpy(aug: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarra
 def pool_from_numpy(
     fb: Dict[str, np.ndarray], fb_overlap: np.ndarray, device: torch.device
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Stage the SVD++ feedback pools of ``PackedPlusBatches``
-    (``fb_arrays()``: ``fb_idx`` / ``fb_val`` / ``fb_block`` ``[C, F]``) and
-    the overlap matrices ``fb_overlap [C, G+1, G+1]`` on ``device``: int32
-    rows and users, f32 values."""
+    """Stage the feedback pools of ``PackedPlusBatches`` or
+    ``PackedImfbBatches`` (``fb_arrays()``: ``fb_idx`` / ``fb_val`` and
+    ``fb_block`` or ``fb_ctx`` ``[C, F]``, with ``ctx_depth [C, M]``) and
+    the overlap matrices ``fb_overlap [C, S, S]`` on ``device``: f32
+    values, everything else (rows, users, contexts, depths) int32."""
     pool = {name: (_f32 if name == "fb_val" else _i32)(a, device) for name, a in fb.items()}
     return pool, _f32(fb_overlap, device)
+
+
+def gate_from_numpy(enabled: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Stage the multi-IMFB update gate ``enabled [C, nseg]`` (1.0 where a
+    chunk's local context trains, 0.0 for disabled depths, unused slots
+    and the pad context) on ``device`` as f32."""
+    return _f32(enabled, device)

@@ -39,17 +39,11 @@ MAX_STEP_SMEM_BYTES = 48 * 1024
 _GENERAL_STEP = "the general train step (ROADMAP Queue 1 item 4)"
 
 
-def gate_failure(
-    hp: HyperParams, state: TrainState, stacked, fb, ph: PlusHyper
-) -> Optional[str]:
-    """Why the SVD++ path cannot run this configuration, or None.
-
-    The semantic conditions of ``pallas_svdpp_supported``
-    (pallas_svdpp.py:80-107) without its TPU layout limits, plus the
-    port's caps: tables of at most 8192 rows, at most 32 rows per user,
-    and the step's shared memory."""
-    n, k = state.w.shape
-    M = ph.rows_per_user
+def semantic_failure(hp: HyperParams, state: TrainState, stacked, ph: PlusHyper) -> Optional[str]:
+    """The conditions of ``pallas_svdpp_supported`` (pallas_svdpp.py:80-107)
+    that are semantic, not TPU layout limits, other than the item width:
+    why the user-group kernels (K2, and K3 in ops/cuda_imfb.py) cannot run
+    this configuration, or None."""
     if ph.off_user <= 0:
         return (
             "a feedback space shared with the user rows (common_feedback_space=1) "
@@ -63,13 +57,29 @@ def gate_failure(
         return f"active_type {hp.active_type} needs {_GENERAL_STEP}"
     if stacked["u_idx"].shape[-1] != 1:
         return f"multi-entry user segments (hierarchical side features) need {_GENERAL_STEP}"
+    if stacked["g_idx"].shape[-1] != 1 or state.g.shape[0] != 1:
+        return f"global features on the user-group path need {_GENERAL_STEP}"
+    return None
+
+
+def gate_failure(
+    hp: HyperParams, state: TrainState, stacked, fb, ph: PlusHyper
+) -> Optional[str]:
+    """Why the SVD++ path cannot run this configuration, or None.
+
+    ``semantic_failure``, item width 1 or 2 (pairwise-rank difference
+    rows), plus the port's caps: tables of at most 8192 rows, at most 32
+    rows per user, and the step's shared memory."""
+    n, k = state.w.shape
+    M = ph.rows_per_user
+    reason = semantic_failure(hp, state, stacked, ph)
+    if reason is not None:
+        return reason
     if stacked["i_idx"].shape[-1] not in (1, 2):
         return (
             "item segments of more than 2 entries (hierarchical side features) "
             f"need {_GENERAL_STEP}"
         )
-    if stacked["g_idx"].shape[-1] != 1 or state.g.shape[0] != 1:
-        return f"global features on the user-group path need {_GENERAL_STEP}"
     if n > MAX_TABLE_ROWS:
         return (
             f"tables over {MAX_TABLE_ROWS} rows need big-table SVD++ "
@@ -126,6 +136,7 @@ def _check_inputs(
     consts: TrainConsts,
     G: int,
     SI: int,
+    seg_key: str = "fb_block",
 ) -> Tuple[torch.Tensor, List[int]]:
     """Device, dtype, shape, contiguity and index bounds of everything the
     kernel dereferences; raises ValueError on what it does not take.
@@ -133,7 +144,9 @@ def _check_inputs(
     Returns the segment starts of each user in each chunk's pool, ``seg
     [C, G+1]`` (user g owns entries [seg[c, g], seg[c, g+1]); a user's
     entries are contiguous, data/batching_plus.py), and the live entries
-    of each chunk, ``seg[:, G]``, on the host (one host sync per call)."""
+    of each chunk, ``seg[:, G]``, on the host (one host sync per call).
+    ``seg_key`` names the pool's segment plane: ``fb_block`` (users) or,
+    for K3, ``fb_ctx`` (local contexts, G of them plus the pad)."""
     dev = state.w.device
     N, k = state.w.shape
     C, F = fb["fb_idx"].shape
@@ -146,7 +159,7 @@ def _check_inputs(
         "wd_i_row": (consts.wd_i_row, torch.float32, (N,)),
         "fb_idx": (fb["fb_idx"], torch.int32, (C, F)),
         "fb_val": (fb["fb_val"], torch.float32, (C, F)),
-        "fb_block": (fb["fb_block"], torch.int32, (C, F)),
+        seg_key: (fb[seg_key], torch.int32, (C, F)),
         "fb_overlap": (fb_overlap, torch.float32, (C, G + 1, G + 1)),
         "u_idx": (planes["u_idx"], torch.int32, (n,)),
         "u_val": (planes["u_val"], torch.float32, (n,)),
@@ -166,7 +179,7 @@ def _check_inputs(
             raise ValueError(f"{name} is not contiguous")
     if n == 0 or k == 0 or lrs.shape[0] == 0:
         raise ValueError("empty batch, table or round schedule")
-    blk = fb["fb_block"]
+    blk = fb[seg_key]
     users = torch.arange(G + 1, dtype=torch.int32, device=dev).expand(C, G + 1).contiguous()
     seg = torch.searchsorted(blk, users).to(torch.int32).contiguous()
     ui = torch.cat([planes["u_idx"], planes["i_idx"], fb["fb_idx"].reshape(-1)])
@@ -176,9 +189,10 @@ def _check_inputs(
     if got[0] < 0 or got[1] >= N:
         raise ValueError(f"user/item/pool index outside the {N}-row table")
     if got[2] < 0 or got[3] > G:
-        raise ValueError(f"fb_block outside [0, {G}]")
+        raise ValueError(f"{seg_key} outside [0, {G}]")
     if not got[4]:
-        raise ValueError("a chunk's pool entries are not grouped by user (fb_block not ascending)")
+        owner = "user" if seg_key == "fb_block" else "context"
+        raise ValueError(f"a chunk's pool entries are not grouped by {owner} ({seg_key} not ascending)")
     return seg, got[5:]
 
 

@@ -1,0 +1,159 @@
+"""Multi-IMFB trainer (extend_type=2): stacked local implicit feedback.
+
+Counterpart of the small-table, single-device part of
+svdfeature_tpu/solvers/multi_imfb.py (SVDPPMultiIMFB,
+apex_multi_imfb.h:31-194).  Blocks push and pop a stack of feedback
+contexts through their extend tags (data/batching_imfb.py); a row's
+feedback term is the sum of its block's active contexts'.  Config key
+``ufeedback_disable_level`` (repeatable) disables feedback updates at the
+given stack depth (:54-63).  The SVD++ keys apply: ``users_per_batch``
+units (blocks with rows) side by side, ``rows_per_user`` rows of each per
+step, ``sort_blocks``.
+
+Every round of stacked data goes through
+``ops.cuda_imfb.train_rounds_imfb_kernel`` (K3 on a CUDA device, its
+plain version on the CPU); ``use_pallas=0`` selects the plain version on
+the device.  An all-DEFAULT tag stream degenerates to plain SVD++ and
+takes the SVD++ trainer's whole path (K2), unless depth 0 is disabled.
+
+Not ported yet, each raising NotImplementedError naming its ROADMAP item:
+common_feedback_space=1 (item 7b), tables over 8192 rows (item 9),
+streaming buffers (item 11) and ``mesh_*`` > 1 (item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict, List, Union
+
+import numpy as np
+import torch
+
+from ..convert import gate_from_numpy, pool_from_numpy, stacked_from_numpy
+from ..data.batching_imfb import pack_imfb
+from ..data.batching_plus import compute_fb_overlap
+from ..data.csr import TAG_DEFAULT, PlusDataset
+from ..ops.cuda_imfb import gate_failure, train_rounds_imfb_kernel, train_rounds_imfb_reference
+from ..ops.imfb import predict_batches_imfb
+from .svdpp import PlusEntry, SVDPPFeatureTrainer
+
+
+@dataclasses.dataclass
+class ImfbEntry:
+    """One packed stacked dataset, staged on the training device."""
+
+    stacked: Dict[str, torch.Tensor]  # [T, G*RM(, S)] planes, ctx_slots [T, G*RM, D]
+    chunk_id: np.ndarray  # [T] on the host: the launch loop reads it
+    fb: Dict[str, torch.Tensor]  # fb_idx / fb_val / fb_ctx [C, F], ctx_depth [C, nseg-1]
+    fb_overlap: torch.Tensor  # [C, nseg, nseg]
+    enabled: torch.Tensor  # [C, nseg] update gate
+    perm: np.ndarray  # dataset row -> packed slot
+
+
+class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
+    def __init__(self, mtype):
+        super().__init__(mtype)
+        self.disable_levels = set()
+        self._imfb_cache: Dict[int, ImfbEntry] = {}
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "ufeedback_disable_level":
+            self.disable_levels.add(int(val))
+        super().set_param(name, val)
+
+    def _plain_svdpp(self, ds) -> bool:
+        """An all-DEFAULT tag stream degenerates to plain SVD++: every block
+        pushes its own feedback, trains its rows and pops, at depth 0
+        throughout (apex_multi_imfb.h:31-194 reduces to
+        apex_svd_base.h:484-592).  Such datasets take the SVD++ path unless
+        depth-0 updates are disabled."""
+        if 0 in self.disable_levels or not isinstance(ds, PlusDataset):
+            return False
+        return bool((ds.extend_tag == TAG_DEFAULT).all())
+
+    def _imfb_enabled(self, ctx_depth: np.ndarray) -> np.ndarray:
+        """Per-(chunk, local-context) update gate from the stack depths
+        (ufeedback_disable_level, apex_multi_imfb.h:54-63); the extra last
+        column is the always-off pad slot."""
+        enabled = np.ones((ctx_depth.shape[0], ctx_depth.shape[1] + 1), np.float32)
+        enabled[:, -1] = 0.0  # pad slot
+        for lvl in self.disable_levels:
+            enabled[:, :-1][ctx_depth == lvl] = 0.0
+        enabled[:, :-1][ctx_depth < 0] = 0.0  # unused slots
+        return enabled
+
+    def _pack_plus(self, ds) -> Union[PlusEntry, ImfbEntry]:
+        if self._plain_svdpp(ds):
+            return super()._pack_plus(ds)
+        if not isinstance(ds, PlusDataset):
+            raise NotImplementedError(
+                f"{type(ds).__name__}: the port trains in-memory stacked datasets; "
+                "streaming buffers are ROADMAP Queue 1 item 11"
+            )
+        if self.sort_blocks and self.rows_per_user > 2:
+            warnings.warn(
+                "sort_blocks=1 with rows_per_user>2 on STACKED data is measured "
+                "divergent (sorted heavy-unit chunks double the context-coupling "
+                "gain; PERF.md 'stacked scan frontier') - keep file order or "
+                "reduce rows_per_user"
+            )
+        key = id(ds)
+        if key not in self._imfb_cache:
+            m = self.model
+            packed = pack_imfb(
+                ds,
+                self.users_per_batch,
+                m.num_rows,
+                m.param.num_global,
+                m.off_user,
+                m.off_item,
+                m.off_ufeedback,
+                feat_user=self.feat_user,
+                feat_item=self.feat_item,
+                num_user=m.param.num_user,
+                num_item=m.param.num_item,
+                num_ufeedback=m.param.num_ufeedback,
+                rows_per_user=self.rows_per_user,
+                sort_blocks=bool(self.sort_blocks),
+            )
+            dev = self.state.w.device
+            arrays = packed.device_arrays()
+            chunk_id = arrays.pop("chunk_id")
+            # closed-form carried aggregates: per-chunk context overlaps
+            overlap = compute_fb_overlap(
+                packed.fb_idx, packed.fb_val, packed.fb_ctx, packed.ctx_depth.shape[1]
+            )
+            fb, overlap_t = pool_from_numpy(packed.fb_arrays(), overlap, dev)
+            self._imfb_cache[key] = ImfbEntry(
+                stacked=stacked_from_numpy(arrays, dev),
+                chunk_id=chunk_id,
+                fb=fb,
+                fb_overlap=overlap_t,
+                enabled=gate_from_numpy(self._imfb_enabled(packed.ctx_depth), dev),
+                perm=packed.perm,
+            )
+        return self._imfb_cache[key]
+
+    def _train(self, entry: Union[PlusEntry, ImfbEntry], lrs: List[float]) -> None:
+        if isinstance(entry, PlusEntry):  # the degenerate all-DEFAULT route
+            return super()._train(entry, lrs)
+        ph = self._plus_hyper()
+        reason = gate_failure(self.hp, self.state, entry.stacked, ph)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        lr_t = torch.tensor(lrs, dtype=torch.float32, device=self.state.w.device)
+        fn = train_rounds_imfb_kernel if self.use_pallas else train_rounds_imfb_reference
+        self.state = fn(
+            self.state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap,
+            entry.enabled, lr_t, self.consts, self.hp, ph,
+        )
+
+    def predict_all(self, ds) -> np.ndarray:
+        state = self.state_or_model()
+        entry = self._pack_plus(ds)
+        if isinstance(entry, PlusEntry):
+            return super().predict_all(ds)
+        preds = predict_batches_imfb(state, entry.stacked, entry.chunk_id, entry.fb, self.hp)
+        # perm maps dataset row -> packed slot (t*G*RM + g*RM + m)
+        return preds.reshape(-1).cpu().numpy()[entry.perm]

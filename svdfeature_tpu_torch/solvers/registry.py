@@ -2,9 +2,9 @@
 
 Counterpart of svdfeature_tpu/solvers/registry.py (create_svd_trainer /
 create_svd_ranker, apex_svd.cpp:32-47).  The port has the base solver on
-the random-order format and the SVD++ solver (extend_type=1, or the
-user-group format) so far; every other solver raises NotImplementedError
-naming its ROADMAP item.
+the random-order format, the SVD++ solver (extend_type=1, or the
+user-group format) and multi-IMFB (extend_type=2) so far; every other
+solver raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -12,7 +12,6 @@ from __future__ import annotations
 from ..params import SVDTypeParam, svd_type
 
 _NOT_PORTED = {
-    2: "multi-IMFB (extend_type=2) is ROADMAP Queue 1 item 10",
     15: "bilinear (extend_type=15) is ROADMAP Queue 1 item 10",
     30: "GBRT (extend_type=30) is ROADMAP Queue 1 item 10",
     31: "GBRT (extend_type=31) is ROADMAP Queue 1 item 10",
@@ -22,11 +21,14 @@ _NOT_PORTED = {
 def create_svd_trainer(mtype: SVDTypeParam):
     """apex_svd.cpp:32-44 dispatch."""
     from .base import SVDFeatureTrainer
+    from .multi_imfb import SVDPPMultiIMFBTrainer
     from .svdpp import SVDPPFeatureTrainer
 
     et = mtype.extend_type
     if et in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[et])
+    if et == 2:
+        return SVDPPMultiIMFBTrainer(mtype)
     if et == 1 or (et == 0 and mtype.format_type == svd_type.USER_GROUP_FORMAT):
         return SVDPPFeatureTrainer(mtype)
     if et != 0:

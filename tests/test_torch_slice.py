@@ -109,7 +109,7 @@ def test_cuda_device_without_card_raises():
     ("reg_method", "1", "item 4"),
     ("active_type", "5", "item 4"),
     ("user_nonnegative", "1", "item 4"),
-    ("extend_type", "2", "item 10"),
+    ("extend_type", "15", "item 10"),
     ("mesh_data", "2", "item 12"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
