@@ -23,18 +23,24 @@ result line):
      numpy-seeded inputs packed by the port's pack_plus from the ML-100K
      user-group fixtures, R=2: the RMSE-band setting (128 users x 8 rows,
      T=159, 8 chunks) and one row per user (T=4088), active_type 0/2,
-     no_user_bias 0/1, and a synthetic pairwise (item width 2) case, with
-     both times and a profile;
+     no_user_bias 0/1, a synthetic pairwise (item width 2) case and a case
+     with more users per step (256) than the kernel's resident grid has
+     blocks, each one cooperative launch, with both times (the kernel's on
+     the same device tensors call after call, as the trainer calls it) and a
+     profile;
   5. the implicitFeedback slice: make_ugroup_buffer -fd, SVDTrainTask (40
      rounds, sort_blocks=1 rows_per_user=8, device=cuda), SVDInferTask;
      the final test RMSE must lie in the GOLDEN.json band and every step
-     must have gone through the kernel (launch count 40*(2T + 2*chunks));
-     once more with use_pallas=0;
+     must have gone through the kernel (launch count 40: one cooperative
+     launch a round); over ten more rounds, a synchronise after each, the
+     kernel must be running for at least 0.7 of the time, and one more round
+     is profiled; once more with use_pallas=0;
   6. the big-table kernels against their plain versions at bigTable
      shapes (2,048,577 rows, k=64): K5 and K6 on 2^21 rows (~20% on the
      dummy row) bit for bit, with the library call's time, and K5 once more
      at the E=8192 rows of one batch-4096 step (bigTable (c)'s calls, whose
-     time the kernel line reports); K4 on the plan
+     time the kernel line reports), where it must not be slower than
+     index_copy_ by more than the spread between the turns; K4 on the plan
      of one B=2^20 batch of bigTable's data (reg_method 0 and 4) and on a
      40,960-row table (reg_method 0-5, no_user_bias with the nonnegative
      clamps), with times and a profile;
@@ -377,7 +383,9 @@ def device_profile(torch, run, steps, top=4):
     """Where one R-round run, ``run()``, spends its time on the card
     (torch.profiler): device busy time per step, its share of the run's
     elapsed time, and the device time of each of the run's ``top`` busiest
-    kernels.  A session that records no device events is run once more."""
+    kernels.  A plain PyTorch op opens the session, before the clock starts
+    (a session that opens with a ctypes launch records no device events);
+    a session that records none all the same is run once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -386,6 +394,8 @@ def device_profile(torch, run, steps, top=4):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
             start.record()
             run()
             end.record()
@@ -408,6 +418,47 @@ def device_profile(torch, run, steps, top=4):
 
 
 # ---- phases 3 and 5: the slices ----------------------------------------------
+# implicitFeedback rounds through K2 are bound by the card, not the host: the
+# share of a window of rounds, each followed by a synchronise as the train
+# task makes it, that the kernel is running, by the kernel's own clock.  The
+# persistent kernel measures 0.87-0.93 (PERF.md), the host-launched form it
+# replaced 0.37-0.64 under the profiler.  The faster the kernel and the
+# slower the machine's host, the lower the share, so the gate leaves room.
+K2_MIN_BUSY_SHARE = 0.7
+K2_STEADY_ROUNDS = 10
+
+
+def steady_busy_share(torch, task, steps_per_round):
+    """(busy share, busy us/step, elapsed us/step) of K2_STEADY_ROUNDS more
+    rounds of ``task``'s trainer after a warm-up round: busy from the
+    kernel's own clock (the nanoseconds its first block spends in its
+    phases and at its barriers, train_rounds_svdpp_kernel.trace), elapsed
+    from CUDA events around the window."""
+    from svdfeature_tpu_torch.ops.cuda_svdpp import train_rounds_svdpp_kernel
+
+    tr = task.trainer
+    trace = torch.zeros(9, dtype=torch.int64, device=tr.state.w.device)
+    train_rounds_svdpp_kernel.trace = trace
+    try:
+        tr.update_all(task.dataset)
+        tr.synchronize()
+        trace.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(K2_STEADY_ROUNDS):
+            tr.update_all(task.dataset)
+            tr.synchronize()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        train_rounds_svdpp_kernel.trace = None
+    steps = K2_STEADY_ROUNDS * steps_per_round
+    busy = float(trace[:8].sum()) / 1e3 / steps
+    elapsed = start.elapsed_time(end) * 1e3 / steps
+    return busy / elapsed, busy, elapsed
+
+
 def kernel_wrappers():
     from svdfeature_tpu_torch.ops.cuda_embed import train_rounds_kernel
     from svdfeature_tpu_torch.ops.cuda_imfb import train_rounds_imfb_kernel
@@ -504,26 +555,42 @@ def phase_svdpp_slice(work, card, failures):
         unzip_fixture(fb_fx, d / f"{split}.feedback")
         make_ugroup_buffer.main([str(d / f"{split}.feature"), str(d / f"{split}.buffer"),
                                  "-fd", str(d / f"{split}.feedback")])
+    import torch
+
     launches = 0
     for path, extra in (("kernel", []), ("plain", ["use_pallas=0"])):
         r = run_demo(name, d, path, ["sort_blocks=1", "rows_per_user=8", *extra])
-        cid = r["task"].trainer._pack_plus(r["task"].dataset).chunk_id
-        per_round = launches_per_call(cid, 1)
-        want = ROUNDS * per_round if path == "kernel" else 0
+        task = r["task"]
+        cid = task.trainer._pack_plus(task.dataset).chunk_id
+        want = ROUNDS * launches_per_call(cid, 1) if path == "kernel" else 0
         if path == "kernel":
             launches = r["launches"]["K2"]
-        starts = per_round // 2 - len(cid)
+        starts = int(np.count_nonzero(np.concatenate([[True], cid[1:] != cid[:-1]])))
         report_demo(5, name, path, r, "K2", want,
-                    f"{ROUNDS}*(2T + 2*chunk starts), T={len(cid)}, chunk starts={starts}",
-                    card, failures)
+                    f"{ROUNDS} rounds, one cooperative launch each; T={len(cid)}, "
+                    f"chunk starts={starts}", card, failures)
+        # where a round's time goes: one more round under the profiler, after
+        # the counts are read and the checkpoints written
+        line = device_profile(torch, lambda: task.trainer.update_all(task.dataset), len(cid))
+        print(f"phase 5 profile: {name} path={path} one more round: {line}", flush=True)
+        if path == "kernel":
+            share, busy, elapsed = steady_busy_share(torch, task, len(cid))
+            ok = share >= K2_MIN_BUSY_SHARE
+            if not ok:
+                failures.append(f"implicitFeedback rounds: device busy share below "
+                                f"{K2_MIN_BUSY_SHARE}")
+            print(f"phase 5 {'ok' if ok else 'FAIL'}: {name} rounds are bound by the card, not the "
+                  f"host: {K2_STEADY_ROUNDS} more rounds, a synchronise after each: the kernel's "
+                  f"own clock counts {busy:.2f} us/step of {elapsed:.2f} us/step elapsed (busy "
+                  f"share {share:.3f}, at least {K2_MIN_BUSY_SHARE} wanted)", flush=True)
     return launches
 
 
 # ---- phase 4: the SVD++ kernel vs plain ---------------------------------------
 @functools.lru_cache(maxsize=None)
-def ugroup_packed(sort_blocks, M):
+def ugroup_packed(sort_blocks, M, users=128):
     """The ML-100K implicitFeedback training set packed by the port's
-    pack_plus: 128 users per step, M rows of each."""
+    pack_plus: ``users`` users per step, M rows of each."""
     from svdfeature_tpu_torch.data.batching_plus import pack_plus
     from svdfeature_tpu_torch.data.text import load_plus_text
 
@@ -533,17 +600,17 @@ def ugroup_packed(sort_blocks, M):
 
     ds = load_plus_text("x", "y", text=text("ml100k.base.group.feature.gz"),
                         feedback_text=text("ml100k.base.feedback.gz"))
-    return pack_plus(ds, 128, 4307, 0, 1682, 2625, 0, num_user=943, num_item=1682,
+    return pack_plus(ds, users, 4307, 0, 1682, 2625, 0, num_user=943, num_item=1682,
                      num_ufeedback=1682, sort_blocks=sort_blocks, rows_per_user=M)
 
 
-def svdpp_inputs(sort_blocks, M, active_type, pairwise, seed):
+def svdpp_inputs(sort_blocks, M, active_type, pairwise, seed, users=128):
     """numpy inputs at the implicitFeedback layout (feedback rows [0, 1682),
     users [1682, 2625), items [2625, 4307), dummy 4307; k=64).  active_type
     2 takes the ratings >= 4 as its 0/1 labels; ``pairwise`` adds a second,
     random item entry of value -1 to every live slot (the item-width-2
     difference rows of pairwise ranking) with label 1."""
-    packed = ugroup_packed(sort_blocks, M)
+    packed = ugroup_packed(sort_blocks, M, users)
     rng = np.random.RandomState(seed)
     N, k = 4308, 64
     w = rng.normal(0, 0.01, (N, k)).astype(np.float32)
@@ -624,59 +691,67 @@ def phase_svdpp_kernel(torch, dev, failures):
                           wd_ufeedback_bias=0.002))
 
     max_err = 0.0
-    cases = (  # (setting, sort_blocks, M, active_type, no_user_bias, pairwise)
-        ("band", True, 8, 0, 0, False), ("band", True, 8, 2, 1, False),
-        ("one-row", False, 1, 0, 1, False), ("one-row", False, 1, 2, 0, False),
-        ("band-pairwise", True, 8, 3, 1, True),
+    cases = (  # (setting, sort_blocks, M, users, active_type, no_user_bias, pairwise)
+        ("band", True, 8, 128, 0, 0, False), ("band", True, 8, 128, 2, 1, False),
+        ("one-row", False, 1, 128, 0, 1, False), ("one-row", False, 1, 128, 2, 0, False),
+        ("band-pairwise", True, 8, 128, 3, 1, True),
+        # more users per step than the resident grid has blocks: each block
+        # strides over the users of a step
+        ("wide", False, 1, 256, 0, 0, False),
     )
-    for setting, sort_blocks, M, at, nub, pairwise in cases:
-        x = svdpp_inputs(sort_blocks, M, at, pairwise, seed=20 + at)
+    for setting, sort_blocks, M, users, at, nub, pairwise in cases:
+        x = svdpp_inputs(sort_blocks, M, at, pairwise, seed=20 + at, users=users)
         hp, ph = hyper(x, at, nub)
         before = train_rounds_svdpp_kernel.launches
         got = train_rounds_svdpp_kernel(*device_inputs(x), hp, ph)
         torch.cuda.synchronize()
         launched = train_rounds_svdpp_kernel.launches - before
+        grid = train_rounds_svdpp_kernel.grid
         want = train_rounds_svdpp_reference(*device_inputs(x), hp, ph)
-        errs, ok = {}, launched == launches_per_call(x["chunk_id"], len(x["lrs"]))
+        T, GS = x["stacked"]["label"].shape
+        errs, ok = {}, launched == launches_per_call(x["chunk_id"], len(x["lrs"])) == 1
         for name in ("w", "b"):
             a, b = getattr(got, name), getattr(want, name)
             errs[name] = float((a - b).abs().max())
             ok &= bool(torch.isfinite(a).all()) and bool(((a - b).abs() <= ATOL + RTOL * b.abs()).all())
         ok &= int(got.step) == int(want.step)
         ok &= bool((got.w != torch.from_numpy(x["st"]["w"]).to(dev)).any())
+        ok &= grid > 0 and (setting != "wide" or GS // M > grid)
         max_err = max(max_err, *errs.values())
         if not ok:
             failures.append(f"svdpp kernel vs plain {setting} at={at} nub={nub}")
-        T, GS = x["stacked"]["label"].shape
         print(f"phase 4 {'ok' if ok else 'FAIL'}: {setting} (T={T}, GS={GS}, M={M}, "
               f"SI={x['stacked']['i_idx'].shape[-1]}, C={x['fb']['fb_idx'].shape[0]}, "
               f"F={x['fb']['fb_idx'].shape[1]}) active_type={at} no_user_bias={nub} "
               f"max|dw|={errs['w']:.3e} max|db|={errs['b']:.3e} (atol {ATOL:g} + rtol {RTOL:g}) "
-              f"launches {launched}", flush=True)
+              f"launches {launched} (one cooperative launch of {grid} blocks for {GS // M} "
+              f"users a step)", flush=True)
 
     # times at the band setting: CUDA events around whole R=2 runs, after a
-    # warm-up, in turns
+    # warm-up, in turns; each path trains on its own device tensors call
+    # after call, as the trainer does round after round (the kernel's checks
+    # of the packed planes are made once per set of tensors)
     x = svdpp_inputs(True, 8, 0, False, seed=20)
     hp, ph = hyper(x, 0, 0)
     T = x["stacked"]["label"].shape[0]
     R = len(x["lrs"])
     fns = {"plain": train_rounds_svdpp_reference, "kernel": train_rounds_svdpp_kernel}
     samples = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel"):
-        fns[name](*device_inputs(x), hp, ph)
-    for name in ("plain", "kernel", "kernel", "plain") * 3:
-        inputs = device_inputs(x)
+    held = {name: list(device_inputs(x)) for name in fns}
+    for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain") * 3:
+        inputs = held[name]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fns[name](*inputs, hp, ph)
+        inputs[0] = fns[name](*inputs, hp, ph)
         end.record()
         torch.cuda.synchronize()
         samples[name].append(start.elapsed_time(end) / (R * T))
+    samples = {name: v[1:] for name, v in samples.items()}  # the first call warms up
     timing = {n: float(np.median(v)) for n, v in samples.items()}
     timing["bound"], timing["bound_by"] = svdpp_bound(x)
-    print(f"phase 4 time: band ms per step (GS=1024, median of 6 R={R} runs): "
+    print(f"phase 4 time: band ms per step (GS=1024, median of 8 R={R} runs): "
           f"kernel {timing['kernel']:.4f} plain {timing['plain']:.4f} "
           f"bound {timing['bound']:.6f} ({timing['bound_by']})", flush=True)
     for name in ("kernel", "plain"):
@@ -691,10 +766,11 @@ BIG_ATOL, BIG_RTOL = 1e-6, 1e-5  # K4 vs plain: run sums in plan order vs index_
 BIG_ROWS_E = 1 << 21  # K5 / K6 rows per call
 
 
-def timed(torch, fns, inner=5, turns=3):
+def timed(torch, fns, inner=5, turns=3, spread=None):
     """ms per call of each zero-argument callable in ``fns``: CUDA events
     around ``inner`` calls, in turns (a b b a ...) ``turns`` times after a
-    warm-up call of each; the median."""
+    warm-up call of each; the median.  A dict given as ``spread`` receives
+    each name's largest minus smallest turn."""
     names = list(fns)
     for name in names:
         fns[name]()
@@ -709,6 +785,8 @@ def timed(torch, fns, inner=5, turns=3):
         end.record()
         torch.cuda.synchronize()
         samples[name].append(start.elapsed_time(end) / inner)
+    if spread is not None:
+        spread.update({name: max(v) - min(v) for name, v in samples.items()})
     return {name: float(np.median(v)) for name, v in samples.items()}
 
 
@@ -824,9 +902,11 @@ def phase_big_kernels(torch, dev, big, failures):
     idx_c_long = idx_c.long()
     ok5c = torch.equal(cuda_scatter.row_writer(tbl.clone(), idx_c, vals_c),
                        cuda_scatter.row_writer_reference(tbl.clone(), idx_c, vals_c))
+    spread = {}
     t5c = timed(torch, {"plain": lambda: cuda_scatter.row_writer_reference(work, idx_c, vals_c),
                         "kernel": lambda: cuda_scatter.row_writer(work, idx_c, vals_c),
-                        "library": lambda: work.index_copy_(0, idx_c_long, vals_c)}, inner=50)
+                        "library": lambda: work.index_copy_(0, idx_c_long, vals_c)}, inner=200,
+                turns=10, spread=spread)
     t5c["bound"], t5c["bound_by"] = bound(4 * (Ec + Ec * W + Uc * W), 0, 1)
     if not ok5c:
         failures.append("K5 vs plain at E=8192")
@@ -834,6 +914,15 @@ def phase_big_kernels(torch, dev, big, failures):
           f"({Uc} distinct targets) bit for bit against its plain version; ms per call kernel "
           f"{t5c['kernel']:.4f} plain {t5c['plain']:.4f} library {t5c['library']:.4f} bound "
           f"{t5c['bound']:.6f} ({t5c['bound_by']})", flush=True)
+    # the gate: no slower than the one PyTorch call for the same function,
+    # beyond what the turns of this very call differ by
+    allowed = max(spread["kernel"], spread["library"])
+    ok_lib = t5c["kernel"] <= t5c["library"] + allowed
+    if not ok_lib:
+        failures.append("K5 at E=8192 slower than index_copy_")
+    print(f"phase 6 {'ok' if ok_lib else 'FAIL'}: K5 at E={Ec} against index_copy_: kernel "
+          f"{t5c['kernel']:.4f} ms per call, library {t5c['library']:.4f} (spread between "
+          f"turns: kernel {spread['kernel']:.4f}, library {spread['library']:.4f})", flush=True)
     del work, tbl, idx, vals, idx_long, idx_c, vals_c, idx_c_long
     out["K5"] = dict(t5c, err=0.0)
     out["K6"] = dict(t6, err=0.0)
@@ -1347,7 +1436,7 @@ def main() -> int:
                     "svdfeature_tpu_torch/csrc/fused_embed.cu",
                     "svdfeature_tpu/ops/pallas_embed.py:75", k1_launches, k1_err,
                     k1_timing["basicMF"]),
-        kernel_line("fused_svdpp (svdpp_flush + svdpp_gather + svdpp_step + svdpp_apply)",
+        kernel_line("fused_svdpp (svdpp_rounds, one cooperative launch a call)",
                     "svdfeature_tpu_torch/csrc/fused_svdpp.cu",
                     "svdfeature_tpu/ops/pallas_svdpp.py:110", k2_launches, k2_err, k2_timing),
         kernel_line("fused_imfb (imfb_step + imfb_delta, with svdpp_flush + svdpp_gather + "

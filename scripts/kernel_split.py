@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Host / device split of the port's row writer (K5) and SVD++ round (K2)
+on one NVIDIA GPU, for one tree or for two trees in turns.
+
+Usage, from the repository root:
+
+    python3 scripts/kernel_split.py                   # this tree
+    python3 scripts/kernel_split.py --parent build/parent   # parent, change, change, parent
+
+Each turn is one subprocess that imports ``chip_smoke`` and
+``svdfeature_tpu_torch`` from its tree, builds that tree's kernels and
+prints one JSON line; the summary (medians over a tree's turns) goes to
+stdout and, with ``--out``, to a file.  Two trees are compared inside one
+run because step times through the wrappers move 20-55% between runs on
+different machines.
+
+What it measures, with the card's name and power limit:
+  K5 at E=8192 rows of W=68 into the 2,048,577-row table (one batch-4096
+  dedup step) and at E=2^21: ms per call of the wrapper and of
+  ``index_copy_`` from CUDA events around back-to-back calls, the host's
+  microseconds per call (host clock around 1,000 enqueues, no
+  synchronise inside; where the tree has the ``row_noop`` entry point,
+  also with the launch replaced by it), and the device microseconds per
+  launch (torch.profiler); and the E=2^21 call once more on rows of 72
+  floats (32-byte aligned), as a measurement only.
+  K2 at the implicitFeedback band setting (G=128, M=8, k=64, N=4308,
+  T=159), one wrapper call per round on the same device tensors as the
+  trainer makes them: ms per step from CUDA events, the host's
+  microseconds per call, and under the profiler the device busy time per
+  step, its share of the round (the first round of a profiler session,
+  when the host is slowest, and five later rounds of one session with a
+  synchronise after each) and the busiest kernels, and from the kernel's
+  own clock (``train_rounds_svdpp_kernel.trace``) the microseconds per
+  step that its first block spends in each phase and at each grid
+  barrier.
+  K3 at the stacked slice's shapes, ms per step (it shares K2's flush,
+  gather and apply).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def device_times(torch, run):
+    """{kernel name: (launches, device us)} and the elapsed us of one
+    ``run()`` under torch.profiler.  A plain PyTorch op opens the session:
+    one that opens with a ctypes launch records no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    per_kernel = {}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+        elapsed_us = start.elapsed_time(end) * 1e3
+        per_kernel = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = per_kernel.get(e.name, (0, 0.0))
+                per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if len(per_kernel) > 1:
+            break
+    return per_kernel, elapsed_us
+
+
+def event_ms(torch, fn, calls, sync_each=False):
+    """ms per call of ``fn`` from CUDA events around ``calls`` calls."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+        if sync_each:
+            torch.cuda.synchronize()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def host_us(torch, fn, calls):
+    """Host microseconds per call: the host clock around ``calls``
+    enqueues with no synchronise between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e6 / calls
+
+
+def kernel_us(per_kernel, needle):
+    """(launches, us per launch) of the kernels whose name holds ``needle``."""
+    hits = [(n, us) for name, (n, us) in per_kernel.items() if needle in name]
+    n = sum(h[0] for h in hits)
+    return n, (sum(h[1] for h in hits) / n if n else None)
+
+
+def worker(tree: str) -> None:
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from svdfeature_tpu_torch import convert
+    from svdfeature_tpu_torch.ops import _build, big_embed, cuda_imfb, cuda_scatter, cuda_svdpp
+    from svdfeature_tpu_torch.ops.embed import HyperParams
+    from svdfeature_tpu_torch.ops.svdpp import PlusHyper
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.load_library()
+    out = {"tree": tree, "build_s": time.perf_counter() - t0}
+
+    # ---- K5 -----------------------------------------------------------------
+    n = chip_smoke.BIG_NU + chip_smoke.BIG_NI + 1
+    W = big_embed.aug_width(chip_smoke.BIG_K)
+    rng = np.random.default_rng(11)
+    tbl = torch.from_numpy(rng.standard_normal((n, W), dtype=np.float32)).to(dev)
+    tbl[-1] = 0.0
+    big = chip_smoke.bigtable_arrays()
+    ent = np.sort(np.concatenate([big["index"][0:2 * 4096:2].astype(np.int64),
+                                  chip_smoke.BIG_NU + big["index"][1:2 * 4096:2].astype(np.int64)]))
+    last = np.append(ent[1:] != ent[:-1], True)
+    vals_np = rng.standard_normal((ent.size, W), dtype=np.float32)
+    idx_c = torch.from_numpy(np.where(last, ent, n - 1).astype(np.int32)).to(dev)
+    vals_c = torch.from_numpy(np.where(last[:, None], vals_np, 0.0).astype(np.float32)).to(dev)
+    idx_c_long = idx_c.long()
+    E = 1 << 21
+    on_dummy = rng.random(E) < 0.2
+    idx_np = np.full(E, n - 1, np.int32)
+    idx_np[~on_dummy] = rng.permutation(n - 1)[: int((~on_dummy).sum())]
+    big_vals = rng.standard_normal((E, W), dtype=np.float32)
+    big_vals[idx_np == n - 1] = 0.0
+    idx_b, vals_b = torch.from_numpy(idx_np).to(dev), torch.from_numpy(big_vals).to(dev)
+    idx_b_long = idx_b.long()
+    del big, big_vals
+
+    def k5():
+        cuda_scatter.row_writer(tbl, idx_c, vals_c)
+
+    def lib5():
+        tbl.index_copy_(0, idx_c_long, vals_c)
+
+    for fn in (k5, lib5):
+        fn()
+    k5_ms, lib_ms = [], []
+    for _ in range(3):
+        k5_ms.append(event_ms(torch, k5, 1000))
+        lib_ms.append(event_ms(torch, lib5, 1000))
+        lib_ms.append(event_ms(torch, lib5, 1000))
+        k5_ms.append(event_ms(torch, k5, 1000))
+    prof, _ = device_times(torch, lambda: [k5() for _ in range(20)] + [lib5() for _ in range(20)])
+    out["k5_8192"] = {
+        "kernel_ms": statistics.median(k5_ms), "kernel_ms_turns": k5_ms,
+        "library_ms": statistics.median(lib_ms), "library_ms_turns": lib_ms,
+        "kernel_host_us": host_us(torch, k5, 1000), "library_host_us": host_us(torch, lib5, 1000),
+        "kernel_device_us": kernel_us(prof, "row_")[1],
+        "library_device_us": kernel_us(prof, "index")[1],
+    }
+    if hasattr(cuda_scatter, "_entry_point"):
+        # the wrapper with its launch replaced by an entry point that
+        # launches nothing: what the host pays outside cudaLaunchKernel
+        bound = cuda_scatter._entry_point
+        noop = _build.load_library().row_noop
+        cuda_scatter._entry_point = lambda name: noop
+        out["k5_8192"]["kernel_host_us_no_launch"] = host_us(torch, k5, 1000)
+        cuda_scatter._entry_point = bound
+    big_t = chip_smoke.timed(torch, {
+        "kernel": lambda: cuda_scatter.row_writer(tbl, idx_b, vals_b),
+        "library": lambda: tbl.index_copy_(0, idx_b_long, vals_b),
+        "reader": lambda: cuda_scatter.row_reader(tbl, idx_b),
+        "reader_library": lambda: torch.index_select(tbl, 0, idx_b_long)})
+    out["k5_2m"] = big_t
+    del tbl, vals_b, idx_c, vals_c, idx_c_long
+    torch.cuda.empty_cache()
+    # the same call on rows of 72 floats (32-byte aligned rows): a
+    # measurement only, the table's layout stays at aug_width
+    W72 = 72
+    tbl72 = torch.zeros((n, W72), dtype=torch.float32, device=dev)
+    vals72 = torch.randn((E, W72), dtype=torch.float32, device=dev)
+    vals72[idx_b == n - 1] = 0.0
+    out["k5_2m_w72"] = chip_smoke.timed(torch, {
+        "kernel": lambda: cuda_scatter.row_writer(tbl72, idx_b, vals72),
+        "library": lambda: tbl72.index_copy_(0, idx_b_long, vals72)})
+    del tbl72, vals72, idx_b, idx_b_long
+    torch.cuda.empty_cache()
+
+    # ---- K2 -----------------------------------------------------------------
+    x = chip_smoke.svdpp_inputs(True, 8, 0, False, seed=20)
+    fb, overlap = convert.pool_from_numpy(x["fb"], x["overlap"], dev)
+    stacked = convert.stacked_from_numpy(x["stacked"], dev)
+    consts = convert.consts_from_numpy(**x["cs"], device=dev)
+    hp = HyperParams(base_score=3.0)
+    ph = PlusHyper(rows_per_user=8, off_user=1682, wd_ufeedback=0.004, wd_ufeedback_bias=0.002)
+    lrs = torch.tensor([0.005], device=dev)
+    T = x["stacked"]["label"].shape[0]
+    state = convert.state_from_numpy(**x["st"], device=dev)
+
+    def k2():
+        nonlocal state
+        state = cuda_svdpp.train_rounds_svdpp_kernel(
+            state, stacked, x["chunk_id"], fb, overlap, lrs, consts, hp, ph)
+
+    k2()
+    before = cuda_svdpp.train_rounds_svdpp_kernel.launches
+    k2()
+    per_call = cuda_svdpp.train_rounds_svdpp_kernel.launches - before
+    ms = [event_ms(torch, k2, 5) / T for _ in range(3)]
+    ms_sync = [event_ms(torch, k2, 5, sync_each=True) / T for _ in range(3)]
+    t0 = time.perf_counter()
+    for _ in range(5):
+        k2()
+    host = (time.perf_counter() - t0) * 1e6 / 5
+    torch.cuda.synchronize()
+    prof, elapsed = device_times(torch, k2)
+    prof.pop("Memset (Device)", None)
+    busy = sum(us for _, us in prof.values())
+    tops = sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]
+    # later rounds of one session, a synchronise after each: the elapsed
+    # time of each from CUDA events, the kernels' from the profiler
+    later = []
+
+    def rounds():
+        k2()
+        torch.cuda.synchronize()
+        for _ in range(5):
+            later.append(event_ms(torch, k2, 1) * 1e3)
+
+    later_prof, _ = device_times(torch, rounds)
+    # per round: each kernel's mean time, as often as a round launches it
+    # (six rounds ran; a session may drop a few events)
+    later_busy = sum(us / n * -(-n // 6) for n, us in later_prof.values())
+    phases = None
+    if hasattr(cuda_svdpp.train_rounds_svdpp_kernel, "trace"):
+        # the kernel's own clock: block 0's first thread, per phase
+        trace = torch.zeros(9, dtype=torch.int64, device=dev)
+        cuda_svdpp.train_rounds_svdpp_kernel.trace = trace
+        for _ in range(5):
+            k2()
+        torch.cuda.synchronize()
+        cuda_svdpp.train_rounds_svdpp_kernel.trace = None
+        names = ("flush", "gather", "step", "apply", "barrier_after_flush",
+                 "barrier_after_gather", "barrier_after_step", "barrier_after_apply",
+                 "product_in_apply")
+        phases = {n: v / (5 * T) / 1e3 for n, v in zip(names, trace.tolist())}
+    out["k2"] = {
+        "phase_us_per_step": phases,
+        "launches_per_call": per_call,
+        "ms_per_step": statistics.median(ms), "ms_per_step_turns": ms,
+        "ms_per_step_sync_each_round": statistics.median(ms_sync),
+        "host_us_per_call": host, "host_us_per_step": host / T,
+        "device_busy_us_per_step": busy / T, "elapsed_us_per_step": elapsed / T,
+        "busy_share_first_round": busy / elapsed,
+        "busy_share_later_rounds": later_busy / statistics.median(later),
+        "later_rounds_elapsed_us": later,
+        "top": [[chip_smoke._short(name), cnt, us / cnt] for name, (cnt, us) in tops],
+        "finite": bool(torch.isfinite(state.w).all()),
+    }
+
+    # ---- K3 -----------------------------------------------------------------
+    y = chip_smoke.imfb_inputs(8, 38, False)
+    fb3, overlap3 = convert.pool_from_numpy(y["fb"], y["overlap"], dev)
+    stacked3 = convert.stacked_from_numpy(y["stacked"], dev)
+    gate = convert.gate_from_numpy(y["enabled"], dev)
+    consts3 = convert.consts_from_numpy(**y["cs"], device=dev)
+    state3 = convert.state_from_numpy(**y["st"], device=dev)
+    T3 = y["stacked"]["label"].shape[0]
+
+    def k3():
+        nonlocal state3
+        state3 = cuda_imfb.train_rounds_imfb_kernel(
+            state3, stacked3, y["chunk_id"], fb3, overlap3, gate, lrs, consts3, hp, ph)
+
+    k3()
+    ms3 = [event_ms(torch, k3, 3) / T3 for _ in range(3)]
+    prof, elapsed = device_times(torch, k3)
+    busy = sum(us for _, us in prof.values())
+    tops = sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]
+    out["k3"] = {"ms_per_step": statistics.median(ms3), "ms_per_step_turns": ms3,
+                 "device_busy_us_per_step": busy / T3, "busy_share": busy / elapsed,
+                 "top": [[chip_smoke._short(name), cnt, us / cnt] for name, (cnt, us) in tops]}
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def medians(results):
+    """Per-key medians over a tree's turns (numbers only, nested dicts)."""
+    first = results[0]
+    if isinstance(first, dict):
+        return {k: medians([r[k] for r in results if k in r]) for k in first}
+    if isinstance(first, (int, float)) and not isinstance(first, bool):
+        return statistics.median(results)
+    return first
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a second tree (the parent commit, unpacked) to run in turns")
+    ap.add_argument("--out", help="write the summary JSON here too")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_split: torch.cuda.is_available() is false", flush=True)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    trees = {"change": str(ROOT)}
+    order = ["change"]
+    if args.parent:
+        trees["parent"] = str(pathlib.Path(args.parent).resolve())
+        order = ["parent", "change", "change", "parent"]
+    turns = {name: [] for name in trees}
+    for name in order:
+        proc = subprocess.run([sys.executable, __file__, "--worker", trees[name]],
+                              capture_output=True, text=True, cwd=trees[name])
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+        if proc.returncode != 0 or not lines:
+            print(f"turn {name} failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}",
+                  flush=True)
+            return 1
+        res = json.loads(lines[-1][len("RESULT "):])
+        turns[name].append(res)
+        print(f"turn {name}: {json.dumps(res)}", flush=True)
+    summary = {"card": card, "torch": torch.__version__,
+               "trees": {name: medians(rs) for name, rs in turns.items()}}
+    text = json.dumps(summary, indent=1)
+    print(text, flush=True)
+    if args.out:
+        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(args.out).write_text(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

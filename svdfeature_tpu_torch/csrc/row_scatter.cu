@@ -11,16 +11,32 @@
 //
 // What bounds them on the card: bytes.  Each copies E rows of W floats
 // and reads E indices, no arithmetic: E * (2 * 4W + 4) bytes.  The design
-// keeps that traffic in full 16-byte transactions: a group of W / 4
-// consecutive threads moves one row as float4s (W % 4 == 0 and 16-byte
-// aligned rows; any other width takes the same mapping with one float per
-// thread), so a warp touches a few contiguous rows on each side, and every
-// offset is 64-bit (2M rows x 68 floats is 139M floats).
+// keeps that traffic in full 16-byte transactions and leaves the address
+// arithmetic to the hardware:
+//   * a 2-D block: threadIdx.x is the 16-byte column of a row (W / 4 of
+//     them; one float per thread when W % 4 != 0 or a pointer is not
+//     16-byte aligned), threadIdx.y the row, so no thread divides;
+//   * the block's row indices are loaded once, coalesced, into shared
+//     memory and checked there (an index outside the table traps);
+//   * on large calls a thread moves four rows, all four loads started
+//     before the first store, to keep more bytes in flight;
+//   * the contiguous side (vals read, out written) is touched once, so it
+//     goes with the streaming hint (ld/st .cs); so do the writer's table
+//     stores: the 557 MB table does not fit the 50 MB L2 and the kernel
+//     never re-reads a row it wrote.
 //
-// The writer's targets are unique except the dummy row: several positions
-// may write it, but all of them write zeros (ops/big_embed.apply_entries),
-// so those concurrent identical writes are benign and need no ordering.
-// An index outside the table is a device fault (trap), never a stray write.
+// The writer's targets are unique except the dummy row n-1: several
+// positions may write it, but all of them write zeros
+// (ops/big_embed.apply_entries).  At E = 2^21 about 419,000 positions do,
+// 7 million 16-byte stores to one 272-byte row, which one L2 slice takes
+// one after the other.  So a store whose target is the dummy row is a
+// compare-then-store: the thread reads the 16 bytes there and stores only
+// if the bits differ.  This is exact for every input the contract allows
+// (all writers of the dummy row carry the same value V): a thread reads
+// either the row's old content X or V; if X == V nobody needs to store,
+// and if X != V the first thread to read (and any that still sees X)
+// stores V, so the row ends as V either way.  The read may come from L1:
+// a stale X only causes a redundant store of V.
 //
 // Plain C interface (ctypes, svdfeature_tpu_torch/ops/_build.py): each entry
 // point launches on the given stream, does not synchronise, allocates
@@ -32,39 +48,118 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kDeepRows = 4;         // rows per thread on large calls
+constexpr int kDeepCall = 1 << 16;   // calls of at least this many rows go deep
 
-template <typename V>
-__global__ void __launch_bounds__(kThreads) row_write_kernel(
-    V* __restrict__ w, const int* __restrict__ idx, const V* __restrict__ vals,
-    int64_t total, int nv, int64_t n) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const int64_t j = t / nv;
-  const int64_t c = t - j * nv;
-  const int64_t r = idx[j];
-  if (r < 0 || r >= n) __trap();
-  w[r * nv + c] = vals[t];
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+__device__ __forceinline__ bool same_bits(const float4& a, const float4& b) {
+  return same_bits(a.x, b.x) && same_bits(a.y, b.y) && same_bits(a.z, b.z) &&
+         same_bits(a.w, b.w);
 }
 
-template <typename V>
+// The block's rows [row0, row0 + rows) of idx into shared memory, checked.
+__device__ __forceinline__ void stage_rows(const int* __restrict__ idx, int64_t row0, int rows,
+                                           int E, int n, int* s_row) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < rows; i += blockDim.x * blockDim.y) {
+    const int64_t j = row0 + i;
+    const int r = j < E ? idx[j] : 0;
+    if (r < 0 || r >= n) __trap();
+    s_row[i] = r;
+  }
+  __syncthreads();
+}
+
+template <typename V, int kRows>
+__global__ void __launch_bounds__(kThreads) row_write_kernel(
+    V* __restrict__ w, const int* __restrict__ idx, const V* __restrict__ vals, int E, int nv,
+    int n) {
+  __shared__ int s_row[kThreads * kRows];
+  const int ry = blockDim.y;
+  const int64_t row0 = (int64_t)blockIdx.x * (ry * kRows);
+  stage_rows(idx, row0, ry * kRows, E, n, s_row);
+  for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+    V v[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int64_t j = row0 + i * ry + threadIdx.y;
+      if (j < E) v[i] = __ldcs(vals + j * nv + c);
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int64_t j = row0 + i * ry + threadIdx.y;
+      if (j >= E) continue;
+      const int r = s_row[i * ry + threadIdx.y];
+      V* dst = w + (int64_t)r * nv + c;
+      // the dummy row: compare, then store (see the note at the top)
+      if (r == n - 1 && same_bits(__ldca(dst), v[i])) continue;
+      __stcs(dst, v[i]);
+    }
+  }
+}
+
+template <typename V, int kRows>
 __global__ void __launch_bounds__(kThreads) row_read_kernel(
-    const V* __restrict__ w, const int* __restrict__ idx, V* __restrict__ out,
-    int64_t total, int nv, int64_t n) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const int64_t j = t / nv;
-  const int64_t c = t - j * nv;
-  const int64_t r = idx[j];
-  if (r < 0 || r >= n) __trap();
-  out[t] = w[r * nv + c];
+    const V* __restrict__ w, const int* __restrict__ idx, V* __restrict__ out, int E, int nv,
+    int n) {
+  __shared__ int s_row[kThreads * kRows];
+  const int ry = blockDim.y;
+  const int64_t row0 = (int64_t)blockIdx.x * (ry * kRows);
+  stage_rows(idx, row0, ry * kRows, E, n, s_row);
+  for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+    V v[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int64_t j = row0 + i * ry + threadIdx.y;
+      if (j < E) v[i] = __ldg(w + (int64_t)s_row[i * ry + threadIdx.y] * nv + c);
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int64_t j = row0 + i * ry + threadIdx.y;
+      if (j < E) __stcs(out + j * nv + c, v[i]);
+    }
+  }
 }
 
 bool vec4(const void* a, const void* b, int W) {
   return W % 4 == 0 && ((uintptr_t)a % 16 == 0) && ((uintptr_t)b % 16 == 0);
 }
 
-unsigned blocks_for(int64_t total) {
-  return (unsigned)((total + kThreads - 1) / kThreads);
+// the block (columns, rows) and the grid of a call of E rows of nv columns
+struct Shape {
+  dim3 block;
+  unsigned grid;
+};
+
+Shape shape_for(int E, int nv, int rows_per_thread) {
+  const int bx = nv < kThreads ? nv : kThreads;
+  const int by = kThreads / bx;
+  const int64_t rows = (int64_t)by * rows_per_thread;
+  return {dim3(bx, by), (unsigned)((E + rows - 1) / rows)};
+}
+
+template <typename V>
+void launch_write(V* w, const int* idx, const V* vals, int E, int nv, int n, cudaStream_t s) {
+  if (E >= kDeepCall) {
+    const Shape sh = shape_for(E, nv, kDeepRows);
+    row_write_kernel<V, kDeepRows><<<sh.grid, sh.block, 0, s>>>(w, idx, vals, E, nv, n);
+  } else {
+    const Shape sh = shape_for(E, nv, 1);
+    row_write_kernel<V, 1><<<sh.grid, sh.block, 0, s>>>(w, idx, vals, E, nv, n);
+  }
+}
+
+template <typename V>
+void launch_read(const V* w, const int* idx, V* out, int E, int nv, int n, cudaStream_t s) {
+  if (E >= kDeepCall) {
+    const Shape sh = shape_for(E, nv, kDeepRows);
+    row_read_kernel<V, kDeepRows><<<sh.grid, sh.block, 0, s>>>(w, idx, out, E, nv, n);
+  } else {
+    const Shape sh = shape_for(E, nv, 1);
+    row_read_kernel<V, 1><<<sh.grid, sh.block, 0, s>>>(w, idx, out, E, nv, n);
+  }
 }
 
 }  // namespace
@@ -74,13 +169,10 @@ extern "C" int row_write(float* w, const int* idx, const float* vals, int E, int
                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (vec4(w, vals, W)) {
-    const int64_t total = (int64_t)E * (W / 4);
-    row_write_kernel<float4><<<blocks_for(total), kThreads, 0, s>>>(
-        reinterpret_cast<float4*>(w), idx, reinterpret_cast<const float4*>(vals), total,
-        W / 4, n);
+    launch_write(reinterpret_cast<float4*>(w), idx, reinterpret_cast<const float4*>(vals), E,
+                 W / 4, n, s);
   } else {
-    const int64_t total = (int64_t)E * W;
-    row_write_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(w, idx, vals, total, W, n);
+    launch_write(w, idx, vals, E, W, n, s);
   }
   return (int)cudaGetLastError();
 }
@@ -90,13 +182,14 @@ extern "C" int row_read(const float* w, const int* idx, float* out, int E, int W
                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (vec4(w, out, W)) {
-    const int64_t total = (int64_t)E * (W / 4);
-    row_read_kernel<float4><<<blocks_for(total), kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(w), idx, reinterpret_cast<float4*>(out), total, W / 4,
-        n);
+    launch_read(reinterpret_cast<const float4*>(w), idx, reinterpret_cast<float4*>(out), E, W / 4,
+                n, s);
   } else {
-    const int64_t total = (int64_t)E * W;
-    row_read_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(w, idx, out, total, W, n);
+    launch_read(w, idx, out, E, W, n, s);
   }
   return (int)cudaGetLastError();
 }
+
+// An entry point that launches nothing: the cost of a ctypes call with
+// row_write's arguments, for scripts/kernel_split.py.
+extern "C" int row_noop(float*, const int*, const float*, int, int, int, void*) { return 0; }

@@ -36,12 +36,15 @@ SIGNATURES = {
     "sgd_apply": [_P] * 11 + [_I] * 6 + [_P],
     "svdpp_flush": [_P] * 6 + [_I] * 5 + [_P],
     "svdpp_gather": [_P] * 8 + [_I] * 5 + [_P],
-    "svdpp_step": [_P] * 17 + [_I] * 9 + [ctypes.c_float, _P],
     "svdpp_apply": [_P] * 10 + [_I] * 6 + [_P],
+    # pointer, int and float arrays of the persistent kernel's arguments,
+    # the grid it chose (int*), the stream
+    "svdpp_rounds": [_P] * 5,
     "imfb_step": [_P] * 13 + [_I] * 10 + [ctypes.c_float, _P],
     "imfb_delta": [_P] * 9 + [_I] * 6 + [_P],
     "row_write": [_P] * 3 + [_I] * 3 + [_P],
     "row_read": [_P] * 3 + [_I] * 3 + [_P],
+    "row_noop": [_P] * 3 + [_I] * 3 + [_P],
     "sweep_apply": [_P] * 10 + [_I] * 11 + [_P],
 }
 

@@ -5,9 +5,12 @@ Replace the TPU kernels svdfeature_tpu/ops/pallas_scatter.py
 ``row_writer`` (``_writer_kernel``: ``w[idx[j]] = vals[j]`` in place) and
 ``row_reader`` (``_reader_kernel``: ``out[j] = w[idx[j]]``), per-row DMA
 kernels that existed because XLA's TPU scatter serializes.  On the H100
-both are csrc/row_scatter.cu: a group of W/4 threads per row moving
-16-byte vectors, one launch per call (the TPU's 131,072-row slices came
-from its SMEM size and have no counterpart).  They are bound by bytes.
+both are csrc/row_scatter.cu: a 2-D block, a row per ``threadIdx.y`` and a
+16-byte column per ``threadIdx.x``, streaming loads and stores, one launch
+per call (the TPU's 131,072-row slices came from its SMEM size and have
+no counterpart).  They are bound by bytes; a call of one batch-4096 step
+(8192 rows) is bound by the host, so the writer's per-call path is a
+handful of attribute reads and one ctypes call.
 
 The writer lands the sorted-dedup step's rows (ops/big_embed.
 write_rows_unique); its targets are unique except the dummy row, which
@@ -21,6 +24,8 @@ anything the kernel does not take; there is no fallback.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -69,22 +74,53 @@ def _device(w: torch.Tensor) -> bool:
     return True
 
 
+# The current CUDA stream of a device index as a raw handle: the private
+# call returns the integer itself, the public route builds a Stream object
+# per call.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+_F32, _I32 = torch.float32, torch.int32
+
+
+@functools.cache
+def _entry_point(name: str):
+    """A C entry point of the kernel library, built and bound at first use."""
+    from ._build import load_library
+
+    return getattr(load_library(), name)
+
+
+def _check_write(w: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor):
+    """The conditions of ``_check(w, idx, vals, "vals")`` as one chain of
+    direct comparisons, no dict and no loop (a step of batch 4096 is bound
+    by the host); when one fails, ``_check`` names it with its own message.
+    Returns (E, W, n)."""
+    shape, ishape, dev = w.shape, idx.shape, w.device
+    if len(shape) == 2 and len(ishape) == 1:
+        n, W = shape
+        E = ishape[0]
+        if (n < 2**31 and w.dtype is _F32 and idx.dtype is _I32 and vals.dtype is _F32
+                and vals.shape == (E, W) and idx.device == dev and vals.device == dev
+                and w.is_contiguous() and idx.is_contiguous() and vals.is_contiguous()):
+            return E, W, n
+    _check(w, idx, vals, "vals")
+    raise ValueError("w, idx or vals failed the kernel's input checks")
+
+
 def row_writer(w: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """``w[idx[j]] = vals[j]`` in place through csrc/row_scatter.cu (one
     launch, counted in ``row_writer.launches``); ``idx`` unique apart from
-    a dummy row that receives only zeros.  Returns ``w``."""
-    if not _device(w):
+    a dummy row that receives only zeros.  Returns ``w``.  Indices outside
+    the table trap on the device."""
+    if not w.is_cuda:
+        if w.device.type != "cpu":
+            raise ValueError(f"no kernel for device {w.device}")
         return row_writer_reference(w, idx, vals)
-    _check(w, idx, vals, "vals")
-    E, W = vals.shape
+    E, W, n = _check_write(w, idx, vals)
     if E == 0:
         return w
-    from ._build import load_library
-
-    err = load_library().row_write(
-        w.data_ptr(), idx.data_ptr(), vals.data_ptr(), E, W, w.shape[0],
-        torch.cuda.current_stream(w.device).cuda_stream,
-    )
+    err = _entry_point("row_write")(
+        w.data_ptr(), idx.data_ptr(), vals.data_ptr(), E, W, n, _raw_stream(w.device.index))
     if err:
         raise RuntimeError(f"row_write launch failed: CUDA error {err}")
     row_writer.launches += 1
@@ -101,12 +137,9 @@ def row_reader(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     E, W = out.shape
     if E == 0:
         return out
-    from ._build import load_library
-
-    err = load_library().row_read(
+    err = _entry_point("row_read")(
         w.data_ptr(), idx.data_ptr(), out.data_ptr(), E, W, w.shape[0],
-        torch.cuda.current_stream(w.device).cuda_stream,
-    )
+        _raw_stream(w.device.index))
     if err:
         raise RuntimeError(f"row_read launch failed: CUDA error {err}")
     row_reader.launches += 1

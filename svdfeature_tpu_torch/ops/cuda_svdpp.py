@@ -7,12 +7,20 @@ as one Pallas call with the table in VMEM, one-hot MXU matmuls for every
 gather and scatter and a slot->user selector matrix for the per-user sums
 (Mosaic cannot gather rows).  None of that carries over: on the H100 the
 table, the pools and the overlap matrices sit in L2, and
-csrc/fused_svdpp.cu runs each chunk boundary as two launches
-(``svdpp_flush``, ``svdpp_gather``) and each step as two (``svdpp_step``:
-one block per user, one warp per slot; ``svdpp_apply``: the row apply plus
-``agg += O @ delta``), issued on PyTorch's current stream by a host loop
-whose chunk starts are known from the host-side ``chunk_id``.  It is
-bound by the f32 arithmetic of that O @ delta product; see the source.
+csrc/fused_svdpp.cu runs a wrapper call as one persistent cooperative
+launch, ``svdpp_rounds``: a grid of one block per SM walks the rounds, the
+steps and the chunk starts itself and puts a grid-wide barrier where a
+dependency stands (flush -> gather -> step -> apply -> next step), so every
+read of a step precedes any write of it.  The chunk ids, the chunk-start
+flags and the live pool entries of each chunk go to the device once per
+call as int32 planes.  It is bound by latency (L2 round trips and two
+barriers a step); see the source.
+
+A round of the band setting is about 1.5 ms on the card, so the wrapper's
+own host work counts: the checks of the packed planes and the pool (which
+end in a host sync) are made once per set of tensors and kept while the
+same, unmodified tensors come again, as they do round after round; the
+decay logs are formed in the kernel; the scratch is one allocation.
 
 Semantics (f32 throughout) are those of ops/svdpp.train_epoch_plus per
 round; the TPU kernel reads tables and payloads in bf16, so the port is
@@ -22,6 +30,7 @@ place and return the new TrainState.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -29,12 +38,13 @@ import numpy as np
 import torch
 
 from .cuda_embed import KERNEL_ACTIVE_TYPES, MAX_TABLE_ROWS, _decay_logs, _log1m
+from .cuda_scatter import _raw_stream, check_tensors
 from .embed import HyperParams, TrainConsts, TrainState
 from .svdpp import PlusHyper, _is_first, train_epoch_plus
 
-# the step launch runs one warp per slot of a user in one block
+# the step runs one warp per slot of a user in one block
 MAX_ROWS_PER_USER = 32
-# its dynamic shared memory, M * (k + 3) floats, stays under the default cap
+# its shared memory, M * (k + 3) floats, stays under the default cap
 MAX_STEP_SMEM_BYTES = 48 * 1024
 _GENERAL_STEP = "the general train step (ROADMAP Queue 1 item 4)"
 
@@ -196,6 +206,121 @@ def _check_inputs(
     return seg, got[5:]
 
 
+def device_schedule(
+    chunk_id: np.ndarray, seg: torch.Tensor, device: torch.device
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The planes from which the kernel walks a round by itself, int32 on
+    ``device``: ``cid [T]`` (each step's chunk), ``first [T]`` (1 where a
+    step starts a chunk: flush the previous chunk, gather this one) and
+    ``live [C]`` (each chunk's live pool entries, ``seg[:, G]``, which the
+    flush covers).  No host sync."""
+    cid = np.ascontiguousarray(chunk_id, dtype=np.int32)
+    first = _is_first(cid).astype(np.int32)
+    return (torch.from_numpy(cid).to(device), torch.from_numpy(first).to(device),
+            seg[:, -1].contiguous())
+
+
+@dataclasses.dataclass
+class _Plan:
+    """What one set of packed tensors needs checked and derived once: kept
+    while the same tensors, unmodified (``_version``), come again."""
+
+    tensors: tuple  # kept alive, so their ids stay theirs
+    ids: Tuple[int, ...]
+    versions: List[int]
+    key: tuple  # (N, M, chunk_id bytes)
+    keep: tuple  # the derived device tensors, kept alive for their pointers
+    ptrs: ctypes.Array  # the kernel's pointer arguments; the per-call ones are set at each call
+    n_live: torch.Tensor  # 0-d int32: slots of weight > 0
+    scalars: tuple = ()  # the kernel's int and float arguments of the last call ...
+    scalar_args: tuple = ()  # ... and their ctypes arrays
+
+
+_PLANS: List[_Plan] = []
+_MAX_PLANS = 4
+_STATIC = ("u_idx", "u_val", "i_idx", "i_val", "label", "weight")
+_POOL = ("fb_idx", "fb_val", "fb_block")
+# the order of csrc/fused_svdpp.cu's struct Rounds
+_ROUNDS_POINTERS = (
+    "w", "b", "acc", "agg", "inv", "dacc", "delta",
+    "u_idx", "i_idx", "fb_idx", "fb_block", "seg", "cid", "first", "live",
+    "u_val", "i_val", "label", "weight", "fb_val", "O",
+    "lrs", "wd_u", "wd_i", "wd_ub", "wd_ib", "trace",
+)
+_SLOT = {name: i for i, name in enumerate(_ROUNDS_POINTERS)}
+
+
+def _plan(state, stacked, chunk_id, fb, fb_overlap, lrs, consts, M: int) -> _Plan:
+    """The checked planes of this call: from the cache when the very same
+    tensors come again unmodified, else checked now (one host sync)."""
+    tensors = (*[stacked[p] for p in _STATIC], *[fb[p] for p in _POOL], fb_overlap)
+    ids = tuple(map(id, tensors))
+    versions = [x._version for x in tensors]
+    cid = np.asarray(chunk_id)
+    key = (state.w.shape[0], M, cid.tobytes())
+    for plan in _PLANS:
+        if plan.ids == ids and plan.versions == versions and plan.key == key:
+            return plan
+    T, GS = stacked["label"].shape
+    C = fb["fb_idx"].shape[0]
+    SI = stacked["i_idx"].shape[-1]
+    if GS % M:
+        raise ValueError(f"{GS} slots per step are not {M} rows of whole users")
+    if cid.shape != (T,) or cid.min() < 0 or cid.max() >= C:
+        raise ValueError(f"chunk_id must have shape ({T},) and values in [0, {C})")
+    planes = {
+        "u_idx": stacked["u_idx"][..., 0].reshape(-1),
+        "u_val": stacked["u_val"][..., 0].reshape(-1),
+        "i_idx": stacked["i_idx"].reshape(-1),
+        "i_val": stacked["i_val"].reshape(-1),
+        "label": stacked["label"].reshape(-1),
+        "weight": stacked["weight"].reshape(-1),
+    }
+    planes = {p: x.contiguous() for p, x in planes.items()}
+    seg, _ = _check_inputs(state, planes, fb, fb_overlap, lrs, consts, GS // M, SI)
+    sched = device_schedule(cid, seg, state.w.device)
+    ptrs = (ctypes.c_void_p * len(_ROUNDS_POINTERS))()
+    for name, x in planes.items():
+        ptrs[_SLOT[name]] = x.data_ptr()
+    for name in _POOL:
+        ptrs[_SLOT[name]] = fb[name].data_ptr()
+    for name, x in zip(("O", "seg", "cid", "first", "live"), (fb_overlap, seg, *sched)):
+        ptrs[_SLOT[name]] = x.data_ptr()
+    plan = _Plan(tensors, ids, versions, key, (planes, seg, sched), ptrs,
+                 (stacked["weight"] > 0).sum().to(torch.int32))
+    _PLANS.insert(0, plan)
+    del _PLANS[_MAX_PLANS:]
+    return plan
+
+
+_SCRATCH: Dict[tuple, Tuple[torch.Tensor, Dict[str, int]]] = {}
+
+
+def _scratch(N: int, k: int, G: int, device: torch.device, stream: int) -> Dict[str, int]:
+    """The pointer of each part of a call's scratch (16-byte aligned): acc
+    [N, k+3], agg [G+1, k+2], inv [G+1], dacc and delta [G+1, k+1].
+
+    One zeroed allocation per (shape, device, stream), kept from call to
+    call: a call leaves acc cleared, as it found it, and writes every other
+    part before it reads it, and calls on one stream run one after the
+    other."""
+    key = (N, k, G, device, stream)
+    hit = _SCRATCH.get(key)
+    if hit is None:
+        sizes = {"acc": N * (k + 3), "agg": (G + 1) * (k + 2), "inv": G + 1,
+                 "dacc": (G + 1) * (k + 1), "delta": (G + 1) * (k + 1)}
+        offsets, total = {}, 0
+        for name, size in sizes.items():
+            offsets[name] = total
+            total += -(-size // 4) * 4
+        buf = torch.zeros((total,), dtype=torch.float32, device=device)
+        base = buf.data_ptr()
+        if len(_SCRATCH) >= _MAX_PLANS:
+            _SCRATCH.pop(next(iter(_SCRATCH)))
+        hit = _SCRATCH[key] = (buf, {name: base + 4 * off for name, off in offsets.items()})
+    return hit[1]
+
+
 @torch.no_grad()
 def train_rounds_svdpp_kernel(
     state: TrainState,
@@ -210,10 +335,10 @@ def train_rounds_svdpp_kernel(
 ) -> TrainState:
     """R rounds of the user-group steps through csrc/fused_svdpp.cu.
 
-    On CUDA tensors this launches the kernels (2 per step and 2 per chunk
-    start, each counted in ``train_rounds_svdpp_kernel.launches``) and
-    raises on anything it cannot run; there is no fallback.  Tensors on
-    the CPU take the plain version, ``train_rounds_svdpp_reference``."""
+    On CUDA tensors this makes one cooperative launch (counted in
+    ``train_rounds_svdpp_kernel.launches``; its grid is left in ``.grid``)
+    and raises on anything it cannot run; there is no fallback.  Tensors
+    on the CPU take the plain version, ``train_rounds_svdpp_reference``."""
     if state.w.device.type == "cpu":
         return train_rounds_svdpp_reference(
             state, stacked, chunk_id, fb, fb_overlap, lrs, consts, hp, ph)
@@ -228,80 +353,58 @@ def train_rounds_svdpp_kernel(
     T, GS = stacked["label"].shape
     N, k = state.w.shape
     M = ph.rows_per_user
-    G = GS // M
     R = lrs.shape[0]
-    SI = stacked["i_idx"].shape[-1]
-    C, F = fb["fb_idx"].shape
     dev = state.w.device
-    cid = np.asarray(chunk_id)
-    planes = {
-        "u_idx": stacked["u_idx"][..., 0].reshape(-1),
-        "u_val": stacked["u_val"][..., 0].reshape(-1),
-        "i_idx": stacked["i_idx"].reshape(-1),
-        "i_val": stacked["i_val"].reshape(-1),
-        "label": stacked["label"].reshape(-1),
-        "weight": stacked["weight"].reshape(-1),
-    }
-    planes = {p: x.contiguous() for p, x in planes.items()}
-    if GS % M:
-        raise ValueError(f"{GS} slots per step are not {M} rows of whole users")
-    if cid.shape != (T,) or cid.min() < 0 or cid.max() >= C:
-        raise ValueError(f"chunk_id must have shape ({T},) and values in [0, {C})")
-    seg, live = _check_inputs(state, planes, fb, fb_overlap, lrs, consts, G, SI)
-    logs = _round_logs(lrs, consts, ph)
-    # the dummy row stays exactly 0 (padding slots scatter nothing into it)
-    state.w[-1] = 0.0
-    state.b[-1] = 0.0
-    acc = torch.zeros((N, k + 3), dtype=torch.float32, device=dev)
-    agg = torch.zeros((G + 1, k + 2), dtype=torch.float32, device=dev)
-    inv = torch.zeros((G + 1,), dtype=torch.float32, device=dev)
-    dacc = torch.zeros((G + 1, k + 1), dtype=torch.float32, device=dev)
-    delta = torch.zeros((G + 1, k + 1), dtype=torch.float32, device=dev)
-    p = {name: x.data_ptr() for name, x in planes.items()}
-    lp = {name: x.data_ptr() for name, x in logs.items()}
-    f = {name: x.data_ptr() for name, x in fb.items()}
-    w, b = state.w.data_ptr(), state.b.data_ptr()
-    acc_p, agg_p, inv_p = acc.data_ptr(), agg.data_ptr(), inv.data_ptr()
-    dacc_p, delta_p, seg_p, O_p = dacc.data_ptr(), delta.data_ptr(), seg.data_ptr(), fb_overlap.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with_ub = 0 if hp.no_user_bias else 1
-
-    def launched(name: str, err: int) -> None:
-        if err:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-        train_rounds_svdpp_kernel.launches += 1
-
-    def flush(c: int) -> None:
-        launched("svdpp_flush", lib.svdpp_flush(
-            w, b, f["fb_idx"], f["fb_val"], f["fb_block"], dacc_p, F, k, c, live[c], with_ub,
-            stream))
-
-    first = _is_first(cid)
-    for r in range(R):
-        for t in range(T):
-            c = int(cid[t])
-            if first[t]:
-                if r or t:
-                    flush(int(cid[t - 1]))  # t = 0: the previous round's last chunk
-                launched("svdpp_gather", lib.svdpp_gather(
-                    w, b, f["fb_idx"], f["fb_val"], seg_p, agg_p, inv_p, dacc_p, F, k, G, c,
-                    with_ub, stream))
-            launched("svdpp_step", lib.svdpp_step(
-                w, b, p["u_idx"], p["u_val"], p["i_idx"], p["i_val"], p["label"],
-                p["weight"], agg_p, inv_p, lrs.data_ptr(), lp["lr_fb"], lp["d"], lp["db"],
-                acc_p, dacc_p, delta_p, N, k, G, M, SI, t, r, hp.active_type, with_ub,
-                hp.base_score, stream))
-            launched("svdpp_apply", lib.svdpp_apply(
-                w, b, acc_p, agg_p, delta_p, O_p, lp["u"], lp["i"], lp["bu"], lp["bi"],
-                N, k, G, c, r, with_ub, stream))
-    flush(int(cid[-1]))
-    nstep = state.step + (stacked["weight"] > 0).sum().to(torch.int32) * R
-    return dataclasses.replace(state, step=nstep)
+    plan = _plan(state, stacked, chunk_id, fb, fb_overlap, lrs, consts, M)
+    G = GS // M
+    # what changes from call to call (a kept plan's tensors were checked)
+    check_tensors({
+        "w": (state.w, torch.float32, (N, k)), "b": (state.b, torch.float32, (N,)),
+        "lrs": (lrs, torch.float32, (R,)),
+        "wd_u_row": (consts.wd_u_row, torch.float32, (N,)),
+        "wd_i_row": (consts.wd_i_row, torch.float32, (N,)),
+        "wd_user_bias": (consts.wd_user_bias, torch.float32, ()),
+        "wd_item_bias": (consts.wd_item_bias, torch.float32, ()),
+    }, dev)
+    if k == 0 or R == 0:
+        raise ValueError("empty batch, table or round schedule")
+    stream = _raw_stream(dev.index)
+    ptrs = plan.ptrs
+    for name, ptr in _scratch(N, k, G, dev, stream).items():
+        ptrs[_SLOT[name]] = ptr
+    trace = train_rounds_svdpp_kernel.trace
+    if trace is not None:
+        check_tensors({"trace": (trace, torch.int64, (9,))}, dev)
+    for name, x in (("w", state.w), ("b", state.b), ("lrs", lrs), ("wd_u", consts.wd_u_row),
+                    ("wd_i", consts.wd_i_row), ("wd_ub", consts.wd_user_bias),
+                    ("wd_ib", consts.wd_item_bias), ("trace", trace)):
+        ptrs[_SLOT[name]] = None if x is None else x.data_ptr()
+    scalars = (N, k, G, M, stacked["i_idx"].shape[-1], T, R, fb["fb_idx"].shape[1],
+               hp.active_type, 0 if hp.no_user_bias else 1, hp.base_score,
+               ph.scale_lr_ufeedback, ph.wd_ufeedback, ph.wd_ufeedback_bias)
+    if plan.scalars != scalars:
+        plan.scalars = scalars
+        plan.scalar_args = ((ctypes.c_int * 10)(*scalars[:10]), (ctypes.c_float * 4)(*scalars[10:]),
+                            ctypes.c_int(0))
+    ints, floats, grid = plan.scalar_args
+    err = lib.svdpp_rounds(ptrs, ints, floats, ctypes.byref(grid), stream)
+    if err:
+        raise RuntimeError(f"svdpp_rounds launch failed: CUDA error {err}")
+    train_rounds_svdpp_kernel.launches += 1
+    train_rounds_svdpp_kernel.grid = grid.value
+    return dataclasses.replace(state, step=torch.add(state.step, plan.n_live, alpha=R))
 
 
 train_rounds_svdpp_kernel.launches = 0
+train_rounds_svdpp_kernel.grid = 0
+# None, or an int64 [9] tensor on the device into which the kernel adds the
+# nanoseconds its first block spends in each phase, at each barrier and in
+# the product (csrc/fused_svdpp.cu, struct Rounds; scripts/kernel_split.py
+# reads it)
+train_rounds_svdpp_kernel.trace = None
 
 
 def launches_per_call(chunk_id: np.ndarray, rounds: int) -> int:
-    """The kernel launches of one wrapper call: R * (2T + 2 * chunk starts)."""
-    return rounds * (2 * len(chunk_id) + 2 * int(_is_first(chunk_id).sum()))
+    """The kernel launches of one wrapper call: one cooperative launch,
+    whatever the rounds, steps and chunk starts."""
+    return 1

@@ -54,6 +54,9 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         self.sort_blocks = 0
         self.rows_per_user = 1
         self._plus_cache: Dict[int, PlusEntry] = {}
+        # the last round schedule on the device: a constant learning rate
+        # is staged once, not before every round's launch
+        self._lrs_staged = (None, None)
 
     def set_param(self, name: str, val: str) -> None:
         if name == "users_per_batch":
@@ -116,7 +119,10 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         reason = gate_failure(self.hp, self.state, entry.stacked, entry.fb, ph)
         if reason is not None:
             raise NotImplementedError(reason)
-        lr_t = torch.tensor(lrs, dtype=torch.float32, device=self.state.w.device)
+        key = (tuple(lrs), self.state.w.device)
+        if self._lrs_staged[0] != key:
+            self._lrs_staged = (key, torch.tensor(lrs, dtype=torch.float32, device=key[1]))
+        lr_t = self._lrs_staged[1]
         fn = train_rounds_svdpp_kernel if self.use_pallas else train_rounds_svdpp_reference
         self.state = fn(
             self.state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap,

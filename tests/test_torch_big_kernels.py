@@ -82,6 +82,39 @@ def test_row_reader_plain_matches_jax(jx):
                                   np.asarray(want))
 
 
+WRITE_FAULTS = {
+    # name: (edit of (w, idx, vals) -> the faulty triple, a word of the message)
+    "idx-dtype": (lambda w, i, v: (w, i.long(), v), "idx has dtype"),
+    "vals-dtype": (lambda w, i, v: (w, i, v.double()), "vals has dtype"),
+    "w-dtype": (lambda w, i, v: (w.double(), i, v), "w has dtype"),
+    "vals-shape": (lambda w, i, v: (w, i, v[:, :-1].contiguous()), "vals has shape"),
+    "vals-rows": (lambda w, i, v: (w, i, v[:-1]), "vals has shape"),
+    "vals-stride": (lambda w, i, v: (w, i, v.t().contiguous().t()), "vals is not contiguous"),
+    "idx-stride": (lambda w, i, v: (w, i.repeat_interleave(2)[::2], v), "idx is not contiguous"),
+    "w-stride": (lambda w, i, v: (w.t().contiguous().t(), i, v), "w is not contiguous"),
+    "vals-device": (lambda w, i, v: (w, i, v.to("meta")), "vals is on meta"),
+    "idx-device": (lambda w, i, v: (w, i.to("meta"), v), "idx is on meta"),
+    "w-1d": (lambda w, i, v: (w[0], i, v), "2-D table"),
+    "idx-2d": (lambda w, i, v: (w, i[:, None], v), "1-D indices"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(WRITE_FAULTS))
+def test_row_writer_checks_raise_as_before(fault):
+    """K5's per-call checks are direct comparisons now; each wrong dtype,
+    shape, device or stride still raises, with the very message of the
+    table-driven check they replace."""
+    edit, word = WRITE_FAULTS[fault]
+    w, idx, vals = (torch.from_numpy(a) for a in row_inputs())
+    assert cuda_scatter._check_write(w, idx, vals) == (idx.shape[0], w.shape[1], w.shape[0])
+    bad = edit(w, idx, vals)
+    with pytest.raises(ValueError) as old:
+        cuda_scatter._check(*bad, "vals")
+    with pytest.raises(ValueError, match=word) as new:
+        cuda_scatter._check_write(*bad)
+    assert str(new.value) == str(old.value)
+
+
 def test_sweep_wrapper_is_plain_version_on_cpu():
     """On CPU tensors K4's wrapper is its plain version and launches nothing."""
     x = sweep_inputs(n=200, k=4, B=64, tile=16, e_cap=8, seed=3)
@@ -159,6 +192,27 @@ def test_row_kernels_match_plain_on_card(W):
         before[0] + 1, before[1] + 1)
     assert torch.equal(got, cuda_scatter.row_writer_reference(w.clone(), idx, vals))
     assert torch.equal(read, cuda_scatter.row_reader_reference(w, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dummy_row", [0.0, 1.5])
+def test_row_writer_one_batch_step_on_card(dummy_row):
+    """K5 at the E=8192 rows of one batch-4096 dedup step (W=68): bit for
+    bit, one launch; a quarter of the positions carry zeros to the dummy
+    row, which the kernel compares before it stores, so the row is tried
+    holding zeros already and holding something else."""
+    dev = _card()
+    w, idx, vals = row_inputs(n=300_001, W=68, E=8192, dummy_share=0.25, seed=7)
+    w[-1] = dummy_row
+    w, idx, vals = (torch.from_numpy(a).to(dev) for a in (w, idx, vals))
+    before = cuda_scatter.row_writer.launches
+    got = cuda_scatter.row_writer(w.clone(), idx, vals)
+    torch.cuda.synchronize()
+    assert cuda_scatter.row_writer.launches == before + 1
+    assert torch.equal(got, cuda_scatter.row_writer_reference(w.clone(), idx, vals))
+    assert (got[-1] == 0).all() and int((idx == 300_000).sum()) > 1000
+    with pytest.raises(ValueError, match="idx has dtype"):
+        cuda_scatter.row_writer(w, idx.long(), vals)
 
 
 @pytest.mark.cuda

@@ -54,18 +54,19 @@ def synth_text(seed, SI, n_users=NUM_USER):
     return "\n".join(rows) + "\n", "\n".join(fbs) + "\n"
 
 
-def plus_inputs(M=1, SI=1, no_user_bias=0, seed=0, R=2):
+def plus_inputs(M=1, SI=1, no_user_bias=0, seed=0, R=2, n_users=NUM_USER, users_per_step=16, k=8):
     """numpy (state, consts, stacked, chunk_id, fb, overlap, lrs) and the
-    hyperparameters of one synthetic case (16 users per step, 3 chunks)."""
-    rows, fbs = synth_text(seed, SI)
+    hyperparameters of one synthetic case (by default 40 users, 16 per
+    step, 3 chunks, 8 factors; more users move the item rows up)."""
+    rows, fbs = synth_text(seed, SI, n_users)
     ds = load_plus_text("x", "y", text=rows, feedback_text=fbs)
-    N = NUM_FB + NUM_USER + NUM_ITEM + 1
-    off_user, off_item = NUM_FB, NUM_FB + NUM_USER
-    packed = pack_plus(ds, 16, N - 1, 0, off_user, off_item, 0, num_user=NUM_USER,
+    N = NUM_FB + n_users + NUM_ITEM + 1
+    off_user, off_item = NUM_FB, NUM_FB + n_users
+    packed = pack_plus(ds, users_per_step, N - 1, 0, off_user, off_item, 0, num_user=n_users,
                        num_item=NUM_ITEM, num_ufeedback=NUM_FB, rows_per_user=M)
-    assert packed.fb_idx.shape[0] == 3
+    assert packed.fb_idx.shape[0] == -(-n_users // users_per_step)
     rng = np.random.RandomState(seed + 1)
-    w = rng.normal(0, 0.1, (N, 8)).astype(np.float32)
+    w = rng.normal(0, 0.1, (N, k)).astype(np.float32)
     b = rng.normal(0, 0.01, (N,)).astype(np.float32)
     w[-1] = 0.0
     b[-1] = 0.0
@@ -336,9 +337,65 @@ def test_wrapper_runs_plain_version_on_cpu():
     assert cuda_svdpp.train_rounds_svdpp_kernel.launches == before
     for name in ("w", "b", "g", "step"):
         assert torch.equal(getattr(a, name), getattr(b, name))
-    # what a call on the card would launch: R * (2T + 2 * chunk starts)
-    T = x.stacked["label"].shape[0]
-    assert cuda_svdpp.launches_per_call(x.chunk_id, 2) == 2 * (2 * T + 2 * 3)
+    # what a call on the card would launch: one cooperative launch for the
+    # whole R x T run, chunk starts included
+    assert cuda_svdpp.launches_per_call(x.chunk_id, 2) == 1
+
+
+@pytest.mark.parametrize("M", [1, 2])
+def test_device_schedule_planes(M):
+    """The planes from which the kernel walks a round by itself: each
+    step's chunk, the chunk-start flags (``_is_first``) and each chunk's
+    live pool entries (``seg[:, G]``), int32."""
+    from svdfeature_tpu_torch.ops.svdpp import _is_first
+
+    x = plus_inputs(M=M)
+    (seg, live), _, G = _checked(x)
+    cid, first, live_dev = cuda_svdpp.device_schedule(x.chunk_id, seg, CPU)
+    assert cid.dtype == first.dtype == live_dev.dtype == torch.int32
+    assert all(t.is_contiguous() for t in (cid, first, live_dev))
+    assert np.array_equal(cid.numpy(), x.chunk_id)
+    assert np.array_equal(first.numpy().astype(bool), _is_first(x.chunk_id))
+    assert first[0] == 1 and int(first.sum()) == 3
+    assert live_dev.tolist() == seg[:, G].tolist() == live
+    assert live == (x.fb["fb_block"] < G).sum(axis=1).tolist()
+
+
+def test_checked_plan_is_kept_for_the_same_tensors():
+    """The wrapper's checked plan (flat planes, segment starts, schedule
+    planes, live-slot count) is made once per set of tensors and found
+    again while they come unmodified; an in-place edit of a plane, other
+    tensors, another chunk_id or another table height make a new one, and
+    the new one is checked (a row outside the table raises)."""
+    x = plus_inputs(M=2)
+    state, stacked, cid, fb, overlap, lrs, consts, _, ph = torch_args(x)
+    args = (state, stacked, cid, fb, overlap, lrs, consts, ph.rows_per_user)
+    cuda_svdpp._PLANS.clear()
+    plan = cuda_svdpp._plan(*args)
+    assert cuda_svdpp._plan(*args) is plan and len(cuda_svdpp._PLANS) == 1
+    assert int(plan.n_live) == int((x.stacked["weight"] > 0).sum())
+    planes, seg, sched = plan.keep
+    assert len(plan.ptrs) == len(cuda_svdpp._ROUNDS_POINTERS) == 27
+    for name, held in (("seg", seg), ("cid", sched[0]), ("live", sched[2]),
+                       ("label", planes["label"]), ("fb_val", fb["fb_val"]), ("O", overlap)):
+        assert plan.ptrs[cuda_svdpp._SLOT[name]] == held.data_ptr()
+    # other tensors of equal content: checked anew
+    other = torch_args(x)
+    assert cuda_svdpp._plan(other[0], *other[1:7], ph.rows_per_user) is not plan
+    # another schedule
+    cid2 = cid.copy()
+    cid2[-1] = cid2[0]
+    assert cuda_svdpp._plan(state, stacked, cid2, *args[3:]) is not plan
+    assert cuda_svdpp._plan(*args) is plan
+    # an in-place edit bumps the version: the plan is remade, and checked
+    stacked["label"].mul_(1.0)
+    remade = cuda_svdpp._plan(*args)
+    assert remade is not plan
+    stacked["u_idx"][0, 0, 0] = 10_000
+    with pytest.raises(ValueError, match="outside"):
+        cuda_svdpp._plan(*args)
+    assert len(cuda_svdpp._PLANS) <= cuda_svdpp._MAX_PLANS
+    cuda_svdpp._PLANS.clear()
 
 
 # ---- the CLI slice -----------------------------------------------------------
@@ -471,24 +528,52 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
         SVDTrainTask().run(str(tmp_path / "t.conf"), ["num_round=1", "device=cpu", f"{key}={val}"])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("M,SI,no_user_bias", [(1, 1, 0), (2, 1, 1), (2, 2, 0)])
-def test_kernel_matches_plain_on_card(M, SI, no_user_bias):
-    """The CUDA kernel against its plain version on the card, R=2 (atomics
-    sum in a varying order, exp(m log d) against pow(d, m): atol 1e-5 /
-    rtol 1e-4), with the exact launch count."""
+def _kernel_vs_plain_on_card(x):
+    """One R=2 call of the CUDA kernel against its plain version on the
+    card (atomics sum in a varying order, exp(m log d) against pow(d, m):
+    atol 1e-5 / rtol 1e-4), with the exact launch count: one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: python -m pytest -m cuda tests/)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    x = plus_inputs(M, SI, no_user_bias)
     before = cuda_svdpp.train_rounds_svdpp_kernel.launches
     got = cuda_svdpp.train_rounds_svdpp_kernel(*torch_args(x, dev))
     torch.cuda.synchronize()
-    assert (cuda_svdpp.train_rounds_svdpp_kernel.launches - before
-            == cuda_svdpp.launches_per_call(x.chunk_id, 2))
+    assert cuda_svdpp.train_rounds_svdpp_kernel.launches - before == 1
+    assert cuda_svdpp.launches_per_call(x.chunk_id, 2) == 1
     want = cuda_svdpp.train_rounds_svdpp_reference(*torch_args(x, dev))
     for name in ("w", "b"):
         torch.testing.assert_close(getattr(got, name), getattr(want, name), atol=1e-5, rtol=1e-4)
     assert int(got.step) == int(want.step)
+    assert not torch.equal(got.w, torch.from_numpy(x.st["w"]).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,SI,no_user_bias", [(1, 1, 0), (2, 1, 1), (2, 2, 0), (16, 1, 0),
+                                               (32, 2, 1)])
+def test_kernel_matches_plain_on_card(M, SI, no_user_bias):
+    """The persistent kernel against its plain version on the card, R=2;
+    above 8 rows per user a block has a warp per row (up to 1024 threads)."""
+    _kernel_vs_plain_on_card(plus_inputs(M, SI, no_user_bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,users_per_step", [(160, 16), (100, 20), (8, 20)])
+def test_kernel_shapes_off_the_tiles_on_card(k, users_per_step):
+    """Factor counts beyond one gather tile (64) and beyond the columns the
+    step keeps in registers (128), not multiples of the product's 8-column
+    tiles, and user counts that are not multiples of its 16 rows and 8
+    steps of u."""
+    _kernel_vs_plain_on_card(plus_inputs(M=2, seed=5, n_users=50, users_per_step=users_per_step,
+                                         k=k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2])
+def test_kernel_strides_over_users_above_the_grid(M):
+    """More users per step than the resident grid has blocks (256 against
+    one block per SM): every block takes several users of a step."""
+    x = plus_inputs(M=M, n_users=600, users_per_step=256, seed=4)
+    _kernel_vs_plain_on_card(x)
+    assert 0 < cuda_svdpp.train_rounds_svdpp_kernel.grid < 256 == x.G
