@@ -8,17 +8,22 @@ result line):
   0. the card's name and power limit (nvidia-smi); exit 1 without CUDA;
   1. build the CUDA kernels from svdfeature_tpu_torch/csrc/ with nvcc
      into build/kernels/;
-  2. the kernel against its plain PyTorch version on identical
-     numpy-seeded inputs, R=2 rounds at basicMF shapes (N=2626, k=64,
-     B=4096, T=23) and neighborhoodModel shapes (+ NG=7, SG=3), for
-     active_type 0/2 and exact_global 0/1, with both times;
+  2. K1 (csrc/fused_embed.cu, one cooperative launch a call) against its
+     plain PyTorch version on identical numpy-seeded inputs, R=2 rounds at
+     basicMF shapes (N=2626, k=64, B=4096, T=23) and neighborhoodModel
+     shapes (+ NG=7, SG=3), for active_type 0/2 and exact_global 0/1, and
+     once with R=3 and a second call on the same tensors (the kept plan),
+     each call exactly one launch, with both times (on the same device
+     tensors call after call, as the trainer calls it);
   3. the slice through the port's entry points: make_feature_buffer, then
      SVDTrainTask (40 rounds, batch_size=4096, device=cuda) and
      SVDInferTask for basicMF, binaryClassification and
      neighborhoodModel; the final test RMSE must lie in the
-     golden/GOLDEN.json band and every training step must have gone
-     through the kernel (launch count 2*40*T).  basicMF runs once more
-     with use_pallas=0 (the plain version) for the end-to-end comparison;
+     golden/GOLDEN.json band and every round must have gone through the
+     kernel (launch count 40: one cooperative launch a round).  basicMF
+     runs once more with use_pallas=0 (the plain version) for the
+     end-to-end comparison, and prints the kernel's share of ten more
+     rounds by its own clock (no gate: a round is 23 steps);
   4. the SVD++ kernel (csrc/fused_svdpp.cu) against its plain version on
      numpy-seeded inputs packed by the port's pack_plus from the ML-100K
      user-group fixtures, R=2: the RMSE-band setting (128 users x 8 rows,
@@ -51,12 +56,14 @@ result line):
      counts, the probe RMSE falls and lies within 1e-4 of the JAX
      package's CPU figure (scripts/bigtable_jax_reference.py), (a) and (b)
      agree, examples/s beside the reference C++ baseline, peak memory;
-  8. the stacked multi-IMFB kernel K3 (csrc/fused_imfb.cu with K2's flush,
-     gather and apply) against its plain version, R=2: at the slice's
-     shapes (the depth-2 ML-100K set, 128 units x 8 rows, T=449, D=2,
-     nseg=129) and on synthetic stacked sets with no_user_bias=1 and
-     ufeedback_disable_level=1 at rows_per_user 1 and 2, with both times,
-     the bound and a profile;
+  8. the stacked multi-IMFB kernel K3 (csrc/fused_imfb.cu, one cooperative
+     launch a call, with K2's flush, gather and apply bodies) against its
+     plain version, R=2: at the slice's shapes (the depth-2 ML-100K set,
+     128 units x 8 rows, T=449, D=2, nseg=129), once more on the same
+     tensors (the kept plan), and on synthetic stacked sets with
+     no_user_bias=1 and ufeedback_disable_level=1 at rows_per_user 1 and
+     2, each call exactly one launch, with both times, the bound and a
+     profile;
   9. the stacked slice: the depth-2 transform of the implicitFeedback train
      set (write_plus_buffer) and the stock test buffer (make_ugroup_buffer
      -fd), SVDTrainTask (extend_type=2 rows_per_user=8, 8 rounds,
@@ -64,7 +71,9 @@ result line):
      use_pallas=0; the round-8 test RMSE must lie within 1e-4 of the JAX
      package's CPU figure (scripts/imfb_jax_reference.py) and within 0.008
      of the reference binary's (golden/multi_imfb_stacked.rmse.tsv), the
-     two runs within 1e-5 of each other, with exact launch counts.
+     two runs within 1e-5 of each other, with exact launch counts (8: one a
+     round); over ten more rounds, a synchronise after each, the kernel
+     must be running for at least 0.7 of the time by its own clock.
 Each phase prints its time.  Then one JSON line describing the kernels (with each one's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 the H100 SXM's published rates at 700 W) and, last, one JSON line naming
@@ -304,68 +313,83 @@ def embed_bound(arrays):
 def phase_kernel(torch, dev, failures):
     from svdfeature_tpu_torch import convert
     from svdfeature_tpu_torch.ops.cuda_embed import (
-        train_rounds_kernel, train_rounds_reference,
+        launches_per_call, train_rounds_kernel, train_rounds_reference,
     )
     from svdfeature_tpu_torch.ops.embed import HyperParams
 
     def device_inputs(arrays):
         st, cs, stacked, lrs = arrays
-        return (convert.state_from_numpy(**st, device=dev),
+        return [convert.state_from_numpy(**st, device=dev),
                 convert.stacked_from_numpy(stacked, dev),
                 torch.tensor(lrs, device=dev),
-                convert.consts_from_numpy(**cs, device=dev))
+                convert.consts_from_numpy(**cs, device=dev)]
+
+    def compare(got, want):
+        errs, ok = {}, True
+        for name in ("w", "b", "g"):
+            a, b = getattr(got, name), getattr(want, name)
+            errs[name] = float((a - b).abs().max())
+            ok &= bool(torch.isfinite(a).all()) and bool(
+                ((a - b).abs() <= ATOL + RTOL * b.abs()).all())
+        return errs, ok and int(got.step) == int(want.step)
 
     max_err = 0.0
     timing = {}
+    cases = [(shape, NG, SG, at, exact, 2, 1)
+             for shape, NG, SG in (("basicMF", 1, 1), ("neighborhoodModel", 7, 3))
+             for at in (0, 2) for exact in (False, True)]
+    # R=3, called twice on the same tensors: the second call takes the kept plan
+    cases += [("basicMF", 1, 1, 0, False, 3, 2), ("neighborhoodModel", 7, 3, 0, False, 3, 2)]
+    for shape, NG, SG, at, exact, R, calls in cases:
+        arrays = make_inputs(at, NG, SG, seed=10 + at, exact_global=exact, R=R)
+        hp = HyperParams(active_type=at, base_score=3.0 if at == 0 else 0.0, exact_global=exact)
+        held = device_inputs(arrays)
+        want = device_inputs(arrays)
+        for call in range(calls):
+            before = train_rounds_kernel.launches
+            held[0] = train_rounds_kernel(*held, hp)
+            torch.cuda.synchronize()
+            launched = train_rounds_kernel.launches - before
+            want[0] = train_rounds_reference(*want, hp)
+            errs, ok = compare(held[0], want[0])
+            ok &= launched == launches_per_call(R) == 1
+            max_err = max(max_err, *errs.values())
+            if not ok:
+                failures.append(f"kernel vs plain {shape} at={at} exact_global={int(exact)} "
+                                f"R={R} call {call + 1}")
+            print(f"phase 2 {'ok' if ok else 'FAIL'}: {shape} active_type={at} "
+                  f"exact_global={int(exact)} R={R} call {call + 1} of {calls} "
+                  f"max|dw|={errs['w']:.3e} max|db|={errs['b']:.3e} max|dg|={errs['g']:.3e} "
+                  f"(atol {ATOL:g} + rtol {RTOL:g}) launches {launched} (grid "
+                  f"{train_rounds_kernel.grid} blocks)", flush=True)
     for shape, NG, SG in (("basicMF", 1, 1), ("neighborhoodModel", 7, 3)):
-        for at in (0, 2):
-            for exact in (False, True):
-                arrays = make_inputs(at, NG, SG, seed=10 + at, exact_global=exact)
-                hp = HyperParams(active_type=at, base_score=3.0 if at == 0 else 0.0,
-                                 exact_global=exact)
-                got = train_rounds_kernel(*device_inputs(arrays), hp)
-                want = train_rounds_reference(*device_inputs(arrays), hp)
-                torch.cuda.synchronize()
-                errs, ok = {}, True
-                for name in ("w", "b", "g"):
-                    a, b = getattr(got, name), getattr(want, name)
-                    errs[name] = float((a - b).abs().max())
-                    ok &= bool(torch.isfinite(a).all()) and bool(
-                        ((a - b).abs() <= ATOL + RTOL * b.abs()).all())
-                ok &= int(got.step) == int(want.step)
-                max_err = max(max_err, *errs.values())
-                status = "ok" if ok else "FAIL"
-                if not ok:
-                    failures.append(f"kernel vs plain {shape} at={at} exact_global={int(exact)}")
-                print(f"phase 2 {status}: {shape} active_type={at} exact_global={int(exact)} "
-                      f"max|dw|={errs['w']:.3e} max|db|={errs['b']:.3e} max|dg|={errs['g']:.3e} "
-                      f"(atol {ATOL:g} + rtol {RTOL:g})", flush=True)
-        # times: CUDA events around whole R=2 runs, after a warm-up, in turns
+        # times: CUDA events around whole R=2 calls, in turns, each path on
+        # its own device tensors call after call, as the trainer calls it
         arrays = make_inputs(0, NG, SG, seed=10)
         hp = HyperParams(base_score=3.0)
         T = arrays[2]["label"].shape[0]
         R = arrays[3].shape[0]
         fns = {"plain": train_rounds_reference, "kernel": train_rounds_kernel}
         samples = {"plain": [], "kernel": []}
-        for name in ("plain", "kernel"):
-            fns[name](*device_inputs(arrays), hp)
-        for name in ("plain", "kernel", "kernel", "plain") * 3:
-            inputs = device_inputs(arrays)
+        held = {name: device_inputs(arrays) for name in fns}
+        for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain") * 3:
+            inputs = held[name]
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fns[name](*inputs, hp)
+            inputs[0] = fns[name](*inputs, hp)
             end.record()
             torch.cuda.synchronize()
             samples[name].append(start.elapsed_time(end) / (R * T))
+        samples = {name: v[1:] for name, v in samples.items()}  # the first call warms up
         timing[shape] = {n: float(np.median(v)) for n, v in samples.items()}
         timing[shape]["bound"], timing[shape]["bound_by"] = embed_bound(arrays)
-        print(f"phase 2 time: {shape} ms per step (B={BATCH}, median of 6 R={R} runs): "
+        print(f"phase 2 time: {shape} ms per step (B={BATCH}, median of 8 R={R} calls): "
               f"kernel {timing[shape]['kernel']:.4f} plain {timing[shape]['plain']:.4f} "
               f"bound {timing[shape]['bound']:.6f} ({timing[shape]['bound_by']})", flush=True)
         for name in ("kernel", "plain"):
-            inputs = device_inputs(arrays)
+            inputs = held[name]
             print(f"phase 2 profile: {shape} path={name} "
                   f"{device_profile(torch, lambda: fns[name](*inputs, hp), R * T)}",
                   flush=True)
@@ -417,28 +441,29 @@ def device_profile(torch, run, steps, top=4):
             f"elapsed under the profiler (busy share {busy / elapsed_us:.3f}); {tops}")
 
 
-# ---- phases 3 and 5: the slices ----------------------------------------------
-# implicitFeedback rounds through K2 are bound by the card, not the host: the
-# share of a window of rounds, each followed by a synchronise as the train
-# task makes it, that the kernel is running, by the kernel's own clock.  The
-# persistent kernel measures 0.87-0.93 (PERF.md), the host-launched form it
-# replaced 0.37-0.64 under the profiler.  The faster the kernel and the
-# slower the machine's host, the lower the share, so the gate leaves room.
-K2_MIN_BUSY_SHARE = 0.7
-K2_STEADY_ROUNDS = 10
+# ---- phases 3, 5 and 9: the slices ---------------------------------------------
+# implicitFeedback rounds through K2 and stacked rounds through K3 are bound
+# by the card, not the host: the share of a window of rounds, each followed
+# by a synchronise as the train task makes it, that the kernel is running,
+# by the kernel's own clock.  K2 measures 0.87-0.95 (PERF.md), the
+# host-launched form it replaced 0.37-0.64 under the profiler.  The faster
+# the kernel and the slower the machine's host, the lower the share, so the
+# gate leaves room.  K1's rounds are 23 steps: the host's 100-190 us before
+# a launch weigh more there, and its share is printed without a gate.
+MIN_BUSY_SHARE = 0.7
+STEADY_ROUNDS = 10
 
 
-def steady_busy_share(torch, task, steps_per_round):
-    """(busy share, busy us/step, elapsed us/step) of K2_STEADY_ROUNDS more
+def steady_busy_share(torch, task, wrapper, trace_slots, busy_slots, steps_per_round):
+    """(busy share, busy us/step, elapsed us/step) of STEADY_ROUNDS more
     rounds of ``task``'s trainer after a warm-up round: busy from the
     kernel's own clock (the nanoseconds its first block spends in its
-    phases and at its barriers, train_rounds_svdpp_kernel.trace), elapsed
-    from CUDA events around the window."""
-    from svdfeature_tpu_torch.ops.cuda_svdpp import train_rounds_svdpp_kernel
-
+    phases and at its barriers, the first ``busy_slots`` of the
+    ``trace_slots`` of ``wrapper.trace``), elapsed from CUDA events around
+    the window."""
     tr = task.trainer
-    trace = torch.zeros(9, dtype=torch.int64, device=tr.state.w.device)
-    train_rounds_svdpp_kernel.trace = trace
+    trace = torch.zeros(trace_slots, dtype=torch.int64, device=tr.state.w.device)
+    wrapper.trace = trace
     try:
         tr.update_all(task.dataset)
         tr.synchronize()
@@ -446,17 +471,27 @@ def steady_busy_share(torch, task, steps_per_round):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(K2_STEADY_ROUNDS):
+        for _ in range(STEADY_ROUNDS):
             tr.update_all(task.dataset)
             tr.synchronize()
         end.record()
         torch.cuda.synchronize()
     finally:
-        train_rounds_svdpp_kernel.trace = None
-    steps = K2_STEADY_ROUNDS * steps_per_round
-    busy = float(trace[:8].sum()) / 1e3 / steps
+        wrapper.trace = None
+    steps = STEADY_ROUNDS * steps_per_round
+    busy = float(trace[:busy_slots].sum()) / 1e3 / steps
     elapsed = start.elapsed_time(end) * 1e3 / steps
     return busy / elapsed, busy, elapsed
+
+
+def report_share(phase, name, kid, share, busy, elapsed, failures, gate=True):
+    ok = share >= MIN_BUSY_SHARE or not gate
+    if not ok:
+        failures.append(f"{name} rounds: {kid} busy share below {MIN_BUSY_SHARE}")
+    want = f"at least {MIN_BUSY_SHARE} wanted" if gate else "no gate"
+    print(f"phase {phase} {'ok' if ok else 'FAIL'}: {name} {kid} rounds: {STEADY_ROUNDS} more "
+          f"rounds, a synchronise after each: the kernel's own clock counts {busy:.2f} us/step of "
+          f"{elapsed:.2f} us/step elapsed (busy share {share:.3f}, {want})", flush=True)
 
 
 def kernel_wrappers():
@@ -521,7 +556,10 @@ def unzip_fixture(name, dst):
 
 
 def phase_slice(work, card, failures):
+    import torch
+
     from svdfeature_tpu_torch.cli import make_feature_buffer
+    from svdfeature_tpu_torch.ops.cuda_embed import launches_per_call, train_rounds_kernel
 
     total = 0
     for name, (train_fx, test_fx) in DEMOS.items():
@@ -534,9 +572,13 @@ def phase_slice(work, card, failures):
         for path, extra in runs:
             r = run_demo(name, d, path, [f"batch_size={BATCH}", *extra])
             T = -(-r["rows"] // BATCH)
-            want = 2 * ROUNDS * T if path == "kernel" else 0
+            want = ROUNDS * launches_per_call(1) if path == "kernel" else 0
             total += r["launches"]["K1"]
-            report_demo(3, name, path, r, "K1", want, f"2*{ROUNDS}*T, T={T}", card, failures)
+            report_demo(3, name, path, r, "K1", want,
+                        f"{ROUNDS} rounds, one cooperative launch each; T={T}", card, failures)
+            if path == "kernel" and name == "basicMF":
+                share = steady_busy_share(torch, r["task"], train_rounds_kernel, 4, 4, T)
+                report_share(3, name, "K1", *share, failures, gate=False)
     return total
 
 
@@ -544,7 +586,7 @@ def phase_svdpp_slice(work, card, failures):
     """implicitFeedback (demo/implicitFeedback/run.sh) at the RMSE band's
     setting, sort_blocks=1 rows_per_user=8 (golden/derive_rmse_bands.py)."""
     from svdfeature_tpu_torch.cli import make_ugroup_buffer
-    from svdfeature_tpu_torch.ops.cuda_svdpp import launches_per_call
+    from svdfeature_tpu_torch.ops.cuda_svdpp import launches_per_call, train_rounds_svdpp_kernel
 
     name = "implicitFeedback"
     d = work / name
@@ -574,15 +616,8 @@ def phase_svdpp_slice(work, card, failures):
         line = device_profile(torch, lambda: task.trainer.update_all(task.dataset), len(cid))
         print(f"phase 5 profile: {name} path={path} one more round: {line}", flush=True)
         if path == "kernel":
-            share, busy, elapsed = steady_busy_share(torch, task, len(cid))
-            ok = share >= K2_MIN_BUSY_SHARE
-            if not ok:
-                failures.append(f"implicitFeedback rounds: device busy share below "
-                                f"{K2_MIN_BUSY_SHARE}")
-            print(f"phase 5 {'ok' if ok else 'FAIL'}: {name} rounds are bound by the card, not the "
-                  f"host: {K2_STEADY_ROUNDS} more rounds, a synchronise after each: the kernel's "
-                  f"own clock counts {busy:.2f} us/step of {elapsed:.2f} us/step elapsed (busy "
-                  f"share {share:.3f}, at least {K2_MIN_BUSY_SHARE} wanted)", flush=True)
+            share = steady_busy_share(torch, task, train_rounds_svdpp_kernel, 9, 8, len(cid))
+            report_share(5, name, "K2", *share, failures)
     return launches
 
 
@@ -1220,10 +1255,10 @@ def phase_imfb_kernel(torch, dev, failures):
 
     def device_inputs(x):
         fb, overlap = convert.pool_from_numpy(x["fb"], x["overlap"], dev)
-        return (convert.state_from_numpy(**x["st"], device=dev),
+        return [convert.state_from_numpy(**x["st"], device=dev),
                 convert.stacked_from_numpy(x["stacked"], dev), x["chunk_id"], fb, overlap,
                 convert.gate_from_numpy(x["enabled"], dev), torch.tensor(x["lrs"], device=dev),
-                convert.consts_from_numpy(**x["cs"], device=dev))
+                convert.consts_from_numpy(**x["cs"], device=dev)]
 
     def hyper(x, nub):
         return (HyperParams(no_user_bias=nub, base_score=3.0),
@@ -1231,65 +1266,70 @@ def phase_imfb_kernel(torch, dev, failures):
                           wd_ufeedback_bias=0.002))
 
     max_err = 0.0
-    cases = (  # (setting, synthetic, rows_per_user, no_user_bias, disabled depths)
-        ("slice", False, 8, 0, ()),
-        ("synthetic", True, 1, 1, (1,)),
-        ("synthetic", True, 2, 1, (1,)),
+    cases = (  # (setting, synthetic, rows_per_user, no_user_bias, disabled depths, calls)
+        ("slice", False, 8, 0, (), 2),  # the second call on the same tensors: the kept plan
+        ("synthetic", True, 1, 1, (1,), 1),
+        ("synthetic", True, 2, 1, (1,), 1),
     )
-    for setting, synthetic, RM, nub, levels in cases:
+    for setting, synthetic, RM, nub, levels, calls in cases:
         x = imfb_inputs(RM, 30 + RM, synthetic, levels)
         hp, ph = hyper(x, nub)
-        before = train_rounds_imfb_kernel.launches
-        got = train_rounds_imfb_kernel(*device_inputs(x), hp, ph)
-        torch.cuda.synchronize()
-        launched = train_rounds_imfb_kernel.launches - before
-        want = train_rounds_imfb_reference(*device_inputs(x), hp, ph)
-        errs, ok = {}, launched == launches_per_call(x["chunk_id"], len(x["lrs"]))
-        for name in ("w", "b"):
-            a, b = getattr(got, name), getattr(want, name)
-            errs[name] = float((a - b).abs().max())
-            ok &= bool(torch.isfinite(a).all()) and bool(((a - b).abs() <= ATOL + RTOL * b.abs()).all())
-        ok &= int(got.step) == int(want.step)
-        ok &= bool((got.w[:1682] != torch.from_numpy(x["st"]["w"][:1682]).to(dev)).any())
-        max_err = max(max_err, *errs.values())
-        if not ok:
-            failures.append(f"imfb kernel vs plain {setting} RM={RM} nub={nub}")
+        held = device_inputs(x)
+        want = device_inputs(x)
         T, GS = x["stacked"]["label"].shape
-        print(f"phase 8 {'ok' if ok else 'FAIL'}: {setting} (T={T}, GS={GS}, RM={RM}, "
-              f"D={x['stacked']['ctx_slots'].shape[-1]}, nseg={x['enabled'].shape[1]}, "
-              f"C={x['fb']['fb_idx'].shape[0]}, F={x['fb']['fb_idx'].shape[1]}) "
-              f"no_user_bias={nub} disabled depths={list(levels)} max|dw|={errs['w']:.3e} "
-              f"max|db|={errs['b']:.3e} (atol {ATOL:g} + rtol {RTOL:g}) launches {launched}",
-              flush=True)
+        for call in range(calls):
+            before = train_rounds_imfb_kernel.launches
+            held[0] = train_rounds_imfb_kernel(*held, hp, ph)
+            torch.cuda.synchronize()
+            launched = train_rounds_imfb_kernel.launches - before
+            want[0] = train_rounds_imfb_reference(*want, hp, ph)
+            errs, ok = {}, launched == launches_per_call(x["chunk_id"], len(x["lrs"])) == 1
+            for name in ("w", "b"):
+                a, b = getattr(held[0], name), getattr(want[0], name)
+                errs[name] = float((a - b).abs().max())
+                ok &= bool(torch.isfinite(a).all()) and bool(((a - b).abs() <= ATOL + RTOL * b.abs()).all())
+            ok &= int(held[0].step) == int(want[0].step)
+            ok &= bool((held[0].w[:1682] != torch.from_numpy(x["st"]["w"][:1682]).to(dev)).any())
+            max_err = max(max_err, *errs.values())
+            if not ok:
+                failures.append(f"imfb kernel vs plain {setting} RM={RM} nub={nub} call {call + 1}")
+            print(f"phase 8 {'ok' if ok else 'FAIL'}: {setting} (T={T}, GS={GS}, RM={RM}, "
+                  f"D={x['stacked']['ctx_slots'].shape[-1]}, nseg={x['enabled'].shape[1]}, "
+                  f"C={x['fb']['fb_idx'].shape[0]}, F={x['fb']['fb_idx'].shape[1]}) "
+                  f"no_user_bias={nub} disabled depths={list(levels)} call {call + 1} of {calls} "
+                  f"max|dw|={errs['w']:.3e} max|db|={errs['b']:.3e} (atol {ATOL:g} + rtol "
+                  f"{RTOL:g}) launches {launched} (grid {train_rounds_imfb_kernel.grid} blocks)",
+                  flush=True)
 
-    # times at the slice's shapes: CUDA events around whole R=2 runs, after
-    # a warm-up, in turns
+    # times at the slice's shapes: CUDA events around whole R=2 calls, in
+    # turns, each path on its own device tensors call after call, as the
+    # trainer calls it
     x = imfb_inputs(8, 38, False)
     hp, ph = hyper(x, 0)
     T = x["stacked"]["label"].shape[0]
     R = len(x["lrs"])
     fns = {"plain": train_rounds_imfb_reference, "kernel": train_rounds_imfb_kernel}
     samples = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel"):
-        fns[name](*device_inputs(x), hp, ph)
-    for name in ("plain", "kernel", "kernel", "plain") * 3:
-        inputs = device_inputs(x)
+    held = {name: device_inputs(x) for name in fns}
+    for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain") * 2:
+        inputs = held[name]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fns[name](*inputs, hp, ph)
+        inputs[0] = fns[name](*inputs, hp, ph)
         end.record()
         torch.cuda.synchronize()
         samples[name].append(start.elapsed_time(end) / (R * T))
+    samples = {name: v[1:] for name, v in samples.items()}  # the first call warms up
     timing = {n: float(np.median(v)) for n, v in samples.items()}
     timing["bound"], timing["bound_by"] = imfb_bound(x)
-    print(f"phase 8 time: slice ms per step (GS=1024, nseg={x['enabled'].shape[1]}, median of 6 "
+    print(f"phase 8 time: slice ms per step (GS=1024, nseg={x['enabled'].shape[1]}, median of 5 "
           f"R={R} runs): kernel {timing['kernel']:.4f} plain {timing['plain']:.4f} "
           f"bound {timing['bound']:.6f} ({timing['bound_by']}); library call: none (no "
           f"PyTorch call computes a stacked step)", flush=True)
     for name in ("kernel", "plain"):
-        inputs = device_inputs(x)
+        inputs = held[name]
         print(f"phase 8 profile: slice path={name} "
               f"{device_profile(torch, lambda: fns[name](*inputs, hp, ph), R * T)}", flush=True)
     return max_err, timing
@@ -1306,7 +1346,9 @@ def phase_imfb_slice(work, card, failures):
     from svdfeature_tpu_torch.data.buffer import write_plus_buffer
     from svdfeature_tpu_torch.data.text import load_plus_text
     from svdfeature_tpu_torch.infer.task import SVDInferTask
-    from svdfeature_tpu_torch.ops.cuda_imfb import launches_per_call
+    from svdfeature_tpu_torch.ops.cuda_imfb import (
+        TRACE_SLOTS, launches_per_call, train_rounds_imfb_kernel,
+    )
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
     d = work / "multiIMFBStacked"
@@ -1352,12 +1394,16 @@ def phase_imfb_slice(work, card, failures):
               f"{IMFB_ROUNDS} rounds {rmse:.6f} (minus JAX CPU {rmse - JAX_IMFB_RMSE:+.6f}, tol "
               f"{IMFB_JAX_TOL:g}; minus reference binary {rmse - ref_rmse:+.6f}, tol "
               f"{IMFB_GOLDEN_TOL:g}) launches {launches} (want {want}: "
-              f"{IMFB_ROUNDS}*(3T + 2*chunk starts), T={len(cid)}, chunk starts={starts}) "
+              f"{IMFB_ROUNDS} rounds, one cooperative launch each; T={len(cid)}, chunk starts={starts}) "
               f"training {eps:,.0f} examples/s rounds 2-{IMFB_ROUNDS} (reference C++ "
               f"{golden['examples_per_sec_cpu']:,}/s), round seconds "
               f"{[round(x, 3) for x in secs]} on {card}", flush=True)
         print(f"phase 9 profile: multiIMFBStacked path={path} one more round: {profile_line}",
               flush=True)
+        if path == "kernel":
+            share = steady_busy_share(torch, task, train_rounds_imfb_kernel, TRACE_SLOTS,
+                                      TRACE_SLOTS - 1, len(cid))
+            report_share(9, "multiIMFBStacked", "K3", *share, failures)
         shutil.rmtree(d / f"models_{path}")
         del task, tr, entry
     diff = abs(results["kernel"]["rmse"] - results["plain"]["rmse"])
@@ -1432,15 +1478,15 @@ def main() -> int:
         print(f"FAILED phases: {failures}", flush=True)
         return 1
     print(json.dumps({"kernels": [
-        kernel_line("fused_embed (sgd_accumulate + sgd_apply)",
+        kernel_line("fused_embed (sgd_rounds, one cooperative launch a call)",
                     "svdfeature_tpu_torch/csrc/fused_embed.cu",
                     "svdfeature_tpu/ops/pallas_embed.py:75", k1_launches, k1_err,
                     k1_timing["basicMF"]),
         kernel_line("fused_svdpp (svdpp_rounds, one cooperative launch a call)",
                     "svdfeature_tpu_torch/csrc/fused_svdpp.cu",
                     "svdfeature_tpu/ops/pallas_svdpp.py:110", k2_launches, k2_err, k2_timing),
-        kernel_line("fused_imfb (imfb_step + imfb_delta, with svdpp_flush + svdpp_gather + "
-                    "svdpp_apply)", "svdfeature_tpu_torch/csrc/fused_imfb.cu",
+        kernel_line("fused_imfb (imfb_rounds, one cooperative launch a call)",
+                    "svdfeature_tpu_torch/csrc/fused_imfb.cu",
                     "svdfeature_tpu/ops/pallas_svdpp.py:110", k3_launches, k3_err, k3_timing),
         kernel_line("tile_sweep (sweep_apply)", "svdfeature_tpu_torch/csrc/tile_sweep.cu",
                     "svdfeature_tpu/ops/tile_sweep.py:143", big_launches["K4"],

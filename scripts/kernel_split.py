@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Host / device split of the port's row writer (K5) and SVD++ round (K2)
+"""Host / device split of the port's row writer (K5) and of its three
+training rounds, K1 (base solver), K2 (SVD++) and K3 (stacked multi-IMFB),
 on one NVIDIA GPU, for one tree or for two trees in turns.
 
 Usage, from the repository root:
@@ -33,8 +34,16 @@ What it measures, with the card's name and power limit:
   own clock (``train_rounds_svdpp_kernel.trace``) the microseconds per
   step that its first block spends in each phase and at each grid
   barrier.
-  K3 at the stacked slice's shapes, ms per step (it shares K2's flush,
-  gather and apply).
+  K1 at basicMF shapes (N=2626, k=64, B=4096, T=23) and at
+  neighborhoodModel shapes (+ 7 global slots, 3 entries), and K3 at the
+  stacked slice's shapes (G=128 units, RM=8, nseg=129, D=2, T=449), one
+  wrapper call per round on the same device tensors as the trainer makes
+  them: ms per step from CUDA events (back to back, and with a
+  synchronise after each call), the host's microseconds per call, the
+  launches per call, the device busy time per step and its share under
+  the profiler, and, where the wrapper has a ``trace`` hook, the
+  microseconds per step that the kernel's first block spends in each
+  phase and at each grid barrier by its own clock.
 """
 
 from __future__ import annotations
@@ -112,6 +121,47 @@ def kernel_us(per_kernel, needle):
     hits = [(n, us) for name, (n, us) in per_kernel.items() if needle in name]
     n = sum(h[0] for h in hits)
     return n, (sum(h[1] for h in hits) / n if n else None)
+
+
+def wrapper_split(torch, call, wrapper, steps, trace_names, calls=5):
+    """The split of one round's wrapper call ``call()`` (``steps`` steps):
+    launches per call, ms per step from CUDA events (back to back and with a
+    synchronise after each call, three turns each), host us per call, the
+    device busy time per step and its share of the call under the profiler,
+    the busiest kernels, and the kernel's own clock per phase where
+    ``wrapper`` has a ``trace`` hook of ``len(trace_names)`` slots."""
+    import chip_smoke
+
+    call()
+    before = wrapper.launches
+    call()
+    res = {"launches_per_call": wrapper.launches - before}
+    ms = [event_ms(torch, call, calls) / steps for _ in range(3)]
+    ms_sync = [event_ms(torch, call, calls, sync_each=True) / steps for _ in range(3)]
+    host = host_us(torch, call, calls)
+    prof, elapsed = device_times(torch, call)
+    prof.pop("Memset (Device)", None)
+    busy = sum(us for _, us in prof.values())
+    tops = sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]
+    res.update({
+        "ms_per_step": statistics.median(ms), "ms_per_step_turns": ms,
+        "ms_per_step_sync_each_call": statistics.median(ms_sync),
+        "host_us_per_call": host, "host_us_per_step": host / steps,
+        "device_busy_us_per_step": busy / steps, "elapsed_us_per_step": elapsed / steps,
+        "busy_share": busy / elapsed,
+        "top": [[chip_smoke._short(name), cnt, us / cnt] for name, (cnt, us) in tops],
+        "phase_us_per_step": None,
+    })
+    if hasattr(wrapper, "trace"):
+        trace = torch.zeros(len(trace_names), dtype=torch.int64, device="cuda")
+        wrapper.trace = trace
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        wrapper.trace = None
+        res["phase_us_per_step"] = {n: v / (calls * steps) / 1e3
+                                    for n, v in zip(trace_names, trace.tolist())}
+    return res
 
 
 def worker(tree: str) -> None:
@@ -277,28 +327,38 @@ def worker(tree: str) -> None:
         "finite": bool(torch.isfinite(state.w).all()),
     }
 
-    # ---- K3 -----------------------------------------------------------------
+    # ---- K1 and K3: one call per round on held tensors ------------------------
+    from svdfeature_tpu_torch.ops import cuda_embed
+
+    for shape, NG, SG in (("basicMF", 1, 1), ("neighborhoodModel", 7, 3)):
+        st, cs, stk, _ = chip_smoke.make_inputs(0, NG, SG, seed=10, R=1)
+        held = [convert.state_from_numpy(**st, device=dev), convert.stacked_from_numpy(stk, dev),
+                lrs, convert.consts_from_numpy(**cs, device=dev)]
+
+        def k1(held=held):
+            held[0] = cuda_embed.train_rounds_kernel(*held, hp)
+
+        out[f"k1_{shape}"] = wrapper_split(
+            torch, k1, cuda_embed.train_rounds_kernel, stk["label"].shape[0],
+            ("accumulate", "apply", "barrier_after_accumulate", "barrier_after_apply"))
+        out[f"k1_{shape}"]["finite"] = bool(torch.isfinite(held[0].w).all())
+
     y = chip_smoke.imfb_inputs(8, 38, False)
     fb3, overlap3 = convert.pool_from_numpy(y["fb"], y["overlap"], dev)
-    stacked3 = convert.stacked_from_numpy(y["stacked"], dev)
-    gate = convert.gate_from_numpy(y["enabled"], dev)
-    consts3 = convert.consts_from_numpy(**y["cs"], device=dev)
-    state3 = convert.state_from_numpy(**y["st"], device=dev)
-    T3 = y["stacked"]["label"].shape[0]
+    held3 = [convert.state_from_numpy(**y["st"], device=dev),
+             convert.stacked_from_numpy(y["stacked"], dev), y["chunk_id"], fb3, overlap3,
+             convert.gate_from_numpy(y["enabled"], dev), lrs,
+             convert.consts_from_numpy(**y["cs"], device=dev)]
 
     def k3():
-        nonlocal state3
-        state3 = cuda_imfb.train_rounds_imfb_kernel(
-            state3, stacked3, y["chunk_id"], fb3, overlap3, gate, lrs, consts3, hp, ph)
+        held3[0] = cuda_imfb.train_rounds_imfb_kernel(*held3, hp, ph)
 
-    k3()
-    ms3 = [event_ms(torch, k3, 3) / T3 for _ in range(3)]
-    prof, elapsed = device_times(torch, k3)
-    busy = sum(us for _, us in prof.values())
-    tops = sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]
-    out["k3"] = {"ms_per_step": statistics.median(ms3), "ms_per_step_turns": ms3,
-                 "device_busy_us_per_step": busy / T3, "busy_share": busy / elapsed,
-                 "top": [[chip_smoke._short(name), cnt, us / cnt] for name, (cnt, us) in tops]}
+    out["k3"] = wrapper_split(
+        torch, k3, cuda_imfb.train_rounds_imfb_kernel, y["stacked"]["label"].shape[0],
+        ("flush", "gather", "step", "delta", "apply", "barrier_after_flush",
+         "barrier_after_gather", "barrier_after_step", "barrier_after_delta",
+         "barrier_after_apply", "product_in_apply"))
+    out["k3"]["finite"] = bool(torch.isfinite(held3[0].w).all())
     print("RESULT " + json.dumps(out), flush=True)
 
 

@@ -18,7 +18,7 @@
 //     sums of err p_i, err, present rows and |p_i|^2 give the damped
 //     feedback step delta[g] (rows_per_user > 1), dacc[g] += delta[g];
 //   * apply: every touched row w = (w + dw) * exp(touch decay), as K1's
-//     sgd_apply (sgd_common.cuh), and in the same phase
+//     apply (sgd::apply_touched_rows, sgd_common.cuh), and in the same phase
 //     agg[v, :k+1] += sum_u O[c, v, u] delta[u] (the TPU kernel's in-body
 //     O @ delta).
 // The TPU kernel is one pallas_call over a sequential R x T grid.  Here
@@ -66,11 +66,10 @@
 // atomics.  Slots whose index is the dummy row N-1 (padding) scatter
 // nothing: that row is zeroed at the start of the call and never touched.
 //
-// svdpp_flush, svdpp_gather and svdpp_apply stay as separate entry points
-// for the stacked multi-IMFB host loop (ops/cuda_imfb.py, K3); they run
-// the same __device__ bodies as the persistent kernel.
+// The flush, gather and O @ delta bodies live in feedback_common.cuh: the
+// stacked multi-IMFB kernel (fused_imfb.cu, K3) runs them too.
 //
-// Plain C interface (ctypes, svdfeature_tpu_torch/ops/_build.py): each
+// Plain C interface (ctypes, svdfeature_tpu_torch/ops/_build.py): the
 // entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() or the error of the
 // call that failed.
@@ -79,259 +78,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "feedback_common.cuh"
 #include "sgd_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr int kApplyBlocks = 128;  // svdpp_apply: enough lanes to sweep 8192 rows in one pass
-constexpr int kGatherTile = 64;  // columns of one gather pass, two per lane
-constexpr int kRegCols = 4;      // columns per lane the step keeps in registers
-constexpr unsigned kFull = 0xffffffffu;
-
-// ---- flush -------------------------------------------------------------------
-// w[fb_idx[f]] += dacc[fb_block[f]] * fval[f] over the live entries of
-// chunk c, a warp per entry, warps [gwarp, nwarps) of the grid (atomics:
-// pool rows repeat across users)
-__device__ __forceinline__ void flush_pool(float* w, float* b, const int* __restrict__ fb_idx,
-                                           const float* __restrict__ fb_val,
-                                           const int* __restrict__ fb_block, const float* dacc,
-                                           int F, int k, int c, int live, int with_user_bias,
-                                           int gwarp, int nwarps, int lane) {
-  for (int f = gwarp; f < live; f += nwarps) {
-    const int64_t e = (int64_t)c * F + f;
-    const int row = __ldg(fb_idx + e);
-    const float v = __ldg(fb_val + e);
-    const float* d = dacc + (int64_t)__ldg(fb_block + e) * (k + 1);
-    float* wr = w + (int64_t)row * k;
-    for (int col = lane; col < k; col += 32) atomicAdd(wr + col, d[col] * v);
-    if (lane == 0 && with_user_bias) atomicAdd(b + row, d[k] * v);
-  }
-}
-
-// ---- gather ------------------------------------------------------------------
-// agg[g] = [sum fval w[fb_idx] | sum fval b[fb_idx] | sum fval^2] over
-// user g's segment of chunk c; inv[g] = 1/norm (0 for an empty pool);
-// dacc[g] = 0.  The whole block works on one user: pool entries strided
-// over its warps, columns in tiles of 64 (two per lane), the warps' sums
-// combined in warp order through ``part`` (blockDim/32 x (kGatherTile+2)
-// floats of shared memory).
-__device__ __forceinline__ void gather_user(const float* w, const float* b,
-                                            const int* __restrict__ fb_idx,
-                                            const float* __restrict__ fb_val,
-                                            const int* __restrict__ seg, float* agg, float* inv,
-                                            float* dacc, int F, int k, int G, int c, int g,
-                                            int with_user_bias, float* part) {
-  constexpr int kPart = kGatherTile + 2;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int start = __ldg(seg + (int64_t)c * (G + 1) + g);
-  const int end = __ldg(seg + (int64_t)c * (G + 1) + g + 1);
-  const int64_t base = (int64_t)c * F;
-  for (int c0 = 0; c0 < k; c0 += kGatherTile) {
-    const int ca = c0 + lane, cb = c0 + 32 + lane;
-    float s0 = 0.0f, s1 = 0.0f, sb = 0.0f, sn = 0.0f;
-#pragma unroll 4
-    for (int f = start + warp; f < end; f += nw) {
-      const float v = __ldg(fb_val + base + f);
-      const int row = __ldg(fb_idx + base + f);
-      const float* wr = w + (int64_t)row * k;
-      if (ca < k) s0 += v * wr[ca];
-      if (cb < k) s1 += v * wr[cb];
-      if (c0 == 0) {  // the bias and norm columns, the same on every lane
-        if (with_user_bias) sb += v * b[row];
-        sn += v * v;
-      }
-    }
-    float* p = part + warp * kPart;
-    p[lane] = s0;
-    p[32 + lane] = s1;
-    if (lane == 0) {
-      p[kGatherTile] = sb;
-      p[kGatherTile + 1] = sn;
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < kPart; j += blockDim.x) {
-      const int col = j < kGatherTile ? c0 + j : k + (j - kGatherTile);
-      if (j < kGatherTile ? col < k : c0 == 0) {
-        float t = 0.0f;
-        for (int q = 0; q < nw; ++q) t += part[q * kPart + j];
-        agg[(int64_t)g * (k + 2) + col] = t;
-        if (j == kGatherTile + 1) inv[g] = t > 0.0f ? 1.0f / fmaxf(t, 1e-30f) : 0.0f;
-      }
-    }
-    __syncthreads();
-  }
-  for (int j = threadIdx.x; j < k + 1; j += blockDim.x) dacc[(int64_t)g * (k + 1) + j] = 0.0f;
-}
-
-// ---- O @ delta ---------------------------------------------------------------
-// agg[v, :k+1] += sum_u O[c, v, u] delta[u, :], v, u < G.
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi): x - hi is exact in
-// f32 and lo keeps its leading 11 bits
-__device__ __forceinline__ void split_tf32(float x, uint32_t* hi, uint32_t* lo) {
-  *hi = to_tf32(x);
-  *lo = to_tf32(x - __uint_as_float(*hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A group of kSplit warps per 16 x 8 tile of the output.  The u
-// dimension goes in steps of 8, a quarter of the steps to each warp of the
-// group, so that a warp has all its loads in flight at once; the warps'
-// partial tiles meet in shared memory (``part``, kSplit x 128 floats) and
-// the group's first warp adds them in warp order.  The groups are the last
-// kSplit warps of the grid's first blocks (one group a block), so that every
-// other warp can apply rows meanwhile; they meet at a named barrier of
-// their own.  Fragments come straight from L2 (each tile reads 16 rows of O
-// and 8 columns of delta once); entries outside G or k+1 are zeros.  The
-// three products of the split run as three independent accumulator chains,
-// added small terms first.
-constexpr int kSplit = 4;
-constexpr int kGroupBarrier = 1;  // barrier 0 is __syncthreads'
-
-__host__ __device__ inline int overlap_tiles(int k, int G) {
-  return ((G + 15) / 16) * ((k + 1 + 7) / 8);
-}
-
-// Who does what in the apply phase of a grid of nblocks blocks of nw >= 8
-// warps: the first ``groups`` blocks give their last kSplit warps to the
-// product, every other warp is a row warp with a dense index.
-struct ApplyRoles {
-  int groups;     // product groups, one in each of the first blocks
-  int row_warps;  // all the row warps of the grid
-  int row_warp;   // this warp's index among them, or -1 in a product group
-  int group_warp; // this warp's place in its group, or -1
-  __device__ __forceinline__ ApplyRoles(int k, int G, int bid, int nblocks, int warp, int nw) {
-    groups = min(overlap_tiles(k, G), nblocks);
-    row_warps = groups * (nw - kSplit) + (nblocks - groups) * nw;
-    const bool in_group = bid < groups && warp >= nw - kSplit;
-    group_warp = in_group ? warp - (nw - kSplit) : -1;
-    row_warp = in_group ? -1
-               : bid < groups ? bid * (nw - kSplit) + warp
-                              : groups * (nw - kSplit) + (bid - groups) * nw + warp;
-  }
-};
-
-__device__ __forceinline__ void group_sync() {
-  asm volatile("bar.sync %0, %1;" ::"n"(kGroupBarrier), "n"(kSplit * 32) : "memory");
-}
-
-__device__ __forceinline__ void overlap_mma(float* agg, const float* delta,
-                                            const float* __restrict__ O, int k, int G, int c,
-                                            int group, int groups, int q, int lane, float* part) {
-  const int NC = k + 1;
-  const int col_tiles = (NC + 7) / 8;
-  const int tiles = overlap_tiles(k, G);
-  const int gid = lane >> 2, tig = lane & 3;
-  const float* Oc = O + (int64_t)c * (G + 1) * (G + 1);
-  // this warp's quarter of the u steps
-  const int steps = (G + 7) / 8;
-  const int each = (steps + kSplit - 1) / kSplit;
-  const int u_begin = q * each * 8;
-  const int u_end = min(G, (q + 1) * each * 8);
-  for (int tile = group; tile < tiles; tile += groups) {
-    const int v0 = (tile / col_tiles) * 16, j0 = (tile % col_tiles) * 8;
-    const int va = v0 + gid, vb = va + 8, jb = j0 + gid;
-    float dhh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float dhl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float dlh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int u0 = u_begin; u0 < u_end; u0 += 8) {
-      const int ua = u0 + tig, ub = ua + 4;
-      // A (16 x 8, rows v, columns u) and B (8 x 8, rows u, columns j)
-      const float a[4] = {
-          va < G && ua < G ? __ldg(Oc + (int64_t)va * (G + 1) + ua) : 0.0f,
-          vb < G && ua < G ? __ldg(Oc + (int64_t)vb * (G + 1) + ua) : 0.0f,
-          va < G && ub < G ? __ldg(Oc + (int64_t)va * (G + 1) + ub) : 0.0f,
-          vb < G && ub < G ? __ldg(Oc + (int64_t)vb * (G + 1) + ub) : 0.0f};
-      const float bf[2] = {ua < G && jb < NC ? delta[(int64_t)ua * NC + jb] : 0.0f,
-                           ub < G && jb < NC ? delta[(int64_t)ub * NC + jb] : 0.0f};
-      uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(a[i], &ah[i], &al[i]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) split_tf32(bf[i], &bh[i], &bl[i]);
-      mma_tf32(dlh, al, bh);
-      mma_tf32(dhl, ah, bl);
-      mma_tf32(dhh, ah, bh);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) part[(q * 4 + i) * 32 + lane] = (dlh[i] + dhl[i]) + dhh[i];
-    group_sync();
-    if (q == 0) {
-      float d[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        d[i] = part[i * 32 + lane];
-#pragma unroll
-        for (int w = 1; w < kSplit; ++w) d[i] += part[(w * 4 + i) * 32 + lane];
-      }
-      // D: rows gid and gid + 8, columns 2 tig and 2 tig + 1
-      const int ja = j0 + 2 * tig;
-      if (va < G && ja < NC) agg[(int64_t)va * (k + 2) + ja] += d[0];
-      if (va < G && ja + 1 < NC) agg[(int64_t)va * (k + 2) + ja + 1] += d[1];
-      if (vb < G && ja < NC) agg[(int64_t)vb * (k + 2) + ja] += d[2];
-      if (vb < G && ja + 1 < NC) agg[(int64_t)vb * (k + 2) + ja + 1] += d[3];
-    }
-    group_sync();  // the partial tiles are free for the next tile
-  }
-}
-
-// ---- the separate launches of the stacked multi-IMFB host loop (K3) ------------
-__global__ void __launch_bounds__(kThreads) svdpp_flush_kernel(
-    float* w, float* b, const int* __restrict__ fb_idx, const float* __restrict__ fb_val,
-    const int* __restrict__ fb_block, const float* dacc, int F, int k, int c, int live,
-    int with_user_bias) {
-  flush_pool(w, b, fb_idx, fb_val, fb_block, dacc, F, k, c, live, with_user_bias,
-             blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5), gridDim.x * kWarpsPerBlock,
-             threadIdx.x & 31);
-}
-
-__global__ void __launch_bounds__(kThreads) svdpp_gather_kernel(
-    const float* w, const float* b, const int* __restrict__ fb_idx,
-    const float* __restrict__ fb_val, const int* __restrict__ seg, float* agg, float* inv,
-    float* dacc, int F, int k, int G, int c, int with_user_bias) {
-  __shared__ float part[kWarpsPerBlock * (kGatherTile + 2)];
-  gather_user(w, b, fb_idx, fb_val, seg, agg, inv, dacc, F, k, G, c, blockIdx.x, with_user_bias,
-              part);
-}
-
-// The step's row apply (a lane-parallel sweep of the touch counts with the
-// per-round log tables) and agg[:, :k+1] += O[c] @ delta, by every block.
-__global__ void __launch_bounds__(kThreads) svdpp_apply_kernel(
-    float* w, float* b, float* acc, float* agg, const float* delta, const float* __restrict__ O,
-    const float* __restrict__ log_u, const float* __restrict__ log_i,
-    const float* __restrict__ log_bu, const float* __restrict__ log_bi, int N, int k, int G,
-    int c, int r, int with_user_bias) {
-  __shared__ float part[kSplit * 128];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const sgd::TableDecay decay{log_u, log_i, log_bu, log_bi, N, r, with_user_bias};
-  const ApplyRoles role(k, G, blockIdx.x, gridDim.x, warp, kWarpsPerBlock);
-  if (role.group_warp >= 0) {
-    overlap_mma(agg, delta, O, k, G, c, blockIdx.x, role.groups, role.group_warp, lane, part);
-  } else {
-    sgd::apply_touched_rows(w, b, acc, N, k, role.row_warp, role.row_warps, lane, decay);
-  }
-}
 
 // ---- the persistent kernel -------------------------------------------------------
 struct Rounds {
@@ -349,41 +101,6 @@ struct Rounds {
   long long* trace;
   int N, k, G, M, SI, T, R, F, active_type, with_user_bias;
   float base_score, scale_lr_fb, wd_fb, wd_fbb;
-};
-
-// The decay factors of a row from the decay rates themselves (the wrappers
-// of the host loops pass per-round log tables, sgd::TableDecay).
-struct RateDecay {
-  const float* wd_u;
-  const float* wd_i;
-  float lr, log_bu, log_bi;
-  int with_user_bias;
-  __device__ __forceinline__ void operator()(int n, float cu, float ci, float* fac,
-                                             float* fac_b) const {
-    *fac = expf(cu * sgd::log1m_rate(lr, __ldg(wd_u + n)) +
-                ci * sgd::log1m_rate(lr, __ldg(wd_i + n)));
-    float sb = ci * log_bi;
-    if (with_user_bias) sb += cu * log_bu;
-    *fac_b = expf(sb);
-  }
-};
-
-__device__ __forceinline__ long long now_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// block 0's first thread adds the time since its last stamp to trace[slot]
-struct PhaseClock {
-  long long* trace;
-  long long last;
-  __device__ __forceinline__ void stamp(int slot) {
-    if (trace == nullptr) return;
-    const long long t = now_ns();
-    trace[slot] += t - last;
-    last = t;
-  }
 };
 
 // One slot's planes (item width 1 or 2).  They are inputs, never written, so
@@ -567,8 +284,8 @@ __global__ void __launch_bounds__(kMaxThreads) svdpp_rounds_kernel(const Rounds 
     for (int j = threadIdx.x; j < k; j += blockDim.x) a.w[(int64_t)(N - 1) * k + j] = 0.0f;
     if (threadIdx.x == 0) a.b[N - 1] = 0.0f;
   }
-  PhaseClock clock{bid == 0 && threadIdx.x == 0 ? a.trace : nullptr, 0};
-  if (clock.trace != nullptr) clock.last = now_ns();
+  sgd::PhaseClock clock{bid == 0 && threadIdx.x == 0 ? a.trace : nullptr, 0};
+  if (clock.trace != nullptr) clock.last = sgd::now_ns();
   // the apply phase: product groups and row warps
   const ApplyRoles role(k, G, bid, nblocks, warp, nw);
 
@@ -585,7 +302,7 @@ __global__ void __launch_bounds__(kMaxThreads) svdpp_rounds_kernel(const Rounds 
     const float lr_fb = lr * a.scale_lr_fb;
     const float log_d = sgd::log1m_rate(lr_fb, a.wd_fb);
     const float log_db = sgd::log1m_rate(lr_fb, a.wd_fbb);
-    const RateDecay decay{a.wd_u, a.wd_i, lr, sgd::log1m_rate(lr, __ldg(a.wd_ub)),
+    const sgd::RateDecay decay{a.wd_u, a.wd_i, lr, sgd::log1m_rate(lr, __ldg(a.wd_ub)),
                           sgd::log1m_rate(lr, __ldg(a.wd_ib)), a.with_user_bias};
     for (int t = 0; t < T; ++t) {
       const int c = __ldg(a.cid + t);
@@ -626,9 +343,9 @@ __global__ void __launch_bounds__(kMaxThreads) svdpp_rounds_kernel(const Rounds 
       // the apply: every write
       if (role.group_warp >= 0) {
         const bool timed = a.trace != nullptr && bid == 0 && role.group_warp == 0 && lane == 0;
-        const long long t0 = timed ? now_ns() : 0;
+        const long long t0 = timed ? sgd::now_ns() : 0;
         overlap_mma(a.agg, a.delta, a.O, k, G, c, bid, role.groups, role.group_warp, lane, smem);
-        if (timed) a.trace[8] += now_ns() - t0;
+        if (timed) a.trace[8] += sgd::now_ns() - t0;
       } else {
         sgd::apply_touched_rows(a.w, a.b, a.acc, N, k, role.row_warp, role.row_warps, lane,
                                 decay);
@@ -644,78 +361,7 @@ __global__ void __launch_bounds__(kMaxThreads) svdpp_rounds_kernel(const Rounds 
   clock.stamp(0);
 }
 
-// The grid of the cooperative launch: one block per SM, if the device can
-// co-schedule that (no fallback: otherwise the call is refused).  Asked
-// once per (kernel, device, threads, shared memory) and kept.
-template <int kMaxThreads>
-int rounds_grid(int threads, size_t smem, int* grid) {
-  static int kept_dev = -1, kept_threads = 0, kept_grid = 0;
-  static size_t kept_smem = 0;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (kept_dev == dev && kept_threads == threads && kept_smem == smem) {
-    *grid = kept_grid;
-    return 0;
-  }
-  auto kernel = svdpp_rounds_kernel<kMaxThreads>;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
-      cudaSuccess)
-    return (int)err;
-  if (!coop || per_sm < 1 || sms < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  kept_dev = dev;
-  kept_threads = threads;
-  kept_smem = smem;
-  kept_grid = sms;
-  *grid = sms;
-  return 0;
-}
-
-template <int kMaxThreads>
-int launch_rounds(const Rounds& a, int threads, size_t smem, int* grid_out, cudaStream_t s) {
-  int grid = 0;
-  const int refused = rounds_grid<kMaxThreads>(threads, smem, &grid);
-  if (refused) return refused;
-  *grid_out = grid;
-  void* args[] = {(void*)&a};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      (void*)svdpp_rounds_kernel<kMaxThreads>, dim3(grid), dim3(threads), args, smem, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
-
-extern "C" int svdpp_flush(float* w, float* b, const int* fb_idx, const float* fb_val,
-                           const int* fb_block, const float* dacc, int F, int k, int c,
-                           int live, int with_user_bias, void* stream) {
-  const int blocks = live > 0 ? (live + kWarpsPerBlock - 1) / kWarpsPerBlock : 1;
-  svdpp_flush_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      w, b, fb_idx, fb_val, fb_block, dacc, F, k, c, live, with_user_bias);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int svdpp_gather(const float* w, const float* b, const int* fb_idx,
-                            const float* fb_val, const int* seg, float* agg, float* inv,
-                            float* dacc, int F, int k, int G, int c, int with_user_bias,
-                            void* stream) {
-  svdpp_gather_kernel<<<G, kThreads, 0, (cudaStream_t)stream>>>(
-      w, b, fb_idx, fb_val, seg, agg, inv, dacc, F, k, G, c, with_user_bias);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int svdpp_apply(float* w, float* b, float* acc, float* agg, const float* delta,
-                           const float* O, const float* log_u, const float* log_i,
-                           const float* log_bu, const float* log_bi, int N, int k, int G,
-                           int c, int r, int with_user_bias, void* stream) {
-  svdpp_apply_kernel<<<kApplyBlocks, kThreads, 0, (cudaStream_t)stream>>>(
-      w, b, acc, agg, delta, O, log_u, log_i, log_bu, log_bi, N, k, G, c, r, with_user_bias);
-  return (int)cudaGetLastError();
-}
 
 // R rounds x T steps in one cooperative launch.  ``ptrs`` holds the 27
 // pointers of Rounds in its order (the last, trace, may be null), ``ints``
@@ -780,7 +426,7 @@ extern "C" int svdpp_rounds(void* const* ptrs, const int* ints, const float* flo
   if (product > floats_needed) floats_needed = product;
   const size_t smem = sizeof(float) * floats_needed;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (threads <= kThreads) return launch_rounds<kThreads>(a, threads, smem, grid_out, s);
-  return launch_rounds<1024>(a, threads, smem, grid_out, s);
+  const void* kernel = threads <= kThreads ? (const void*)svdpp_rounds_kernel<kThreads>
+                                            : (const void*)svdpp_rounds_kernel<1024>;
+  return sgd::launch_cooperative(kernel, a, threads, smem, grid_out, (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
-// Device code shared by the SGD kernels (fused_embed.cu, fused_svdpp.cu):
-// the loss gradient of the gated active types and the per-row apply of a
-// step's accumulated update with its touch-count decay (one row, or every
-// touched row of the table by a grid's warps).
+// Code shared by the SGD kernels (fused_embed.cu, fused_svdpp.cu,
+// fused_imfb.cu): the loss gradient of the gated active types, the decay
+// factors of a row formed from the decay rates, the apply of a step's
+// accumulated update to every touched row of the table by a grid's warps,
+// the kernels' own clock, and the grid of a persistent cooperative launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,66 +39,24 @@ __device__ __forceinline__ float log1m_rate(float lr, float wd) {
   return logf(fmaxf(__fsub_rn(1.0f, __fmul_rn(lr, wd)), 1e-38f));
 }
 
-// One warp applies row n of a step's accumulator, a = acc + n (k+3) =
-// [dw | db | cu | ci], with its decay factors already formed, and clears it:
-//   w[n] = (w[n] + dw) * fac,  b[n] = (b[n] + db) * fac_b
-// The dummy row is written as exact zeros.  The caller's lanes have all read
-// the counts before this is entered.
-__device__ __forceinline__ void apply_row_scaled(float* w, float* b, float* a, float fac,
-                                                 float fac_b, bool dummy, int k, int n,
-                                                 int lane) {
-  float* wn = w + (int64_t)n * k;
-  for (int c = lane; c < k; c += 32) {
-    wn[c] = dummy ? 0.0f : (wn[c] + a[c]) * fac;
-    a[c] = 0.0f;
-  }
-  __syncwarp();  // every lane has read the counts before lane 0 clears them
-  if (lane == 0) {
-    b[n] = dummy ? 0.0f : (b[n] + a[k]) * fac_b;
-    a[k] = 0.0f;
-    a[k + 1] = 0.0f;
-    a[k + 2] = 0.0f;
-  }
-}
-
-// The decay factors of a row with touch counts (cu, ci) from the per-round
-// log tables (log_u / log_i [R, N], log_bu / log_bi [R]):
+// The decay factors of a row with touch counts (cu, ci), formed from the
+// decay rates themselves:
 //   fac   = exp(cu log(1 - lr wd_u[n]) + ci log(1 - lr wd_i[n]))
 //   fac_b = exp(ci log(1 - lr wd_ib) (+ cu log(1 - lr wd_ub)))
-struct TableDecay {
-  const float* log_u;
-  const float* log_i;
-  const float* log_bu;
-  const float* log_bi;
-  int N, r, with_user_bias;
+// (log_bu, log_bi: the bias terms' logs, formed once per round).
+struct RateDecay {
+  const float* wd_u;
+  const float* wd_i;
+  float lr, log_bu, log_bi;
+  int with_user_bias;
   __device__ __forceinline__ void operator()(int n, float cu, float ci, float* fac,
                                              float* fac_b) const {
-    *fac = expf(cu * log_u[(int64_t)r * N + n] + ci * log_i[(int64_t)r * N + n]);
-    float sb = ci * log_bi[r];
-    if (with_user_bias) sb += cu * log_bu[r];
+    *fac = expf(cu * log1m_rate(lr, __ldg(wd_u + n)) + ci * log1m_rate(lr, __ldg(wd_i + n)));
+    float sb = ci * log_bi;
+    if (with_user_bias) sb += cu * log_bu;
     *fac_b = expf(sb);
   }
 };
-
-// One warp applies row n of a step's accumulator acc[N, k+3] =
-// [dw | db | cu | ci] to the tables and clears it:
-//   w[n] = (w[n] + dw) * exp(cu log(1 - lr wd_u[n]) + ci log(1 - lr wd_i[n]))
-//   b[n] = (b[n] + db) * exp(ci log(1 - lr wd_ib) (+ cu log(1 - lr wd_ub)))
-// A row no example touched is left alone (its update is exactly the
-// identity); the dummy row N-1 is written as exact zeros.
-__device__ __forceinline__ void apply_row(
-    float* __restrict__ w, float* __restrict__ b, float* __restrict__ acc,
-    const float* __restrict__ log_u, const float* __restrict__ log_i,
-    const float* __restrict__ log_bu, const float* __restrict__ log_bi, int N,
-    int k, int r, int with_user_bias, int n, int lane) {
-  float* a = acc + (int64_t)n * (k + 3);
-  const float cu = a[k + 1];
-  const float ci = a[k + 2];
-  if (cu == 0.0f && ci == 0.0f) return;
-  float fac, fac_b;
-  TableDecay{log_u, log_i, log_bu, log_bi, N, r, with_user_bias}(n, cu, ci, &fac, &fac_b);
-  apply_row_scaled(w, b, a, fac, fac_b, n == N - 1, k, n, lane);
-}
 
 // Every touched row of acc[N, k+3] applied and cleared by the warps
 // [gwarp, nwarps) of a grid: each lane reads the counts of one row (rows
@@ -176,6 +135,79 @@ __device__ __forceinline__ void apply_touched_rows(float* w, float* b, float* ac
       }
     }
   }
+}
+
+__device__ __forceinline__ long long now_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The kernels' own clock: block 0's first thread adds the time since its
+// last stamp to trace[slot] (trace null: no clock)
+struct PhaseClock {
+  long long* trace;
+  long long last;
+  __device__ __forceinline__ void stamp(int slot) {
+    if (trace == nullptr) return;
+    const long long t = now_ns();
+    trace[slot] += t - last;
+    last = t;
+  }
+};
+
+// The grid of a cooperative launch of ``kernel`` with ``threads`` threads
+// and ``smem`` bytes of dynamic shared memory a block: one block per SM, if
+// the device can co-schedule that (no fallback: otherwise the call is
+// refused with cudaErrorCooperativeLaunchTooLarge).  Asked once per
+// (kernel, device, threads, shared memory) and kept.
+inline int cooperative_grid(const void* kernel, int threads, size_t smem, int* grid) {
+  struct Kept {
+    const void* kernel;
+    int dev, threads;
+    size_t smem;
+    int grid;
+  };
+  constexpr int kKept = 8;
+  static Kept kept[kKept];
+  static int next = 0;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  for (const Kept& e : kept) {
+    if (e.kernel == kernel && e.dev == dev && e.threads == threads && e.smem == smem) {
+      *grid = e.grid;
+      return 0;
+    }
+  }
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if (!coop || per_sm < 1 || sms < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  kept[next] = Kept{kernel, dev, threads, smem, sms};
+  next = (next + 1) % kKept;
+  *grid = sms;
+  return 0;
+}
+
+// A cooperative launch of ``kernel(args)`` on the grid of cooperative_grid;
+// the grid is written to ``grid_out``.  Returns the launch's error.
+template <class Args>
+int launch_cooperative(const void* kernel, const Args& args, int threads, size_t smem,
+                       int* grid_out, cudaStream_t stream) {
+  int grid = 0;
+  const int refused = cooperative_grid(kernel, threads, smem, &grid);
+  if (refused) return refused;
+  *grid_out = grid;
+  void* params[] = {(void*)&args};
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), params, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sgd

@@ -32,16 +32,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of each C entry point in csrc/ (pointers and the stream as void*)
 SIGNATURES = {
-    "sgd_accumulate": [_P] * 14 + [_I] * 7 + [ctypes.c_float, _P],
-    "sgd_apply": [_P] * 11 + [_I] * 6 + [_P],
-    "svdpp_flush": [_P] * 6 + [_I] * 5 + [_P],
-    "svdpp_gather": [_P] * 8 + [_I] * 5 + [_P],
-    "svdpp_apply": [_P] * 10 + [_I] * 6 + [_P],
-    # pointer, int and float arrays of the persistent kernel's arguments,
-    # the grid it chose (int*), the stream
+    # the persistent kernels (K1, K2, K3): pointer, int and float arrays of
+    # their arguments, the grid they chose (int*), the stream
+    "sgd_rounds": [_P] * 5,
     "svdpp_rounds": [_P] * 5,
-    "imfb_step": [_P] * 13 + [_I] * 10 + [ctypes.c_float, _P],
-    "imfb_delta": [_P] * 9 + [_I] * 6 + [_P],
+    "imfb_rounds": [_P] * 5,
     "row_write": [_P] * 3 + [_I] * 3 + [_P],
     "row_read": [_P] * 3 + [_I] * 3 + [_P],
     "row_noop": [_P] * 3 + [_I] * 3 + [_P],

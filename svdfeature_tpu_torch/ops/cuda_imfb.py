@@ -5,12 +5,16 @@ Replaces the TPU kernel svdfeature_tpu/ops/pallas_svdpp.py::_make_kernel
 with D>0 (``train_rounds_imfb_pallas``): K2's whole-run Pallas call with
 the segments changed from a chunk's users to its local feedback contexts,
 a multi-hot slot->context selector matrix, a per-chunk depth gate and the
-within-unit damping.  On the H100 (csrc/fused_imfb.cu) each step is three
-launches, ``imfb_step`` (one block per unit, one warp per slot, the
-per-context sums by atomics because contexts are shared across units),
-``imfb_delta`` (one block per context) and K2's ``svdpp_apply``; each chunk
-start is K2's ``svdpp_flush`` and ``svdpp_gather`` keyed by ``fb_ctx``,
-all issued on PyTorch's current stream by a host loop.
+within-unit damping.  On the H100 csrc/fused_imfb.cu runs a wrapper call
+as one persistent cooperative launch, ``imfb_rounds``, built from K2's
+pieces (the pool flush and context gather keyed by ``fb_ctx``, the row
+apply and O @ delta, with G := nseg - 1): a grid of one block per SM
+walks rounds, steps and chunk starts from int32 planes and puts a
+grid-wide barrier after each phase of a step, the step (a block per unit,
+a warp per slot; the per-context sums by atomics, because contexts are
+shared across units), the delta (a warp per context) and the apply.  The
+wrapper keeps K2's form: a checked plan per set of tensors, a kept
+scratch, one ctypes call (ops/_plans.py).
 
 Semantics (f32 throughout) are those of ops/imfb.train_epoch_imfb_carried
 per round; the TPU kernel reads tables and payloads in bf16, so the port
@@ -20,17 +24,20 @@ in place and return the new TrainState.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ._plans import Plan, find_plan, keep_plan, kept_scratch, launch_args
 from .cuda_embed import MAX_TABLE_ROWS
-from .cuda_svdpp import MAX_ROWS_PER_USER, _check_inputs, _round_logs, semantic_failure
+from .cuda_scatter import _entry_point, _raw_stream, check_tensors
+from .cuda_svdpp import MAX_ROWS_PER_USER, _check_inputs, device_schedule, semantic_failure
 from .embed import HyperParams, TrainConsts, TrainState
 from .imfb import train_epoch_imfb_carried
-from .svdpp import PlusHyper, _is_first
+from .svdpp import PlusHyper
 
 
 def gate_failure(hp: HyperParams, state: TrainState, stacked, ph: PlusHyper) -> Optional[str]:
@@ -116,6 +123,64 @@ def _check_contexts(
         raise ValueError(f"the pad context {nseg - 1} holds pool entries of nonzero value")
 
 
+_PLANS: List[Plan] = []
+_STATIC = ("u_idx", "u_val", "i_idx", "i_val", "label", "weight", "ctx_slots")
+_POOL = ("fb_idx", "fb_val", "fb_ctx")
+# the order of csrc/fused_imfb.cu's struct ImfbRounds
+_ROUNDS_POINTERS = (
+    "w", "b", "acc", "agg", "inv", "dacc", "delta", "cacc",
+    "u_idx", "i_idx", "ctx", "fb_idx", "fb_ctx", "seg", "cid", "first", "live",
+    "u_val", "i_val", "label", "weight", "fb_val", "O", "enabled",
+    "lrs", "wd_u", "wd_i", "wd_ub", "wd_ib", "trace",
+)
+_SLOT = {name: i for i, name in enumerate(_ROUNDS_POINTERS)}
+TRACE_SLOTS = 11
+
+
+def _plan(state, stacked, chunk_id, fb, fb_overlap, enabled, lrs, consts, RM: int) -> Plan:
+    """The checked planes of this call: from the kept plans when the very
+    same tensors come again unmodified for the same table height, rows per
+    unit and schedule, else checked now (two host syncs)."""
+    tensors = (*[stacked[p] for p in _STATIC], *[fb[p] for p in _POOL], fb_overlap, enabled)
+    cid = np.asarray(chunk_id)
+    key = (state.w.shape[0], RM, cid.tobytes())
+    plan = find_plan(_PLANS, tensors, key)
+    if plan is not None:
+        return plan
+    T, GS = stacked["label"].shape
+    C = fb["fb_idx"].shape[0]
+    D = stacked["ctx_slots"].shape[-1]
+    if GS % RM:
+        raise ValueError(f"{GS} slots per step are not {RM} rows of whole units")
+    if cid.shape != (T,) or cid.min() < 0 or cid.max() >= C:
+        raise ValueError(f"chunk_id must have shape ({T},) and values in [0, {C})")
+    planes = {
+        "u_idx": stacked["u_idx"][..., 0].reshape(-1),
+        "u_val": stacked["u_val"][..., 0].reshape(-1),
+        "i_idx": stacked["i_idx"].reshape(-1),
+        "i_val": stacked["i_val"].reshape(-1),
+        "label": stacked["label"].reshape(-1),
+        "weight": stacked["weight"].reshape(-1),
+    }
+    planes = {p: x.contiguous() for p, x in planes.items()}
+    ctx = stacked["ctx_slots"].reshape(T * GS, D)
+    # the context pool in K2's terms: G := nseg - 1 segments plus the pad
+    G = enabled.shape[1] - 1
+    _check_contexts(ctx, enabled, fb, T * GS, state.w.device)
+    seg, _ = _check_inputs(state, planes, fb, fb_overlap, lrs, consts, G, 1, seg_key="fb_ctx")
+    sched = device_schedule(cid, seg, state.w.device)
+    ptrs = (ctypes.c_void_p * len(_ROUNDS_POINTERS))()
+    for name, x in planes.items():
+        ptrs[_SLOT[name]] = x.data_ptr()
+    for name in _POOL:
+        ptrs[_SLOT[name]] = fb[name].data_ptr()
+    for name, x in zip(("ctx", "O", "enabled", "seg", "cid", "first", "live"),
+                       (ctx, fb_overlap, enabled, seg, *sched)):
+        ptrs[_SLOT[name]] = x.data_ptr()
+    return keep_plan(_PLANS, tensors, key, (planes, ctx, seg, sched), ptrs,
+                     (stacked["weight"] > 0).sum().to(torch.int32))
+
+
 @torch.no_grad()
 def train_rounds_imfb_kernel(
     state: TrainState,
@@ -129,13 +194,12 @@ def train_rounds_imfb_kernel(
     hp: HyperParams,
     ph: PlusHyper,
 ) -> TrainState:
-    """R rounds of the stacked steps through csrc/fused_imfb.cu (with K2's
-    flush, gather and apply from csrc/fused_svdpp.cu).
+    """R rounds of the stacked steps through csrc/fused_imfb.cu.
 
-    On CUDA tensors this launches the kernels (3 per step and 2 per chunk
-    start, each counted in ``train_rounds_imfb_kernel.launches``) and
-    raises on anything it cannot run; there is no fallback.  Tensors on
-    the CPU take the plain version, ``train_rounds_imfb_reference``."""
+    On CUDA tensors this makes one cooperative launch (counted in
+    ``train_rounds_imfb_kernel.launches``; its grid is left in ``.grid``)
+    and raises on anything it cannot run; there is no fallback.  Tensors
+    on the CPU take the plain version, ``train_rounds_imfb_reference``."""
     if state.w.device.type == "cpu":
         return train_rounds_imfb_reference(
             state, stacked, chunk_id, fb, fb_overlap, enabled, lrs, consts, hp, ph)
@@ -144,95 +208,61 @@ def train_rounds_imfb_kernel(
     reason = gate_failure(hp, state, stacked, ph)
     if reason is not None:
         raise ValueError(f"kernel cannot run this configuration: {reason}")
-    from ._build import load_library
-
-    lib = load_library()
     T, GS = stacked["label"].shape
     N, k = state.w.shape
     RM = ph.rows_per_user
     R = lrs.shape[0]
-    C, F = fb["fb_idx"].shape
     nseg = enabled.shape[1]
-    D = stacked["ctx_slots"].shape[-1]
     dev = state.w.device
-    cid = np.asarray(chunk_id)
-    planes = {
-        "u_idx": stacked["u_idx"][..., 0].reshape(-1),
-        "u_val": stacked["u_val"][..., 0].reshape(-1),
-        "i_idx": stacked["i_idx"].reshape(-1),
-        "i_val": stacked["i_val"].reshape(-1),
-        "label": stacked["label"].reshape(-1),
-        "weight": stacked["weight"].reshape(-1),
-    }
-    planes = {p: x.contiguous() for p, x in planes.items()}
-    ctx = stacked["ctx_slots"].reshape(T * GS, D)
-    if GS % RM:
-        raise ValueError(f"{GS} slots per step are not {RM} rows of whole units")
-    if cid.shape != (T,) or cid.min() < 0 or cid.max() >= C:
-        raise ValueError(f"chunk_id must have shape ({T},) and values in [0, {C})")
-    # the context pool in K2's terms: G := nseg - 1 segments plus the pad
-    G = nseg - 1
-    _check_contexts(ctx, enabled, fb, T * GS, dev)
-    seg, live = _check_inputs(state, planes, fb, fb_overlap, lrs, consts, G, 1, seg_key="fb_ctx")
-    logs = _round_logs(lrs, consts, ph)
-    # the dummy row stays exactly 0 (padding slots scatter nothing into it)
-    state.w[-1] = 0.0
-    state.b[-1] = 0.0
-    f32 = dict(dtype=torch.float32, device=dev)
-    acc = torch.zeros((N, k + 3), **f32)
-    agg = torch.zeros((nseg, k + 2), **f32)
-    inv = torch.zeros((nseg,), **f32)
-    dacc = torch.zeros((nseg, k + 1), **f32)
-    delta = torch.zeros((nseg, k + 1), **f32)
-    cacc = torch.zeros((nseg, k + 4), **f32)
-    p = {name: x.data_ptr() for name, x in planes.items()}
-    lp = {name: x.data_ptr() for name, x in logs.items()}
-    f = {name: x.data_ptr() for name, x in fb.items()}
-    w, b = state.w.data_ptr(), state.b.data_ptr()
-    acc_p, agg_p, inv_p, cacc_p = acc.data_ptr(), agg.data_ptr(), inv.data_ptr(), cacc.data_ptr()
-    dacc_p, delta_p, seg_p, O_p = dacc.data_ptr(), delta.data_ptr(), seg.data_ptr(), fb_overlap.data_ptr()
-    ctx_p, en_p = ctx.data_ptr(), enabled.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with_ub = 0 if hp.no_user_bias else 1
-
-    def launched(name: str, err: int) -> None:
-        if err:
-            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-        train_rounds_imfb_kernel.launches += 1
-
-    def flush(c: int) -> None:
-        launched("svdpp_flush", lib.svdpp_flush(
-            w, b, f["fb_idx"], f["fb_val"], f["fb_ctx"], dacc_p, F, k, c, live[c], with_ub,
-            stream))
-
-    first = _is_first(cid)
-    for r in range(R):
-        for t in range(T):
-            c = int(cid[t])
-            if first[t]:
-                if r or t:
-                    flush(int(cid[t - 1]))  # t = 0: the previous round's last chunk
-                launched("svdpp_gather", lib.svdpp_gather(
-                    w, b, f["fb_idx"], f["fb_val"], seg_p, agg_p, inv_p, dacc_p, F, k, G, c,
-                    with_ub, stream))
-            launched("imfb_step", lib.imfb_step(
-                w, b, p["u_idx"], p["u_val"], p["i_idx"], p["i_val"], p["label"], p["weight"],
-                ctx_p, agg_p, lrs.data_ptr(), acc_p, cacc_p, N, k, GS, RM, D, nseg, t, r,
-                hp.active_type, with_ub, hp.base_score, stream))
-            launched("imfb_delta", lib.imfb_delta(
-                agg_p, inv_p, en_p, lp["lr_fb"], lp["d"], lp["db"], cacc_p, dacc_p, delta_p, k,
-                nseg, RM, c, r, with_ub, stream))
-            launched("svdpp_apply", lib.svdpp_apply(
-                w, b, acc_p, agg_p, delta_p, O_p, lp["u"], lp["i"], lp["bu"], lp["bi"],
-                N, k, G, c, r, with_ub, stream))
-    flush(int(cid[-1]))
-    nstep = state.step + (stacked["weight"] > 0).sum().to(torch.int32) * R
-    return dataclasses.replace(state, step=nstep)
+    plan = _plan(state, stacked, chunk_id, fb, fb_overlap, enabled, lrs, consts, RM)
+    # what changes from call to call (a kept plan's tensors were checked)
+    check_tensors({
+        "w": (state.w, torch.float32, (N, k)), "b": (state.b, torch.float32, (N,)),
+        "lrs": (lrs, torch.float32, (R,)),
+        "wd_u_row": (consts.wd_u_row, torch.float32, (N,)),
+        "wd_i_row": (consts.wd_i_row, torch.float32, (N,)),
+        "wd_user_bias": (consts.wd_user_bias, torch.float32, ()),
+        "wd_item_bias": (consts.wd_item_bias, torch.float32, ()),
+    }, dev)
+    if k == 0 or R == 0:
+        raise ValueError("empty batch, table or round schedule")
+    stream = _raw_stream(dev.index)
+    ptrs = plan.ptrs
+    scratch = kept_scratch({"acc": N * (k + 3), "agg": nseg * (k + 2), "inv": nseg,
+                            "dacc": nseg * (k + 1), "delta": nseg * (k + 1),
+                            "cacc": nseg * (k + 4)}, dev, stream)
+    for name, ptr in scratch.items():
+        ptrs[_SLOT[name]] = ptr
+    trace = train_rounds_imfb_kernel.trace
+    if trace is not None:
+        check_tensors({"trace": (trace, torch.int64, (TRACE_SLOTS,))}, dev)
+    for name, x in (("w", state.w), ("b", state.b), ("lrs", lrs), ("wd_u", consts.wd_u_row),
+                    ("wd_i", consts.wd_i_row), ("wd_ub", consts.wd_user_bias),
+                    ("wd_ib", consts.wd_item_bias), ("trace", trace)):
+        ptrs[_SLOT[name]] = None if x is None else x.data_ptr()
+    scalars = (N, k, GS // RM, RM, stacked["ctx_slots"].shape[-1], nseg, T, R,
+               fb["fb_idx"].shape[1], hp.active_type, 0 if hp.no_user_bias else 1,
+               hp.base_score, ph.scale_lr_ufeedback, ph.wd_ufeedback, ph.wd_ufeedback_bias)
+    ints, floats, grid = launch_args(plan, scalars, 11)
+    err = _entry_point("imfb_rounds")(ptrs, ints, floats, ctypes.byref(grid), stream)
+    if err:
+        raise RuntimeError(f"imfb_rounds launch failed: CUDA error {err}")
+    train_rounds_imfb_kernel.launches += 1
+    train_rounds_imfb_kernel.grid = grid.value
+    return dataclasses.replace(state, step=torch.add(state.step, plan.n_live, alpha=R))
 
 
 train_rounds_imfb_kernel.launches = 0
+train_rounds_imfb_kernel.grid = 0
+# None, or an int64 [11] tensor on the device into which the kernel adds the
+# nanoseconds its first block spends in each phase (flush, gather, step,
+# delta, apply), at the barrier after each, and in the product
+# (csrc/fused_imfb.cu, struct ImfbRounds; scripts/kernel_split.py and
+# chip_smoke.py read it)
+train_rounds_imfb_kernel.trace = None
 
 
 def launches_per_call(chunk_id: np.ndarray, rounds: int) -> int:
-    """The kernel launches of one wrapper call: R * (3T + 2 * chunk starts)."""
-    return rounds * (3 * len(chunk_id) + 2 * int(_is_first(chunk_id).sum()))
+    """The kernel launches of one wrapper call: one cooperative launch,
+    whatever the rounds, steps and chunk starts."""
+    return 1

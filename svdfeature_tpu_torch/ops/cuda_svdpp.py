@@ -37,7 +37,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .cuda_embed import KERNEL_ACTIVE_TYPES, MAX_TABLE_ROWS, _decay_logs, _log1m
+from ._plans import MAX_PLANS, Plan, find_plan, keep_plan, kept_scratch, launch_args
+from .cuda_embed import KERNEL_ACTIVE_TYPES, MAX_TABLE_ROWS
 from .cuda_scatter import _raw_stream, check_tensors
 from .embed import HyperParams, TrainConsts, TrainState
 from .svdpp import PlusHyper, _is_first, train_epoch_plus
@@ -104,18 +105,6 @@ def gate_failure(
             f"{MAX_STEP_SMEM_BYTES} bytes of shared memory per user block"
         )
     return None
-
-
-def _round_logs(lrs: torch.Tensor, consts: TrainConsts, ph: PlusHyper) -> Dict[str, torch.Tensor]:
-    """Per-round tables of the kernel: the row/bias decay logs of
-    cuda_embed plus lr_fb = lr * scale_lr_ufeedback and log(d), log(db) of
-    the feedback decay d = 1 - lr_fb * wd_ufeedback (bias: wd_ufeedback_bias)."""
-    logs = _decay_logs(lrs, consts)
-    lr_fb = (lrs * ph.scale_lr_ufeedback).contiguous()
-    logs["lr_fb"] = lr_fb
-    logs["d"] = _log1m(lr_fb * ph.wd_ufeedback).contiguous()
-    logs["db"] = _log1m(lr_fb * ph.wd_ufeedback_bias).contiguous()
-    return logs
 
 
 @torch.no_grad()
@@ -220,24 +209,8 @@ def device_schedule(
             seg[:, -1].contiguous())
 
 
-@dataclasses.dataclass
-class _Plan:
-    """What one set of packed tensors needs checked and derived once: kept
-    while the same tensors, unmodified (``_version``), come again."""
-
-    tensors: tuple  # kept alive, so their ids stay theirs
-    ids: Tuple[int, ...]
-    versions: List[int]
-    key: tuple  # (N, M, chunk_id bytes)
-    keep: tuple  # the derived device tensors, kept alive for their pointers
-    ptrs: ctypes.Array  # the kernel's pointer arguments; the per-call ones are set at each call
-    n_live: torch.Tensor  # 0-d int32: slots of weight > 0
-    scalars: tuple = ()  # the kernel's int and float arguments of the last call ...
-    scalar_args: tuple = ()  # ... and their ctypes arrays
-
-
-_PLANS: List[_Plan] = []
-_MAX_PLANS = 4
+_PLANS: List[Plan] = []
+_MAX_PLANS = MAX_PLANS
 _STATIC = ("u_idx", "u_val", "i_idx", "i_val", "label", "weight")
 _POOL = ("fb_idx", "fb_val", "fb_block")
 # the order of csrc/fused_svdpp.cu's struct Rounds
@@ -254,13 +227,11 @@ def _plan(state, stacked, chunk_id, fb, fb_overlap, lrs, consts, M: int) -> _Pla
     """The checked planes of this call: from the cache when the very same
     tensors come again unmodified, else checked now (one host sync)."""
     tensors = (*[stacked[p] for p in _STATIC], *[fb[p] for p in _POOL], fb_overlap)
-    ids = tuple(map(id, tensors))
-    versions = [x._version for x in tensors]
     cid = np.asarray(chunk_id)
     key = (state.w.shape[0], M, cid.tobytes())
-    for plan in _PLANS:
-        if plan.ids == ids and plan.versions == versions and plan.key == key:
-            return plan
+    plan = find_plan(_PLANS, tensors, key)
+    if plan is not None:
+        return plan
     T, GS = stacked["label"].shape
     C = fb["fb_idx"].shape[0]
     SI = stacked["i_idx"].shape[-1]
@@ -286,39 +257,8 @@ def _plan(state, stacked, chunk_id, fb, fb_overlap, lrs, consts, M: int) -> _Pla
         ptrs[_SLOT[name]] = fb[name].data_ptr()
     for name, x in zip(("O", "seg", "cid", "first", "live"), (fb_overlap, seg, *sched)):
         ptrs[_SLOT[name]] = x.data_ptr()
-    plan = _Plan(tensors, ids, versions, key, (planes, seg, sched), ptrs,
-                 (stacked["weight"] > 0).sum().to(torch.int32))
-    _PLANS.insert(0, plan)
-    del _PLANS[_MAX_PLANS:]
-    return plan
-
-
-_SCRATCH: Dict[tuple, Tuple[torch.Tensor, Dict[str, int]]] = {}
-
-
-def _scratch(N: int, k: int, G: int, device: torch.device, stream: int) -> Dict[str, int]:
-    """The pointer of each part of a call's scratch (16-byte aligned): acc
-    [N, k+3], agg [G+1, k+2], inv [G+1], dacc and delta [G+1, k+1].
-
-    One zeroed allocation per (shape, device, stream), kept from call to
-    call: a call leaves acc cleared, as it found it, and writes every other
-    part before it reads it, and calls on one stream run one after the
-    other."""
-    key = (N, k, G, device, stream)
-    hit = _SCRATCH.get(key)
-    if hit is None:
-        sizes = {"acc": N * (k + 3), "agg": (G + 1) * (k + 2), "inv": G + 1,
-                 "dacc": (G + 1) * (k + 1), "delta": (G + 1) * (k + 1)}
-        offsets, total = {}, 0
-        for name, size in sizes.items():
-            offsets[name] = total
-            total += -(-size // 4) * 4
-        buf = torch.zeros((total,), dtype=torch.float32, device=device)
-        base = buf.data_ptr()
-        if len(_SCRATCH) >= _MAX_PLANS:
-            _SCRATCH.pop(next(iter(_SCRATCH)))
-        hit = _SCRATCH[key] = (buf, {name: base + 4 * off for name, off in offsets.items()})
-    return hit[1]
+    return keep_plan(_PLANS, tensors, key, (planes, seg, sched), ptrs,
+                     (stacked["weight"] > 0).sum().to(torch.int32))
 
 
 @torch.no_grad()
@@ -370,7 +310,9 @@ def train_rounds_svdpp_kernel(
         raise ValueError("empty batch, table or round schedule")
     stream = _raw_stream(dev.index)
     ptrs = plan.ptrs
-    for name, ptr in _scratch(N, k, G, dev, stream).items():
+    scratch = kept_scratch({"acc": N * (k + 3), "agg": (G + 1) * (k + 2), "inv": G + 1,
+                            "dacc": (G + 1) * (k + 1), "delta": (G + 1) * (k + 1)}, dev, stream)
+    for name, ptr in scratch.items():
         ptrs[_SLOT[name]] = ptr
     trace = train_rounds_svdpp_kernel.trace
     if trace is not None:
@@ -382,11 +324,7 @@ def train_rounds_svdpp_kernel(
     scalars = (N, k, G, M, stacked["i_idx"].shape[-1], T, R, fb["fb_idx"].shape[1],
                hp.active_type, 0 if hp.no_user_bias else 1, hp.base_score,
                ph.scale_lr_ufeedback, ph.wd_ufeedback, ph.wd_ufeedback_bias)
-    if plan.scalars != scalars:
-        plan.scalars = scalars
-        plan.scalar_args = ((ctypes.c_int * 10)(*scalars[:10]), (ctypes.c_float * 4)(*scalars[10:]),
-                            ctypes.c_int(0))
-    ints, floats, grid = plan.scalar_args
+    ints, floats, grid = launch_args(plan, scalars, 10)
     err = lib.svdpp_rounds(ptrs, ints, floats, ctypes.byref(grid), stream)
     if err:
         raise RuntimeError(f"svdpp_rounds launch failed: CUDA error {err}")

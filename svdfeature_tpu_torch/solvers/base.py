@@ -93,6 +93,9 @@ class SVDFeatureTrainer:
         self.hp: Optional[HyperParams] = None
         self._space_allocated = False
         self._pack_cache: Dict[int, Tuple[Dict[str, torch.Tensor], int]] = {}
+        # the last round schedule on the device: a constant learning rate
+        # is staged once, not before every round's launch
+        self._lrs_staged = (None, None)
 
     # ---- configuration -----------------------------------------------------
     def set_param(self, name: str, val: str) -> None:
@@ -301,8 +304,16 @@ class SVDFeatureTrainer:
         return self._pack_cache[key]
 
     # ---- training / prediction --------------------------------------------------
+    def _staged_lrs(self, lrs: List[float]) -> torch.Tensor:
+        """The round schedule ``lrs`` as an f32 tensor on the training
+        device, staged once per schedule."""
+        key = (tuple(lrs), self.state.w.device)
+        if self._lrs_staged[0] != key:
+            self._lrs_staged = (key, torch.tensor(lrs, dtype=torch.float32, device=key[1]))
+        return self._lrs_staged[1]
+
     def _train(self, stacked: Dict[str, torch.Tensor], lrs: List[float]) -> None:
-        lr_t = torch.tensor(lrs, dtype=torch.float32, device=self.state.w.device)
+        lr_t = self._staged_lrs(lrs)
         if self.hp.big_table:
             # a host loop of R x T steps (the JAX solver scans the same
             # step, solvers/base.py:245-251); hp.row_dma (use_pallas) sends

@@ -14,11 +14,15 @@ Every round of stacked data goes through
 ``ops.cuda_imfb.train_rounds_imfb_kernel`` (K3 on a CUDA device, its
 plain version on the CPU); ``use_pallas=0`` selects the plain version on
 the device.  An all-DEFAULT tag stream degenerates to plain SVD++ and
-takes the SVD++ trainer's whole path (K2), unless depth 0 is disabled.
+takes the SVD++ trainer's whole path (K2), unless depth 0 is disabled.  A
+random-order dataset trains and predicts on the base solver (K1), as in
+the JAX package (svdfeature_tpu/solvers/multi_imfb.py:472-473 and the
+SVD++ solver's routes it inherits).
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-common_feedback_space=1 (item 7b), tables over 8192 rows (item 9),
-streaming buffers (item 11) and ``mesh_*`` > 1 (item 12).
+common_feedback_space=1 (item 7b), tables over 8192 rows (item 9) and
+``mesh_*`` > 1 (item 12); streaming buffers (item 11) are refused where
+they are loaded (data/registry.py).
 """
 
 from __future__ import annotations
@@ -83,14 +87,9 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         enabled[:, :-1][ctx_depth < 0] = 0.0  # unused slots
         return enabled
 
-    def _pack_plus(self, ds) -> Union[PlusEntry, ImfbEntry]:
+    def _pack_plus(self, ds: PlusDataset) -> Union[PlusEntry, ImfbEntry]:
         if self._plain_svdpp(ds):
             return super()._pack_plus(ds)
-        if not isinstance(ds, PlusDataset):
-            raise NotImplementedError(
-                f"{type(ds).__name__}: the port trains in-memory stacked datasets; "
-                "streaming buffers are ROADMAP Queue 1 item 11"
-            )
         if self.sort_blocks and self.rows_per_user > 2:
             warnings.warn(
                 "sort_blocks=1 with rows_per_user>2 on STACKED data is measured "
@@ -135,21 +134,22 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
             )
         return self._imfb_cache[key]
 
-    def _train(self, entry: Union[PlusEntry, ImfbEntry], lrs: List[float]) -> None:
-        if isinstance(entry, PlusEntry):  # the degenerate all-DEFAULT route
+    def _train(self, entry, lrs: List[float]) -> None:
+        if not isinstance(entry, ImfbEntry):  # all-DEFAULT (SVD++) or random order (base)
             return super()._train(entry, lrs)
         ph = self._plus_hyper()
         reason = gate_failure(self.hp, self.state, entry.stacked, ph)
         if reason is not None:
             raise NotImplementedError(reason)
-        lr_t = torch.tensor(lrs, dtype=torch.float32, device=self.state.w.device)
         fn = train_rounds_imfb_kernel if self.use_pallas else train_rounds_imfb_reference
         self.state = fn(
             self.state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap,
-            entry.enabled, lr_t, self.consts, self.hp, ph,
+            entry.enabled, self._staged_lrs(lrs), self.consts, self.hp, ph,
         )
 
     def predict_all(self, ds) -> np.ndarray:
+        if not isinstance(ds, PlusDataset):  # random order: the base solver's forward
+            return super().predict_all(ds)
         state = self.state_or_model()
         entry = self._pack_plus(ds)
         if isinstance(entry, PlusEntry):

@@ -8,18 +8,22 @@ each per step, and ``sort_blocks`` (default 0) to pack users by block size
 (less padding, a small early-convergence cost).  Every round goes through
 ``ops.cuda_svdpp.train_rounds_svdpp_kernel`` (the Hopper kernel on a CUDA
 device, its plain version on the CPU); ``use_pallas=0`` selects the plain
-version on the device.
+version on the device.  A random-order dataset (``extend_type=1`` on
+the random-order format) trains and predicts on the base solver, as in
+the JAX package (svdfeature_tpu/solvers/svdpp.py:520-521, 1238-1239,
+1313-1316): K1 on a CUDA device, its plain version on the CPU.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-common_feedback_space=1 (item 7b), pairwise-rank sources (item 8),
-tables over 8192 rows (big-table SVD++, item 9), streaming buffers
-(item 11) and ``mesh_*`` > 1 (item 12).
+common_feedback_space=1 (item 7b), tables over 8192 rows (big-table
+SVD++, item 9) and ``mesh_*`` > 1 (item 12); pairwise-rank sources (item
+8) and streaming buffers (item 11) are refused where they are loaded
+(data/registry.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Union
 
 import numpy as np
 import torch
@@ -54,9 +58,6 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         self.sort_blocks = 0
         self.rows_per_user = 1
         self._plus_cache: Dict[int, PlusEntry] = {}
-        # the last round schedule on the device: a constant learning rate
-        # is staged once, not before every round's launch
-        self._lrs_staged = (None, None)
 
     def set_param(self, name: str, val: str) -> None:
         if name == "users_per_batch":
@@ -76,12 +77,7 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             wd_ufeedback_bias=self.tparam.wd_ufeedback_bias,
         )
 
-    def _pack_plus(self, ds) -> PlusEntry:
-        if not isinstance(ds, PlusDataset):
-            raise NotImplementedError(
-                f"{type(ds).__name__}: the port trains in-memory user-group datasets; "
-                "pairwise-rank sources are ROADMAP Queue 1 item 8, streaming buffers item 11"
-            )
+    def _pack_plus(self, ds: PlusDataset) -> PlusEntry:
         key = id(ds)
         if key not in self._plus_cache:
             m = self.model
@@ -114,28 +110,32 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             )
         return self._plus_cache[key]
 
-    def _train(self, entry: PlusEntry, lrs: List[float]) -> None:
+    def _train(self, entry: Union[PlusEntry, Dict[str, torch.Tensor]], lrs: List[float]) -> None:
+        if not isinstance(entry, PlusEntry):  # a random-order pack: the base solver
+            return super()._train(entry, lrs)
         ph = self._plus_hyper()
         reason = gate_failure(self.hp, self.state, entry.stacked, entry.fb, ph)
         if reason is not None:
             raise NotImplementedError(reason)
-        key = (tuple(lrs), self.state.w.device)
-        if self._lrs_staged[0] != key:
-            self._lrs_staged = (key, torch.tensor(lrs, dtype=torch.float32, device=key[1]))
-        lr_t = self._lrs_staged[1]
         fn = train_rounds_svdpp_kernel if self.use_pallas else train_rounds_svdpp_reference
         self.state = fn(
             self.state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap,
-            lr_t, self.consts, self.hp, ph,
+            self._staged_lrs(lrs), self.consts, self.hp, ph,
         )
 
     def update_all(self, ds) -> None:
-        """One pass over the user-group dataset (one round)."""
+        """One pass over the dataset (one round); a random-order dataset
+        takes the base solver's pass."""
+        if not isinstance(ds, PlusDataset):
+            return super().update_all(ds)
         self._train(self._pack_plus(ds), [self.learning_rate])
 
     def update_rounds(self, ds, num_rounds: int) -> None:
         """num_rounds passes in one wrapper call, with the per-round lr
-        decay schedule (set_round semantics) built on the host."""
+        decay schedule (set_round semantics) built on the host; a
+        random-order dataset takes the base solver's passes."""
+        if not isinstance(ds, PlusDataset):
+            return super().update_rounds(ds, num_rounds)
         entry = self._pack_plus(ds)
         lrs = []
         for _ in range(num_rounds):
@@ -146,6 +146,8 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         self._train(entry, lrs)
 
     def predict_all(self, ds) -> np.ndarray:
+        if not isinstance(ds, PlusDataset):  # random order: the base solver's forward
+            return super().predict_all(ds)
         state = self.state_or_model()
         entry = self._pack_plus(ds)
         preds = predict_batches_plus(

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from svdfeature_tpu_torch import convert
-from svdfeature_tpu_torch.ops import cuda_embed
+from svdfeature_tpu_torch.ops import _plans, cuda_embed
 from svdfeature_tpu_torch.ops.embed import HyperParams
 
 CPU = torch.device("cpu")
@@ -222,13 +222,61 @@ def test_wrapper_runs_plain_version_on_cpu():
     assert cuda_embed.train_rounds_kernel.launches == before
     for name in ("w", "b", "g", "step"):
         assert torch.equal(getattr(a, name), getattr(b, name))
+    # what a call on the card launches: one cooperative launch, whatever R
+    assert cuda_embed.launches_per_call(2) == cuda_embed.launches_per_call(40) == 1
+
+
+def test_checked_plan_is_kept_for_the_same_tensors():
+    """The wrapper's checked plan (flat planes, live-example count, the
+    kernel's pointer array) is made once per set of tensors and found
+    again while they come unmodified; an in-place edit of a plane, other
+    tensors or another table height make a new one, and the new one is
+    checked (a row or a global slot outside its table raises)."""
+    st, cs, stacked, lrs = make_inputs(0, 7, 3)
+    args = torch_inputs(st, cs, stacked, lrs)
+    state, tstacked = args[0], args[1]
+    cuda_embed._PLANS.clear()
+    plan = cuda_embed._plan(*args)
+    assert cuda_embed._plan(*args) is plan and len(cuda_embed._PLANS) == 1
+    assert int(plan.n_live) == int((stacked["weight"] > 0).sum())
+    (planes,) = plan.keep
+    assert len(plan.ptrs) == len(cuda_embed._ROUNDS_POINTERS) == 20
+    for name in ("u_idx", "i_val", "label", "g_idx", "g_val"):
+        assert plan.ptrs[cuda_embed._SLOT[name]] == planes[name].data_ptr()
+    assert planes["g_idx"].numel() == stacked["g_idx"].size  # SG = 3 global entries
+    # other tensors of equal content: checked anew
+    assert cuda_embed._plan(*torch_inputs(st, cs, stacked, lrs)) is not plan
+    # another table height (the row bounds depend on it)
+    taller = convert.state_from_numpy(**dict(
+        st, w=np.vstack([st["w"], st["w"][:1]]), b=np.append(st["b"], 0.0).astype(np.float32),
+        ref_ui=np.append(st["ref_ui"], 0).astype(np.int32)), device=CPU)
+    taller_consts = convert.consts_from_numpy(**dict(
+        cs, wd_u_row=np.append(cs["wd_u_row"], 0.0).astype(np.float32),
+        wd_i_row=np.append(cs["wd_i_row"], 0.0).astype(np.float32)), device=CPU)
+    assert cuda_embed._plan(taller, args[1], args[2], taller_consts) is not plan
+    assert cuda_embed._plan(*args) is plan
+    # an in-place edit bumps the version: the plan is remade, and checked
+    tstacked["label"].mul_(1.0)
+    remade = cuda_embed._plan(*args)
+    assert remade is not plan
+    tstacked["g_idx"][0, 0, 0] = 7
+    with pytest.raises(ValueError, match="global index outside"):
+        cuda_embed._plan(*args)
+    tstacked["g_idx"][0, 0, 0] = 0
+    tstacked["u_idx"][0, 0, 0] = 10_000
+    with pytest.raises(ValueError, match="outside the 256-row table"):
+        cuda_embed._plan(*args)
+    assert len(cuda_embed._PLANS) <= _plans.MAX_PLANS
+    cuda_embed._PLANS.clear()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("NG,SG,exact_global", [(1, 1, False), (7, 3, False), (7, 3, True)])
 def test_kernel_matches_plain_on_card(NG, SG, exact_global):
     """The CUDA kernel against its plain version on the card (atomics sum
-    in a varying order: atol 1e-5 / rtol 1e-4)."""
+    in a varying order: atol 1e-5 / rtol 1e-4), one cooperative launch a
+    call, and a second call on the same tensors, which takes the kept
+    plan, agreeing too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: python -m pytest -m cuda tests/)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -237,10 +285,27 @@ def test_kernel_matches_plain_on_card(NG, SG, exact_global):
     st, cs, stacked, lrs = make_inputs(0, NG, SG, N=2626, k=64, B=4096, T=3)
     hp = HyperParams(base_score=3.0, exact_global=exact_global)
     before = cuda_embed.train_rounds_kernel.launches
-    got = cuda_embed.train_rounds_kernel(*torch_inputs(st, cs, stacked, lrs, dev), hp)
+    state, tstacked, tlrs, consts = torch_inputs(st, cs, stacked, lrs, dev)
+    got = cuda_embed.train_rounds_kernel(state, tstacked, tlrs, consts, hp)
     torch.cuda.synchronize()
-    assert cuda_embed.train_rounds_kernel.launches - before == 2 * 2 * 3
+    assert cuda_embed.train_rounds_kernel.launches - before == cuda_embed.launches_per_call(2) == 1
+    plan = cuda_embed._PLANS[0]
     want = cuda_embed.train_rounds_reference(*torch_inputs(st, cs, stacked, lrs, dev), hp)
+    for name in ("w", "b", "g"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   atol=1e-5, rtol=1e-4)
+    assert int(got.step) == int(want.step)
+    if exact_global:
+        # the undamped global update is stable only while lr * sum(v^2) per
+        # slot stays below 2, which these dense global features break a few
+        # steps later, on both sides alike
+        return
+    # a second call on the same tensors: the kept plan, no new checks
+    got = cuda_embed.train_rounds_kernel(got, tstacked, tlrs, consts, hp)
+    torch.cuda.synchronize()
+    assert cuda_embed._PLANS[0] is plan
+    assert cuda_embed.train_rounds_kernel.launches - before == 2
+    want = cuda_embed.train_rounds_reference(want, *torch_inputs(st, cs, stacked, lrs, dev)[1:], hp)
     for name in ("w", "b", "g"):
         torch.testing.assert_close(getattr(got, name), getattr(want, name),
                                    atol=1e-5, rtol=1e-4)

@@ -29,7 +29,7 @@ from svdfeature_tpu_torch.data.csr import TAG_END, TAG_START
 from svdfeature_tpu_torch.data.csr import PlusBlock as _PlusBlock
 from svdfeature_tpu_torch.data.csr import PlusDataset as _PlusDataset
 from svdfeature_tpu_torch.data.text import load_plus_text
-from svdfeature_tpu_torch.ops import cuda_imfb
+from svdfeature_tpu_torch.ops import _plans, cuda_imfb
 from svdfeature_tpu_torch.ops.embed import HyperParams
 from svdfeature_tpu_torch.ops.imfb import predict_batches_imfb
 from svdfeature_tpu_torch.ops.svdpp import PlusHyper
@@ -446,9 +446,54 @@ def test_wrapper_runs_plain_version_on_cpu():
     assert cuda_imfb.train_rounds_imfb_kernel.launches == before
     for name in ("w", "b", "g", "step"):
         assert torch.equal(getattr(a, name), getattr(b, name))
-    # what a call on the card would launch: R * (3T + 2 * chunk starts)
-    T, C = len(x.chunk_id), len(np.unique(x.chunk_id))
-    assert cuda_imfb.launches_per_call(x.chunk_id, 2) == 2 * (3 * T + 2 * C)
+    # what a call on the card launches: one cooperative launch, whatever
+    # the rounds, steps and chunk starts
+    assert cuda_imfb.launches_per_call(x.chunk_id, 2) == 1
+
+
+def test_checked_plan_is_kept_for_the_same_tensors():
+    """The wrapper's checked plan (flat planes, the context plane, segment
+    starts, schedule planes, live-slot count) is made once per set of
+    tensors and found again while they come unmodified; an in-place edit of
+    a plane, other tensors or another chunk_id make a new one, and the new
+    one is checked (a row outside the table, a context outside [0, nseg)
+    raise)."""
+    x = imfb_inputs(rows_per_user=2)
+    state, stacked, cid, fb, overlap, enabled, lrs, consts, _, ph = torch_args(x)
+    args = (state, stacked, cid, fb, overlap, enabled, lrs, consts, ph.rows_per_user)
+    cuda_imfb._PLANS.clear()
+    plan = cuda_imfb._plan(*args)
+    assert cuda_imfb._plan(*args) is plan and len(cuda_imfb._PLANS) == 1
+    assert int(plan.n_live) == int((x.stacked["weight"] > 0).sum())
+    planes, ctx, seg, sched = plan.keep
+    assert len(plan.ptrs) == len(cuda_imfb._ROUNDS_POINTERS) == 30
+    for name, held in (("seg", seg), ("cid", sched[0]), ("first", sched[1]), ("live", sched[2]),
+                       ("ctx", ctx), ("label", planes["label"]), ("fb_ctx", fb["fb_ctx"]),
+                       ("O", overlap), ("enabled", enabled)):
+        assert plan.ptrs[cuda_imfb._SLOT[name]] == held.data_ptr()
+    G = x.enabled.shape[1] - 1
+    assert seg.shape == (x.fb["fb_idx"].shape[0], G + 1)
+    assert sched[2].tolist() == (x.fb["fb_ctx"] < G).sum(axis=1).tolist()
+    # other tensors of equal content: checked anew
+    other = torch_args(x)
+    assert cuda_imfb._plan(*other[:8], ph.rows_per_user) is not plan
+    # another schedule
+    cid2 = cid.copy()
+    cid2[-1] = cid2[0]
+    assert cuda_imfb._plan(state, stacked, cid2, *args[3:]) is not plan
+    assert cuda_imfb._plan(*args) is plan
+    # an in-place edit bumps the version: the plan is remade, and checked
+    stacked["label"].mul_(1.0)
+    assert cuda_imfb._plan(*args) is not plan
+    stacked["ctx_slots"][0, 0, 0] = G + 1
+    with pytest.raises(ValueError, match="ctx_slots outside"):
+        cuda_imfb._plan(*args)
+    stacked["ctx_slots"][0, 0, 0] = 0
+    stacked["i_idx"][0, 0, 0] = 10_000
+    with pytest.raises(ValueError, match="outside"):
+        cuda_imfb._plan(*args)
+    assert len(cuda_imfb._PLANS) <= _plans.MAX_PLANS
+    cuda_imfb._PLANS.clear()
 
 
 # ---- the trainer and the CLI slice ----------------------------------------------
@@ -611,7 +656,8 @@ def test_unported_epochs_raise():
 def test_kernel_matches_plain_on_card(case):
     """K3 against its plain version on the card, R=2 (atomics sum in a
     varying order, exp(n log d) against pow(d, n): atol 1e-5 / rtol 1e-4),
-    with the exact launch count."""
+    one cooperative launch a call, and a second call on the same tensors,
+    which takes the kept plan, agreeing too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: python -m pytest -m cuda tests/)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -619,11 +665,22 @@ def test_kernel_matches_plain_on_card(case):
     dev = torch.device("cuda")
     x = imfb_inputs(**CASES[case])
     before = cuda_imfb.train_rounds_imfb_kernel.launches
-    got = cuda_imfb.train_rounds_imfb_kernel(*torch_args(x, dev))
+    args = torch_args(x, dev)
+    got = cuda_imfb.train_rounds_imfb_kernel(*args)
     torch.cuda.synchronize()
     assert (cuda_imfb.train_rounds_imfb_kernel.launches - before
-            == cuda_imfb.launches_per_call(x.chunk_id, 2))
+            == cuda_imfb.launches_per_call(x.chunk_id, 2) == 1)
+    plan = cuda_imfb._PLANS[0]
     want = cuda_imfb.train_rounds_imfb_reference(*torch_args(x, dev))
+    for name in ("w", "b"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), atol=1e-5, rtol=1e-4)
+    assert int(got.step) == int(want.step)
+    # a second call on the same tensors: the kept plan, no new checks
+    got = cuda_imfb.train_rounds_imfb_kernel(got, *args[1:])
+    torch.cuda.synchronize()
+    assert cuda_imfb._PLANS[0] is plan
+    assert cuda_imfb.train_rounds_imfb_kernel.launches - before == 2
+    want = cuda_imfb.train_rounds_imfb_reference(want, *torch_args(x, dev)[1:])
     for name in ("w", "b"):
         torch.testing.assert_close(getattr(got, name), getattr(want, name), atol=1e-5, rtol=1e-4)
     assert int(got.step) == int(want.step)

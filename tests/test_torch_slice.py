@@ -2,7 +2,10 @@
 
 make_feature_buffer -> SVDTrainTask -> %04d.model per round ->
 SVDInferTask (log_eval), on the first 10k rows of ML-100K (basicMF and
-neighborhoodModel confs, num_factor=16, batch_size=1024, 3 rounds).  The
+neighborhoodModel confs, num_factor=16, batch_size=1024, 3 rounds; and
+basicMF's random-order buffer, format_type=0, under extend_type=1 and
+extend_type=2, 2 rounds, which both packages train and predict on the base
+solver).  The
 port runs with device=cpu (its kernel path takes the plain version
 there).  Every checkpoint agrees (w/b/g atol 1e-5) and so does every
 round's eval RMSE (1e-5).
@@ -45,9 +48,18 @@ def _read_model(path):
     return {k: np.asarray(getattr(m, k)) for k in ("w", "b", "g")}
 
 
-@pytest.mark.parametrize("demo", sorted(CONFS))
-def test_slice_matches_jax(demo, tmp_path):
+SLICE_CASES = [pytest.param(demo, 0, ROUNDS, id=demo) for demo in sorted(CONFS)] + [
+    # extend_type=1 / 2 on a random-order buffer: the SVD++ and multi-IMFB
+    # trainers hand it to the base solver, as the JAX package's do
+    pytest.param("basicMF", et, 2, id=f"basicMF-extend_type{et}") for et in (1, 2)
+]
+
+
+@pytest.mark.parametrize("demo,extend_type,rounds", SLICE_CASES)
+def test_slice_matches_jax(demo, extend_type, rounds, tmp_path):
     train_fx, test_fx, extra = CONFS[demo]
+    if extend_type:  # format_type 0: the random-order format, not auto-detected
+        extra += f"extend_type = {extend_type}\nformat_type = 0\n"
     _head(train_fx, 10000, tmp_path / "train.feature")
     _head(test_fx, 2000, tmp_path / "test.feature")
     out = {}
@@ -67,18 +79,21 @@ def test_slice_matches_jax(demo, tmp_path):
             f'model_out_folder = "{d}/models"\nbatch_size = 1024\nsilent = 1\n'
         )
         before = cuda_embed.train_rounds_kernel.launches
-        train_cls().run(str(conf), [f"num_round={ROUNDS}", *dev])
-        infer_cls().run(str(conf), ["start=0", f"end={ROUNDS + 1}",
+        task = train_cls()
+        task.run(str(conf), [f"num_round={rounds}", *dev])
+        infer_cls().run(str(conf), ["start=0", f"end={rounds + 1}",
                                     f"log_eval={d}/rmse.tsv", *dev])
         assert cuda_embed.train_rounds_kernel.launches == before  # CPU: plain version
         rmse = np.loadtxt(d / "rmse.tsv")
         out[tag] = dict(
-            models=[_read_model(d / "models" / f"{r:04d}.model") for r in range(ROUNDS + 1)],
-            rmse=rmse,
+            models=[_read_model(d / "models" / f"{r:04d}.model") for r in range(rounds + 1)],
+            rmse=rmse, trainer=type(task.trainer).__name__,
         )
-    assert out["torch"]["rmse"].shape == (ROUNDS + 1, 2)
+    assert out["torch"]["trainer"] == out["jax"]["trainer"] == {
+        0: "SVDFeatureTrainer", 1: "SVDPPFeatureTrainer", 2: "SVDPPMultiIMFBTrainer"}[extend_type]
+    assert out["torch"]["rmse"].shape == (rounds + 1, 2)
     np.testing.assert_allclose(out["torch"]["rmse"], out["jax"]["rmse"], atol=1e-5, rtol=0)
-    for r in range(ROUNDS + 1):
+    for r in range(rounds + 1):
         for k in ("w", "b", "g"):
             np.testing.assert_allclose(out["torch"]["models"][r][k], out["jax"]["models"][r][k],
                                        atol=1e-5, rtol=0, err_msg=f"round {r} {k}")
@@ -127,16 +142,21 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
         TTrain().run(str(conf), ["num_round=1", "device=cpu", f"{key}={val}"])
 
 
-def test_update_rounds_matches_jax(tmp_path):
+@pytest.mark.parametrize("extend_type", [
+    pytest.param(0, id="base"), pytest.param(1, id="extend_type1"),
+    pytest.param(2, id="extend_type2")])
+def test_update_rounds_matches_jax(extend_type, tmp_path):
     """update_rounds (R rounds in one wrapper call, the lr decay schedule
     built on the host) against the JAX trainer's update_rounds, then
-    predict_all; the CLI path above covers update_all."""
+    predict_all; the CLI path above covers update_all.  The SVD++ and
+    multi-IMFB trainers (extend_type 1, 2) take a random-order dataset to
+    the base solver in both packages."""
     from svdfeature_tpu.data.text import load_feature_text as jload
     from svdfeature_tpu.params import SVDTypeParam as JType
-    from svdfeature_tpu.solvers.base import SVDFeatureTrainer as JTrainer
+    from svdfeature_tpu.solvers.registry import create_svd_trainer as jcreate
     from svdfeature_tpu_torch.data.text import load_feature_text as tload
     from svdfeature_tpu_torch.params import SVDTypeParam as TType
-    from svdfeature_tpu_torch.solvers.base import SVDFeatureTrainer as TTrainer
+    from svdfeature_tpu_torch.solvers.registry import create_svd_trainer as tcreate
 
     _head("ml100k.base.nb.feature.gz", 6000, tmp_path / "train.feature")
     text = (tmp_path / "train.feature").read_text()
@@ -146,9 +166,9 @@ def test_update_rounds_matches_jax(tmp_path):
               ("wd_item_bias", "0.002"), ("decay_learning_rate", "1"),
               ("decay_rate", "0.9"), ("batch_size", "512"), ("device", "cpu")]
     out = {}
-    for tag, trainer_cls, mtype, load in (("jax", JTrainer, JType(), jload),
-                                          ("torch", TTrainer, TType(), tload)):
-        tr = trainer_cls(mtype)
+    for tag, create, mtype, load in (("jax", jcreate, JType(extend_type=extend_type), jload),
+                                     ("torch", tcreate, TType(extend_type=extend_type), tload)):
+        tr = create(mtype)
         for k, v in params:
             tr.set_param(k, v)
         tr.init_model()
@@ -157,8 +177,9 @@ def test_update_rounds_matches_jax(tmp_path):
         tr.update_rounds(ds, 3)
         pred = np.asarray(tr.predict_all(ds))
         st = tr.state
-        out[tag] = dict(pred=pred, lr=tr.learning_rate, step=int(st.step),
+        out[tag] = dict(pred=pred, lr=tr.learning_rate, step=int(st.step), cls=type(tr).__name__,
                         **{k: np.asarray(getattr(st, k)) for k in ("w", "b", "g")})
+    assert out["torch"]["cls"] == out["jax"]["cls"]
     assert out["torch"]["lr"] == pytest.approx(out["jax"]["lr"])
     assert out["torch"]["step"] == out["jax"]["step"] == 3 * 6000
     for k in ("w", "b", "g", "pred"):
