@@ -45,10 +45,12 @@ result line):
      dummy row) bit for bit, with the library call's time, and K5 once more
      at the E=8192 rows of one batch-4096 step (bigTable (c)'s calls, whose
      time the kernel line reports), where it must not be slower than
-     index_copy_ by more than the spread between the turns; K4 on the plan
-     of one B=2^20 batch of bigTable's data (reg_method 0 and 4) and on a
-     40,960-row table (reg_method 0-5, no_user_bias with the nonnegative
-     clamps), with times and a profile;
+     index_copy_ by more than the spread between the turns; K4 (entries
+     formed in the kernel from the step's factors) on the plan of one
+     B=2^20 batch of bigTable's data and of a skewed one (items from a
+     Zipf law, exponent 1.1: runs of thousands of entries), reg_method 0
+     and 4, and on a 40,960-row table (reg_method 0-5, no_user_bias with
+     the nonnegative clamps), with times against the bound and a profile;
   7. bigTable (bench.py's synthetic KDD-Cup-scale workload, numpy only)
      through the port's entry points, 3 rounds each: (a) batch 2^20, the
      tile sweep (K4), (b) the same with use_pallas=0, (c) batch 4096,
@@ -73,7 +75,13 @@ result line):
      of the reference binary's (golden/multi_imfb_stacked.rmse.tsv), the
      two runs within 1e-5 of each other, with exact launch counts (8: one a
      round); over ten more rounds, a synchronise after each, the kernel
-     must be running for at least 0.7 of the time by its own clock.
+     must be running for at least 0.7 of the time by its own clock;
+ 10. the general route: basicMF at reg_method=1, binaryClassification at
+     active_type=5 and implicitFeedback at reg_method=4, 5 rounds each
+     through SVDTrainTask / SVDInferTask on the card; no kernel takes them,
+     so they train on the plain rounds (K1 / K2 launch counts 0), and the
+     test RMSE must lie within 1e-5 (1e-4 for SVD++) of the JAX package's
+     CPU figure (scripts/general_jax_reference.py).
 Each phase prints its time.  Then one JSON line describing the kernels (with each one's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 the H100 SXM's published rates at 700 W) and, last, one JSON line naming
@@ -312,10 +320,9 @@ def embed_bound(arrays):
 
 def phase_kernel(torch, dev, failures):
     from svdfeature_tpu_torch import convert
-    from svdfeature_tpu_torch.ops.cuda_embed import (
-        launches_per_call, train_rounds_kernel, train_rounds_reference,
-    )
+    from svdfeature_tpu_torch.ops.cuda_embed import launches_per_call, train_rounds_kernel
     from svdfeature_tpu_torch.ops.embed import HyperParams
+    from svdfeature_tpu_torch.ops.embed import train_rounds as train_rounds_reference
 
     def device_inputs(arrays):
         st, cs, stacked, lrs = arrays
@@ -798,6 +805,7 @@ def phase_svdpp_kernel(torch, dev, failures):
 
 # ---- phase 6: the big-table kernels vs plain at bigTable shapes -------------
 BIG_ATOL, BIG_RTOL = 1e-6, 1e-5  # K4 vs plain: run sums in plan order vs index_add_
+SKEW_EXPONENT = 1.1  # phase 6's skewed K4 batch: Zipf-distributed items
 BIG_ROWS_E = 1 << 21  # K5 / K6 rows per call
 
 
@@ -828,8 +836,9 @@ def timed(torch, fns, inner=5, turns=3, spread=None):
 def big_sweep_case(torch, dev, n, u, i, seed):
     """K4's arguments for one batch on an n-row table (rows < n-1 random
     factors and bias with lazy refs, the dummy and pad rows 0): the
-    pack-time plan and run starts of the batch's (u, i) rows, a payload
-    [dw | db | cnt_u | cnt_i] of the size the bigTable step makes."""
+    pack-time plan and runs of the batch's (u, i) rows, and the step's
+    factors p_u / p_i [B, k] and coefficients coef_u / coef_i [B, 1] of the
+    size the bigTable step makes."""
     from svdfeature_tpu_torch.ops import big_embed, tile_sweep
 
     tile, e_cap, k = tile_sweep.SWEEP_TILE, tile_sweep.SWEEP_ECAP, BIG_K
@@ -838,10 +847,11 @@ def big_sweep_case(torch, dev, n, u, i, seed):
     tbl = np.zeros((n_pad, big_embed.aug_width(k)), np.float32)
     tbl[: n - 1, : k + 1] = rng.standard_normal((n - 1, k + 1), dtype=np.float32) * 0.01
     tbl[: n - 1, k + 1] = rng.integers(0, 3 * BIG_EX, n - 1, dtype=np.int32).view(np.float32)
-    E = u.size + i.size
-    payload = rng.standard_normal((E, k + 3), dtype=np.float32) * 1e-4
-    payload[:, k + 1] = np.arange(E) < u.size
-    payload[:, k + 2] = np.arange(E) >= u.size
+    B = u.size
+    p_u = rng.standard_normal((B, k), dtype=np.float32) * 0.05
+    p_i = rng.standard_normal((B, k), dtype=np.float32) * 0.05
+    coef_u = rng.standard_normal((B, 1), dtype=np.float32) * 2e-3
+    coef_i = rng.standard_normal((B, 1), dtype=np.float32) * 2e-3
     plan = tile_sweep.attach_sweep_plans({"u_idx": u[None, :, None], "i_idx": i[None, :, None]},
                                          n_pad, tile, e_cap)
     plan = tile_sweep.attach_sweep_runs(plan, tile, e_cap)
@@ -850,25 +860,39 @@ def big_sweep_case(torch, dev, n, u, i, seed):
     wd_u[: int(u.max()) + 1] = 0.004
     wd_i[int(i.min()): n - 1] = 0.004
     f32 = dict(dtype=torch.float32, device=dev)
+    plan = {key: torch.from_numpy(plan[key][0]).to(dev) for key in tile_sweep.SWEEP_KEYS}
+    rows, counts = np.unique(np.concatenate([u, i]), return_counts=True)
     return dict(
         w=torch.from_numpy(tbl).to(dev),
-        args=({key: torch.from_numpy(plan[key][0]).to(dev) for key in tile_sweep.SWEEP_KEYS},
-              torch.from_numpy(payload).to(dev), torch.tensor(wd_u, **f32),
-              torch.tensor(wd_i, **f32), torch.tensor([0.005, 0.001, 0.002, 0.0], **f32),
+        args=(plan, *(torch.from_numpy(a).to(dev) for a in (p_u, p_i, coef_u, coef_i)),
+              torch.tensor(wd_u, **f32), torch.tensor(wd_i, **f32),
+              torch.tensor([0.005, 0.001, 0.002, 0.0], **f32),
               torch.tensor([3 * BIG_EX], dtype=torch.int32, device=dev)),
-        touched=len(np.unique(np.concatenate([u, i]))), n=n)
+        touched=len(rows), longest=int(counts.max()), E=2 * B, n=n)
+
+
+def zipf_items(n_items, size, exponent, seed):
+    """``size`` item ids of a Zipf law with ``exponent`` over ``n_items``
+    items (rank r drawn with probability ~ r^-exponent), the ranks spread
+    over the ids by a fixed permutation."""
+    rng = np.random.default_rng(seed)
+    cdf = np.cumsum(np.arange(1, n_items + 1, dtype=np.float64) ** -exponent)
+    ranks = np.searchsorted(cdf, rng.random(size) * cdf[-1])
+    return rng.permutation(n_items)[np.minimum(ranks, n_items - 1)]
 
 
 def sweep_bound(case):
-    """K4's bound for one call: bytes of the payload, the plan and the run
-    starts read once, each touched row read and written once with its two
-    decay rates; operations: the k+3 sums of each entry and about 4k + 20
-    per touched row (decay, clamps, bias)."""
-    plan, payload = case["args"][0], case["args"][1]
-    E, C = payload.shape
+    """K4's bound for one call: bytes of the step's factors p_u / p_i and
+    the coefficients, the plan arrays it reads (sw_src, sw_runs,
+    sw_pieces) once, and each touched row read and written once with its
+    two decay rates; operations: 2k per entry (its product and sum) and
+    about 4k + 20 per touched row (decay, clamps, bias)."""
+    plan, p_u, p_i, coef_u, coef_i = case["args"][:5]
     U, W = case["touched"], case["w"].shape[1]
-    moved = 4 * (E * C + sum(x.numel() for x in plan.values()) + U * (2 * W + 2) + 5)
-    return bound(moved, E * C + U * (4 * BIG_K + 20), 1)
+    plan_ints = sum(plan[key].numel() for key in ("sw_src", "sw_runs", "sw_pieces"))
+    moved = 4 * (p_u.numel() + p_i.numel() + coef_u.numel() + coef_i.numel() + plan_ints
+                 + U * (2 * W + 2) + 5)
+    return bound(moved, case["E"] * 2 * BIG_K + U * (4 * BIG_K + 20), 1)
 
 
 def phase_big_kernels(torch, dev, big, failures):
@@ -962,24 +986,29 @@ def phase_big_kernels(torch, dev, big, failures):
     out["K5"] = dict(t5c, err=0.0)
     out["K6"] = dict(t6, err=0.0)
 
-    # K4: one B=2^20 batch of bigTable's data (users [0, NU), items above)
+    # K4: one B=2^20 batch of bigTable's data (users [0, NU), items above),
+    # and a skewed one: the same users, items from a Zipf law (exponent 1.1)
     B = 1 << 20
     u = big["index"][0:2 * B:2].astype(np.int32)
     i = (BIG_NU + big["index"][1:2 * B:2]).astype(np.int32)
+    i_zipf = (BIG_NU + zipf_items(BIG_NI, B, SKEW_EXPONENT, seed=14)).astype(np.int32)
     small_rng = np.random.default_rng(12)
     small_n = 40_960
     half = (small_n - 1) // 2
-    cases = [("bigTable", u, i, dict(reg_method=0)), ("bigTable", u, i, dict(reg_method=4))]
+    cases = [("bigTable", u, i, dict(reg_method=0)), ("bigTable", u, i, dict(reg_method=4)),
+             ("skewed", u, i_zipf, dict(reg_method=0)), ("skewed", u, i_zipf, dict(reg_method=4))]
     su = small_rng.integers(0, half, 16_384).astype(np.int32)
     si = (half + small_rng.integers(0, half, 16_384)).astype(np.int32)
     cases += [("40960-row", su, si, dict(reg_method=m)) for m in range(6)]
     cases += [("40960-row", su, si, dict(reg_method=4, no_user_bias=1, user_nonnegative=1,
                                          item_nonnegative=1))]
-    max_err, full = 0.0, None
+    max_err, full, t4 = 0.0, None, {}
     for name, cu_, ci_, kw in cases:
-        n_case = n if name == "bigTable" else small_n
-        if full is None or full["n"] != n_case:
-            full = big_sweep_case(torch, dev, n_case, cu_, ci_, seed=13)
+        n_case = n if name != "40960-row" else small_n
+        if full is None or full["name"] != name:
+            full = None
+            torch.cuda.empty_cache()
+            full = dict(big_sweep_case(torch, dev, n_case, cu_, ci_, seed=13), name=name)
         hp = HyperParams(big_table=True, num_factor=BIG_K, sweep_table=True, **kw)
         got = cuda_sweep.sweep_update(full["w"].clone(), *full["args"], hp)
         want = cuda_sweep.sweep_update_reference(full["w"].clone(), *full["args"], hp)
@@ -992,29 +1021,35 @@ def phase_big_kernels(torch, dev, big, failures):
               and bool((got[full["n"] - 1, :k + 1] == 0).all())
               and bool((got[full["n"]:] == 0).all()) and bool(torch.isfinite(got).all())
               and not torch.equal(got, full["w"]))
+        if name == "skewed":
+            ok &= full["longest"] >= 1000  # runs of thousands of entries
         max_err = max(max_err, err)
         if not ok:
             failures.append(f"K4 vs plain {name} {kw}")
+        runs = full["args"][0]["sw_runs"]
         print(f"phase 6 {'ok' if ok else 'FAIL'}: K4 {name} table n={full['n']} "
-              f"(E={full['args'][1].shape[0]}, {full['touched']} touched rows, "
-              f"G={full['args'][0]['sw_tids'].numel()} cells) {kw} max|d|={err:.3e} "
-              f"(atol {BIG_ATOL:g} + rtol {BIG_RTOL:g}; ref bits, dummy and pad rows exact)",
-              flush=True)
-        if name == "bigTable" and kw["reg_method"] == 0:
+              f"(E={full['E']}, {full['touched']} touched rows, longest run {full['longest']} "
+              f"entries, {runs.shape[0]} run records of which "
+              f"{int((runs[:, 3] >= 0).sum())} pieces, G={full['args'][0]['sw_tids'].numel()} "
+              f"cells) {kw} max|d|={err:.3e} (atol {BIG_ATOL:g} + rtol {BIG_RTOL:g}; ref bits, "
+              f"dummy and pad rows exact)", flush=True)
+        if name != "40960-row" and kw["reg_method"] == 0:
             work = full["w"].clone()
-            t4 = timed(torch, {
+            t = timed(torch, {
                 "plain": lambda: cuda_sweep.sweep_update_reference(work, *full["args"], hp),
                 "kernel": lambda: cuda_sweep.sweep_update(work, *full["args"], hp)})
-            t4["bound"], t4["bound_by"] = sweep_bound(full)
-            print(f"phase 6 time: K4 bigTable B=2^20 reg_method=0 ms per call kernel "
-                  f"{t4['kernel']:.4f} plain {t4['plain']:.4f} bound {t4['bound']:.4f} "
-                  f"({t4['bound_by']})", flush=True)
-            print(f"phase 6 profile: K4 sweep_update then its plain version "
+            t["bound"], t["bound_by"] = sweep_bound(full)
+            t4[name] = t
+            print(f"phase 6 time: K4 {name} B=2^20 reg_method=0 ms per call kernel "
+                  f"{t['kernel']:.4f} plain {t['plain']:.4f} bound {t['bound']:.4f} "
+                  f"({t['bound_by']}; kernel at {t['bound'] / t['kernel']:.0%} of it), "
+                  f"{t['kernel'] * 1e6 / full['E']:.3f} ns per entry", flush=True)
+            print(f"phase 6 profile: K4 {name} sweep_update then its plain version "
                   f"{device_profile(torch, lambda: (cuda_sweep.sweep_update(work, *full['args'], hp), cuda_sweep.sweep_update_reference(work, *full['args'], hp)), 1, top=3)}",
                   flush=True)
             del work
         del got, want
-    out["K4"] = dict(t4, err=max_err)
+    out["K4"] = dict(t4["bigTable"], err=max_err)
     return out
 
 
@@ -1414,6 +1449,80 @@ def phase_imfb_slice(work, card, failures):
     return results["kernel"]["launches"]["K3"]
 
 
+# ---- phase 10: the general route ------------------------------------------------
+# Configurations no kernel takes train on the general plain rounds on the
+# card (ops/embed.train_rounds, the plain SVD++ rounds), as the JAX package
+# trains them on its jnp path.  Test RMSE after GENERAL_ROUNDS rounds, the
+# JAX package on the CPU, same data and conf (scripts/general_jax_reference.py).
+GENERAL_ROUNDS = 5
+GENERAL = {  # name: (demo, its data as phases 3 and 5 wrote it, conf keys)
+    "basicMF reg_method=1": ("basicMF", [f"batch_size={BATCH}", "reg_method=1"]),
+    "binaryClassification active_type=5": ("binaryClassification",
+                                           [f"batch_size={BATCH}", "active_type=5"]),
+    "implicitFeedback reg_method=4": ("implicitFeedback",
+                                      ["sort_blocks=1", "rows_per_user=8", "reg_method=4"]),
+}
+JAX_GENERAL_RMSE = {
+    "basicMF reg_method=1": 0.979038,
+    "binaryClassification active_type=5": 0.538926,
+    "implicitFeedback reg_method=4": 0.993561,
+}
+GENERAL_TOL = {"basicMF reg_method=1": 1e-5, "binaryClassification active_type=5": 1e-5,
+               "implicitFeedback reg_method=4": 1e-4}  # SVD++: 1e-4, as phase 5
+
+
+def general_gate(task):
+    """The kernel gate's answer for ``task``'s packed dataset: why K1 (or
+    K2) does not take it, or None."""
+    from svdfeature_tpu_torch.data.csr import PlusDataset
+    from svdfeature_tpu_torch.ops import cuda_embed, cuda_svdpp
+
+    tr, ds = task.trainer, task.dataset
+    if isinstance(ds, PlusDataset):
+        entry = tr._pack_plus(ds)
+        return cuda_svdpp.gate_failure(tr.hp, tr.state, entry.stacked, entry.fb, tr._plus_hyper())
+    return cuda_embed.gate_failure(tr.hp, tr.state, tr._pack(ds)[0])
+
+
+def phase_general(work, card, failures):
+    """basicMF at reg_method=1, binaryClassification at active_type=5 and
+    implicitFeedback at reg_method=4, GENERAL_ROUNDS rounds each through
+    SVDTrainTask / SVDInferTask on the card: the route is the plain rounds
+    (no kernel launch), the test RMSE within GENERAL_TOL of the JAX
+    package's CPU figure."""
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    wrappers = kernel_wrappers()
+    for name, (demo, extra) in GENERAL.items():
+        d = work / demo
+        conf = str(ROOT / "demo" / demo / f"{demo}.conf")
+        common = [f"buffer_feature={d}/train.buffer", f"test:buffer_feature={d}/test.buffer",
+                  f"model_out_folder={d}/models_general", "device=cuda", "silent=1", *extra]
+        for fn in wrappers.values():
+            fn.launches = 0
+        task = SVDTrainTask()
+        task.run(conf, common + [f"num_round={GENERAL_ROUNDS}"])
+        launches = {kid: fn.launches for kid, fn in wrappers.items()}
+        reason = general_gate(task)
+        log = d / "rmse_general.tsv"
+        SVDInferTask().run(conf, common + [f"start={GENERAL_ROUNDS}",
+                                           f"end={GENERAL_ROUNDS + 1}", f"log_eval={log}"])
+        rmse = float(log.read_text().split()[-1])
+        want = JAX_GENERAL_RMSE[name]
+        secs = task.round_seconds
+        ok = (math.isfinite(rmse) and abs(rmse - want) < GENERAL_TOL[name]
+              and not any(launches.values()) and reason is not None)
+        if not ok:
+            failures.append(f"general route {name}")
+        print(f"phase 10 {'ok' if ok else 'FAIL'}: {name} route plain (the kernel gate: "
+              f"{reason}) K1 launches {launches['K1']} K2 launches {launches['K2']} (want 0); "
+              f"test RMSE after {GENERAL_ROUNDS} rounds {rmse:.6f} (JAX CPU {want:.6f}, minus "
+              f"{rmse - want:+.2e}, tol {GENERAL_TOL[name]:g}); "
+              f"{task.dataset_rows() * (len(secs) - 1) / sum(secs[1:]):,.0f} examples/s rounds "
+              f"2-{GENERAL_ROUNDS} on {card}", flush=True)
+
+
 def kernel_line(name, source, replaces, launches, max_err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": timing["kernel"],
@@ -1473,6 +1582,8 @@ def main() -> int:
         phase_time("phase 8")
         k3_launches = phase_imfb_slice(pathlib.Path(work), card, failures)
         phase_time("phase 9")
+        phase_general(pathlib.Path(work), card, failures)
+        phase_time("phase 10")
 
     if failures:
         print(f"FAILED phases: {failures}", flush=True)

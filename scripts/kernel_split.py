@@ -7,6 +7,7 @@ Usage, from the repository root:
 
     python3 scripts/kernel_split.py                   # this tree
     python3 scripts/kernel_split.py --parent build/parent   # parent, change, change, parent
+    python3 scripts/kernel_split.py --cases k4 --parent build/parent --out docs/kernel_split_pr7.json
 
 Each turn is one subprocess that imports ``chip_smoke`` and
 ``svdfeature_tpu_torch`` from its tree, builds that tree's kernels and
@@ -44,6 +45,10 @@ What it measures, with the card's name and power limit:
   the profiler, and, where the wrapper has a ``trace`` hook, the
   microseconds per step that the kernel's first block spends in each
   phase and at each grid barrier by its own clock.
+  K4 at bigTable (a)'s step: ``train_step_sweep`` on one B=2^20 batch of
+  bigTable's data (the 2,048,577-row table, k=64), ms per step from CUDA
+  events, the device time by kernel under torch.profiler and K4's own
+  microseconds; ``--cases k4`` runs this case alone.
 """
 
 from __future__ import annotations
@@ -164,7 +169,70 @@ def wrapper_split(torch, call, wrapper, steps, trace_names, calls=5):
     return res
 
 
-def worker(tree: str) -> None:
+def k4_split(torch, dev, chip_smoke, big):
+    """bigTable (a)'s step on one batch: ``train_step_sweep`` at B=2^20 on
+    the 2,048,577-row augmented table (k=64, reg_method 0, use_pallas on),
+    through the tree's own plan functions, so that a parent whose K4 reads
+    a payload and a change whose K4 forms its entries compare at the step
+    level.  ms per step from CUDA events (three turns of five steps), the
+    device time per step by kernel under torch.profiler, and K4's own
+    microseconds (its ``sweep_apply`` launches)."""
+    import numpy as np
+
+    from svdfeature_tpu_torch import convert
+    from svdfeature_tpu_torch.ops import big_embed, cuda_sweep, tile_sweep
+    from svdfeature_tpu_torch.ops.embed import HyperParams
+
+    B = 1 << 20
+    k, tile, e_cap = chip_smoke.BIG_K, tile_sweep.SWEEP_TILE, tile_sweep.SWEEP_ECAP
+    n = chip_smoke.BIG_NU + chip_smoke.BIG_NI + 1
+    n_pad = -(-n // tile) * tile
+    u = big["index"][0:2 * B:2].astype(np.int32)
+    i = (chip_smoke.BIG_NU + big["index"][1:2 * B:2]).astype(np.int32)
+    arrays = dict(label=big["labels"][None, :B], weight=np.ones((1, B), np.float32),
+                  g_idx=np.zeros((1, B, 1), np.int32), g_val=np.zeros((1, B, 1), np.float32),
+                  u_idx=u[None, :, None], u_val=np.ones((1, B, 1), np.float32),
+                  i_idx=i[None, :, None], i_val=np.ones((1, B, 1), np.float32))
+    arrays = tile_sweep.attach_sweep_runs(
+        tile_sweep.attach_sweep_plans(arrays, n_pad, tile, e_cap), tile, e_cap)
+    batch = {key: x[0] for key, x in convert.stacked_from_numpy(arrays, dev).items()}
+    rng = np.random.default_rng(3)
+    st = dict(w=rng.standard_normal((n, k), dtype=np.float32) * 0.01, b=np.zeros(n, np.float32),
+              g=np.zeros(1, np.float32), step=np.int32(0), ref_ui=np.zeros(n, np.int32),
+              ref_g=np.zeros(1, np.int32))
+    st["w"][-1] = 0.0
+    wd = np.zeros(n_pad, np.float32)
+    wd[: n - 1] = 0.004
+    consts = convert.consts_from_numpy(wd, wd, np.zeros(1, np.float32), 0.0, 0.0, device=dev)
+    held = [big_embed.augment_state(convert.state_from_numpy(**st, device=dev), k,
+                                    pad_rows_to=tile)]
+    del st
+    hp = HyperParams(big_table=True, num_factor=k, sweep_table=True, row_dma=True,
+                     base_score=3.0)
+    lr = torch.tensor(0.005, device=dev)
+
+    def step():
+        held[0] = tile_sweep.train_step_sweep(held[0], batch, lr, consts, hp)
+
+    step()
+    before = cuda_sweep.sweep_update.launches
+    step()
+    res = {"k4_launches_per_step": cuda_sweep.sweep_update.launches - before}
+    ms = [event_ms(torch, step, 5) for _ in range(3)]
+    prof, elapsed = device_times(torch, step)
+    busy = sum(us for _, us in prof.values())
+    res.update({
+        "ms_per_step": statistics.median(ms), "ms_per_step_turns": ms,
+        "device_busy_us_per_step": busy, "elapsed_us_per_step": elapsed,
+        "k4_us": kernel_us(prof, "sweep_apply")[1],
+        "kernels": sorted(([chip_smoke._short(name), cnt, us] for name, (cnt, us) in prof.items()),
+                          key=lambda r: -r[2])[:12],
+        "finite": bool(torch.isfinite(held[0].w).all()),
+    })
+    return res
+
+
+def worker(tree: str, cases) -> None:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -180,6 +248,12 @@ def worker(tree: str) -> None:
     t0 = time.perf_counter()
     _build.load_library()
     out = {"tree": tree, "build_s": time.perf_counter() - t0}
+    if "k4" in cases:
+        out["k4_step"] = k4_split(torch, dev, chip_smoke, chip_smoke.bigtable_arrays())
+        torch.cuda.empty_cache()
+    if cases == {"k4"}:
+        print("RESULT " + json.dumps(out), flush=True)
+        return
 
     # ---- K5 -----------------------------------------------------------------
     n = chip_smoke.BIG_NU + chip_smoke.BIG_NI + 1
@@ -376,10 +450,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a second tree (the parent commit, unpacked) to run in turns")
     ap.add_argument("--out", help="write the summary JSON here too")
+    ap.add_argument("--cases", default="k5,k2,k1,k3,k4",
+                    help="comma-separated subset of k5,k2,k1,k3 (together) and k4")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, set(args.cases.split(",")))
         return 0
     import torch
 
@@ -396,7 +472,8 @@ def main() -> int:
         order = ["parent", "change", "change", "parent"]
     turns = {name: [] for name in trees}
     for name in order:
-        proc = subprocess.run([sys.executable, __file__, "--worker", trees[name]],
+        proc = subprocess.run([sys.executable, __file__, "--worker", trees[name],
+                               "--cases", args.cases],
                               capture_output=True, text=True, cwd=trees[name])
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:

@@ -1,52 +1,93 @@
-// The tile-sweep update of the big-table route on Hopper (K4): sum each
-// touched row's run of payload entries and apply the step's regularization
-// to that row, in place, one launch per training step.
+// The tile-sweep update of the big-table route on Hopper (K4): form each
+// touched row's entries from the step's factors, sum them, and apply the
+// step's regularization to that row, in place, one launch per training step.
 //
 // Replaces the TPU kernel svdfeature_tpu/ops/tile_sweep.py
-// ::_make_sweep_kernel (launched by sweep_update) and computes what it
-// computes.  The TPU kernel walks the pack-time plan cell by cell in tile
-// order, lands a cell's [1024, W] payload on its [2048, W] tile with a
-// one-hot MXU matmul (Mosaic has no row gather), accumulates the tile in
-// VMEM scratch and applies the math on the tile's last visit.  On the H100
-// a 2048 x 128 f32 tile is 1 MiB against 227 KB of shared memory per
-// block, and the one-hot product only ever stood in for a gather, so the
-// design is a segmented reduction instead:
-//   * make_sweep_plan sorts entries stably by row and groups them by
-//     tile, so each touched row's entries are one contiguous run of plan
-//     positions; the runs' starts are found once at pack time
-//     (ops/tile_sweep.attach_sweep_runs), as the plan is static.
-//   * one warp per run: lanes stride the k+3 payload columns
-//     [dw(k) | db | cu | ci] and sum the run's entries in plan order
-//     (deterministic, no atomics), reading payload[src[p]] through the
-//     plan instead of a materialized plan-ordered copy (1.4 GB per step
-//     at bigTable on the TPU path); padding slots (src == E) add nothing.
-//   * the warp then applies the last-visit math (reg_method 0-5, the lazy
-//     modes through the int32 ref bits, the nonnegative clamps, the bias
-//     decay) and writes the row.  Rows no entry touches are left alone:
-//     the TPU kernel rewrites them unchanged.
-// What bounds it on the card: bytes.  A step reads the payload (E rows of
-// k+3 floats), the plan and each touched row once and writes each touched
-// row once; the arithmetic is a handful of operations per column.
+// ::_make_sweep_kernel (launched by sweep_update, its pallas_call at :321)
+// and computes what it computes.  The TPU kernel walks the pack-time plan
+// cell by cell in tile order, lands a cell's [1024, W] payload
+// [dw | db | cu | ci] on its [2048, W] tile with a one-hot MXU matmul
+// (Mosaic has no row gather), accumulates the tile in VMEM scratch and
+// applies the math on the tile's last visit.  On the H100 a 2048 x 128 f32
+// tile is 1 MiB against 227 KB of shared memory per block, and the one-hot
+// product only ever stood in for a gather, so the design is a segmented
+// reduction over the plan's runs (each touched row's entries, contiguous in
+// plan order; found once at pack time by ops/tile_sweep.attach_sweep_runs).
+//
+// What bounds it on the card: bytes (the step's factors p_u / p_i, read
+// once per entry, and each touched row read and written once), reached
+// only if every load of a run is in flight at once.  The design:
+//   * no payload.  An entry e < B*Su is a user entry of example e / Su:
+//     dw = coef_u[e] * p_i[e / Su], db = coef_u[e] (0 without user bias),
+//     cu = 1; any other is an item entry: dw = coef_i * p_u, db = coef_i,
+//     ci = 1.  The kernel forms them from p_u, p_i (256-byte rows at k=64)
+//     and the coefficients, so the [E, k+3] payload is never written or
+//     read back (its rows were 268 bytes, never 16-byte aligned).
+//   * one 16-byte record per run, (first plan position, end, table row,
+//     piece slot), so one load brings a run's bounds and its row; the row
+//     (float4 loads), its ref bits, its two decay rates and the run's first
+//     16 plan sources are then issued together, before any entry load.
+//   * 16 lanes per run, each holding 4 columns of a 64-column chunk as a
+//     float4 (k <= 256: up to 4 chunks); db, cu, ci are scalars every lane
+//     keeps.  A warp holds two runs; entries are read up to 8 at a time
+//     ahead of their adds, which stay in plan order (deterministic, no
+//     atomics).
+//   * long runs are cut at pack time into pieces (runs of a popular item:
+//     thousands of entries in skewed data; pieces of about sqrt(n) of a
+//     run's n entries, so that a piece and the run's finish take about
+//     equally long).  Each piece writes its partial
+//     sums to a slot of a scratch buffer; the piece that arrives last (an
+//     integer counter per run, left at 0 again) adds the partials in slot
+//     order and finishes the row.  Pieces never write the row, and the sums
+//     do not depend on which piece arrives last.
+// After the sums, per touched row: reg_method 0-5 (the lazy modes through
+// the int32 ref bits), the nonnegative clamps, the bias decay, as before.
 //
 // The ref column holds int32 sample counts as raw bits; below 2^23 those
 // bits are denormal floats, so they are only ever moved as ints here (and
 // the build keeps denormals: no -ftz / fast math).
 //
-// Plain C interface (ctypes, svdfeature_tpu_torch/ops/_build.py): each entry
-// point launches on the given stream, does not synchronise, allocates
-// nothing, and returns cudaGetLastError().
+// Plain C interface (ctypes, svdfeature_tpu_torch/ops/_build.py): the
+// entry point launches on the given stream, does not synchronise,
+// allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr int kChunks = 8;  // payload columns k+3 <= 32 * kChunks
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGroup = 16;  // lanes per run
+constexpr int kThreads = 256;
+constexpr int kGroupsPerBlock = kThreads / kGroup;
+// entries whose loads are issued before their adds, by 64-column chunks
+// held per lane (registers: kAhead * NC float4s; deeper runs of loads cost
+// more in occupancy than they gain, measured at bigTable's batch)
+template <int NC>
+constexpr int kAhead = NC == 1 ? 4 : 2;
+// blocks per SM the registers must allow: 64 registers a thread, half the
+// SM's threads in flight (the kernel waits on memory, not on arithmetic)
+constexpr int kMinBlocks = 4;
+constexpr int kPartialsAhead = 8;  // partial sums read before their adds
 
-// tile_sweep.py _log1m: clamp so lr*wd == 1 decays to exactly 0
+struct SweepArgs {
+  float* w;              // [n_pad, W] augmented table, updated in place
+  const int4* runs;      // [n_runs] (p0, p1, row, slot or -1)
+  const int2* pieces;    // [n_slots] (first slot of the piece's run, pieces)
+  const int* src;        // [n_plan] entry of each plan position, E = padding
+  const float* p_u;      // [B, k]
+  const float* p_i;      // [B, k]
+  const float* coef_u;   // [B * Su]
+  const float* coef_i;   // [B * Si]
+  const float* wdu;      // [n_pad]
+  const float* wdi;      // [n_pad]
+  const float* scal;     // lr, wd_user_bias, wd_item_bias, 0
+  const int* stepi;      // the pre-batch sample counter
+  float* part;           // [n_slots, 64 * NC + 4] partial sums of pieces
+  int* count;            // [n_slots] arrivals per run (at its first slot), left at 0
+  int n_runs, n_slots, n_plan, B, Su, Si, n_pad, W, k;
+  int reg_method, user_nonneg, item_nonneg, with_user_bias;
+};
+
 __device__ __forceinline__ float log1m(float v) { return logf(fmaxf(1.0f - v, 1e-38f)); }
 
 // sign(w) * max(|w| - lam, 0)
@@ -55,139 +96,329 @@ __device__ __forceinline__ float soft(float w, float lam) {
   return w > 0.0f ? m : (w < 0.0f ? -m : 0.0f);
 }
 
-// column c of a warp's chunked row (chunk q holds column 32 q + lane)
-__device__ __forceinline__ float column(const float (&a)[kChunks], int c) {
-  float v = 0.0f;
-#pragma unroll
-  for (int q = 0; q < kChunks; ++q)
-    if (q == (c >> 5)) v = a[q];
-  return __shfl_sync(kFull, v, c & 31);
+__device__ __forceinline__ float& comp(float4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ float comp(const float4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
+}
+
+// 4 consecutive columns of a k-wide row from column c (0 past k)
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* row, int c, int k) {
+  if (VEC) return c < k ? __ldg(reinterpret_cast<const float4*>(row + c)) : make_float4(0, 0, 0, 0);
+  float4 v = make_float4(0, 0, 0, 0);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  for (int j = 0; j < 4; ++j)
+    if (c + j < k) comp(v, j) = __ldg(row + c + j);
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads) sweep_apply_kernel(
-    float* __restrict__ w, const int* __restrict__ tids, const int* __restrict__ lids,
-    const int* __restrict__ src, const int* __restrict__ runs,
-    const float* __restrict__ payload, const float* __restrict__ wdu,
-    const float* __restrict__ wdi, const float* __restrict__ scal,
-    const int* __restrict__ stepi, int n_runs, int E, int n_pad, int W, int k, int tile,
-    int e_cap, int reg_method, int user_nonneg, int item_nonneg, int with_user_bias) {
-  const int lane = threadIdx.x & 31;
-  const int run = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (run >= n_runs) return;
-  const int p0 = runs[run];
-  const int p1 = runs[run + 1];
-  if (p0 >= p1) return;  // an empty run pads the batch's run list
-  const int lid = lids[p0];
-  const int64_t row = (int64_t)tids[p0 / e_cap] * tile + lid;
-  if (lid < 0 || lid >= tile || row >= n_pad) __trap();
+template <int NC>
+struct Sums {
+  float4 dw[NC];
+  float db, cu, ci;
+};
 
-  // the run's payload sums, in plan order
-  const int C = k + 3;
-  float acc[kChunks];
+template <int NC>
+__device__ __forceinline__ void clear(Sums<NC>& a) {
 #pragma unroll
-  for (int q = 0; q < kChunks; ++q) acc[q] = 0.0f;
-  for (int p = p0; p < p1; ++p) {
-    const int s = src[p];
-    if (s == E) continue;  // padding slot: a zero payload row
-    if (s < 0 || s > E) __trap();
-    const float* pr = payload + (int64_t)s * C;
+  for (int q = 0; q < NC; ++q) a.dw[q] = make_float4(0, 0, 0, 0);
+  a.db = a.cu = a.ci = 0.0f;
+}
+
+// The sums of plan positions [p0, p1), in plan order.  ``first`` holds
+// src[p0 + g] of this lane g (loaded with the run's record).
+template <int NC, bool VEC>
+__device__ __forceinline__ void sum_entries(Sums<NC>& a, const SweepArgs& A, int p0, int p1,
+                                            int first, int g, unsigned gmask, int lane0) {
+  const int BSu = A.B * A.Su;
+  const int E = BSu + A.B * A.Si;
+  for (int base = p0; base < p1; base += kGroup) {
+    const int n = min(kGroup, p1 - base);
+    const int mine = base == p0 ? first : (g < n ? __ldg(A.src + base + g) : E);
+    constexpr int ahead = kAhead<NC>;
+    for (int j = 0; j < n; j += ahead) {
+      float c[ahead];
+      bool user[ahead];
+      float4 v[ahead][NC];
 #pragma unroll
-    for (int q = 0; q < kChunks; ++q) {
-      const int c = 32 * q + lane;
-      if (c < C) acc[q] += pr[c];
+      for (int u = 0; u < ahead; ++u) {
+        const int s = __shfl_sync(gmask, mine, lane0 + min(j + u, kGroup - 1));
+        const bool live = j + u < n && s != E;
+        if (j + u < n && (s < 0 || s > E)) __trap();
+        user[u] = s < BSu;
+        c[u] = 0.0f;
+#pragma unroll
+        for (int q = 0; q < NC; ++q) v[u][q] = make_float4(0, 0, 0, 0);
+        if (live) {
+          const int ex = user[u] ? s / A.Su : (s - BSu) / A.Si;
+          c[u] = __ldg(user[u] ? A.coef_u + s : A.coef_i + (s - BSu));
+          const float* row = (user[u] ? A.p_i : A.p_u) + (int64_t)ex * A.k;
+#pragma unroll
+          for (int q = 0; q < NC; ++q) v[u][q] = load4<VEC>(row, 64 * q + 4 * g, A.k);
+        }
+        // padding adds nothing, not even a count
+        if (!live) user[u] = false;
+        else if (user[u]) a.cu += 1.0f;
+        else a.ci += 1.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < ahead; ++u) {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) {
+          a.dw[q].x += c[u] * v[u][q].x;
+          a.dw[q].y += c[u] * v[u][q].y;
+          a.dw[q].z += c[u] * v[u][q].z;
+          a.dw[q].w += c[u] * v[u][q].w;
+        }
+        a.db += (user[u] && !A.with_user_bias) ? 0.0f : c[u];
+      }
     }
   }
-  const float db = column(acc, k);
-  const float cu = column(acc, k + 1);
-  const float ci = column(acc, k + 2);
+}
+
+// The last-visit math of the TPU kernel on one touched row (x: its factor
+// columns held by this lane, xb its bias, ref its lazy counter), written in
+// place.
+template <int NC, bool VEC>
+__device__ __forceinline__ void finish_row(const Sums<NC>& a, const SweepArgs& A, int64_t row,
+                                           const float4 (&x)[NC], float xb, int ref, float wu,
+                                           float wi, int g, unsigned gmask) {
+  const float cu = a.cu, ci = a.ci;
   if (!((cu + ci) > 0.0f)) return;  // untouched: the row stays as it is
-
-  const float lr = scal[0];
-  const float wd_ub = scal[1];
-  const float wd_ib = scal[2];
-  const float wu = wdu[row];
-  const float wi = wdi[row];
-  float* x = w + row * W;
-  int* xi = reinterpret_cast<int*>(x);
-  const int step = stepi[0];
-
-  float nw[kChunks] = {0.0f};
-  if (reg_method >= 4) {
-    const float el = (float)(step - xi[k + 1]);
+  const int k = A.k;
+  const int m = A.reg_method;
+  const float lr = A.scal[0];
+  const int step = A.stepi[0];
+  float4 nw[NC];
+  if (m >= 4) {
+    const float el = (float)(step - ref);
     const float lam = lr * (cu > 0.0f ? wu : wi);
     const float fac = expf(el * log1m(lam));
 #pragma unroll
-    for (int q = 0; q < kChunks; ++q) {
-      const int c = 32 * q + lane;
-      if (c < k) nw[q] = (reg_method == 4 ? x[c] * fac : soft(x[c], lam * el)) + acc[q];
-    }
+    for (int q = 0; q < NC; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float xv = comp(x[q], j);
+        comp(nw[q], j) = (m == 4 ? xv * fac : soft(xv, lam * el)) + comp(a.dw[q], j);
+      }
   } else {
 #pragma unroll
-    for (int q = 0; q < kChunks; ++q) {
-      const int c = 32 * q + lane;
-      if (c < k) nw[q] = x[c] + acc[q];
+    for (int q = 0; q < NC; ++q) {
+      nw[q].x = x[q].x + a.dw[q].x;
+      nw[q].y = x[q].y + a.dw[q].y;
+      nw[q].z = x[q].z + a.dw[q].z;
+      nw[q].w = x[q].w + a.dw[q].w;
     }
-    if (reg_method == 2) {
-      float sq = 0.0f;
+    if (m == 2) {
+      float sq = 0.0f;  // columns past k hold 0
 #pragma unroll
-      for (int q = 0; q < kChunks; ++q)
-        if (32 * q + lane < k) sq += nw[q] * nw[q];
-      sq = warp_sum(sq);
+      for (int q = 0; q < NC; ++q)
+        sq += nw[q].x * nw[q].x + nw[q].y * nw[q].y + nw[q].z * nw[q].z + nw[q].w * nw[q].w;
+#pragma unroll
+      for (int o = kGroup / 2; o > 0; o >>= 1) sq += __shfl_xor_sync(gmask, sq, o);
       const float wd_row = cu > 0.0f ? wu : wi;
       const float scale = sq > wd_row ? sqrtf(wd_row / fmaxf(sq, 1e-30f)) : 1.0f;
 #pragma unroll
-      for (int q = 0; q < kChunks; ++q) nw[q] *= scale;
+      for (int q = 0; q < NC; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) comp(nw[q], j) *= scale;
     } else {
       const float fac0 = expf(cu * log1m(lr * wu) + ci * log1m(lr * wi));
       const float thr1 = lr * (wu * cu + wi * ci);
       const float thr3 = lr * wu * cu;
       const float fac3 = expf(ci * log1m(lr * wi));
 #pragma unroll
-      for (int q = 0; q < kChunks; ++q) {
-        if (reg_method == 0) nw[q] *= fac0;
-        else if (reg_method == 1) nw[q] = soft(nw[q], thr1);
-        else nw[q] = soft(nw[q], thr3) * fac3;
-      }
+      for (int q = 0; q < NC; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float& v = comp(nw[q], j);
+          if (m == 0) v *= fac0;
+          else if (m == 1) v = soft(v, thr1);
+          else v = soft(v, thr3) * fac3;
+        }
     }
   }
 #pragma unroll
-  for (int q = 0; q < kChunks; ++q) {
-    if (user_nonneg && cu > 0.0f) nw[q] = fmaxf(nw[q], 0.0f);
-    if (item_nonneg && ci > 0.0f) nw[q] = fmaxf(nw[q], 0.0f);
-  }
-  float logb = ci * log1m(lr * wd_ib);
-  if (with_user_bias) logb += cu * log1m(lr * wd_ub);
-  const float nb = (x[k] + db) * expf(logb);
-
-  __syncwarp();  // every lane has read the row before any lane writes it
+  for (int q = 0; q < NC; ++q)
 #pragma unroll
-  for (int q = 0; q < kChunks; ++q) {
-    const int c = 32 * q + lane;
-    if (c < k) x[c] = nw[q];
+    for (int j = 0; j < 4; ++j) {
+      float& v = comp(nw[q], j);
+      if (A.user_nonneg && cu > 0.0f) v = fmaxf(v, 0.0f);
+      if (A.item_nonneg && ci > 0.0f) v = fmaxf(v, 0.0f);
+    }
+  float logb = ci * log1m(lr * A.scal[2]);
+  if (A.with_user_bias) logb += cu * log1m(lr * A.scal[1]);
+  const float nb = (xb + a.db) * expf(logb);
+
+  // every lane of the group has read the row before any lane writes it
+  __syncwarp(gmask);
+  float* xr = A.w + row * A.W;
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const int c = 64 * q + 4 * g;
+    if (VEC) {
+      if (c < k) *reinterpret_cast<float4*>(xr + c) = nw[q];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < k) xr[c + j] = comp(nw[q], j);
+    }
   }
-  if (lane == 0) {
-    x[k] = nb;
-    if (reg_method >= 4) xi[k + 1] = step;
+  if (g == 0) {
+    xr[k] = nb;
+    if (m >= 4) reinterpret_cast<int*>(xr)[k + 1] = step;
   }
+}
+
+template <int NC, bool VEC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_apply_kernel(const SweepArgs A) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (kGroup - 1);
+  const int lane0 = lane & kGroup;  // the group's first lane in the warp
+  const unsigned gmask = 0xffffu << lane0;
+  const int t = blockIdx.x * kGroupsPerBlock + (threadIdx.x / kGroup);
+  if (t >= A.n_runs) return;
+
+  // one wave: the run's record, then its row, ref, decay rates and first
+  // 16 plan sources, all independent of each other
+  const int4 rec = __ldg(A.runs + t);
+  const int p0 = rec.x, p1 = rec.y, slot = rec.w;
+  if (p0 >= p1) return;  // an empty run pads the batch's run list
+  const int64_t row = rec.z;
+  if (p0 < 0 || p1 > A.n_plan || row < 0 || row >= A.n_pad || slot < -1 || slot >= A.n_slots)
+    __trap();
+  const int BSu = A.B * A.Su;
+  const int E = BSu + A.B * A.Si;
+  const int first = g < p1 - p0 ? __ldg(A.src + p0 + g) : E;
+  const float* xr = A.w + row * A.W;
+  float4 x[NC];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const int c = 64 * q + 4 * g;
+    if (VEC) {
+      x[q] = c < A.k ? *reinterpret_cast<const float4*>(xr + c) : make_float4(0, 0, 0, 0);
+    } else {
+      x[q] = make_float4(0, 0, 0, 0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < A.k) comp(x[q], j) = xr[c + j];
+    }
+  }
+  const float xb = xr[A.k];
+  const int ref = reinterpret_cast<const int*>(xr)[A.k + 1];
+  const float wu = __ldg(A.wdu + row);
+  const float wi = __ldg(A.wdi + row);
+
+  Sums<NC> a;
+  clear(a);
+  sum_entries<NC, VEC>(a, A, p0, p1, first, g, gmask, lane0);
+  if (slot < 0) {
+    finish_row<NC, VEC>(a, A, row, x, xb, ref, wu, wi, g, gmask);
+    return;
+  }
+
+  // a piece of a long run: leave the partial sums in the slot; the piece
+  // that arrives last adds the run's partials in slot order and finishes
+  const int PC = 64 * NC + 4;
+  float* mine = A.part + (int64_t)slot * PC;
+#pragma unroll
+  for (int q = 0; q < NC; ++q) reinterpret_cast<float4*>(mine)[16 * q + g] = a.dw[q];
+  if (g == 0) reinterpret_cast<float4*>(mine + 64 * NC)[0] = make_float4(a.db, a.cu, a.ci, 0.0f);
+  const int2 span = __ldg(A.pieces + slot);
+  if (span.x < 0 || span.y < 1 || span.x + span.y > A.n_slots || slot < span.x ||
+      slot >= span.x + span.y)
+    __trap();
+  __threadfence();  // the partials are visible before the arrival counts
+  __syncwarp(gmask);
+  int arrived = 0;
+  if (g == 0) arrived = atomicAdd(A.count + span.x, 1);
+  arrived = __shfl_sync(gmask, arrived, lane0);
+  if (arrived != span.y - 1) return;
+  __threadfence();
+  clear(a);
+  const int s_end = span.x + span.y;
+  for (int s0 = span.x; s0 < s_end; s0 += kPartialsAhead) {
+    float4 v[kPartialsAhead][NC];
+    float4 sc[kPartialsAhead];
+#pragma unroll
+    for (int u = 0; u < kPartialsAhead; ++u) {
+      const float* pp = A.part + (int64_t)min(s0 + u, s_end - 1) * PC;
+#pragma unroll
+      for (int q = 0; q < NC; ++q) v[u][q] = __ldcg(reinterpret_cast<const float4*>(pp) + 16 * q + g);
+      sc[u] = __ldcg(reinterpret_cast<const float4*>(pp + 64 * NC));
+    }
+#pragma unroll
+    for (int u = 0; u < kPartialsAhead; ++u) {
+      if (s0 + u >= s_end) break;
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        a.dw[q].x += v[u][q].x;
+        a.dw[q].y += v[u][q].y;
+        a.dw[q].z += v[u][q].z;
+        a.dw[q].w += v[u][q].w;
+      }
+      a.db += sc[u].x;
+      a.cu += sc[u].y;
+      a.ci += sc[u].z;
+    }
+  }
+  if (g == 0) A.count[span.x] = 0;  // as the next call expects it
+  finish_row<NC, VEC>(a, A, row, x, xb, ref, wu, wi, g, gmask);
+}
+
+template <int NC>
+cudaError_t launch(const SweepArgs& A, bool vec, int blocks, cudaStream_t stream) {
+  if (vec) sweep_apply_kernel<NC, true><<<blocks, kThreads, 0, stream>>>(A);
+  else sweep_apply_kernel<NC, false><<<blocks, kThreads, 0, stream>>>(A);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int sweep_apply(float* w, const int* tids, const int* lids, const int* src,
-                           const int* runs, const float* payload, const float* wdu,
-                           const float* wdi, const float* scal, const int* stepi, int n_runs,
-                           int E, int n_pad, int W, int k, int tile, int e_cap, int reg_method,
-                           int user_nonneg, int item_nonneg, int with_user_bias,
-                           void* stream) {
-  const int blocks = (n_runs + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sweep_apply_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      w, tids, lids, src, runs, payload, wdu, wdi, scal, stepi, n_runs, E, n_pad, W, k, tile,
-      e_cap, reg_method, user_nonneg, item_nonneg, with_user_bias);
-  return (int)cudaGetLastError();
+// ptrs: w, runs, pieces, src, p_u, p_i, coef_u, coef_i, wdu, wdi, scal,
+// stepi, part, count (the order of SweepArgs); ints: n_runs, n_slots,
+// n_plan, B, Su, Si, n_pad, W, k, reg_method, user_nonneg, item_nonneg,
+// with_user_bias, vec (1: p_u / p_i rows are 16-byte aligned float4 rows).
+extern "C" int sweep_apply(void** ptrs, const int* ints, void* stream) {
+  SweepArgs A;
+  A.w = static_cast<float*>(ptrs[0]);
+  A.runs = static_cast<const int4*>(ptrs[1]);
+  A.pieces = static_cast<const int2*>(ptrs[2]);
+  A.src = static_cast<const int*>(ptrs[3]);
+  A.p_u = static_cast<const float*>(ptrs[4]);
+  A.p_i = static_cast<const float*>(ptrs[5]);
+  A.coef_u = static_cast<const float*>(ptrs[6]);
+  A.coef_i = static_cast<const float*>(ptrs[7]);
+  A.wdu = static_cast<const float*>(ptrs[8]);
+  A.wdi = static_cast<const float*>(ptrs[9]);
+  A.scal = static_cast<const float*>(ptrs[10]);
+  A.stepi = static_cast<const int*>(ptrs[11]);
+  A.part = static_cast<float*>(ptrs[12]);
+  A.count = static_cast<int*>(ptrs[13]);
+  A.n_runs = ints[0];
+  A.n_slots = ints[1];
+  A.n_plan = ints[2];
+  A.B = ints[3];
+  A.Su = ints[4];
+  A.Si = ints[5];
+  A.n_pad = ints[6];
+  A.W = ints[7];
+  A.k = ints[8];
+  A.reg_method = ints[9];
+  A.user_nonneg = ints[10];
+  A.item_nonneg = ints[11];
+  A.with_user_bias = ints[12];
+  const bool vec = ints[13] != 0;
+  const int blocks = (A.n_runs + kGroupsPerBlock - 1) / kGroupsPerBlock;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nc = (A.k + 63) / 64;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (nc == 1) err = launch<1>(A, vec, blocks, s);
+  else if (nc == 2) err = launch<2>(A, vec, blocks, s);
+  else if (nc == 3) err = launch<3>(A, vec, blocks, s);
+  else if (nc == 4) err = launch<4>(A, vec, blocks, s);
+  return (int)err;
 }

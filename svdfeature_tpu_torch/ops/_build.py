@@ -40,7 +40,8 @@ SIGNATURES = {
     "row_write": [_P] * 3 + [_I] * 3 + [_P],
     "row_read": [_P] * 3 + [_I] * 3 + [_P],
     "row_noop": [_P] * 3 + [_I] * 3 + [_P],
-    "sweep_apply": [_P] * 10 + [_I] * 11 + [_P],
+    # K4: its pointer array, its int array, the stream
+    "sweep_apply": [_P] * 3,
 }
 
 

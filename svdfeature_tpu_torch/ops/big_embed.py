@@ -7,9 +7,10 @@ update_no_decay apex_svd_base.h:383-427, regularize modes :188-310),
 restricted to the rows the batch touches:
 
   1. forward (``_forward_entries``): row gathers with the lazy catch-up
-     applied to the gathered copies, scores, error, the global-bias update,
-     and the batch's (row, payload) entry stream, one entry per (example,
-     feature slot) occurrence, payload ``[dw(k) | db | cnt_u | cnt_i]``;
+     applied to the gathered copies, scores, error, the global-bias update;
+     then the batch's (row, payload) entry stream (``entry_payload``), one
+     entry per (example, feature slot) occurrence, payload ``[dw(k) | db |
+     cnt_u | cnt_i]`` (the tile sweep forms the entries in its kernel);
   2. merge (``apply_entries``): sort the entries by row, sum duplicates
      with a cumsum and boundary differences (``sorted_dedup``), compute the
      touched rows' new values (catch-up or eager decay with per-row
@@ -41,20 +42,17 @@ and returns the new TrainState.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
 from .. import losses
 from .cuda_scatter import row_writer, row_writer_reference
-from .embed import TrainConsts, TrainState, _gather_sum, _touch_counts, _update_global
+from .embed import (TrainConsts, TrainState, _apply_factor_reg, _gather_sum, _soft_threshold,
+                    _touch_counts, _update_global)
 
 F32 = torch.float32
 I32 = torch.int32
-
-
-def _soft_threshold(w: torch.Tensor, lam) -> torch.Tensor:
-    return torch.sign(w) * torch.clamp(w.abs() - lam, min=0.0)
 
 
 def aug_width(k: int) -> int:
@@ -186,26 +184,37 @@ def write_rows_unique(w, rows_idx, rows_val, *, row_dma: bool) -> torch.Tensor:
     return (row_writer if row_dma else row_writer_reference)(w, rows_idx, rows_val)
 
 
-def _forward_entries(state: TrainState, batch: Dict[str, torch.Tensor], lr, consts: TrainConsts, hp):
+class Forward(NamedTuple):
+    """What the front half of a big-table step hands on."""
+
+    g: torch.Tensor  # the updated global table
+    ref_g: torch.Tensor
+    rows_u: torch.Tensor  # [B, Su, W] gathered augmented rows
+    rows_i: torch.Tensor  # [B, Si, W]
+    wu: torch.Tensor  # [B, Su, k] their factors, lazily caught up
+    wi: torch.Tensor  # [B, Si, k]
+    nstep: torch.Tensor
+    err: torch.Tensor  # [B]
+    p_u: torch.Tensor  # [B, k]
+    p_i: torch.Tensor  # [B, k]
+    coef_u: torch.Tensor  # [B, Su] lr * err * u_val
+    coef_i: torch.Tensor  # [B, Si] lr * err * i_val
+
+
+def _forward_entries(state: TrainState, batch: Dict[str, torch.Tensor], lr, consts: TrainConsts,
+                     hp) -> Forward:
     """Front half of the big-table step (big_embed.py:199-316): the lazy
     global catch-up, the forward with the lazy row catch-up applied to the
-    gathered rows, the error, the global-bias update, and the batch's
-    (row, payload) entry stream.  Shared with the tile-sweep step
-    (ops/tile_sweep.py).
-
-    Returns (g, ref_g, ent_idx, payload, rows_u, rows_i, wu, wi, nstep,
-    err, p_i) where payload is [E, k+3] = [dw | db | cnt_u | cnt_i] and
-    ent_idx [E] int32 is ``cat(u_idx.ravel(), i_idx.ravel())``.
-    """
+    gathered rows, the error and the global-bias update.  Shared with the
+    tile-sweep step (ops/tile_sweep.py), which forms the entries from
+    ``p_u``, ``p_i`` and the coefficients in its kernel; the sorted-dedup
+    step builds them as a payload (``entry_payload``)."""
     w, g = state.w, state.g
     k = hp.num_factor
     if not 0 < k <= w.shape[1] - 2:
         raise ValueError("the augmented layout requires hp.num_factor")
     u_idx, i_idx, g_idx = batch["u_idx"], batch["i_idx"], batch["g_idx"]
     u_val, i_val = batch["u_val"], batch["i_val"]
-    B, Su = u_idx.shape
-    Si = i_idx.shape[1]
-    dev = w.device
     step0 = state.step
     ref_g = state.ref_g
     lazy = hp.reg_method >= 4
@@ -260,22 +269,34 @@ def _forward_entries(state: TrainState, batch: Dict[str, torch.Tensor], lr, cons
             raise ValueError(f"unknown global decay method {hp.reg_global}")
     g[-1] = 0.0
 
-    # entries
     coef_u = lr_err[:, None] * u_val  # [B, Su]
     coef_i = lr_err[:, None] * i_val
-    ent_idx = torch.cat([u_idx.reshape(-1), i_idx.reshape(-1)])
+    nstep = step0 + (batch["weight"] > 0).sum().to(I32)
+    return Forward(g=g, ref_g=ref_g, rows_u=rows_u, rows_i=rows_i, wu=wu, wi=wi, nstep=nstep,
+                   err=err, p_u=p_u, p_i=p_i, coef_u=coef_u, coef_i=coef_i)
+
+
+def entry_payload(p_u: torch.Tensor, p_i: torch.Tensor, coef_u: torch.Tensor,
+                  coef_i: torch.Tensor, no_user_bias) -> torch.Tensor:
+    """The batch's entry stream as a payload ``[E, k+3]`` = ``[dw | db |
+    cnt_u | cnt_i]``, one row per (example, feature slot) occurrence in the
+    order of ``cat(u_idx.ravel(), i_idx.ravel())`` (big_embed.py:290-316):
+    a user entry of example b carries ``coef_u * p_i[b]``, ``coef_u`` (0
+    without user bias) and cnt_u = 1; an item entry ``coef_i * p_u[b]``,
+    ``coef_i`` and cnt_i = 1."""
+    B, Su = coef_u.shape
+    Si = coef_i.shape[1]
+    k = p_u.shape[1]
+    dev = p_u.device
     pay_w = torch.cat([
         (coef_u[..., None] * p_i[:, None, :]).reshape(-1, k),
         (coef_i[..., None] * p_u[:, None, :]).reshape(-1, k),
     ])
-    db_u = torch.zeros(B * Su, dtype=F32, device=dev) if hp.no_user_bias else coef_u.reshape(-1)
+    db_u = torch.zeros(B * Su, dtype=F32, device=dev) if no_user_bias else coef_u.reshape(-1)
     pay_b = torch.cat([db_u, coef_i.reshape(-1)])
     cnt_u = torch.cat([torch.ones(B * Su, dtype=F32, device=dev),
                        torch.zeros(B * Si, dtype=F32, device=dev)])
-    cnt_i = 1.0 - cnt_u
-    payload = torch.cat([pay_w, pay_b[:, None], cnt_u[:, None], cnt_i[:, None]], dim=1)
-    nstep = step0 + (batch["weight"] > 0).sum().to(I32)
-    return g, ref_g, ent_idx, payload, rows_u, rows_i, wu, wi, nstep, err, p_i
+    return torch.cat([pay_w, pay_b[:, None], cnt_u[:, None], (1.0 - cnt_u)[:, None]], dim=1)
 
 
 def apply_entries(w, step0, ent_idx, payload, rows_u, rows_i, wu, wi, lr, consts: TrainConsts, hp,
@@ -316,25 +337,7 @@ def apply_entries(w, step0, ent_idx, payload, rows_u, rows_i, wu, wi, lr, consts
         new_ref = step0.expand(si.shape)
     else:
         fwd_w = torch.cat([wu.reshape(-1, k), wi.reshape(-1, k)])[order]
-        new_w = fwd_w + dw
-        m = hp.reg_method
-        lam_u = lr * wd_u
-        lam_i = lr * wd_i
-        if m == 0:
-            fac = torch.pow(1.0 - lam_u, cu) * torch.pow(1.0 - lam_i, ci)
-            new_w = new_w * fac[:, None]
-        elif m == 1:
-            new_w = _soft_threshold(new_w, (lam_u * cu + lam_i * ci)[:, None])
-        elif m == 2:
-            wd_row = torch.where(cu > 0, wd_u, wd_i)
-            sq = torch.sum(new_w * new_w, dim=1)
-            scale = torch.where(sq > wd_row, torch.sqrt(wd_row / torch.clamp(sq, min=1e-30)), 1.0)
-            new_w = new_w * scale[:, None]
-        elif m == 3:
-            new_w = _soft_threshold(new_w, (lam_u * cu)[:, None])
-            new_w = new_w * torch.pow(1.0 - lam_i, ci)[:, None]
-        else:
-            raise ValueError(f"unknown reg_method {m}")
+        new_w = _apply_factor_reg(fwd_w + dw, cu, ci, lr, wd_u, wd_i, hp.reg_method)
         # ref is inert outside the lazy modes: carry the stored bits through
         new_ref = raw_ref
     if hp.user_nonnegative:
@@ -364,9 +367,9 @@ def train_step_big(state: TrainState, batch: Dict[str, torch.Tensor], lr, consts
                    hp) -> TrainState:
     """One batched SGD step on an augmented table (``augment_state``, with
     ``hp.num_factor`` holding k); semantics of big_embed.train_step_big."""
-    g, ref_g, ent_idx, payload, rows_u, rows_i, wu, wi, nstep, _err, _pi = (
-        _forward_entries(state, batch, lr, consts, hp)
-    )
-    w = apply_entries(state.w, state.step, ent_idx, payload, rows_u, rows_i, wu, wi,
+    f = _forward_entries(state, batch, lr, consts, hp)
+    ent_idx = torch.cat([batch["u_idx"].reshape(-1), batch["i_idx"].reshape(-1)])
+    payload = entry_payload(f.p_u, f.p_i, f.coef_u, f.coef_i, hp.no_user_bias)
+    w = apply_entries(state.w, state.step, ent_idx, payload, f.rows_u, f.rows_i, f.wu, f.wi,
                       lr, consts, hp)
-    return TrainState(w=w, b=state.b, g=g, step=nstep, ref_ui=state.ref_ui, ref_g=ref_g)
+    return TrainState(w=w, b=state.b, g=f.g, step=f.nstep, ref_ui=state.ref_ui, ref_g=f.ref_g)

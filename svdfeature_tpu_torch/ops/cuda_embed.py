@@ -35,8 +35,12 @@ and the dummy row / slot stays exactly 0.  The TPU kernel reads the table
 in bf16 by default; the port is f32 everywhere, so ``pallas_precise`` has
 no counterpart.
 
-Both versions update ``state.w``, ``state.b`` and ``state.g`` in place
-(the JAX package donates the state) and return the new TrainState.
+The plain version is ops/embed.train_rounds, the general step that also
+runs every configuration the kernel does not take; on the kernel's subset
+it holds the kernel within atol 1e-5 + rtol 1e-4 after R=2 rounds on the
+card (atomics order; pow against exp·log), chip_smoke.py phase 2.  Both
+update ``state.w``, ``state.b`` and ``state.g`` in place (the JAX package
+donates the state) and return the new TrainState.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ import torch
 from .. import losses
 from ._plans import Plan, find_plan, keep_plan, kept_scratch, launch_args
 from .cuda_scatter import _entry_point, _raw_stream, check_tensors
-from .embed import BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState
+from .embed import BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState, train_rounds
 
 # tables above this many rows (dummy included) take the big-table route
 # (ops/big_embed.py, ops/tile_sweep.py), which the base solver selects by
@@ -61,32 +65,34 @@ KERNEL_ACTIVE_TYPES = (
     losses.LINEAR, losses.SIGMOID_L2, losses.SIGMOID_LIKELIHOOD,
     losses.SIGMOID_RANK, losses.SIGMOID_QSGRAD,
 )
-_GENERAL_STEP = "the general train step (ROADMAP Queue 1 item 4)"
+# the kernel's refusals end in this: the solver routes them to the plain rounds
+_PLAIN = "the general plain rounds (ops/embed.train_rounds) run it"
 
 
 def gate_failure(hp: HyperParams, state: TrainState, stacked) -> Optional[str]:
-    """Why the kernel path cannot run this configuration, or None.
+    """Why K1 does not take this configuration, or None.
 
-    The semantic conditions of ``pallas_supported``
-    (pallas_embed.py:47-68) without its TPU layout limits, plus the
-    table-size cap above which the solver takes the big-table route.
+    The semantic conditions of ``pallas_supported`` (pallas_embed.py:47-68)
+    without its TPU layout limits: eager L2, no clamps, the kernel's loss
+    types, single-entry user/item segments, at most 8 global entries and
+    1024 global slots; plus the table-size cap above which the solver takes
+    the big-table route.  The solver sends every other small-table
+    configuration to ``embed.train_rounds``, as the JAX solver sends it to
+    its jnp path (solvers/base.py:546-555).
     """
     n = state.w.shape[0]
     if hp.reg_method != 0 or hp.reg_global != 0:
-        return f"reg_method/reg_global other than 0 (eager L2) need {_GENERAL_STEP}"
+        return f"K1 takes eager L2 only (reg_method/reg_global 0); {_PLAIN}"
     if hp.user_nonnegative or hp.item_nonnegative:
-        return f"nonnegative factors need {_GENERAL_STEP}"
+        return f"K1 has no nonnegative clamps; {_PLAIN}"
     if hp.active_type not in KERNEL_ACTIVE_TYPES:
-        return f"active_type {hp.active_type} needs {_GENERAL_STEP}"
+        return f"K1 has no active_type {hp.active_type}; {_PLAIN}"
     if stacked["u_idx"].shape[-1] != 1 or stacked["i_idx"].shape[-1] != 1:
-        return (
-            "multi-entry user/item segments (hierarchical side features) "
-            f"need {_GENERAL_STEP}"
-        )
+        return f"K1 takes single-entry user/item segments; {_PLAIN}"
     if stacked["g_idx"].shape[-1] > MAX_GLOBAL_ENTRIES:
-        return f"more than {MAX_GLOBAL_ENTRIES} global entries per example need {_GENERAL_STEP}"
+        return f"K1 takes at most {MAX_GLOBAL_ENTRIES} global entries per example; {_PLAIN}"
     if state.g.shape[0] > MAX_GLOBAL_SLOTS:
-        return f"a global table over {MAX_GLOBAL_SLOTS} slots needs {_GENERAL_STEP}"
+        return f"K1 takes a global table of at most {MAX_GLOBAL_SLOTS} slots; {_PLAIN}"
     if n > MAX_TABLE_ROWS:
         return (
             f"tables over {MAX_TABLE_ROWS} rows take the big-table route "
@@ -104,103 +110,6 @@ def _log1m(x: torch.Tensor) -> torch.Tensor:
     # clamp at a tiny positive so lr*wd == 1 decays to exactly 0 instead
     # of giving -inf * 0 = nan for untouched rows (pallas_embed.py:310-314)
     return torch.log(torch.clamp(1.0 - x, min=1e-38))
-
-
-def _decay_logs(lrs: torch.Tensor, consts: TrainConsts) -> Dict[str, torch.Tensor]:
-    """Per-round log decay tables, shared by the kernel and the plain
-    version: u/i ``[R, N]``, g ``[R, G+1]``, bu/bi ``[R]``."""
-    lr = lrs[:, None]
-    return {
-        "u": _log1m(lr * consts.wd_u_row[None, :]).contiguous(),
-        "i": _log1m(lr * consts.wd_i_row[None, :]).contiguous(),
-        "g": _log1m(lr * consts.wd_g_row[None, :]).contiguous(),
-        "bu": _log1m(lrs * consts.wd_user_bias).contiguous(),
-        "bi": _log1m(lrs * consts.wd_item_bias).contiguous(),
-    }
-
-
-def _new_state(state: TrainState, stacked, R: int) -> TrainState:
-    nstep = state.step + (stacked["weight"] > 0).sum().to(torch.int32) * R
-    return TrainState(
-        w=state.w, b=state.b, g=state.g, step=nstep,
-        ref_ui=state.ref_ui, ref_g=state.ref_g,
-    )
-
-
-@torch.no_grad()
-def train_rounds_reference(
-    state: TrainState,
-    stacked: Dict[str, torch.Tensor],
-    lrs: torch.Tensor,
-    consts: TrainConsts,
-    hp: HyperParams,
-) -> TrainState:
-    """The plain PyTorch version of the kernel: R rounds over the T stacked
-    batches, one step per batch, with ``index_add_`` for the scatters."""
-    w, b, g = state.w, state.b, state.g
-    T, B = stacked["label"].shape
-    N = w.shape[0]
-    NG = g.shape[0]
-    with_g = NG > 1
-    with_ub = not hp.no_user_bias
-    logs = _decay_logs(lrs, consts)
-    dev = w.device
-    ones = torch.ones(B, dtype=torch.float32, device=dev)
-    for r in range(lrs.shape[0]):
-        lr = lrs[r]
-        for t in range(T):
-            u = stacked["u_idx"][t, :, 0].long()
-            i = stacked["i_idx"][t, :, 0].long()
-            uv = stacked["u_val"][t, :, 0]
-            iv = stacked["i_val"][t, :, 0]
-            p_u = uv[:, None] * w[u]
-            p_i = iv[:, None] * w[i]
-            score = torch.full((B,), hp.base_score, dtype=torch.float32, device=dev)
-            if with_g:
-                gi = stacked["g_idx"][t].long()
-                gv = stacked["g_val"][t]
-                score = score + (gv * g[gi]).sum(dim=1)
-            score = score + iv * b[i]
-            if with_ub:
-                score = score + uv * b[u]
-            score = score + (p_u * p_i).sum(dim=1)
-            pred = losses.map_active(score, hp.active_type)
-            err = losses.cal_grad(stacked["label"][t], pred, hp.active_type)
-            err = err * stacked["weight"][t]
-            lr_err = lr * err
-            coef_u = lr_err * uv
-            coef_i = lr_err * iv
-
-            if with_g:
-                flat = gi.reshape(-1)
-                S = torch.zeros(NG, dtype=torch.float32, device=dev).index_add_(
-                    0, flat, (err[:, None] * gv).reshape(-1))
-                cg = torch.zeros(NG, dtype=torch.float32, device=dev).index_add_(
-                    0, flat, torch.ones_like(gv).reshape(-1))
-                if hp.exact_global:
-                    g.add_(lr * S)
-                else:
-                    C2 = torch.zeros(NG, dtype=torch.float32, device=dev).index_add_(
-                        0, flat, (gv * gv).reshape(-1))
-                    g.add_(lr * S / (1.0 + lr * C2))
-                g.mul_(torch.exp(cg * logs["g"][r]))
-                g[-1] = 0.0
-
-            dw = torch.zeros_like(w).index_add_(0, u, coef_u[:, None] * p_i)
-            dw.index_add_(0, i, coef_i[:, None] * p_u)
-            db = torch.zeros_like(b).index_add_(0, i, coef_i)
-            if with_ub:
-                db.index_add_(0, u, coef_u)
-            cu = torch.zeros(N, dtype=torch.float32, device=dev).index_add_(0, u, ones)
-            ci = torch.zeros(N, dtype=torch.float32, device=dev).index_add_(0, i, ones)
-            w.add_(dw).mul_(torch.exp(cu * logs["u"][r] + ci * logs["i"][r])[:, None])
-            sb = ci * logs["bi"][r]
-            if with_ub:
-                sb = sb + cu * logs["bu"][r]
-            b.add_(db).mul_(torch.exp(sb))
-            w[-1] = 0.0
-            b[-1] = 0.0
-    return _new_state(state, stacked, lrs.shape[0])
 
 
 def _check_inputs(state: TrainState, planes: Dict[str, torch.Tensor],
@@ -296,10 +205,10 @@ def train_rounds_kernel(
     On CUDA tensors this makes one cooperative launch (counted in
     ``train_rounds_kernel.launches``; its grid is left in ``.grid``) and
     raises on anything it cannot run; there is no fallback.  Tensors on
-    the CPU take the plain version, ``train_rounds_reference``.
+    the CPU take the plain version, ``embed.train_rounds``.
     """
     if state.w.device.type == "cpu":
-        return train_rounds_reference(state, stacked, lrs, consts, hp)
+        return train_rounds(state, stacked, lrs, consts, hp)
     if state.w.device.type != "cuda":
         raise ValueError(f"no kernel for device {state.w.device}")
     reason = gate_failure(hp, state, stacked)

@@ -32,44 +32,31 @@ import numpy as np
 import torch
 
 from ._plans import Plan, find_plan, keep_plan, kept_scratch, launch_args
-from .cuda_embed import MAX_TABLE_ROWS
 from .cuda_scatter import _entry_point, _raw_stream, check_tensors
-from .cuda_svdpp import MAX_ROWS_PER_USER, _check_inputs, device_schedule, semantic_failure
+from .cuda_svdpp import (_PLAIN, MAX_ROWS_PER_USER, _check_inputs, device_schedule, kernel_failure,
+                         semantic_failure)
 from .embed import HyperParams, TrainConsts, TrainState
 from .imfb import train_epoch_imfb_carried
 from .svdpp import PlusHyper
 
 
 def gate_failure(hp: HyperParams, state: TrainState, stacked, ph: PlusHyper) -> Optional[str]:
-    """Why the stacked multi-IMFB path cannot run this configuration, or
-    None.
+    """Why K3 does not take this stacked configuration, or None.
 
     The semantic conditions of ``pallas_imfb_supported``
     (pallas_svdpp.py:653-682) without its TPU layout limits: those of the
-    SVD++ path (cuda_svdpp.semantic_failure) and an item width of 1; plus
-    the port's caps, tables of at most 8192 rows and at most 32 rows per
-    unit."""
-    reason = semantic_failure(hp, state, stacked, ph)
+    SVD++ path (``cuda_svdpp.semantic_failure``, which no route takes yet,
+    and ``kernel_failure``) and an item width of 1; plus at most 32 rows per
+    unit.  The solver sends the kernel's other refusals to the plain
+    rounds."""
+    reason = semantic_failure(hp, state, stacked, ph) or kernel_failure(hp, state, stacked)
     if reason is not None:
         return reason
-    width = stacked["i_idx"].shape[-1]
-    if width == 2:
-        return (
-            "item width 2 (pairwise-rank difference rows) on stacked data needs "
-            "the pairwise-rank slice (ROADMAP Queue 1 item 8)"
-        )
-    if width != 1:
-        return (
-            "multi-entry item segments (hierarchical side features) need "
-            "the general train step (ROADMAP Queue 1 item 4)"
-        )
-    if state.w.shape[0] > MAX_TABLE_ROWS:
-        return (
-            f"tables over {MAX_TABLE_ROWS} rows need big-table multi-IMFB "
-            "(ops/imfb.train_epoch_imfb_big): ROADMAP Queue 1 item 9"
-        )
+    if stacked["i_idx"].shape[-1] != 1:
+        return f"K3 takes single-entry item segments; {_PLAIN}"
     if ph.rows_per_user > MAX_ROWS_PER_USER:
-        return f"rows_per_user above {MAX_ROWS_PER_USER} (one warp per slot of a unit's block)"
+        return (f"K3 takes no rows_per_user above {MAX_ROWS_PER_USER} (one warp per slot of a "
+                f"unit's block); {_PLAIN}")
     return None
 
 

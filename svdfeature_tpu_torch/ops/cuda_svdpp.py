@@ -47,62 +47,71 @@ from .svdpp import PlusHyper, _is_first, train_epoch_plus
 MAX_ROWS_PER_USER = 32
 # its shared memory, M * (k + 3) floats, stays under the default cap
 MAX_STEP_SMEM_BYTES = 48 * 1024
-_GENERAL_STEP = "the general train step (ROADMAP Queue 1 item 4)"
+# the kernels' own refusals end in this: the solvers route them to the
+# plain rounds
+_PLAIN = "the plain rounds run it"
 
 
 def semantic_failure(hp: HyperParams, state: TrainState, stacked, ph: PlusHyper) -> Optional[str]:
-    """The conditions of ``pallas_svdpp_supported`` (pallas_svdpp.py:80-107)
-    that are semantic, not TPU layout limits, other than the item width:
-    why the user-group kernels (K2, and K3 in ops/cuda_imfb.py) cannot run
-    this configuration, or None."""
+    """Why no route of the port, kernel or plain, runs this user-group
+    configuration yet, or None: the feedback space shared with the user
+    rows (the per-batch refresh epoch) and tables over 8192 rows (the
+    big-table epochs).  Shared with the stacked path (ops/cuda_imfb.py)."""
     if ph.off_user <= 0:
         return (
             "a feedback space shared with the user rows (common_feedback_space=1) "
             "needs the per-batch refresh path (ROADMAP Queue 1 item 7b)"
         )
+    if state.w.shape[0] > MAX_TABLE_ROWS:
+        return (
+            f"tables over {MAX_TABLE_ROWS} rows need big-table SVD++ / multi-IMFB "
+            "(ops/svdpp_big.py, the user-carry epoch; ops/imfb.train_epoch_imfb_big): "
+            "the next slice of ROADMAP Queue 1 item 9"
+        )
+    return None
+
+
+def kernel_failure(hp: HyperParams, state: TrainState, stacked) -> Optional[str]:
+    """The semantic conditions of ``pallas_svdpp_supported``
+    (pallas_svdpp.py:80-107) that K2 and K3 share, other than the item
+    width: why they do not take this configuration, or None.  The solvers
+    send it to the plain rounds instead, as the JAX solver sends it to its
+    jnp path."""
     if hp.reg_method != 0 or hp.reg_global != 0:
-        return f"reg_method/reg_global other than 0 (eager L2) need {_GENERAL_STEP}"
+        return f"the kernels take eager L2 only (reg_method/reg_global 0); {_PLAIN}"
     if hp.user_nonnegative or hp.item_nonnegative:
-        return f"nonnegative factors need {_GENERAL_STEP}"
+        return f"the kernels have no nonnegative clamps; {_PLAIN}"
     if hp.active_type not in KERNEL_ACTIVE_TYPES:
-        return f"active_type {hp.active_type} needs {_GENERAL_STEP}"
+        return f"the kernels have no active_type {hp.active_type}; {_PLAIN}"
     if stacked["u_idx"].shape[-1] != 1:
-        return f"multi-entry user segments (hierarchical side features) need {_GENERAL_STEP}"
+        return f"the kernels take single-entry user segments; {_PLAIN}"
     if stacked["g_idx"].shape[-1] != 1 or state.g.shape[0] != 1:
-        return f"global features on the user-group path need {_GENERAL_STEP}"
+        return f"the kernels take no global features on the user-group path; {_PLAIN}"
     return None
 
 
 def gate_failure(
     hp: HyperParams, state: TrainState, stacked, fb, ph: PlusHyper
 ) -> Optional[str]:
-    """Why the SVD++ path cannot run this configuration, or None.
+    """Why K2 does not take this configuration, or None.
 
-    ``semantic_failure``, item width 1 or 2 (pairwise-rank difference
-    rows), plus the port's caps: tables of at most 8192 rows, at most 32
-    rows per user, and the step's shared memory."""
+    ``semantic_failure``, ``kernel_failure``, item width 1 or 2
+    (pairwise-rank difference rows), at most 32 rows per user, and the
+    step's shared memory."""
     n, k = state.w.shape
     M = ph.rows_per_user
-    reason = semantic_failure(hp, state, stacked, ph)
+    reason = semantic_failure(hp, state, stacked, ph) or kernel_failure(hp, state, stacked)
     if reason is not None:
         return reason
     if stacked["i_idx"].shape[-1] not in (1, 2):
-        return (
-            "item segments of more than 2 entries (hierarchical side features) "
-            f"need {_GENERAL_STEP}"
-        )
-    if n > MAX_TABLE_ROWS:
-        return (
-            f"tables over {MAX_TABLE_ROWS} rows need big-table SVD++ "
-            "(ops/svdpp_big.py, the user-carry epoch): the next slice of "
-            "ROADMAP Queue 1 item 9"
-        )
+        return f"K2 takes item segments of at most 2 entries; {_PLAIN}"
     if M > MAX_ROWS_PER_USER:
-        return f"rows_per_user above {MAX_ROWS_PER_USER} (one warp per slot of a user's block)"
+        return (f"K2 takes no rows_per_user above {MAX_ROWS_PER_USER} (one warp per slot of "
+                f"a user's block); {_PLAIN}")
     if 4 * M * (k + 3) > MAX_STEP_SMEM_BYTES:
         return (
             f"rows_per_user={M} with num_factor={k} needs more than "
-            f"{MAX_STEP_SMEM_BYTES} bytes of shared memory per user block"
+            f"{MAX_STEP_SMEM_BYTES} bytes of K2's shared memory per user block; {_PLAIN}"
         )
     return None
 

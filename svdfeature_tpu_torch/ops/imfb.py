@@ -6,8 +6,8 @@ apex_multi_imfb.h:31-194) in f32: ``_damp_widened``,
 ``train_epoch_imfb_carried`` (the overlap-carried form) and
 ``predict_batches_imfb``.  It is ops/svdpp.train_epoch_plus with the
 chunk's local feedback contexts in place of its users, and it reuses that
-module's ``_fb_aggregates`` / ``_fb_writeback`` / ``_row_update`` with the
-pool keyed by ``fb_ctx``.  Not ported yet, each raising
+module's ``_fb_aggregates`` / ``_fb_writeback`` with the pool keyed by
+``fb_ctx`` and its row update, ops/embed.general_step.  Not ported yet, each raising
 NotImplementedError: ``train_epoch_imfb`` (the per-batch refresh, for
 common_feedback_space=1: ROADMAP Queue 1 item 7b) and
 ``train_epoch_imfb_big`` (tables over 8192 rows: item 9).
@@ -34,14 +34,13 @@ donates the state) and the returned TrainState holds them.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .embed import HyperParams, TrainConsts, TrainState, forward_scores
-from .svdpp import _PLANES, PlusHyper, _fb_aggregates, _fb_writeback, _is_first, _row_update
+from .embed import HyperParams, TrainConsts, TrainState, forward_scores, general_step
+from .svdpp import _PLANES, PlusHyper, _fb_aggregates, _fb_writeback, _is_first
 
 
 def _ctx_pool(fb: Dict[str, torch.Tensor], c: int) -> Dict[str, torch.Tensor]:
@@ -132,7 +131,7 @@ def train_epoch_imfb_carried(
         ctx = stacked["ctx_slots"][t].long()  # [G*RM, D]
         p_u_extra = fb_sum[ctx].sum(dim=1)
         bias_extra = fb_bias[ctx].sum(dim=1) if with_bias else None
-        err, p_i = _row_update(w, b, batch, lr, consts, hp, p_u_extra, bias_extra)
+        state, err, p_i = general_step(state, batch, lr, consts, hp, p_u_extra, bias_extra)
         # per-context sums over this step's slots, each slot into its D contexts
         flat_ctx = ctx.reshape(-1)
         S = torch.zeros((nseg, k), dtype=torch.float32, device=dev)
@@ -152,8 +151,7 @@ def train_epoch_imfb_carried(
             dbacc += delta_b
             fb_bias = fb_bias + O @ delta_b
     _fb_writeback(w, b, _ctx_pool(fb, pc), dacc, dbacc if with_bias else None)
-    nstep = state.step + (stacked["weight"] > 0).sum().to(torch.int32)
-    return dataclasses.replace(state, step=nstep)
+    return state
 
 
 def train_epoch_imfb(*args, **kwargs):

@@ -3,9 +3,13 @@
 Counterpart of svdfeature_tpu/ops/svdpp.py (SVDPPFeature,
 apex_svd_base.h:484-592) in f32: ``_fb_aggregates``, ``_fb_writeback``,
 ``train_epoch_plus`` (the overlap-carried form) and
-``predict_batches_plus``.  Segment sums and scatters are ``index_add_``;
-the one-hot matmul forms of the JAX package exist only because TPU
-scatters serialize and have no counterpart here.  The per-batch refresh
+``predict_batches_plus``.  The u/i/g row update of each step, the JAX
+package's ``_row_update`` (svdpp.py:225-296) without its fused branch, is
+ops/embed.general_step with the feedback term: every reg mode (the lazy
+catch-up on the example's u/i/g ids, never on feedback pool rows), the
+global segment, the clamps and every loss.  Segment sums and scatters are
+``index_add_``; the one-hot matmul forms of the JAX package exist only
+because TPU scatters serialize and have no counterpart here.  The per-batch refresh
 form (``train_epoch_plus_refresh``, for common_feedback_space=1) is not
 ported yet (ROADMAP Queue 1 item 7b).
 
@@ -26,10 +30,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import losses
-from .embed import HyperParams, TrainConsts, TrainState, _gather_sum, forward_scores
-
-_PLANES = ("g_idx", "g_val", "u_idx", "u_val", "i_idx", "i_val", "label", "weight")
+from .embed import _PLANES, HyperParams, TrainConsts, TrainState, forward_scores, general_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,55 +77,6 @@ def _fb_writeback(
     w.index_add_(0, idx, delta[blk] * fval[:, None])
     if delta_b is not None:
         b.index_add_(0, idx, delta_b[blk] * fval)
-
-
-def _row_update(
-    w: torch.Tensor,
-    b: torch.Tensor,
-    batch: Dict[str, torch.Tensor],
-    lr: torch.Tensor,
-    consts: TrainConsts,
-    hp: HyperParams,
-    p_u_extra: torch.Tensor,
-    bias_extra: Optional[torch.Tensor],
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One step of the u/i row updates with the feedback term, in place
-    (ops/svdpp._row_update with eager L2 decay, no global segment: the
-    path's gate, ops/cuda_svdpp.gate_failure).  Returns (err, p_i)."""
-    N, k = w.shape
-    u, i = batch["u_idx"].long(), batch["i_idx"].long()
-    uv, iv = batch["u_val"], batch["i_val"]
-    p_u = _gather_sum(w, u, uv) + p_u_extra
-    p_i = _gather_sum(w, i, iv)
-    score = hp.base_score + _gather_sum(b, i, iv)
-    if not hp.no_user_bias:
-        score = score + _gather_sum(b, u, uv) + bias_extra
-    score = score + (p_u * p_i).sum(dim=1)
-    pred = losses.map_active(score, hp.active_type)
-    err = losses.cal_grad(batch["label"], pred, hp.active_type) * batch["weight"]
-    lr_err = lr * err
-    coef_u = lr_err[:, None] * uv  # [GS, Su]
-    coef_i = lr_err[:, None] * iv  # [GS, Si]
-
-    dw = torch.zeros_like(w)
-    dw.index_add_(0, u.reshape(-1), (coef_u[..., None] * p_i[:, None, :]).reshape(-1, k))
-    dw.index_add_(0, i.reshape(-1), (coef_i[..., None] * p_u[:, None, :]).reshape(-1, k))
-    db = torch.zeros_like(b).index_add_(0, i.reshape(-1), coef_i.reshape(-1))
-    if not hp.no_user_bias:
-        db.index_add_(0, u.reshape(-1), coef_u.reshape(-1))
-    ones = torch.ones(u.numel(), dtype=torch.float32, device=w.device)
-    cu = torch.zeros(N, dtype=torch.float32, device=w.device).index_add_(0, u.reshape(-1), ones)
-    ones = torch.ones(i.numel(), dtype=torch.float32, device=w.device)
-    ci = torch.zeros(N, dtype=torch.float32, device=w.device).index_add_(0, i.reshape(-1), ones)
-    fac = torch.pow(1.0 - lr * consts.wd_u_row, cu) * torch.pow(1.0 - lr * consts.wd_i_row, ci)
-    w.add_(dw).mul_(fac[:, None])
-    fac_b = torch.pow(1.0 - lr * consts.wd_item_bias, ci)
-    if not hp.no_user_bias:
-        fac_b = fac_b * torch.pow(1.0 - lr * consts.wd_user_bias, cu)
-    b.add_(db).mul_(fac_b)
-    w[-1] = 0.0
-    b[-1] = 0.0
-    return err, p_i
 
 
 def _is_first(chunk_id: np.ndarray) -> np.ndarray:
@@ -184,7 +136,7 @@ def train_epoch_plus(
         batch = {p: stacked[p][t] for p in _PLANES}
         fb_slot = fb_sum.repeat_interleave(M, dim=0)
         fbb_slot = fb_bias.repeat_interleave(M) if with_bias else None
-        err, p_i = _row_update(w, b, batch, lr, consts, hp, fb_slot, fbb_slot)
+        state, err, p_i = general_step(state, batch, lr, consts, hp, fb_slot, fbb_slot)
         m_g = batch["weight"].reshape(G, M).sum(dim=1)  # present rows of each user
         errpi = (err[:, None] * p_i).reshape(G, M, k).sum(dim=1)
         err_g = err.reshape(G, M).sum(dim=1)
@@ -203,8 +155,7 @@ def train_epoch_plus(
             dbacc[:G] += delta_b
             fb_bias = fb_bias + O @ delta_b
     _fb_writeback(w, b, pool(pc), dacc, dbacc if with_bias else None)
-    nstep = state.step + (stacked["weight"] > 0).sum().to(torch.int32)
-    return dataclasses.replace(state, step=nstep)
+    return state
 
 
 @torch.no_grad()

@@ -4,12 +4,14 @@ PyTorch counterpart of svdfeature_tpu/ops/tile_sweep.py.  The batch's
 entry->row map is fixed across rounds (training data is packed once), so
 the sort, the tile grouping and the run structure are computed ONCE on the
 host at pack time (``make_sweep_plan`` / ``attach_sweep_plans``, numpy
-copies of the JAX package's, and ``attach_sweep_runs``, the port's run
-starts).  The runtime step (``train_step_sweep``) then runs the shared
-forward half (ops/big_embed._forward_entries) and hands the payload and
-the plan to the sweep update K4 (ops/cuda_sweep.sweep_update), which sums
-each touched row's run of entries and applies the regularization / clamp
-math of the TPU kernel's last tile visit, in place.  Semantics are those
+copies of the JAX package's, and ``attach_sweep_runs``, the port's runs:
+each touched row's plan positions and table row, long runs cut into
+pieces).  The runtime step (``train_step_sweep``) then runs the shared
+forward half (ops/big_embed._forward_entries) and hands the step's
+factors, coefficients and the plan to the sweep update K4
+(ops/cuda_sweep.sweep_update), which forms each run's entries, sums them
+and applies the regularization / clamp math of the TPU kernel's last tile
+visit, in place.  Semantics are those
 of big_embed.train_step_big (same reference citations), pinned by
 tests/test_torch_big_sweep.py against the JAX package's interpret-mode
 ``train_step_sweep``.
@@ -35,8 +37,11 @@ from .embed import TrainConsts, TrainState
 SWEEP_ECAP = 1024
 # Table rows per tile (VMEM block height of the sweep).
 SWEEP_TILE = 2048
-# the batch-dict keys of a sweep plan, with the run starts of the port
-SWEEP_KEYS = ("sw_tids", "sw_lids", "sw_src", "sw_runs")
+# K4 cuts runs of more entries than this into pieces (make_sweep_runs)
+SWEEP_PIECE = 64
+# the batch-dict keys of a sweep plan, with the runs of the port: K4 reads
+# sw_src, sw_runs and sw_pieces; the plain version sw_tids, sw_lids, sw_src
+SWEEP_KEYS = ("sw_tids", "sw_lids", "sw_src", "sw_runs", "sw_pieces")
 
 
 # --------------------------------------------------------------------------
@@ -117,31 +122,58 @@ def attach_sweep_plans(batches, n_pad_rows: int, tile: int, e_cap: int):
     return out
 
 
-def make_sweep_runs(tids, lids, tile: int, e_cap: int) -> np.ndarray:
-    """Run starts of one batch's plan: the plan positions where a touched
-    row's entries begin, then the plan length as the end sentinel ->
-    [n_runs + 1] int32.  The plan sorts entries stably by row and groups
-    them by tile, so each touched row's entries are one contiguous run;
-    padding slots (lids -1) start no run and the sweep skips them."""
+def make_sweep_runs(tids, lids, tile: int, e_cap: int, piece: int = SWEEP_PIECE):
+    """The runs of one batch's plan for K4 -> (runs [R, 4], pieces [S, 2])
+    int32.
+
+    The plan sorts entries stably by row and groups them by tile, so each
+    touched row's entries are one contiguous run of plan positions with no
+    padding inside (padding only ends a tile's last cell).  ``runs`` holds
+    a record per run, (first position, end position, table row, slot): the
+    end is the run's last entry + 1, so a tile's trailing padding belongs
+    to no run.  Runs of more than ``piece`` entries (a popular row) are cut
+    into pieces of max(piece, ceil(sqrt(n))) entries, each a record of its
+    own with a partial-sum slot (-1 for a whole run); the pieces of one run
+    take consecutive slots, and ``pieces[s]`` = (the run's first slot, its
+    number of pieces)."""
     lids = np.asarray(lids).reshape(-1)
     rows = np.repeat(np.asarray(tids, np.int64).reshape(-1), e_cap) * tile + lids
     real = np.flatnonzero(lids >= 0)
     r = rows[real]
-    new = np.ones(r.shape, bool)
-    new[1:] = r[1:] != r[:-1]
-    return np.concatenate([real[new], [lids.size]]).astype(np.int32)
+    brk = r[1:] != r[:-1]
+    first = np.concatenate([[True], brk])
+    last = np.concatenate([brk, [True]])
+    p0, p1, row = real[first], real[last] + 1, r[first]
+    n = p1 - p0
+    long = n > piece
+    plen = np.where(long, np.maximum(piece, np.ceil(np.sqrt(n))), n).astype(np.int64)
+    cnt = np.where(long, -(-n // np.maximum(plen, 1)), 1)
+    run_of = np.repeat(np.arange(n.size), cnt)
+    q = np.arange(run_of.size) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    t0 = p0[run_of] + q * plen[run_of]
+    t1 = np.minimum(t0 + plen[run_of], p1[run_of])
+    is_piece = long[run_of]
+    slot = np.full(run_of.size, -1, np.int64)
+    slot[is_piece] = np.arange(int(is_piece.sum()))
+    runs = np.stack([t0, t1, row[run_of], slot], axis=1).astype(np.int32)
+    pieces = np.stack([slot[is_piece] - q[is_piece], cnt[run_of[is_piece]]], axis=1)
+    return runs, pieces.astype(np.int32).reshape(-1, 2)
 
 
-def attach_sweep_runs(batches, tile: int, e_cap: int):
-    """Add ``sw_runs`` [T, R+1] (``make_sweep_runs`` of each batch, padded
-    with empty runs at the end sentinel) to a batch dict that holds stacked
-    sweep plans."""
+def attach_sweep_runs(batches, tile: int, e_cap: int, piece: int = SWEEP_PIECE):
+    """Add ``sw_runs`` [T, R, 4] and ``sw_pieces`` [T, S, 2]
+    (``make_sweep_runs`` of each batch; R and S their largest counts, at
+    least 1; empty runs (0, 0, 0, -1) and zero pieces pad them) to a batch
+    dict that holds stacked sweep plans."""
     tids, lids = np.asarray(batches["sw_tids"]), np.asarray(batches["sw_lids"])
-    runs = [make_sweep_runs(tids[t], lids[t], tile, e_cap) for t in range(tids.shape[0])]
-    out = np.full((len(runs), max(r.size for r in runs)), lids.shape[1], np.int32)
-    for t, r in enumerate(runs):
-        out[t, : r.size] = r
-    return dict(batches, sw_runs=out)
+    made = [make_sweep_runs(tids[t], lids[t], tile, e_cap, piece) for t in range(tids.shape[0])]
+    runs = np.zeros((len(made), max(1, *(r.shape[0] for r, _ in made)), 4), np.int32)
+    runs[..., 3] = -1
+    pieces = np.zeros((len(made), max(1, *(p.shape[0] for _, p in made)), 2), np.int32)
+    for t, (r, p) in enumerate(made):
+        runs[t, : r.shape[0]] = r
+        pieces[t, : p.shape[0]] = p
+    return dict(batches, sw_runs=runs, sw_pieces=pieces)
 
 
 # --------------------------------------------------------------------------
@@ -152,12 +184,13 @@ def train_step_sweep(state: TrainState, batch: Dict[str, torch.Tensor], lr,
                      consts: TrainConsts, hp) -> TrainState:
     """train_step_big semantics with the tile-sweep write path.
 
-    Requires the sweep plan and run starts in the batch dict
+    Requires the sweep plan and runs in the batch dict
     (``attach_sweep_plans`` + ``attach_sweep_runs``), the augmented table
     padded to a multiple of hp.sweep_tile and the consts' row tables padded
-    to match (solvers/base.py arranges all three).  ``hp.row_dma`` routes
-    the write to the kernel wrapper K4, else to its plain version.  Updates
-    ``state.w`` in place.
+    to match (solvers/base.py arranges all three).  The forward half hands
+    the step's factors and coefficients, not a payload: the sweep forms each
+    entry itself.  ``hp.row_dma`` routes the write to the kernel wrapper K4,
+    else to its plain version.  Updates ``state.w`` in place.
     """
     from .big_embed import _forward_entries
     from .cuda_sweep import sweep_update, sweep_update_reference
@@ -165,9 +198,7 @@ def train_step_sweep(state: TrainState, batch: Dict[str, torch.Tensor], lr,
     w = state.w
     if w.shape[0] % hp.sweep_tile:
         raise ValueError(f"the sweep needs whole tiles of {hp.sweep_tile} rows")
-    g, ref_g, _ent, payload, _ru, _ri, _wu, _wi, nstep, _err, _pi = (
-        _forward_entries(state, batch, lr, consts, hp)
-    )
+    f = _forward_entries(state, batch, lr, consts, hp)
     scal = torch.stack([
         torch.as_tensor(lr, dtype=torch.float32, device=w.device),
         consts.wd_user_bias, consts.wd_item_bias,
@@ -176,5 +207,6 @@ def train_step_sweep(state: TrainState, batch: Dict[str, torch.Tensor], lr,
     stepi = state.step.reshape(1).to(torch.int32)
     plan = {key: batch[key] for key in SWEEP_KEYS}
     fn = sweep_update if hp.row_dma else sweep_update_reference
-    fn(w, plan, payload, consts.wd_u_row, consts.wd_i_row, scal, stepi, hp)
-    return TrainState(w=w, b=state.b, g=g, step=nstep, ref_ui=state.ref_ui, ref_g=ref_g)
+    fn(w, plan, f.p_u, f.p_i, f.coef_u, f.coef_i, consts.wd_u_row, consts.wd_i_row, scal, stepi,
+       hp)
+    return TrainState(w=w, b=state.b, g=f.g, step=f.nstep, ref_ui=state.ref_ui, ref_g=f.ref_g)

@@ -4,8 +4,11 @@ Counterpart of svdfeature_tpu/solvers/base.py (class SVDFeature,
 apex_svd_base.h:79-479).  The trainer owns the model, appends the dummy
 padding rows, packs a dataset into fixed-shape stacked batches once,
 stages them on its device, and trains every round through
-``ops.cuda_embed.train_rounds_kernel`` (the Hopper kernel on a CUDA
-device, its plain version on the CPU).
+``ops.cuda_embed.train_rounds_kernel`` (the Hopper kernel K1 on a CUDA
+device, its plain version on the CPU) where K1's gate takes the
+configuration, else through the general plain rounds
+``ops.embed.train_rounds`` (reg modes 1-5, the clamps, the hinge losses,
+multi-entry segments, wide global segments).
 
 Tables of more than ``BIG_TABLE_ROWS`` rows (dummy included) take the
 big-table route of the JAX solver (solvers/base.py:293-331): the state
@@ -18,7 +21,7 @@ prediction read the de-augmented state.
 
 The device is explicit: config key ``device`` (default ``cuda``).  With
 ``device=cuda`` and no card the trainer raises instead of running on the
-CPU.  ``use_pallas=0`` selects the plain PyTorch version on the device,
+CPU.  ``use_pallas=0`` selects the plain PyTorch rounds on the device,
 as it selects the jnp path in the JAX package.
 """
 
@@ -34,8 +37,9 @@ from ..data.batching import pack_csr
 from ..data.csr import CSRDataset
 from ..model import SVDModel
 from ..ops import big_embed, tile_sweep
-from ..ops.cuda_embed import gate_failure, train_rounds_kernel, train_rounds_reference
-from ..ops.embed import BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState, predict_batches
+from ..ops.cuda_embed import kernel_supported, train_rounds_kernel
+from ..ops.embed import (BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState, predict_batches,
+                         train_rounds)
 from ..params import ParameterSet, SVDModelParam, SVDTrainParam, SVDTypeParam
 from ..utils.sparse_feature_array import SparseFeatureArray
 
@@ -325,10 +329,12 @@ class SVDFeatureTrainer:
                 for batch in batches:
                     self.state = step(self.state, batch, lr, self.consts, self.hp)
             return
-        reason = gate_failure(self.hp, self.state, stacked)
-        if reason is not None:
-            raise NotImplementedError(reason)
-        fn = train_rounds_kernel if self.use_pallas else train_rounds_reference
+        # the route is chosen from the configuration, as the JAX solver
+        # chooses its Pallas kernel or its jnp path (solvers/base.py:546-555):
+        # K1 where use_pallas is set and its gate passes, else the general
+        # plain rounds, on the trainer's device
+        use_kernel = self.use_pallas and kernel_supported(self.hp, self.state, stacked)
+        fn = train_rounds_kernel if use_kernel else train_rounds
         self.state = fn(self.state, stacked, lr_t, self.consts, self.hp)
 
     def update_all(self, ds: CSRDataset) -> None:

@@ -12,7 +12,8 @@ step, ``sort_blocks``.
 
 Every round of stacked data goes through
 ``ops.cuda_imfb.train_rounds_imfb_kernel`` (K3 on a CUDA device, its
-plain version on the CPU); ``use_pallas=0`` selects the plain version on
+plain version on the CPU) where K3's gate takes the configuration, else
+through the plain rounds; ``use_pallas=0`` selects the plain rounds on
 the device.  An all-DEFAULT tag stream degenerates to plain SVD++ and
 takes the SVD++ trainer's whole path (K2), unless depth 0 is disabled.  A
 random-order dataset trains and predicts on the base solver (K1), as in
@@ -39,6 +40,7 @@ from ..data.batching_imfb import pack_imfb
 from ..data.batching_plus import compute_fb_overlap
 from ..data.csr import TAG_DEFAULT, PlusDataset
 from ..ops.cuda_imfb import gate_failure, train_rounds_imfb_kernel, train_rounds_imfb_reference
+from ..ops.cuda_svdpp import semantic_failure
 from ..ops.imfb import predict_batches_imfb
 from .svdpp import PlusEntry, SVDPPFeatureTrainer
 
@@ -138,10 +140,12 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         if not isinstance(entry, ImfbEntry):  # all-DEFAULT (SVD++) or random order (base)
             return super()._train(entry, lrs)
         ph = self._plus_hyper()
-        reason = gate_failure(self.hp, self.state, entry.stacked, ph)
+        reason = semantic_failure(self.hp, self.state, entry.stacked, ph)
         if reason is not None:
             raise NotImplementedError(reason)
-        fn = train_rounds_imfb_kernel if self.use_pallas else train_rounds_imfb_reference
+        # K3 where use_pallas is set and its gate passes, else the plain rounds
+        use_kernel = self.use_pallas and gate_failure(self.hp, self.state, entry.stacked, ph) is None
+        fn = train_rounds_imfb_kernel if use_kernel else train_rounds_imfb_reference
         self.state = fn(
             self.state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap,
             entry.enabled, self._staged_lrs(lrs), self.consts, self.hp, ph,

@@ -6,12 +6,14 @@ Config keys beside the base solver's: ``users_per_batch`` (G, default
 128) users trained side by side, ``rows_per_user`` (M, default 1) rows of
 each per step, and ``sort_blocks`` (default 0) to pack users by block size
 (less padding, a small early-convergence cost).  Every round goes through
-``ops.cuda_svdpp.train_rounds_svdpp_kernel`` (the Hopper kernel on a CUDA
-device, its plain version on the CPU); ``use_pallas=0`` selects the plain
-version on the device.  A random-order dataset (``extend_type=1`` on
-the random-order format) trains and predicts on the base solver, as in
-the JAX package (svdfeature_tpu/solvers/svdpp.py:520-521, 1238-1239,
-1313-1316): K1 on a CUDA device, its plain version on the CPU.
+``ops.cuda_svdpp.train_rounds_svdpp_kernel`` (the Hopper kernel K2 on a
+CUDA device, its plain version on the CPU) where K2's gate takes the
+configuration, else through the plain rounds (reg modes 1-5, the clamps,
+the hinge losses, multi-entry user segments, global features);
+``use_pallas=0`` selects the plain rounds on the device.  A random-order
+dataset (``extend_type=1`` on the random-order format) trains and
+predicts on the base solver, as in the JAX package
+(svdfeature_tpu/solvers/svdpp.py:520-521, 1238-1239, 1313-1316).
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
 common_feedback_space=1 (item 7b), tables over 8192 rows (big-table
@@ -31,7 +33,8 @@ import torch
 from ..convert import pool_from_numpy, stacked_from_numpy
 from ..data.batching_plus import pack_plus
 from ..data.csr import PlusDataset
-from ..ops.cuda_svdpp import gate_failure, train_rounds_svdpp_kernel, train_rounds_svdpp_reference
+from ..ops.cuda_svdpp import (gate_failure, semantic_failure, train_rounds_svdpp_kernel,
+                              train_rounds_svdpp_reference)
 from ..ops.svdpp import PlusHyper, predict_batches_plus
 from .base import SVDFeatureTrainer
 
@@ -114,10 +117,14 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         if not isinstance(entry, PlusEntry):  # a random-order pack: the base solver
             return super()._train(entry, lrs)
         ph = self._plus_hyper()
-        reason = gate_failure(self.hp, self.state, entry.stacked, entry.fb, ph)
+        reason = semantic_failure(self.hp, self.state, entry.stacked, ph)
         if reason is not None:
             raise NotImplementedError(reason)
-        fn = train_rounds_svdpp_kernel if self.use_pallas else train_rounds_svdpp_reference
+        # K2 where use_pallas is set and its gate passes, else the plain
+        # rounds (the JAX solver's Pallas-or-jnp choice)
+        use_kernel = self.use_pallas and gate_failure(
+            self.hp, self.state, entry.stacked, entry.fb, ph) is None
+        fn = train_rounds_svdpp_kernel if use_kernel else train_rounds_svdpp_reference
         self.state = fn(
             self.state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap,
             self._staged_lrs(lrs), self.consts, self.hp, ph,

@@ -11,14 +11,15 @@ interpret-mode sweep in tests/test_torch_big_sweep.py.
 
 The ``cuda`` cases run on the card only: K5 / K6 bit for bit against
 ``w[idx] = vals`` / ``index_select``, K4 within atol 1e-6 + rtol 1e-5 of
-its plain version (the kernel sums a row's entries in plan order, the
-plain version with ``index_add_``'s atomics, in another order) with the
-ref bits and the pad rows exact, and the two big-table steps with the
+its plain version (the kernel sums a row's entries in f32 in plan order,
+the plain version in f64 with ``index_add_``) with the ref bits and the
+pad rows exact, and the two big-table steps with the
 kernels against the same steps with the plain versions, with exact
 launch counts.  This file imports jax lazily, so the card, which has no
 jax, still collects it.
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -40,8 +41,10 @@ def jx():
     import jax.numpy as jnp
 
     from svdfeature_tpu.ops import big_embed as jbig
+    from svdfeature_tpu.ops import embed
+    from svdfeature_tpu.ops import tile_sweep as jsw
 
-    return SimpleNamespace(jnp=jnp, jbig=jbig)
+    return SimpleNamespace(jnp=jnp, jbig=jbig, jsw=jsw, embed=embed)
 
 
 def row_inputs(n=257, W=8, E=120, dummy_share=0.2, seed=0):
@@ -127,11 +130,52 @@ def test_sweep_wrapper_is_plain_version_on_cpu():
     assert torch.equal(a, b) and not torch.equal(a, x["w"])
 
 
-def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU):
+@pytest.mark.parametrize("case", ["r0", "r4-nub", "r5-seg2"])
+def test_sweep_plain_forms_the_payload_entries(jx, case):
+    """K4's plain version given the step's pieces (p_u, p_i, coef_u,
+    coef_i) computes what the payload form computed: the payload
+    ``[dw | db | cnt_u | cnt_i]`` built as the forward half built it before
+    (one row per entry, users then items) through the same sweep math bit
+    for bit, and through the JAX package's TPU kernel (``sweep_update``,
+    interpret mode, the payload gathered in plan order) within atol 1e-6,
+    ref bits exact."""
+    x = sweep_inputs(n=200, k=8, B=64, tile=16, e_cap=8, seed=8, Su=2 if "seg2" in case else 1)
+    hp = x["hp"](reg_method=int(case[1]), no_user_bias=int("nub" in case))
+    plan, p_u, p_i, coef_u, coef_i, wdu, wdi, scal, stepi = x["args"]
+    k = hp.num_factor
+    B, Su = coef_u.shape
+    pay_w = torch.cat([(coef_u[..., None] * p_i[:, None, :]).reshape(-1, k),
+                       (coef_i[..., None] * p_u[:, None, :]).reshape(-1, k)])
+    db_u = torch.zeros(B * Su) if hp.no_user_bias else coef_u.reshape(-1)
+    cnt_u = torch.cat([torch.ones(B * Su), torch.zeros(coef_i.numel())])
+    payload = torch.cat([pay_w, torch.cat([db_u, coef_i.reshape(-1)])[:, None], cnt_u[:, None],
+                         1.0 - cnt_u[:, None]], dim=1)
+    got = cuda_sweep.sweep_update_reference(x["w"].clone(), *x["args"], hp)
+    old = cuda_sweep._sweep_payload(x["w"].clone(), plan, payload, wdu, wdi, scal, stepi, hp)
+    assert torch.equal(got, old)
+    jnp = jx.jnp
+    pay_plan = np.concatenate([payload.numpy(), np.zeros((1, k + 3), np.float32)])[
+        plan["sw_src"].numpy()]
+    W = x["w"].shape[1]
+    pay_plan = np.pad(pay_plan, ((0, 0), (0, W - k - 3)))
+    jhp = jx.embed.HyperParams(**dataclasses.asdict(hp))
+    want = np.asarray(jx.jsw.sweep_update(
+        jnp.asarray(x["w"].numpy()), jnp.asarray(plan["sw_tids"].numpy()),
+        jnp.asarray(plan["sw_lids"].numpy()), jnp.asarray(pay_plan), jnp.asarray(wdu.numpy()),
+        jnp.asarray(wdi.numpy()), jnp.asarray(scal.numpy()), jnp.asarray(stepi.numpy()), jhp))
+    np.testing.assert_allclose(got[:, : k + 1].numpy(), want[:, : k + 1], atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(big_embed.ref_column(got, k).numpy(),
+                                  want.view(np.int32)[:, k + 1])
+    assert not torch.equal(got, x["w"])
+
+
+def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU, hot=0.0):
     """K4's arguments for one batch on an n-row table (users [0, n/2),
     items above, dummy n-1), padded to whole tiles: a random augmented
-    table with lazy refs, a payload [dw | db | cnt_u | cnt_i] of realistic
-    size, the pack-time plan and run starts."""
+    table with lazy refs, the step's factors p_u / p_i and coefficients
+    coef_u / coef_i of realistic size (0 on the padding examples), the
+    pack-time plan and runs.  ``hot``: the share of item entries on one
+    popular item, whose run K4 cuts into pieces."""
     rng = np.random.RandomState(seed)
     half = (n - 1) // 2
     n_pad = -(-n // tile) * tile
@@ -142,13 +186,13 @@ def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU):
                                   pad_rows_to=tile).w
     u = rng.randint(0, half, (B, Su))
     i = half + rng.randint(0, half, (B, Si))
+    i[rng.rand(B, Si) < hot] = half + 7
     u[-3:] = i[-3:] = n - 1  # padding examples
-    ent = np.concatenate([u.ravel(), i.ravel()])
-    E = ent.size
-    cnt_u = (np.arange(E) < u.size).astype(np.float32)
-    payload = np.concatenate([rng.normal(0, 1e-3, (E, k + 1)), cnt_u[:, None],
-                              1 - cnt_u[:, None]], 1).astype(np.float32)
-    payload[ent == n - 1, : k + 1] = 0.0
+    p_u = rng.normal(0, 0.1, (B, k)).astype(np.float32)
+    p_i = rng.normal(0, 0.1, (B, k)).astype(np.float32)
+    coef_u = rng.normal(0, 1e-2, (B, Su)).astype(np.float32)
+    coef_i = rng.normal(0, 1e-2, (B, Si)).astype(np.float32)
+    coef_u[-3:] = coef_i[-3:] = 0.0
     plan = tile_sweep.attach_sweep_plans({"u_idx": u[None], "i_idx": i[None]}, n_pad, tile, e_cap)
     plan = tile_sweep.attach_sweep_runs(plan, tile, e_cap)
     plan = {key: torch.from_numpy(plan[key][0]).to(device) for key in tile_sweep.SWEEP_KEYS}
@@ -157,8 +201,9 @@ def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU):
     wd_u[:half] = 0.004
     wd_i[half:n - 1] = 0.004
     f32 = dict(dtype=torch.float32, device=device)
-    args = (plan, torch.from_numpy(payload).to(device), torch.tensor(wd_u, **f32),
-            torch.tensor(wd_i, **f32), torch.tensor([0.05, 0.002, 0.003, 0.0], **f32),
+    args = (plan, *(torch.from_numpy(a).to(device) for a in (p_u, p_i, coef_u, coef_i)),
+            torch.tensor(wd_u, **f32), torch.tensor(wd_i, **f32),
+            torch.tensor([0.05, 0.002, 0.003, 0.0], **f32),
             torch.tensor([6000], dtype=torch.int32, device=device))
 
     def hp(**kw):
@@ -216,18 +261,25 @@ def test_row_writer_one_batch_step_on_card(dummy_row):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["r0", "r1", "r2", "r3", "r4", "r5", "nub-nonneg", "seg2"])
+@pytest.mark.parametrize("case", ["r0", "r1", "r2", "r3", "r4", "r5", "nub-nonneg", "seg2",
+                                  "hot-r4", "hot-k100-r2"])
 def test_sweep_kernel_matches_plain_on_card(case):
     """K4 against its plain version on a 40,960-row table (20 tiles of
     2048, k=64), every reg mode, no_user_bias with the nonnegative clamps,
-    and 2-entry user segments."""
+    2-entry user segments, and a popular item holding a fifth of the item
+    entries (its run cut into pieces; with k=100 too, whose rows take the
+    kernel's scalar loads)."""
     dev = _card()
-    x = sweep_inputs(n=40_960, k=64, B=16_384, tile=2048, e_cap=1024, seed=5,
-                     Su=2 if case == "seg2" else 1, device=dev)
+    k = 100 if "k100" in case else 64
+    x = sweep_inputs(n=40_960, k=k, B=16_384, tile=2048, e_cap=1024, seed=5,
+                     Su=2 if case == "seg2" else 1, device=dev,
+                     hot=0.2 if case.startswith("hot") else 0.0)
+    if case.startswith("hot"):
+        assert int(x["args"][0]["sw_runs"][:, 3].max()) > 10  # pieces of the popular run
     if case == "nub-nonneg":
         hp = x["hp"](reg_method=0, no_user_bias=1, user_nonnegative=1, item_nonnegative=1)
     else:
-        hp = x["hp"](reg_method=int(case[1]) if case.startswith("r") else 4)
+        hp = x["hp"](reg_method=int(case[-1]) if case[-2] == "r" else 4)
     before = cuda_sweep.sweep_update.launches
     got = cuda_sweep.sweep_update(x["w"].clone(), *x["args"], hp)
     torch.cuda.synchronize()

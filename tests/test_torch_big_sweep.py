@@ -137,24 +137,48 @@ def test_plan_functions_identical_to_jax(seed):
 
 
 def test_sweep_runs_partition_the_plan():
-    """Each touched row's entries form exactly one run: the run starts
-    cover every real plan slot once, a run holds one row, and padded run
-    lists end in empty runs at the sentinel."""
+    """Each touched row's entries form exactly one run: the run records
+    cover every real plan slot once and no padding slot, a run holds one
+    row, which its record names, and padded run lists end in empty runs."""
+    _check_runs(piece=64)
+
+
+def test_sweep_runs_cut_long_runs_into_pieces():
+    """Runs of more than ``piece`` entries (2: most of this set's runs)
+    are cut into pieces whose slots are consecutive and name their run's
+    first slot and number of pieces; the records still partition the
+    plan."""
+    _check_runs(piece=2)
+
+
+def _check_runs(piece):
     batches = _plan_inputs(2)
-    planned = tsw.attach_sweep_runs(tsw.attach_sweep_plans(batches, 96, TILE, ECAP), TILE, ECAP)
+    planned = tsw.attach_sweep_runs(tsw.attach_sweep_plans(batches, 96, TILE, ECAP), TILE, ECAP,
+                                    piece=piece)
     T, L = planned["sw_lids"].shape
     for t in range(T):
-        tids, lids, src = (planned[k][t] for k in ("sw_tids", "sw_lids", "sw_src"))
-        runs = planned["sw_runs"][t]
-        assert runs[-1] == L and (np.diff(runs) >= 0).all()
+        tids, lids = planned["sw_tids"][t], planned["sw_lids"][t]
+        runs, pieces = planned["sw_runs"][t], planned["sw_pieces"][t]
         rows = np.repeat(tids.astype(np.int64), ECAP) * TILE + lids
-        seen = []
-        for p0, p1 in zip(runs[:-1], runs[1:]):
+        covered = np.zeros(L, int)
+        seen, slots = [], []
+        for p0, p1, row, slot in runs:
             if p0 == p1:
+                assert slot == -1
                 continue
-            real = lids[p0:p1] >= 0
-            assert real[0] and len(set(rows[p0:p1][real])) == 1
-            assert (src[p0:p1][~real] == batches["u_idx"][t].size + batches["i_idx"][t].size).all()
-            seen.append(rows[p0])
+            covered[p0:p1] += 1
+            assert (lids[p0:p1] >= 0).all() and (rows[p0:p1] == row).all()
+            assert p1 - p0 <= max(piece, int(np.ceil(np.sqrt(L))))
+            if slot < 0:
+                seen.append(row)
+            else:
+                lo, n_pieces = pieces[slot]
+                slots.append(slot)
+                if slot == lo:
+                    seen.append(row)
+                    assert (runs[:, 3] >= lo).sum() - (runs[:, 3] >= lo + n_pieces).sum() == n_pieces
+        assert (covered == (lids >= 0)).all()
+        assert slots == list(range(len(slots)))
         ent = np.concatenate([batches["u_idx"][t].ravel(), batches["i_idx"][t].ravel()])
         assert sorted(seen) == sorted(set(ent.tolist()))
+    assert piece == 64 or (planned["sw_runs"][..., 3] >= 0).any()

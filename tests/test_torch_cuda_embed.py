@@ -1,7 +1,8 @@
 """The port's batched SGD (ops/cuda_embed.py) against the JAX package.
 
-The plain PyTorch version ``train_rounds_reference`` is held against the
-f32 jnp ``train_rounds`` and against the TPU kernel
+The plain PyTorch version, the general rounds ``embed.train_rounds``
+(tests/test_torch_general_step.py holds them in every configuration), is
+held against the f32 jnp ``train_rounds`` and against the TPU kernel
 ``train_rounds_pallas(precise=True)`` run in interpret mode, on the
 shapes of tests/test_pallas.py (N=256, k=8, B=128, T=4, R=2).  The
 CUDA kernel is held against the plain version on the card only.
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from svdfeature_tpu_torch import convert
-from svdfeature_tpu_torch.ops import _plans, cuda_embed
+from svdfeature_tpu_torch.ops import _plans, cuda_embed, embed
 from svdfeature_tpu_torch.ops.embed import HyperParams
 
 CPU = torch.device("cpu")
@@ -137,7 +138,7 @@ def test_reference_matches_jax(jx, active_type, no_user_bias, NG, SG, exact_glob
     thp = HyperParams(active_type=active_type, no_user_bias=no_user_bias,
                       base_score=base, exact_global=exact_global)
 
-    out = cuda_embed.train_rounds_reference(*torch_inputs(st, cs, stacked, lrs), thp)
+    out = embed.train_rounds(*torch_inputs(st, cs, stacked, lrs), thp)
 
     ref = jx.embed.train_rounds(*jax_inputs(jx, st, cs, stacked, lrs), jhp)
     state, jstacked, jlrs, consts = jax_inputs(jx, st, cs, stacked, lrs)
@@ -218,7 +219,7 @@ def test_wrapper_runs_plain_version_on_cpu():
     before = cuda_embed.train_rounds_kernel.launches
     hp = HyperParams(base_score=3.0)
     a = cuda_embed.train_rounds_kernel(*torch_inputs(st, cs, stacked, lrs), hp)
-    b = cuda_embed.train_rounds_reference(*torch_inputs(st, cs, stacked, lrs), hp)
+    b = embed.train_rounds(*torch_inputs(st, cs, stacked, lrs), hp)
     assert cuda_embed.train_rounds_kernel.launches == before
     for name in ("w", "b", "g", "step"):
         assert torch.equal(getattr(a, name), getattr(b, name))
@@ -290,7 +291,7 @@ def test_kernel_matches_plain_on_card(NG, SG, exact_global):
     torch.cuda.synchronize()
     assert cuda_embed.train_rounds_kernel.launches - before == cuda_embed.launches_per_call(2) == 1
     plan = cuda_embed._PLANS[0]
-    want = cuda_embed.train_rounds_reference(*torch_inputs(st, cs, stacked, lrs, dev), hp)
+    want = embed.train_rounds(*torch_inputs(st, cs, stacked, lrs, dev), hp)
     for name in ("w", "b", "g"):
         torch.testing.assert_close(getattr(got, name), getattr(want, name),
                                    atol=1e-5, rtol=1e-4)
@@ -305,7 +306,7 @@ def test_kernel_matches_plain_on_card(NG, SG, exact_global):
     torch.cuda.synchronize()
     assert cuda_embed._PLANS[0] is plan
     assert cuda_embed.train_rounds_kernel.launches - before == 2
-    want = cuda_embed.train_rounds_reference(want, *torch_inputs(st, cs, stacked, lrs, dev)[1:], hp)
+    want = embed.train_rounds(want, *torch_inputs(st, cs, stacked, lrs, dev)[1:], hp)
     for name in ("w", "b", "g"):
         torch.testing.assert_close(getattr(got, name), getattr(want, name),
                                    atol=1e-5, rtol=1e-4)

@@ -206,6 +206,37 @@ def test_plain_matches_jax_epoch(jx, case):
     assert got["w"][-1].tolist() == [0.0] * 8 and got["b"][-1] == 0
 
 
+# what K3 refuses and the plain rounds train: reg modes 1 and 4 (with
+# their global modes), the clamps, the smooth hinge, all with a global
+# segment (tests/test_torch_svdpp.with_general)
+GENERAL_CASES = {
+    "reg1-global1": dict(reg_method=1, reg_global=1),
+    "reg4-global4": dict(reg_method=4, reg_global=4),
+    "nonneg": dict(user_nonnegative=1, item_nonnegative=1),
+    "hinge5": dict(active_type=5, base_score=0.5),
+}
+
+
+@pytest.mark.parametrize("rows_per_user", [1, 2])
+@pytest.mark.parametrize("case", list(GENERAL_CASES))
+def test_plain_general_matches_jax_epoch(jx, case, rows_per_user):
+    """R=2 plain rounds against R calls of the f32 jnp
+    train_epoch_imfb_carried on the configurations only the plain rounds
+    take (atol 1e-6, as above): w, b, g, the lazy refs and the step."""
+    from test_torch_svdpp import with_general
+
+    x = with_general(imfb_inputs(rows_per_user), GENERAL_CASES[case])
+    out = cuda_imfb.train_rounds_imfb_reference(*torch_args(x))
+    state = jax_epochs(jx, x)
+    for name in ("w", "b", "g"):
+        np.testing.assert_allclose(getattr(out, name).numpy(), np.asarray(getattr(state, name)),
+                                   atol=1e-6, rtol=0, err_msg=name)
+    for name in ("ref_ui", "ref_g", "step"):
+        assert np.array_equal(getattr(out, name).numpy(), np.asarray(getattr(state, name))), name
+    assert not np.allclose(out.g.numpy(), x.st["g"])  # the global segment trained
+    assert not np.allclose(out.w.numpy()[:NUM_FB], x.st["w"][:NUM_FB])
+
+
 @pytest.mark.parametrize("case", ["base", "rows_per_user2"])
 def test_plain_matches_pallas_interpret(jx, case):
     """The plain version against the TPU kernel K3 in interpret mode, to
@@ -315,19 +346,22 @@ def test_ctx_slots_staged_int32():
 
 
 # ---- the gate and the wrapper ------------------------------------------------
+# the refusal each case must name: a ROADMAP item where no route of the
+# port runs it yet, else the plain rounds, which the solver takes instead
+PLAIN = "the plain rounds run it"
 GATE_CASES = {
     "base": ({}, None),
-    "reg_method": (dict(hp=dict(reg_method=1)), "item 4"),
-    "reg_global": (dict(hp=dict(reg_global=1)), "item 4"),
-    "user_nonneg": (dict(hp=dict(user_nonnegative=1)), "item 4"),
+    "reg_method": (dict(hp=dict(reg_method=1)), PLAIN),
+    "reg_global": (dict(hp=dict(reg_global=1)), PLAIN),
+    "user_nonneg": (dict(hp=dict(user_nonnegative=1)), PLAIN),
     "sigmoid_l2": (dict(hp=dict(active_type=1)), None),
     "sigmoid_rank": (dict(hp=dict(active_type=3)), None),
-    "hinge_smooth": (dict(hp=dict(active_type=5)), "item 4"),
-    "multi_user": (dict(Su=2), "item 4"),
-    "item_width2": (dict(Si=2), "item 8"),
-    "item_width3": (dict(Si=3), "item 4"),
-    "global": (dict(NG=7), "item 4"),
-    "shared_feedback_space": (dict(off_user=0), "item 7b"),
+    "hinge_smooth": (dict(hp=dict(active_type=5)), PLAIN),
+    "multi_user": (dict(Su=2), PLAIN),
+    "item_width2": (dict(Si=2), PLAIN),
+    "item_width3": (dict(Si=3), PLAIN),
+    "global": (dict(NG=7), PLAIN),
+    "shared_feedback_space": (dict(off_user=0), "ROADMAP Queue 1 item 7b"),
 }
 
 
@@ -335,7 +369,8 @@ GATE_CASES = {
 def test_gate_agrees_with_pallas(jx, case):
     """gate_failure and pallas_imfb_supported agree on the semantic
     conditions, at shapes inside the TPU kernel's layout limits (128 slots
-    per step, k=8), and each refusal names its ROADMAP item."""
+    per step, k=8), and each refusal names its ROADMAP item or the plain
+    rounds."""
     spec, item = GATE_CASES[case]
     N, k, GS, NG = 300, 8, 128, spec.get("NG", 1)
     off_user = spec.get("off_user", 100)
@@ -364,7 +399,7 @@ def test_gate_agrees_with_pallas(jx, case):
     if item is None:
         assert reason is None
     else:
-        assert f"ROADMAP Queue 1 {item}" in reason
+        assert item in reason
 
 
 @pytest.mark.parametrize("N,RM,item", [
@@ -576,6 +611,27 @@ def test_cli_slice_matches_jax(tmp_path):
     buffer, both packages (the port with device=cpu), 2 rounds: every
     checkpoint agrees (atol 1e-5), so does every round's eval RMSE on the
     plain test set and the pred output on the stacked set."""
+    _cli_slice(tmp_path)
+
+
+# configurations the kernels do not take: the plain rounds train them, as
+# the JAX package's jnp path does, whatever use_pallas says
+GENERAL_CONFS = {
+    "reg_method1": "reg_method = 1\n",
+    "reg_method4-nonneg": "reg_method = 4\nreg_global = 4\nuser_nonnegative = 1\nitem_nonnegative = 1\n",
+    "active_type5-use_pallas0": "active_type = 5\nbase_score = 0.5\nuse_pallas = 0\n",
+}
+
+
+@pytest.mark.parametrize("case", list(GENERAL_CONFS))
+def test_cli_general_route_matches_jax(case, tmp_path):
+    """The CLI slice of test_cli_slice_matches_jax on configurations that
+    the port refused before the general step: checkpoints and eval RMSE
+    agree with the JAX package's (atol 1e-5)."""
+    _cli_slice(tmp_path, GENERAL_CONFS[case])
+
+
+def _cli_slice(tmp_path, extra=""):
     pytest.importorskip("jax")
     from svdfeature_tpu import model as jmodel
     from svdfeature_tpu.infer.task import SVDInferTask as JInfer
@@ -591,7 +647,7 @@ def test_cli_slice_matches_jax(tmp_path):
         d = tmp_path / tag
         d.mkdir()
         (d / "t.conf").write_text(
-            CONF + f'buffer_feature = "{tmp_path}/train.buffer"\ntest:buffer_feature = '
+            CONF + extra + f'buffer_feature = "{tmp_path}/train.buffer"\ntest:buffer_feature = '
             f'"{tmp_path}/test.buffer"\nmodel_out_folder = "{d}/models"\n')
         before = cuda_imfb.train_rounds_imfb_kernel.launches
         task = train_cls()
@@ -626,7 +682,6 @@ def test_cli_slice_matches_jax(tmp_path):
     ("num_ufeedback", "8100", "item 9"),
     ("streaming", "1", "item 11"),
     ("mesh_data", "2", "item 12"),
-    ("reg_method", "1", "item 4"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """Stacked configurations the port does not run yet raise

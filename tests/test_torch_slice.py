@@ -31,9 +31,12 @@ from svdfeature_tpu_torch.train.loop import SVDTrainTask as TTrain
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 ROUNDS = 3
 CONFS = {
-    "basicMF": ("ml100k.base.feature.gz", "ml100k.test.feature.gz", "num_global = 0\n"),
+    "basicMF": ("ml100k.base.feature.gz", "ml100k.test.feature.gz",
+                "base_score = 3\nactive_type = 0\nnum_global = 0\n"),
     "neighborhoodModel": ("ml100k.base.nb.feature.gz", "ml100k.test.nb.feature.gz",
-                          "num_global = 6\nwd_global = 0.001\n"),
+                          "base_score = 3\nactive_type = 0\nnum_global = 6\nwd_global = 0.001\n"),
+    "binaryClassification": ("ml100k.base.bin.feature.gz", "ml100k.test.bin.feature.gz",
+                             "base_score = 0.5\nnum_global = 0\n"),
 }
 
 
@@ -48,16 +51,25 @@ def _read_model(path):
     return {k: np.asarray(getattr(m, k)) for k in ("w", "b", "g")}
 
 
-SLICE_CASES = [pytest.param(demo, 0, ROUNDS, id=demo) for demo in sorted(CONFS)] + [
+SLICE_CASES = [pytest.param(demo, 0, ROUNDS, "", id=demo)
+               for demo in ("basicMF", "neighborhoodModel")] + [
     # extend_type=1 / 2 on a random-order buffer: the SVD++ and multi-IMFB
     # trainers hand it to the base solver, as the JAX package's do
-    pytest.param("basicMF", et, 2, id=f"basicMF-extend_type{et}") for et in (1, 2)
+    pytest.param("basicMF", et, 2, "", id=f"basicMF-extend_type{et}") for et in (1, 2)
+] + [
+    # the general route: configurations K1 does not take train on the plain
+    # rounds whatever use_pallas says, as the JAX package's jnp path does
+    pytest.param(demo, 0, 2, f"{key} = {val}\nuse_pallas = {up}\n",
+                 id=f"{demo}-{key}{val}-use_pallas{up}")
+    for demo, key, val in (("basicMF", "reg_method", 4), ("binaryClassification", "active_type", 5))
+    for up in (0, 1)
 ]
 
 
-@pytest.mark.parametrize("demo,extend_type,rounds", SLICE_CASES)
-def test_slice_matches_jax(demo, extend_type, rounds, tmp_path):
+@pytest.mark.parametrize("demo,extend_type,rounds,more", SLICE_CASES)
+def test_slice_matches_jax(demo, extend_type, rounds, more, tmp_path):
     train_fx, test_fx, extra = CONFS[demo]
+    extra += more
     if extend_type:  # format_type 0: the random-order format, not auto-detected
         extra += f"extend_type = {extend_type}\nformat_type = 0\n"
     _head(train_fx, 10000, tmp_path / "train.feature")
@@ -73,8 +85,8 @@ def test_slice_matches_jax(demo, extend_type, rounds, tmp_path):
             buf_cli.main([str(tmp_path / f"{split}.feature"), str(d / f"{split}.buffer")])
         conf = d / f"{demo}.conf"
         conf.write_text(
-            "base_score = 3\nlearning_rate = 0.005\nwd_user = 0.004\nwd_item = 0.004\n"
-            f"num_user = 943\nnum_item = 1682\nnum_factor = 16\nactive_type = 0\n{extra}"
+            "learning_rate = 0.005\nwd_user = 0.004\nwd_item = 0.004\n"
+            f"num_user = 943\nnum_item = 1682\nnum_factor = 16\n{extra}"
             f'buffer_feature = "{d}/train.buffer"\ntest:buffer_feature = "{d}/test.buffer"\n'
             f'model_out_folder = "{d}/models"\nbatch_size = 1024\nsilent = 1\n'
         )
@@ -121,9 +133,6 @@ def test_cuda_device_without_card_raises():
 
 
 @pytest.mark.parametrize("key,val,item", [
-    ("reg_method", "1", "item 4"),
-    ("active_type", "5", "item 4"),
-    ("user_nonnegative", "1", "item 4"),
     ("extend_type", "15", "item 10"),
     ("mesh_data", "2", "item 12"),
 ])
@@ -140,6 +149,33 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     )
     with pytest.raises(NotImplementedError, match=item):
         TTrain().run(str(conf), ["num_round=1", "device=cpu", f"{key}={val}"])
+
+
+@pytest.mark.parametrize("key,val", [
+    ("reg_method", "1"), ("active_type", "5"), ("user_nonnegative", "1"),
+    ("item_nonnegative", "1"), ("reg_global", "5"), ("active_type", "6")])
+def test_once_refused_configs_train_as_jax(key, val, tmp_path):
+    """Configurations the port refused before the general step train, on
+    the CPU and whatever use_pallas says, to the JAX CLI's checkpoint (one
+    round of the tiny text set, atol 1e-6)."""
+    feat = tmp_path / "train.feature"
+    feat.write_text("".join(f"{i % 5 + 1} 1 1 1 {i % 3}:0.5 {i % 7}:1 {i % 11}:1\n"
+                            for i in range(40)))
+    models = {}
+    for tag, train_cls, dev in (("jax", JTrain, []), ("torch", TTrain, ["device=cpu"])):
+        conf = tmp_path / f"{tag}.conf"
+        conf.write_text(
+            f'input_type = 1\ndata_in = "{feat}"\nnum_user = 7\nnum_item = 11\n'
+            f'num_global = 3\nwd_global = 0.01\nwd_user = 0.02\nwd_item = 0.03\n'
+            f'num_factor = 4\nbase_score = 0.5\nbatch_size = 8\nsilent = 1\n'
+            f'model_out_folder = "{tmp_path}/m_{tag}"\n'
+        )
+        train_cls().run(str(conf), ["num_round=1", f"{key}={val}", *dev])
+        models[tag] = _read_model(tmp_path / f"m_{tag}" / "0001.model")
+    for k in ("w", "b", "g"):
+        np.testing.assert_allclose(models["torch"][k], models["jax"][k], atol=1e-6, rtol=0,
+                                   err_msg=k)
+    assert not np.allclose(models["torch"]["w"], _read_model(tmp_path / "m_torch" / "0000.model")["w"])
 
 
 @pytest.mark.parametrize("extend_type", [

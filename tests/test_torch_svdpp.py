@@ -154,6 +154,59 @@ def test_plain_matches_jax_epoch(jx, M, SI, no_user_bias):
     assert got["w"][-1].tolist() == [0.0] * 8 and got["b"][-1] == 0
 
 
+def with_general(x, hp, NG=7, SG=2, seed=3):
+    """The case ``x`` with a global segment (SG entries per row over NG-1
+    real slots and the dummy, decaying) and the hyperparameters ``hp``:
+    what only the plain rounds train."""
+    rng = np.random.RandomState(seed)
+    T, GS = x.stacked["label"].shape
+    g_idx = rng.randint(0, NG - 1, (T, GS, SG)).astype(np.int32)
+    g_val = rng.uniform(0.1, 1.0, (T, GS, SG)).astype(np.float32)
+    pad = rng.rand(T, GS, SG) < 0.3
+    g_idx[pad], g_val[pad] = NG - 1, 0.0
+    g = rng.normal(0, 0.05, NG).astype(np.float32)
+    g[-1] = 0.0
+    wd_g = np.full(NG, 0.01, np.float32)
+    wd_g[-1] = 0.0
+    return SimpleNamespace(**dict(
+        vars(x), stacked=dict(x.stacked, g_idx=g_idx, g_val=g_val),
+        st=dict(x.st, g=g, ref_g=np.zeros(NG, np.int32)), cs=dict(x.cs, wd_g_row=wd_g),
+        hp=dict(x.hp, **hp)))
+
+
+# what the kernels refuse and the plain rounds train: reg modes 1 and 4
+# (with their global modes), the clamps, the smooth hinge, all with a
+# global segment
+GENERAL_CASES = {
+    "reg1-global1": dict(reg_method=1, reg_global=1),
+    "reg4-global4": dict(reg_method=4, reg_global=4),
+    "nonneg": dict(user_nonnegative=1, item_nonnegative=1),
+    "hinge5": dict(active_type=5, base_score=0.5),
+}
+
+
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("case", list(GENERAL_CASES))
+def test_plain_general_matches_jax_epoch(jx, case, M):
+    """R=2 plain rounds against R calls of the f32 jnp train_epoch_plus on
+    the configurations only the plain rounds take (atol 1e-5, as above):
+    w, b, g, the lazy refs and the step."""
+    x = with_general(plus_inputs(M), GENERAL_CASES[case])
+    out = cuda_svdpp.train_rounds_svdpp_reference(*torch_args(x))
+    state, stacked, cid, fb, overlap, consts, hp = jax_args(jx, x)
+    for lr in x.lrs:
+        state = jx.svdpp.train_epoch_plus(
+            state, stacked, cid, fb, overlap, jx.jnp.float32(lr), consts, hp,
+            *FBH.values(), rows_per_user=M)
+    for name in ("w", "b", "g"):
+        np.testing.assert_allclose(getattr(out, name).numpy(), np.asarray(getattr(state, name)),
+                                   atol=1e-5, rtol=0, err_msg=name)
+    for name in ("ref_ui", "ref_g", "step"):
+        assert np.array_equal(getattr(out, name).numpy(), np.asarray(getattr(state, name))), name
+    assert not np.allclose(out.g.numpy(), x.st["g"])  # the global segment trained
+    assert not np.allclose(out.w.numpy()[:NUM_FB], x.st["w"][:NUM_FB])
+
+
 @pytest.mark.parametrize("M,SI,no_user_bias", CASES)
 def test_plain_matches_pallas_interpret(jx, M, SI, no_user_bias):
     """The plain version against the TPU kernel in interpret mode, to the
@@ -432,6 +485,27 @@ def test_cli_slice_matches_jax(tmp_path):
     checkpoint agrees (atol 1e-5) and so does every round's eval RMSE;
     each package's infer task reads the other's checkpoints to the same
     RMSE."""
+    _cli_slice(tmp_path)
+
+
+# configurations the kernels do not take: the plain rounds train them, as
+# the JAX package's jnp path does, whatever use_pallas says
+GENERAL_CONFS = {
+    "reg_method1": "reg_method = 1\n",
+    "reg_method4-nonneg": "reg_method = 4\nreg_global = 4\nuser_nonnegative = 1\nitem_nonnegative = 1\n",
+    "active_type5-use_pallas0": "active_type = 5\nbase_score = 0.5\nuse_pallas = 0\n",
+}
+
+
+@pytest.mark.parametrize("case", list(GENERAL_CONFS))
+def test_cli_general_route_matches_jax(case, tmp_path):
+    """The CLI slice of test_cli_slice_matches_jax on configurations that
+    the port refused before the general step: checkpoints and eval RMSE
+    agree with the JAX package's (atol 1e-5)."""
+    _cli_slice(tmp_path, GENERAL_CONFS[case])
+
+
+def _cli_slice(tmp_path, extra=""):
     pytest.importorskip("jax")
     from svdfeature_tpu import model as jmodel
     from svdfeature_tpu.cli import make_ugroup_buffer as jbuf_cli
@@ -451,7 +525,7 @@ def test_cli_slice_matches_jax(tmp_path):
             buf_cli.main([str(tmp_path / f"{split}.feature"), str(d / f"{split}.buffer"),
                           "-fd", str(tmp_path / f"{split}.feedback")])
         (d / "t.conf").write_text(
-            CONF + f'buffer_feature = "{d}/train.buffer"\ntest:buffer_feature = '
+            CONF + extra + f'buffer_feature = "{d}/train.buffer"\ntest:buffer_feature = '
             f'"{d}/test.buffer"\nmodel_out_folder = "{d}/models"\n')
         before = cuda_svdpp.train_rounds_svdpp_kernel.launches
         train_cls().run(str(d / "t.conf"), [f"num_round={ROUNDS}", *dev])
@@ -510,7 +584,6 @@ def test_update_rounds_equals_update_all():
     ("streaming", "1", "item 11"),
     ("mesh_data", "2", "item 12"),
     ("input_type", "101", "item 13"),
-    ("reg_method", "1", "item 4"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """User-group configurations the port does not run yet raise
