@@ -81,7 +81,24 @@ result line):
      through SVDTrainTask / SVDInferTask on the card; no kernel takes them,
      so they train on the plain rounds (K1 / K2 launch counts 0), and the
      test RMSE must lie within 1e-5 (1e-4 for SVD++) of the JAX package's
-     CPU figure (scripts/general_jax_reference.py).
+     CPU figure (scripts/general_jax_reference.py);
+ 11. big-table SVD++ and big-table multi-IMFB: bench.py's bigSvdpp data
+     (numpy only: 1,000,000 users, 624,000 items, 624,000 feedback ids,
+     a 2,248,001-row table, k=64, 1,999,760 rows of 100,000 users a round,
+     written with write_plus_buffer) through SVDTrainTask / SVDInferTask at
+     bench.py's conf (G=4096 users x 4 rows a step, sort_blocks=1): (a) the
+     user-carry epoch with K5, 3 rounds, (b) the same with use_pallas=0,
+     (c) reg_method=4 (the entry-stream body), 1 round, (d) the depth-2
+     transform of the first 20,000 users under extend_type=2, 2 rounds;
+     the probe (the first 2000 user blocks) RMSE must fall and lie within
+     1e-4 of the JAX package's CPU figure
+     (scripts/bigsvdpp_jax_reference.py), (a) and (b) within 1e-5 of each
+     other, with K5's launch count the plan's (its item writes, and per
+     chunk exit the pool writeback and the slab write); examples/s beside
+     the reference binary's, pack seconds and peak memory; then K5 bit for
+     bit against its plain version at the three call shapes of one epoch
+     of (a) (item write, pool writeback, slab write), timed in turns with
+     index_copy_.
 Each phase prints its time.  Then one JSON line describing the kernels (with each one's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 the H100 SXM's published rates at 700 W) and, last, one JSON line naming
@@ -160,6 +177,92 @@ def write_bigtable(csr_dataset, write_csr_buffer, d, arrays):
                     + f'buffer_feature = "{d}/train.buffer"\n'
                     + f'test:buffer_feature = "{d}/test.buffer"\nsilent = 1\n')
     return conf, ds
+
+
+# phase 11: bench.py's bigSvdpp workload (bench.py:919-986), SVD++ at the
+# KDD-Cup-2011 table geometry: NU users, NI items, NF feedback ids and the
+# dummy in one table; a round trains a 100,000-user shard (1,999,760 rows)
+BIG_PLUS = dict(NU=1_000_000, NI=624_000, NF=624_000, KF=64, USERS=100_000, ROWS_MEAN=20)
+BIG_PLUS_SMALL = dict(NU=2000, NI=3000, NF=3000, KF=16, USERS=1000, ROWS_MEAN=6)  # BENCH_SMALL
+BIG_PLUS_PROBE = 2000  # probe: the first user blocks (bench.py:943)
+BIG_PLUS_IMFB_USERS = 20_000  # run (d): the depth-2 transform of the first users
+BIG_PLUS_RUNS = {  # tag: the buffer it trains, conf keys beside bigSvdpp.conf's, rounds
+    "a": dict(buffer="train.buffer", keys=[], rounds=3),  # the user-carry epoch
+    "b": dict(buffer="train.buffer", keys=["use_pallas=0"], rounds=3),  # its plain writer
+    "c": dict(buffer="train.buffer", keys=["reg_method=4"], rounds=1),  # the entry-stream body
+    "d": dict(buffer="imfb.buffer", keys=["extend_type=2"], rounds=2),  # big multi-IMFB
+}
+
+
+def big_plus_arrays(small=False):
+    """bench.make_big_plus's data (bench.py:213-256), numpy only, with the
+    same default_rng(0) draws in the same order: rows per user Poisson(20)
+    clipped to [1, 64], 1-11 feedback ids per user, items uniform, labels
+    from a planted rank-8 structure.  Returns (the arrays of a user-group
+    dataset: its rows' CSR arrays and its blocks, dims as bench.py's)."""
+    p = BIG_PLUS_SMALL if small else BIG_PLUS
+    rng = np.random.default_rng(0)
+    counts = rng.poisson(p["ROWS_MEAN"], p["USERS"]).clip(1, 64).astype(np.int64)
+    fbcounts = rng.integers(1, 12, p["USERS"]).astype(np.int64)
+    ex = int(counts.sum())
+    uid = np.repeat(np.arange(p["USERS"], dtype=np.uint32), counts)
+    items = rng.integers(0, p["NI"], ex).astype(np.uint32)
+    pu = rng.standard_normal((p["USERS"], 8), dtype=np.float32) * 0.25
+    qi = rng.standard_normal((p["NI"], 8), dtype=np.float32) * 0.25
+    labels = 3.0 + np.einsum("ek,ek->e", pu[uid], qi[items])
+    del pu, qi
+    row_ptr = np.zeros(3 * ex + 1, np.int32)
+    row_ptr[1:] = np.cumsum(np.tile(np.array([0, 1, 1], np.int32), ex))
+    index = np.empty(2 * ex, np.uint32)
+    index[0::2] = uid
+    index[1::2] = items
+    ftot = int(fbcounts.sum())
+    brp = np.zeros(p["USERS"] + 1, np.int32)
+    brp[1:] = np.cumsum(counts)
+    bfp = np.zeros(p["USERS"] + 1, np.int32)
+    bfp[1:] = np.cumsum(fbcounts)
+    arrays = dict(labels=labels.astype(np.float32), row_ptr=row_ptr, index=index,
+                  value=np.ones(2 * ex, np.float32),
+                  fb_index=rng.integers(0, p["NF"], ftot).astype(np.uint32),
+                  fb_value=np.ones(ftot, np.float32), block_row_ptr=brp, block_fb_ptr=bfp,
+                  extend_tag=np.zeros(p["USERS"], np.int8), extra_info=np.zeros(p["USERS"], np.int8))
+    return arrays, dict(NU=p["NU"], NI=p["NI"], NF=p["NF"], KF=p["KF"], EX=ex)
+
+
+def plus_dataset(csr, a, nblk=None):
+    """A package's PlusDataset (``csr``: its data.csr module) of
+    big_plus_arrays' arrays, or of its first ``nblk`` blocks (bench.py's
+    slice_plus_blocks)."""
+    rows = csr.CSRDataset(a["labels"], a["row_ptr"], a["index"], a["value"])
+    if nblk is None:
+        return csr.PlusDataset(rows, a["fb_index"], a["fb_value"], a["block_row_ptr"],
+                               a["block_fb_ptr"], a["extend_tag"], a["extra_info"])
+    r1, f1 = int(a["block_row_ptr"][nblk]), int(a["block_fb_ptr"][nblk])
+    return csr.PlusDataset(rows.slice_rows(0, r1), a["fb_index"][:f1], a["fb_value"][:f1],
+                           a["block_row_ptr"][: nblk + 1], a["block_fb_ptr"][: nblk + 1],
+                           a["extend_tag"][:nblk], a["extra_info"][:nblk])
+
+
+def write_big_plus(d, csr, write_plus_buffer, a, dims):
+    """Write phase 11's buffers into directory ``d`` with a package's own
+    classes and writer: the bigSvdpp train set, its first BIG_PLUS_PROBE
+    user blocks as the probe, the depth-2 transform of its first
+    BIG_PLUS_IMFB_USERS users (run (d)), and the conf (bench.py:929-941);
+    returns the conf path."""
+    full = plus_dataset(csr, a)
+    write_plus_buffer(str(d / "train.buffer"), full)
+    write_plus_buffer(str(d / "probe.buffer"), plus_dataset(csr, a, BIG_PLUS_PROBE))
+    write_plus_buffer(str(d / "imfb.buffer"),
+                      stack_depth2(plus_dataset(csr, a, BIG_PLUS_IMFB_USERS), csr))
+    conf = d / "bigSvdpp.conf"
+    conf.write_text(
+        "format_type = 1\nbase_score = 3\nlearning_rate = 0.005\nwd_item = 0.004\n"
+        "wd_user = 0.004\nwd_ufeedback = 0.004\n"
+        f"num_user = {dims['NU']}\nnum_item = {dims['NI']}\nnum_ufeedback = {dims['NF']}\n"
+        f"num_global = 0\nnum_factor = {dims['KF']}\n"
+        "sort_blocks = 1\nrows_per_user = 4\nusers_per_batch = 4096\n"
+        f'test:buffer_feature = "{d}/probe.buffer"\nsilent = 1\n')
+    return conf
 
 
 # phases 8 and 9: the stacked multi-IMFB slice (bench.py:626-659): the
@@ -1523,6 +1626,195 @@ def phase_general(work, card, failures):
               f"2-{GENERAL_ROUNDS} on {card}", flush=True)
 
 
+# ---- phase 11: big-table SVD++ and big-table multi-IMFB -------------------------
+# Probe RMSE after each run's rounds, the JAX package on the CPU, same data
+# and conf (scripts/bigsvdpp_jax_reference.py --run a / c / d; run (b) is
+# (a) on the plain writer).  Round 0 (the seeded init) is 0.176005 for all.
+JAX_BIG_PLUS_RMSE = {"a": 0.169612, "b": 0.169612, "c": 0.172358, "d": 0.170718}
+BIG_PLUS_JAX_TOL = 1e-4
+BIG_PLUS_AB_TOL = 1e-5  # (a) K5 against (b) its plain version, end to end
+
+
+def big_plus_run(conf, d, tag):
+    """One phase-11 run through SVDTrainTask + SVDInferTask, every kernel's
+    launch count set to 0 just before training and read just after: the
+    probe's RMSE at round 0 and at the last round from the checkpoints,
+    the K5 launches the plan implies, round seconds, pack seconds, peak
+    device memory."""
+    import torch
+
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+    from svdfeature_tpu_torch.ops.svdpp_big import k5_launches
+    from svdfeature_tpu_torch.solvers.multi_imfb import ImfbEntry
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    run = BIG_PLUS_RUNS[tag]
+    R = run["rounds"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = [f"buffer_feature={d}/{run['buffer']}", f"model_out_folder={d}/models_{tag}",
+            "device=cuda", *run["keys"]]
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    task = SVDTrainTask()
+    t0 = time.perf_counter()
+    task.run(str(conf), args + [f"num_round={R}"])
+    launches = {kid: fn.launches for kid, fn in wrappers.items()}
+    tr = task.trainer
+    entry = tr._pack_plus(task.dataset)
+    cid = entry.chunk_id
+    carry = "chunk_users" in entry.fb
+    if not tr.hp.row_dma:
+        per_round = 0
+    elif isinstance(entry, ImfbEntry):
+        per_round = 2 * len(cid)  # the step's rows and the contexts' writeback
+    else:
+        per_round = k5_launches(cid, carry)
+    starts = int(np.count_nonzero(np.concatenate([[True], cid[1:] != cid[:-1]])))
+    peak = torch.cuda.max_memory_allocated()
+    secs = task.round_seconds
+    rows = task.dataset_rows()
+    log = d / f"rmse_{tag}.tsv"
+    SVDInferTask().run(str(conf), args + ["start=0", f"end={R + 1}", f"step={R}",
+                                          f"log_eval={log}"])
+    rmse = dict(line.split() for line in log.read_text().splitlines())
+    shutil.rmtree(d / f"models_{tag}")
+    train = secs[1:] if R > 1 else [secs[0] - tr.pack_seconds]
+    return dict(task=task, entry=entry, rmse0=float(rmse["0"]), rmse1=float(rmse[str(R)]),
+                launches=launches, want_k5=R * per_round, T=len(cid), starts=starts, carry=carry,
+                trainer=type(tr).__name__, big=bool(tr.hp.big_table), secs=secs,
+                pack=tr.pack_seconds, eps=rows * len(train) / sum(train), peak=peak,
+                seconds=time.perf_counter() - t0, R=R)
+
+
+def k5_shapes(torch, task):
+    """K5's arguments at this slice's three call shapes, from one real
+    epoch of run (a): the first step's item write (E = G*M), then the first
+    chunk exit's pool writeback (E = F) and slab write (E = G).  The epoch
+    runs on the trained state with big_embed.row_writer recording its
+    calls until the first slab write."""
+    from svdfeature_tpu_torch.ops import big_embed
+
+    tr = task.trainer
+    G = tr.users_per_batch
+    calls, real = [], big_embed.row_writer
+
+    def recorder(w, idx, vals):
+        if len(calls) < 2 or calls[-1][0].shape[0] != G:
+            calls.append((idx.clone(), vals.clone()))
+        return real(w, idx, vals)
+
+    big_embed.row_writer = recorder
+    try:
+        tr.update_all(task.dataset)
+    finally:
+        big_embed.row_writer = real
+    torch.cuda.synchronize()
+    item, pool, slab = calls[0], calls[-2], calls[-1]
+    return {"item write": item, "pool writeback": pool, "slab write": slab}
+
+
+def phase_big_plus(work, card, failures):
+    """bigSvdpp (bench.py's KDD-Cup-2011-geometry SVD++, numpy only) and big
+    multi-IMFB through the port's entry points: (a) the user-carry epoch
+    with K5, (b) the same with use_pallas=0, (c) reg_method=4 (the
+    entry-stream body, lazy decay), (d) the depth-2 transform of the first
+    20,000 users under extend_type=2.  Gates: the probe RMSE falls and lies
+    within BIG_PLUS_JAX_TOL of the JAX package's figure, (a) and (b) agree
+    within BIG_PLUS_AB_TOL, K5's launch count is the plan's; then K5 bit for
+    bit against its plain version at the three call shapes of (a)'s epoch,
+    timed in turns with index_copy_."""
+    import torch
+
+    from svdfeature_tpu_torch.data import csr
+    from svdfeature_tpu_torch.data.buffer import write_plus_buffer
+    from svdfeature_tpu_torch.ops import cuda_scatter
+
+    d = work / "bigSvdpp"
+    d.mkdir()
+    t0 = time.perf_counter()
+    arrays, dims = big_plus_arrays()
+    conf = write_big_plus(d, csr, write_plus_buffer, arrays, dims)
+    n = dims["NU"] + dims["NI"] + dims["NF"] + 1
+    print(f"phase 11: bigSvdpp data ({dims['EX']:,} rows of {BIG_PLUS['USERS']:,} users, table "
+          f"{n:,} rows, k={dims['KF']}) written in {time.perf_counter() - t0:.1f} s", flush=True)
+    del arrays
+    ref_eps = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["bigSvdpp"]["examples_per_sec_cpu"]
+    results = {}
+    for tag in BIG_PLUS_RUNS:
+        r = big_plus_run(conf, d, tag)
+        results[tag] = r
+        want = {kid: 0 for kid in r["launches"]}
+        want["K5"] = r["want_k5"]
+        jax = JAX_BIG_PLUS_RMSE[tag]
+        ok = (r["launches"] == want and r["big"] and r["rmse1"] < r["rmse0"]
+              and math.isfinite(r["rmse1"]) and abs(r["rmse1"] - jax) < BIG_PLUS_JAX_TOL
+              and r["carry"] == (tag in ("a", "b"))
+              and r["trainer"] == ("SVDPPMultiIMFBTrainer" if tag == "d" else "SVDPPFeatureTrainer"))
+        if not ok:
+            failures.append(f"bigSvdpp run ({tag})")
+        body = "user-carry" if r["carry"] else ("stacked refresh" if tag == "d" else "entry-stream")
+        plan = (f"2 x T={r['T']}" if tag == "d" else
+                f"T={r['T']} + {2 if r['carry'] else 1} x {r['starts']} chunk exits") + " a round"
+        print(f"phase 11 {'ok' if ok else 'FAIL'}: bigSvdpp ({tag}) {' '.join(BIG_PLUS_RUNS[tag]['keys']) or 'default'} "
+              f"{r['trainer']} {body} body through SVDTrainTask/SVDInferTask: probe RMSE "
+              f"{r['rmse0']:.6f} -> {r['rmse1']:.6f} after {r['R']} rounds (minus JAX CPU "
+              f"{r['rmse1'] - jax:+.6f}, tol {BIG_PLUS_JAX_TOL:g}); launches {r['launches']} "
+              f"(want K5 {want['K5']} = {r['R']} rounds x ({plan})); training "
+              f"{r['eps']:,.0f} examples/s {'rounds 2-' + str(r['R']) if r['R'] > 1 else 'round 1 less packing'} "
+              f"(reference C++ {ref_eps:,}/s); pack {r['pack']:.2f} s (round 1); round seconds "
+              f"{[round(x, 3) for x in r['secs']]}; peak device memory {r['peak'] / 2**30:.2f} GiB; "
+              f"run {r['seconds']:.1f} s; on {card}", flush=True)
+        if tag == "a":
+            task = r["task"]
+            print(f"phase 11 profile: bigSvdpp (a) one more round: "
+                  f"{device_profile(torch, lambda: task.trainer.update_all(task.dataset), r['T'], top=8)}",
+                  flush=True)
+            shapes = k5_shapes(torch, task)
+            w = task.trainer.state.w
+            del task
+        if tag != "a":
+            del r["task"], r["entry"]
+    del results["a"]["task"], results["a"]["entry"]
+    diff = abs(results["a"]["rmse1"] - results["b"]["rmse1"])
+    if diff >= BIG_PLUS_AB_TOL:
+        failures.append("bigSvdpp (a) vs (b)")
+    print(f"phase 11 {'ok' if diff < BIG_PLUS_AB_TOL else 'FAIL'}: bigSvdpp K5 (a) against its "
+          f"plain version (b) end to end: |d RMSE| {diff:.2e} (tol {BIG_PLUS_AB_TOL:g})", flush=True)
+
+    # K5 at the slice's call shapes, on (a)'s trained table
+    W = w.shape[1]
+    timing = {}
+    for name, (idx, vals) in shapes.items():
+        E = idx.shape[0]
+        U = int(torch.unique(idx).numel())  # rows written, the dummy included
+        got = cuda_scatter.row_writer(w.clone(), idx, vals)
+        want = cuda_scatter.row_writer_reference(w.clone(), idx, vals)
+        ok = torch.equal(got, want) and bool((got[-1] == 0).all())
+        del got, want
+        work_tbl = w.clone()
+        idx_long = idx.long()
+        spread = {}
+        t = timed(torch, {"plain": lambda: cuda_scatter.row_writer_reference(work_tbl, idx, vals),
+                          "kernel": lambda: cuda_scatter.row_writer(work_tbl, idx, vals),
+                          "library": lambda: work_tbl.index_copy_(0, idx_long, vals)},
+                  inner=50, turns=5, spread=spread)
+        t["bound"], t["bound_by"] = bound(4 * (E + E * W + U * W), 0, 1)
+        timing[name] = t
+        del work_tbl
+        if not ok:
+            failures.append(f"K5 vs plain at the {name}")
+        print(f"phase 11 {'ok' if ok else 'FAIL'}: K5 at bigSvdpp (a)'s {name} E={E} rows "
+              f"({U} distinct targets) bit for bit against its plain version; ms per call kernel "
+              f"{t['kernel']:.4f} plain {t['plain']:.4f} library (index_copy_) {t['library']:.4f} "
+              f"bound {t['bound']:.6f} ({t['bound_by']}); spread between turns kernel "
+              f"{spread['kernel']:.4f} library {spread['library']:.4f}", flush=True)
+    del w, shapes
+    torch.cuda.empty_cache()
+    return sum(r["launches"]["K5"] for r in results.values()), timing
+
+
 def kernel_line(name, source, replaces, launches, max_err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": timing["kernel"],
@@ -1584,6 +1876,8 @@ def main() -> int:
         phase_time("phase 9")
         phase_general(pathlib.Path(work), card, failures)
         phase_time("phase 10")
+        k5_plus_launches, _ = phase_big_plus(pathlib.Path(work), card, failures)
+        phase_time("phase 11")
 
     if failures:
         print(f"FAILED phases: {failures}", flush=True)
@@ -1603,7 +1897,8 @@ def main() -> int:
                     "svdfeature_tpu/ops/tile_sweep.py:143", big_launches["K4"],
                     big_timing["K4"]["err"], big_timing["K4"]),
         kernel_line("row_writer (row_write)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
-                    "svdfeature_tpu/ops/pallas_scatter.py:43", big_launches["K5"],
+                    "svdfeature_tpu/ops/pallas_scatter.py:43",
+                    big_launches["K5"] + k5_plus_launches,
                     big_timing["K5"]["err"], big_timing["K5"]),
         kernel_line("row_reader (row_read)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:111", big_launches["K6"],

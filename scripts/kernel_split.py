@@ -49,6 +49,12 @@ What it measures, with the card's name and power limit:
   bigTable's data (the 2,048,577-row table, k=64), ms per step from CUDA
   events, the device time by kernel under torch.profiler and K4's own
   microseconds; ``--cases k4`` runs this case alone.
+  bigSvdpp (``--cases bigsvdpp``, chip_smoke.py phase 11's data): the
+  sorted-dedup step shared by the big-table epochs at one step's 16,384
+  rows (every tree), and a round of the big SVD++ epoch, user-carry and
+  entry-stream bodies (trees that have it): host against card per step.
+
+    python3 scripts/kernel_split.py --cases bigsvdpp --parent build/parent --out docs/kernel_split_pr8.json
 """
 
 from __future__ import annotations
@@ -232,6 +238,107 @@ def k4_split(torch, dev, chip_smoke, big):
     return res
 
 
+def bigsvdpp_split(torch, dev):
+    """bigSvdpp's steps (chip_smoke.py phase 11: the 2,248,001-row table,
+    k=64, 4096 users x 4 rows a step), for one tree.  Both trees: the
+    sorted-dedup step ``big_embed.train_step_big`` that the big-table
+    epochs share, on one step's 16,384 (user, item) rows of the data:
+    ms per step from CUDA events, host us per step, device busy us per
+    step and K5's us.  Trees with ops/svdpp_big.py: a round of the
+    user-carry epoch and one of the entry-stream body (reg_method=4)
+    through the trainer, split as ``wrapper_split`` splits a wrapper call
+    (K5 launches per round, ms per step, host us per step, device busy per
+    step and its share, the busiest kernels).  The data comes from this
+    script's own tree (its chip_smoke.big_plus_arrays), so a parent tree
+    without it takes the same data."""
+    import importlib.util
+
+    import numpy as np
+
+    from svdfeature_tpu_torch import convert
+    from svdfeature_tpu_torch.ops import big_embed, cuda_scatter
+    from svdfeature_tpu_torch.ops.embed import HyperParams
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_data", ROOT / "chip_smoke.py")
+    data = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(data)
+    arrays, dims = data.big_plus_arrays()
+    k = dims["KF"]
+    NU, NI, NF = dims["NU"], dims["NI"], dims["NF"]
+    n = NU + NI + NF + 1
+    res = {}
+
+    # the shared dedup step: users at [NF, NF+NU), items above (the model's layout)
+    B = 16384
+    u = (NF + arrays["index"][0:2 * B:2]).astype(np.int32)
+    i = (NF + NU + arrays["index"][1:2 * B:2]).astype(np.int32)
+    one = np.ones((1, B, 1), np.float32)
+    batch = {key: x[0] for key, x in convert.stacked_from_numpy(dict(
+        label=arrays["labels"][None, :B], weight=one[..., 0], g_idx=np.zeros((1, B, 1), np.int32),
+        g_val=np.zeros((1, B, 1), np.float32), u_idx=u[None, :, None], u_val=one,
+        i_idx=i[None, :, None], i_val=one), dev).items()}
+    rng = np.random.default_rng(3)
+    st = dict(w=rng.standard_normal((n, k), dtype=np.float32) * 0.01, b=np.zeros(n, np.float32),
+              g=np.zeros(1, np.float32), step=np.int32(0), ref_ui=np.zeros(n, np.int32),
+              ref_g=np.zeros(1, np.int32))
+    st["w"][-1] = 0.0
+    wd = np.zeros(n, np.float32)
+    wd[: n - 1] = 0.004
+    consts = convert.consts_from_numpy(wd, wd, np.zeros(1, np.float32), 0.0, 0.0, device=dev)
+    held = [big_embed.augment_state(convert.state_from_numpy(**st, device=dev), k)]
+    del st
+    hp = HyperParams(big_table=True, num_factor=k, row_dma=True, base_score=3.0)
+    lr = torch.tensor(0.005, device=dev)
+
+    def step():
+        held[0] = big_embed.train_step_big(held[0], batch, lr, consts, hp)
+
+    step()
+    ms = [event_ms(torch, step, 20) for _ in range(3)]
+    host = host_us(torch, step, 20)
+    prof, elapsed = device_times(torch, step)
+    res["dedup_step"] = {
+        "B": B, "ms_per_step": statistics.median(ms), "ms_per_step_turns": ms,
+        "host_us_per_step": host, "device_busy_us_per_step": sum(us for _, us in prof.values()),
+        "elapsed_us_per_step": elapsed, "k5_us": kernel_us(prof, "row_write")[1],
+        "launches_per_step": sum(cnt for cnt, _ in prof.values()),
+    }
+    del held, batch, consts
+    torch.cuda.empty_cache()
+    try:
+        from svdfeature_tpu_torch.ops import svdpp_big  # noqa: F401  (absent before the port of it)
+    except ImportError:
+        return res
+
+    from svdfeature_tpu_torch.data import csr
+    from svdfeature_tpu_torch.params import SVDTypeParam
+    from svdfeature_tpu_torch.solvers.svdpp import SVDPPFeatureTrainer
+
+    ds = data.plus_dataset(csr, arrays)
+    del arrays
+    for name, extra in (("carry_epoch", {}), ("entry_stream_epoch", {"reg_method": "4"})):
+        tr = SVDPPFeatureTrainer(SVDTypeParam(format_type=1))
+        conf = dict(base_score="3", learning_rate="0.005", wd_item="0.004", wd_user="0.004",
+                    wd_ufeedback="0.004", num_user=str(NU), num_item=str(NI),
+                    num_ufeedback=str(NF), num_global="0", num_factor=str(k), sort_blocks="1",
+                    rows_per_user="4", users_per_batch="4096", device="cuda", **extra)
+        for key, val in conf.items():
+            tr.set_param(key, val)
+        tr.init_model()
+        tr.init_trainer()
+        entry = tr._pack_plus(ds)
+        steps = len(entry.chunk_id)
+        r = wrapper_split(torch, lambda: tr.update_all(ds), cuda_scatter.row_writer, steps, [],
+                          calls=2)
+        r.update(steps_per_round=steps, pack_s=tr.pack_seconds,
+                 carry="chunk_users" in entry.fb,
+                 k5_us=kernel_us(device_times(torch, lambda: tr.update_all(ds))[0], "row_write")[1])
+        res[name] = r
+        del tr, entry
+        torch.cuda.empty_cache()
+    return res
+
+
 def worker(tree: str, cases) -> None:
     sys.path.insert(0, tree)
     import numpy as np
@@ -251,7 +358,10 @@ def worker(tree: str, cases) -> None:
     if "k4" in cases:
         out["k4_step"] = k4_split(torch, dev, chip_smoke, chip_smoke.bigtable_arrays())
         torch.cuda.empty_cache()
-    if cases == {"k4"}:
+    if "bigsvdpp" in cases:
+        out["bigsvdpp"] = bigsvdpp_split(torch, dev)
+        torch.cuda.empty_cache()
+    if not cases & {"k5", "k2", "k1", "k3"}:
         print("RESULT " + json.dumps(out), flush=True)
         return
 
@@ -451,7 +561,7 @@ def main() -> int:
     ap.add_argument("--parent", help="a second tree (the parent commit, unpacked) to run in turns")
     ap.add_argument("--out", help="write the summary JSON here too")
     ap.add_argument("--cases", default="k5,k2,k1,k3,k4",
-                    help="comma-separated subset of k5,k2,k1,k3 (together) and k4")
+                    help="comma-separated subset of k5,k2,k1,k3 (together), k4 and bigsvdpp")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:

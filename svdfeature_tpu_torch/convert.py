@@ -51,17 +51,24 @@ def consts_from_numpy(
     )
 
 
+_INT_PLANES = ("ctx_slots", "i_order", "i_si", "i_fpos")
+
+
 def stacked_from_numpy(
     arrays: Dict[str, np.ndarray], device: torch.device
 ) -> Dict[str, torch.Tensor]:
     """Stage ``PackedBatches.arrays()`` (``[T, B(, S)]`` planes: int32
-    indices, sweep plans and context ids ``ctx_slots``, f32 values) on
-    ``device``."""
-    return {
-        name: (_i32 if name.endswith("_idx") or name.startswith("sw_") or name == "ctx_slots"
-               else _f32)(a, device)
-        for name, a in arrays.items()
-    }
+    indices, sweep plans, context ids ``ctx_slots`` and the item entries'
+    sorted-dedup layout ``i_order`` / ``i_si`` / ``i_fpos``; f32 values;
+    the layout's run ends ``i_last`` as bool) on ``device``."""
+    def stage(name, a):
+        if name == "i_last":
+            return torch.from_numpy(np.array(a, bool)).to(device)
+        if name.endswith("_idx") or name.startswith("sw_") or name in _INT_PLANES:
+            return _i32(a, device)
+        return _f32(a, device)
+
+    return {name: stage(name, a) for name, a in arrays.items()}
 
 
 def augmented_from_numpy(aug, k: int, device: torch.device) -> torch.Tensor:
@@ -83,15 +90,21 @@ def augmented_to_numpy(aug: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarra
     return (a[:, :k].numpy().copy(), a[:, k].numpy().copy(), ref_column(a, k).numpy().copy())
 
 
-def pool_from_numpy(
-    fb: Dict[str, np.ndarray], fb_overlap: np.ndarray, device: torch.device
-) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+def pool_from_numpy(fb: Dict[str, np.ndarray], fb_overlap, device: torch.device):
     """Stage the feedback pools of ``PackedPlusBatches`` or
     ``PackedImfbBatches`` (``fb_arrays()``: ``fb_idx`` / ``fb_val`` and
-    ``fb_block`` or ``fb_ctx`` ``[C, F]``, with ``ctx_depth [C, M]``) and
-    the overlap matrices ``fb_overlap [C, S, S]`` on ``device``: f32
-    values, everything else (rows, users, contexts, depths) int32."""
+    ``fb_block`` or ``fb_ctx`` ``[C, F]``, with ``ctx_depth [C, M]``; the
+    user-carry plan ``chunk_users [C, G]``) and the overlap on ``device``:
+    f32 values, everything else (rows, users, contexts, depths) int32.
+    The overlap is the dense ``fb_overlap [C, S, S]``, the factored
+    ``{"diag": [C, S], "dup": [C, S, Ld]}`` of ``pack_plus(...,
+    factored_overlap=True)`` (staged as a dict of f32 tensors), or None
+    (none staged).  Returns (pool, overlap)."""
     pool = {name: (_f32 if name == "fb_val" else _i32)(a, device) for name, a in fb.items()}
+    if fb_overlap is None:
+        return pool, None
+    if isinstance(fb_overlap, dict):
+        return pool, {name: _f32(a, device) for name, a in fb_overlap.items()}
     return pool, _f32(fb_overlap, device)
 
 

@@ -96,8 +96,8 @@ def gate_failure(hp: HyperParams, state: TrainState, stacked) -> Optional[str]:
     if n > MAX_TABLE_ROWS:
         return (
             f"tables over {MAX_TABLE_ROWS} rows take the big-table route "
-            "(ops/big_embed.train_step_big, ops/tile_sweep.train_step_sweep; "
-            "ROADMAP Queue 1 item 9), which the base solver selects for them"
+            "(ops/big_embed.train_step_big, ops/tile_sweep.train_step_sweep), "
+            "which the base solver selects for them"
         )
     return None
 

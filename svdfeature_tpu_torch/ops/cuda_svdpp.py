@@ -55,19 +55,24 @@ _PLAIN = "the plain rounds run it"
 def semantic_failure(hp: HyperParams, state: TrainState, stacked, ph: PlusHyper) -> Optional[str]:
     """Why no route of the port, kernel or plain, runs this user-group
     configuration yet, or None: the feedback space shared with the user
-    rows (the per-batch refresh epoch) and tables over 8192 rows (the
-    big-table epochs).  Shared with the stacked path (ops/cuda_imfb.py)."""
+    rows (the per-batch refresh epoch, at any table size: a big table
+    keeps the standard layout there).  Shared with the stacked path
+    (ops/cuda_imfb.py)."""
     if ph.off_user <= 0:
         return (
             "a feedback space shared with the user rows (common_feedback_space=1) "
             "needs the per-batch refresh path (ROADMAP Queue 1 item 7b)"
         )
-    if state.w.shape[0] > MAX_TABLE_ROWS:
-        return (
-            f"tables over {MAX_TABLE_ROWS} rows need big-table SVD++ / multi-IMFB "
-            "(ops/svdpp_big.py, the user-carry epoch; ops/imfb.train_epoch_imfb_big): "
-            "the next slice of ROADMAP Queue 1 item 9"
-        )
+    return None
+
+
+def big_table_failure(hp: HyperParams, state: TrainState, epoch: str) -> Optional[str]:
+    """K2's and K3's refusal of a big table, naming the big-table ``epoch``
+    that runs it: neither kernel takes the augmented layout, whose solver
+    route goes before their gates."""
+    if hp.big_table or state.w.shape[0] > MAX_TABLE_ROWS:
+        return (f"tables over {MAX_TABLE_ROWS} rows take the augmented big-table layout, which "
+                f"the kernel does not take; the big-table epoch {epoch} runs them")
     return None
 
 
@@ -95,12 +100,14 @@ def gate_failure(
 ) -> Optional[str]:
     """Why K2 does not take this configuration, or None.
 
-    ``semantic_failure``, ``kernel_failure``, item width 1 or 2
+    ``semantic_failure``, ``big_table_failure``, ``kernel_failure``, item width 1 or 2
     (pairwise-rank difference rows), at most 32 rows per user, and the
     step's shared memory."""
     n, k = state.w.shape
     M = ph.rows_per_user
-    reason = semantic_failure(hp, state, stacked, ph) or kernel_failure(hp, state, stacked)
+    reason = (semantic_failure(hp, state, stacked, ph)
+              or big_table_failure(hp, state, "ops/svdpp_big.train_epoch_plus_big")
+              or kernel_failure(hp, state, stacked))
     if reason is not None:
         return reason
     if stacked["i_idx"].shape[-1] not in (1, 2):

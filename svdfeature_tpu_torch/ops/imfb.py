@@ -3,14 +3,16 @@ PyTorch.
 
 Counterpart of svdfeature_tpu/ops/imfb.py (SVDPPMultiIMFB,
 apex_multi_imfb.h:31-194) in f32: ``_damp_widened``,
-``train_epoch_imfb_carried`` (the overlap-carried form) and
-``predict_batches_imfb``.  It is ops/svdpp.train_epoch_plus with the
-chunk's local feedback contexts in place of its users, and it reuses that
-module's ``_fb_aggregates`` / ``_fb_writeback`` with the pool keyed by
-``fb_ctx`` and its row update, ops/embed.general_step.  Not ported yet, each raising
-NotImplementedError: ``train_epoch_imfb`` (the per-batch refresh, for
-common_feedback_space=1: ROADMAP Queue 1 item 7b) and
-``train_epoch_imfb_big`` (tables over 8192 rows: item 9).
+``train_epoch_imfb_carried`` (the overlap-carried form),
+``train_epoch_imfb_big`` (the per-step refresh form on the augmented
+big-table layout, tables over 8192 rows, writing through K5) and
+``predict_batches_imfb``.  The carried epoch is ops/svdpp.train_epoch_plus
+with the chunk's local feedback contexts in place of its users, and it
+reuses that module's ``_fb_aggregates`` / ``_fb_writeback`` with the pool
+keyed by ``fb_ctx`` (the JAX package's ``_ctx_aggregates``) and its row
+update, ops/embed.general_step.  Not ported yet, raising
+NotImplementedError: ``train_epoch_imfb`` (the per-batch refresh on the
+standard layout, for common_feedback_space=1: ROADMAP Queue 1 item 7b).
 
 Layout (data/batching_imfb.py).  Names: ``RM`` is rows_per_user (rows of
 a unit, a block with rows, trained side by side in one step: slot
@@ -39,8 +41,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .big_embed import dedup_step
 from .embed import HyperParams, TrainConsts, TrainState, forward_scores, general_step
 from .svdpp import _PLANES, PlusHyper, _fb_aggregates, _fb_writeback, _is_first
+from .svdpp_big import _fb_writeback_big
 
 
 def _ctx_pool(fb: Dict[str, torch.Tensor], c: int) -> Dict[str, torch.Tensor]:
@@ -102,7 +106,6 @@ def train_epoch_imfb_carried(
     ``chunk_id`` is host numpy."""
     w, b = state.w, state.b
     T = stacked["label"].shape[0]
-    D = stacked["ctx_slots"].shape[-1]
     nseg = enabled.shape[1]
     k = w.shape[1]
     dev = w.device
@@ -114,7 +117,6 @@ def train_epoch_imfb_carried(
     first = _is_first(cid)
     dacc = torch.zeros((nseg, k), dtype=torch.float32, device=dev)
     dbacc = torch.zeros((nseg,), dtype=torch.float32, device=dev)
-    zeros = torch.zeros((nseg,), dtype=torch.float32, device=dev)
 
     pc = int(cid[0])
     for t in range(T):
@@ -132,22 +134,11 @@ def train_epoch_imfb_carried(
         p_u_extra = fb_sum[ctx].sum(dim=1)
         bias_extra = fb_bias[ctx].sum(dim=1) if with_bias else None
         state, err, p_i = general_step(state, batch, lr, consts, hp, p_u_extra, bias_extra)
-        # per-context sums over this step's slots, each slot into its D contexts
-        flat_ctx = ctx.reshape(-1)
-        S = torch.zeros((nseg, k), dtype=torch.float32, device=dev)
-        S.index_add_(0, flat_ctx, (err[:, None] * p_i).repeat_interleave(D, dim=0))
-        nrow = zeros.clone().index_add_(0, flat_ctx, batch["weight"].repeat_interleave(D))
-        gate = enabled[c] * (norm > 0)
-        S_b = zeros.clone().index_add_(0, flat_ctx, err.repeat_interleave(D)) if with_bias else None
-        if ph.rows_per_user > 1:
-            S, S_b = _damp_widened(S, S_b, batch["weight"], flat_ctx, nrow, norm, p_i, lr_fb,
-                                   ph.rows_per_user, D, nseg)
-        dtmp = fb_sum * (torch.pow(d, nrow) - 1.0)[:, None] + lr_fb * norm[:, None] * S
-        delta = dtmp * (inv * gate)[:, None]
+        delta, delta_b = _context_deltas(err, p_i, batch["weight"], ctx, fb_sum, fb_bias, norm,
+                                         inv, enabled[c] * (norm > 0), lr_fb, d, db, ph, with_bias)
         dacc += delta
         fb_sum = fb_sum + O @ delta
         if with_bias:
-            delta_b = (fb_bias * (torch.pow(db, nrow) - 1.0) + lr_fb * norm * S_b) * inv * gate
             dbacc += delta_b
             fb_bias = fb_bias + O @ delta_b
     _fb_writeback(w, b, _ctx_pool(fb, pc), dacc, dbacc if with_bias else None)
@@ -163,9 +154,85 @@ def train_epoch_imfb(*args, **kwargs):
     )
 
 
-def train_epoch_imfb_big(*args, **kwargs):
-    """The stacked epoch on the augmented big-table layout: not ported yet."""
-    raise NotImplementedError("multi-IMFB on tables over 8192 rows is ROADMAP Queue 1 item 9")
+def _context_deltas(err, p_i, weight, ctx, fb_sum, fb_bias, norm, inv, gate, lr_fb, d, db,
+                    ph: PlusHyper, with_bias: bool):
+    """One step's per-context deltas (delta [nseg, k], delta_b [nseg] or
+    None): each slot's error and item factor summed into its D contexts,
+    damped by the within-unit excess for RM > 1 (``_damp_widened``), the
+    pool decay over the context's rows, masked by ``gate``."""
+    nseg, k = fb_sum.shape
+    D = ctx.shape[-1]
+    flat_ctx = ctx.reshape(-1)
+    zeros = torch.zeros((nseg,), dtype=torch.float32, device=fb_sum.device)
+    S = torch.zeros((nseg, k), dtype=torch.float32, device=fb_sum.device)
+    S.index_add_(0, flat_ctx, (err[:, None] * p_i).repeat_interleave(D, dim=0))
+    nrow = zeros.clone().index_add_(0, flat_ctx, weight.repeat_interleave(D))
+    S_b = zeros.clone().index_add_(0, flat_ctx, err.repeat_interleave(D)) if with_bias else None
+    if ph.rows_per_user > 1:
+        S, S_b = _damp_widened(S, S_b, weight, flat_ctx, nrow, norm, p_i, lr_fb, ph.rows_per_user,
+                               D, nseg)
+    dtmp = fb_sum * (torch.pow(d, nrow) - 1.0)[:, None] + lr_fb * norm[:, None] * S
+    delta = dtmp * (inv * gate)[:, None]
+    if not with_bias:
+        return delta, None
+    return delta, (fb_bias * (torch.pow(db, nrow) - 1.0) + lr_fb * norm * S_b) * inv * gate
+
+
+def _imfb_step_big(state: TrainState, batch: Dict[str, torch.Tensor], cfb: Dict[str, torch.Tensor],
+                   enabled: torch.Tensor, lr, consts: TrainConsts, hp: HyperParams,
+                   ph: PlusHyper, lr_fb, d, db) -> TrainState:
+    """One stacked step on the augmented big-table layout
+    (svdfeature_tpu/ops/imfb.py:343-424): the per-step refresh form.  The
+    chunk's context aggregates are gathered from the table, the row
+    update is big_embed's sorted-dedup step with the contexts' feedback
+    term (K5), and the step's context deltas are written back at once
+    through svdpp_big._fb_writeback_big keyed by the context (K5): no
+    table-sized scatter or decay anywhere.  ``cfb`` is the chunk's pool
+    with the context slot as ``fb_block``."""
+    k = hp.num_factor
+    with_bias = not hp.no_user_bias
+    ctx = batch["ctx_slots"].long()  # [G*RM, D]
+    nseg = enabled.shape[0]
+    fb_sum, norm, fb_bias = _fb_aggregates(state.w[:, :k], state.w[:, k], cfb, nseg, with_bias)
+    bias_extra = fb_bias[ctx].sum(dim=1) if with_bias else None
+    state, f = dedup_step(state, batch, lr, consts, hp, fb_sum[ctx].sum(dim=1), bias_extra)
+    inv = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
+    gate = enabled * (norm > 0)
+    delta, delta_b = _context_deltas(f.err, f.p_i, batch["weight"], ctx, fb_sum, fb_bias, norm,
+                                     inv, gate, lr_fb, d, db, ph, with_bias)
+    _fb_writeback_big(state.w, cfb, delta, delta_b, k, hp.row_dma)
+    return state
+
+
+@torch.no_grad()
+def train_epoch_imfb_big(
+    state: TrainState,
+    stacked: Dict[str, torch.Tensor],
+    chunk_id: np.ndarray,
+    fb: Dict[str, torch.Tensor],
+    enabled: torch.Tensor,
+    lr: torch.Tensor,
+    consts: TrainConsts,
+    hp: HyperParams,
+    ph: PlusHyper,
+) -> TrainState:
+    """One pass of the stacked epoch on the augmented big-table layout
+    (svdfeature_tpu/ops/imfb.train_epoch_imfb_big; ``state`` from
+    big_embed.augment_state, ``hp.big_table`` set), a host loop of
+    ``_imfb_step_big`` over the T steps with the chunk ids on the host.
+    With ``row_dma`` it launches K5 twice a step: the row update and the
+    context writeback."""
+    if not hp.big_table or hp.sweep_table:
+        raise ValueError("the big-table stacked epoch takes the augmented dedup layout")
+    lr_fb = lr * ph.scale_lr_ufeedback
+    d = 1.0 - lr_fb * ph.wd_ufeedback
+    db = 1.0 - lr_fb * ph.wd_ufeedback_bias
+    planes = _PLANES + ("ctx_slots",)
+    for t, c in enumerate(np.asarray(chunk_id).tolist()):
+        batch = {p: stacked[p][t] for p in planes}
+        state = _imfb_step_big(state, batch, _ctx_pool(fb, c), enabled[c], lr, consts, hp, ph,
+                               lr_fb, d, db)
+    return state
 
 
 @torch.no_grad()

@@ -2,7 +2,8 @@
 
 Counterpart of svdfeature_tpu/ops/svdpp.py (SVDPPFeature,
 apex_svd_base.h:484-592) in f32: ``_fb_aggregates``, ``_fb_writeback``,
-``train_epoch_plus`` (the overlap-carried form) and
+``_fb_recurrence`` (a step's feedback deltas, shared with the big-table
+epoch), ``train_epoch_plus`` (the overlap-carried form) and
 ``predict_batches_plus``.  The u/i/g row update of each step, the JAX
 package's ``_row_update`` (svdpp.py:225-296) without its fused branch, is
 ops/embed.general_step with the feedback term: every reg mode (the lazy
@@ -85,6 +86,43 @@ def _is_first(chunk_id: np.ndarray) -> np.ndarray:
     return np.concatenate([[True], cid[1:] != cid[:-1]])
 
 
+def _ov_mul(O, d: torch.Tensor) -> torch.Tensor:
+    """``O @ d`` for a chunk's overlap, dense ``[G+1, G+1]`` or the factored
+    pair ``(diag, dup)`` that big tables pack (ops/svdpp_big.py):
+    ``diag * d + dup @ (dupᵀ @ d)``; ``d`` is ``[G+1, k]`` or ``[G+1]``."""
+    if isinstance(O, tuple):
+        dg, Pd = O
+        return (dg[:, None] if d.dim() == 2 else dg) * d + Pd @ (Pd.T @ d)
+    return O @ d
+
+
+def _fb_recurrence(err, p_i, weight, fb_sum, fb_bias, norm, inv, O, dacc, dbacc, lr_fb, d, db,
+                   M: int, with_bias: bool):
+    """The per-step feedback recurrence of train_epoch_plus on padded
+    ``[G+1]`` deltas: the users' deltas (damped for M > 1) accumulate in
+    ``dacc`` / ``dbacc`` in place; returns the carried (fb_sum, fb_bias)."""
+    G, k = fb_sum.shape
+    m_g = weight.reshape(G, M).sum(dim=1)  # present rows of each user
+    errpi = (err[:, None] * p_i).reshape(G, M, k).sum(dim=1)
+    err_g = err.reshape(G, M).sum(dim=1)
+    if M > 1:
+        # implicit damping of the M-wide within-user Jacobi step
+        frac = torch.where(m_g > 0, (m_g - 1.0) / torch.clamp(m_g, min=1.0), 0.0)
+        pip2 = (p_i * p_i).sum(dim=1).reshape(G, M).sum(dim=1)
+        errpi = errpi / (1.0 + lr_fb * norm * pip2 * frac)[:, None]
+        err_g = err_g / (1.0 + lr_fb * norm * (m_g - 1.0) * (m_g > 0))
+    dtmp = fb_sum * (torch.pow(d, m_g) - 1.0)[:, None] + lr_fb * norm[:, None] * errpi
+    delta_pad = torch.cat([dtmp * inv[:, None], torch.zeros_like(dtmp[:1])])
+    dacc += delta_pad
+    fb_sum = fb_sum + _ov_mul(O, delta_pad)[:G]
+    if with_bias:
+        dtmp_b = fb_bias * (torch.pow(db, m_g) - 1.0) + lr_fb * norm * err_g
+        delta_b_pad = torch.cat([dtmp_b * inv, torch.zeros_like(dtmp_b[:1])])
+        dbacc += delta_b_pad
+        fb_bias = fb_bias + _ov_mul(O, delta_b_pad)[:G]
+    return fb_sum, fb_bias
+
+
 @torch.no_grad()
 def train_epoch_plus(
     state: TrainState,
@@ -129,7 +167,7 @@ def train_epoch_plus(
             s, nrm, sb = _fb_aggregates(w, b, pool(c), G + 1, with_bias)
             fb_sum, fb_bias, norm = s[:G], sb[:G], nrm[:G]
             inv = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
-            O = fb_overlap[c, :G, :G]
+            O = fb_overlap[c]
             dacc.zero_()
             dbacc.zero_()
         pc = c
@@ -137,23 +175,8 @@ def train_epoch_plus(
         fb_slot = fb_sum.repeat_interleave(M, dim=0)
         fbb_slot = fb_bias.repeat_interleave(M) if with_bias else None
         state, err, p_i = general_step(state, batch, lr, consts, hp, fb_slot, fbb_slot)
-        m_g = batch["weight"].reshape(G, M).sum(dim=1)  # present rows of each user
-        errpi = (err[:, None] * p_i).reshape(G, M, k).sum(dim=1)
-        err_g = err.reshape(G, M).sum(dim=1)
-        if M > 1:
-            # implicit damping of the M-wide within-user Jacobi step
-            frac = torch.where(m_g > 0, (m_g - 1.0) / torch.clamp(m_g, min=1.0), 0.0)
-            pip2 = (p_i * p_i).sum(dim=1).reshape(G, M).sum(dim=1)
-            errpi = errpi / (1.0 + lr_fb * norm * pip2 * frac)[:, None]
-            err_g = err_g / (1.0 + lr_fb * norm * (m_g - 1.0) * (m_g > 0))
-        dtmp = fb_sum * (torch.pow(d, m_g) - 1.0)[:, None] + lr_fb * norm[:, None] * errpi
-        delta = dtmp * inv[:, None]
-        dacc[:G] += delta
-        fb_sum = fb_sum + O @ delta
-        if with_bias:
-            delta_b = (fb_bias * (torch.pow(db, m_g) - 1.0) + lr_fb * norm * err_g) * inv
-            dbacc[:G] += delta_b
-            fb_bias = fb_bias + O @ delta_b
+        fb_sum, fb_bias = _fb_recurrence(err, p_i, batch["weight"], fb_sum, fb_bias, norm, inv, O,
+                                         dacc, dbacc, lr_fb, d, db, M, with_bias)
     _fb_writeback(w, b, pool(pc), dacc, dbacc if with_bias else None)
     return state
 

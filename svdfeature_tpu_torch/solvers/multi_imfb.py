@@ -20,17 +20,24 @@ random-order dataset trains and predicts on the base solver (K1), as in
 the JAX package (svdfeature_tpu/solvers/multi_imfb.py:472-473 and the
 SVD++ solver's routes it inherits).
 
+Tables over 8192 rows take the augmented layout (the SVD++ trainer's
+``_build_hp``) and the stacked epoch on it, ops/imfb.train_epoch_imfb_big
+(the per-step refresh form, writing through K5 with ``use_pallas``),
+before K3's gate (JAX solvers/multi_imfb.py:405-415); that epoch reads no
+context overlap, so none is staged for it.  All-DEFAULT data on a big
+table takes the big SVD++ epoch.
+
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-common_feedback_space=1 (item 7b), tables over 8192 rows (item 9) and
-``mesh_*`` > 1 (item 12); streaming buffers (item 11) are refused where
-they are loaded (data/registry.py).
+common_feedback_space=1 (item 7b) and ``mesh_*`` > 1 (item 12); streaming
+buffers (item 11) are refused where they are loaded (data/registry.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -41,7 +48,7 @@ from ..data.batching_plus import compute_fb_overlap
 from ..data.csr import TAG_DEFAULT, PlusDataset
 from ..ops.cuda_imfb import gate_failure, train_rounds_imfb_kernel, train_rounds_imfb_reference
 from ..ops.cuda_svdpp import semantic_failure
-from ..ops.imfb import predict_batches_imfb
+from ..ops.imfb import predict_batches_imfb, train_epoch_imfb_big
 from .svdpp import PlusEntry, SVDPPFeatureTrainer
 
 
@@ -52,7 +59,7 @@ class ImfbEntry:
     stacked: Dict[str, torch.Tensor]  # [T, G*RM(, S)] planes, ctx_slots [T, G*RM, D]
     chunk_id: np.ndarray  # [T] on the host: the launch loop reads it
     fb: Dict[str, torch.Tensor]  # fb_idx / fb_val / fb_ctx [C, F], ctx_depth [C, nseg-1]
-    fb_overlap: torch.Tensor  # [C, nseg, nseg]
+    fb_overlap: Optional[torch.Tensor]  # [C, nseg, nseg]; None on big tables
     enabled: torch.Tensor  # [C, nseg] update gate
     perm: np.ndarray  # dataset row -> packed slot
 
@@ -101,6 +108,7 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
             )
         key = id(ds)
         if key not in self._imfb_cache:
+            t0 = time.perf_counter()
             m = self.model
             packed = pack_imfb(
                 ds,
@@ -122,7 +130,8 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
             arrays = packed.device_arrays()
             chunk_id = arrays.pop("chunk_id")
             # closed-form carried aggregates: per-chunk context overlaps
-            overlap = compute_fb_overlap(
+            # (the big-table epoch refreshes them every step instead)
+            overlap = None if self.hp.big_table else compute_fb_overlap(
                 packed.fb_idx, packed.fb_val, packed.fb_ctx, packed.ctx_depth.shape[1]
             )
             fb, overlap_t = pool_from_numpy(packed.fb_arrays(), overlap, dev)
@@ -134,6 +143,7 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
                 enabled=gate_from_numpy(self._imfb_enabled(packed.ctx_depth), dev),
                 perm=packed.perm,
             )
+            self.pack_seconds += time.perf_counter() - t0
         return self._imfb_cache[key]
 
     def _train(self, entry, lrs: List[float]) -> None:
@@ -143,6 +153,12 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         reason = semantic_failure(self.hp, self.state, entry.stacked, ph)
         if reason is not None:
             raise NotImplementedError(reason)
+        if self.hp.big_table:
+            for lr in self._staged_lrs(lrs):
+                self.state = train_epoch_imfb_big(
+                    self.state, entry.stacked, entry.chunk_id, entry.fb, entry.enabled, lr,
+                    self.consts, self.hp, ph)
+            return
         # K3 where use_pallas is set and its gate passes, else the plain rounds
         use_kernel = self.use_pallas and gate_failure(self.hp, self.state, entry.stacked, ph) is None
         fn = train_rounds_imfb_kernel if use_kernel else train_rounds_imfb_reference

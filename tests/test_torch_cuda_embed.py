@@ -206,11 +206,12 @@ def test_kernel_gate_agrees_with_pallas(jx, case):
 
 def test_kernel_gate_caps_table_rows():
     """Above 8192 rows the JAX package takes its big-table route; the
-    kernel path refuses and names the ROADMAP item."""
+    kernel path refuses and names the route that runs such tables."""
     st, cs, stacked, lrs = make_inputs(N=8193, k=2, T=1, B=8)
     tstate, tstacked, _, _ = torch_inputs(st, cs, stacked, lrs)
     reason = cuda_embed.gate_failure(HyperParams(), tstate, tstacked)
-    assert reason is not None and "item 9" in reason
+    assert reason is not None and "big-table route" in reason and "train_step_big" in reason
+    assert "item" not in reason
 
 
 def test_wrapper_runs_plain_version_on_cpu():

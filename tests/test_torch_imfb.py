@@ -403,13 +403,14 @@ def test_gate_agrees_with_pallas(jx, case):
 
 
 @pytest.mark.parametrize("N,RM,item", [
-    (8193, 1, "item 9"),
+    pytest.param(8193, 1, "ops/imfb.train_epoch_imfb_big runs them", id="8193-1-item 9"),
     (300, 33, "rows_per_user above 32"),
     (300, 32, None),
 ])
 def test_gate_port_caps(N, RM, item):
-    """The port's own caps: tables over 8192 rows (big-table multi-IMFB)
-    and more than 32 rows per unit (one warp per slot of a unit's block)."""
+    """The port's own caps: tables over 8192 rows (K3 takes no augmented
+    layout; the big-table stacked epoch runs them) and more than 32 rows
+    per unit (one warp per slot of a unit's block)."""
     x = imfb_inputs()
     st = dict(x.st, w=np.zeros((N, 8), np.float32), b=np.zeros(N, np.float32),
               ref_ui=np.zeros(N, np.int32))
@@ -679,31 +680,163 @@ def _cli_slice(tmp_path, extra=""):
 
 @pytest.mark.parametrize("key,val,item", [
     ("common_feedback_space", "1", "item 7b"),
-    ("num_ufeedback", "8100", "item 9"),
+    # a 8,266-row table: big-table multi-IMFB, which trains now
+    pytest.param("num_ufeedback", "8100", None, id="num_ufeedback-8100-item 9"),
     ("streaming", "1", "item 11"),
     ("mesh_data", "2", "item 12"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """Stacked configurations the port does not run yet raise
-    NotImplementedError naming their ROADMAP item."""
+    NotImplementedError naming their ROADMAP item; a table over 8192 rows
+    (``item`` None) trains on the big-table stacked epoch."""
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
     _write_sets(tmp_path)
     (tmp_path / "t.conf").write_text(
         CONF + f'buffer_feature = "{tmp_path}/train.buffer"\n'
         f'model_out_folder = "{tmp_path}/models"\n')
-    with pytest.raises(NotImplementedError, match=item):
-        SVDTrainTask().run(str(tmp_path / "t.conf"), ["num_round=1", "device=cpu", f"{key}={val}"])
+    args = ["num_round=1", "device=cpu", f"{key}={val}"]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            SVDTrainTask().run(str(tmp_path / "t.conf"), args)
+        return
+    task = SVDTrainTask()
+    task.run(str(tmp_path / "t.conf"), args)
+    tr = task.trainer
+    assert tr.hp.big_table and type(tr._pack_plus(task.dataset)).__name__ == "ImfbEntry"
+    assert (tmp_path / "models" / "0001.model").exists()
+    assert bool(torch.isfinite(tr.state.w).all()) and int(tr.state.step) > 0
 
 
 def test_unported_epochs_raise():
-    """The refresh epoch and the big-table epoch name their ROADMAP items."""
+    """The refresh epoch names its ROADMAP item."""
     from svdfeature_tpu_torch.ops import imfb
 
     with pytest.raises(NotImplementedError, match="item 7b"):
         imfb.train_epoch_imfb()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        imfb.train_epoch_imfb_big()
+
+
+# ---- big-table multi-IMFB (ops/imfb.train_epoch_imfb_big) -------------------
+def _big_epochs(x, device=CPU, row_dma=False):
+    """R rounds of the port's train_epoch_imfb_big on the augmented layout
+    -> the de-augmented state."""
+    from svdfeature_tpu_torch.ops import big_embed, imfb
+
+    state, stacked, cid, fb, _, enabled, lrs, consts, hp, ph = torch_args(x, device)
+    state = big_embed.augment_state(state, 8)
+    hp = dataclasses.replace(hp, big_table=True, num_factor=8, row_dma=row_dma)
+    for lr in lrs:
+        state = imfb.train_epoch_imfb_big(state, stacked, cid, fb, enabled, lr, consts, hp, ph)
+    return big_embed.deaugment_state(state, 8)
+
+
+BIG_CASES = dict(CASES, **{"reg4-global4-rows_per_user2": "general"})
+
+
+@pytest.mark.parametrize("case", list(BIG_CASES))
+def test_big_epoch_matches_jax(jx, case):
+    """R=2 rounds of the port's big-table stacked epoch against the JAX
+    package's train_epoch_imfb_big on the same inputs (atol 1e-6 + rtol
+    1e-5; the step counter and the lazy refs exact): RM 1 and 2,
+    no_user_bias, a disabled depth, lazy decay with a global segment."""
+    from svdfeature_tpu.ops import big_embed as jbig
+    from test_torch_svdpp import with_general
+
+    if BIG_CASES[case] == "general":
+        x = with_general(imfb_inputs(rows_per_user=2), GENERAL_CASES["reg4-global4"])
+    else:
+        x = imfb_inputs(**BIG_CASES[case])
+    got = _big_epochs(x)
+    state, stacked, cid, fb, _, enabled, consts, hp = jax_args(jx, x)
+    state = jbig.augment_state(state, 8)
+    hp = dataclasses.replace(hp, big_table=True, num_factor=8)
+    for lr in x.lrs:
+        state = jx.imfb.train_epoch_imfb_big(
+            state, stacked, cid, fb, enabled, jx.jnp.float32(lr), consts, hp,
+            x.ph.scale_lr_ufeedback, x.ph.wd_ufeedback, x.ph.wd_ufeedback_bias,
+            rows_per_user=x.ph.rows_per_user)
+    want = jbig.deaugment_state(state, 8)
+    for name in ("w", "b", "g"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   atol=1e-6, rtol=1e-5, err_msg=name)
+    for name in ("ref_ui", "ref_g", "step"):
+        assert np.array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name))), name
+    assert not np.allclose(got.w.numpy()[:NUM_FB], x.st["w"][:NUM_FB])  # the pool rows trained
+
+
+@pytest.mark.parametrize("rows_per_user", [1, 2])
+def test_solver_routes_big_table(monkeypatch, rows_per_user):
+    """With the big-table threshold forced to 4 rows both solvers take the
+    big-table stacked epoch (JAX tests/test_side_multirow.py:226-245):
+    3 rounds of update_all, then the checkpoint's tables and predict_all
+    agree with the JAX solver's (atol 1e-5 + rtol 1e-4)."""
+    pytest.importorskip("jax")
+    from svdfeature_tpu.data.text import load_plus_text as jload
+    from svdfeature_tpu.ops import embed as jembed
+    from svdfeature_tpu.params import SVDTypeParam as JType
+    from svdfeature_tpu.solvers.multi_imfb import SVDPPMultiIMFBTrainer as JTrainer
+    from svdfeature_tpu_torch.ops import cuda_scatter
+    from svdfeature_tpu_torch.solvers import base as tbase
+
+    monkeypatch.setattr(jembed, "ONEHOT_THRESHOLD", 4)
+    monkeypatch.setattr(tbase, "BIG_TABLE_ROWS", 4)
+    rows, fbs = synth_text(6)
+    extra = (("rows_per_user", str(rows_per_user)),)
+    ttr = _trainer(extra)
+    jtr = JTrainer(JType(format_type=1, extend_type=2))
+    for line in CONF.strip().splitlines():
+        name, val = (v.strip() for v in line.split("="))
+        jtr.set_param(name, val)
+    for name, val in extra:
+        jtr.set_param(name, val)
+    jtr.init_model()
+    jtr.init_trainer()
+    assert ttr.hp.big_table and not ttr.hp.sweep_table and jtr.hp.big_table
+    tds = stack_depth2(load_plus_text("x", "y", text=rows, feedback_text=fbs))
+    jds = stack_depth2(jload("x", "y", text=rows, feedback_text=fbs), _jax_csr())
+    assert ttr._pack_plus(tds).fb_overlap is None  # the big epoch reads no overlap
+    before = cuda_scatter.row_writer.launches
+    for r in range(3):
+        for tr, ds in ((ttr, tds), (jtr, jds)):
+            tr.set_round(r)
+            tr.update_all(ds)
+    assert cuda_scatter.row_writer.launches == before  # CPU: the plain writer
+    ttr._sync_model_from_state()
+    jtr._sync_model_from_state()
+    for name in ("w", "b"):
+        np.testing.assert_allclose(getattr(ttr.model, name).numpy(),
+                                   np.asarray(getattr(jtr.model, name)), atol=1e-5, rtol=1e-4,
+                                   err_msg=name)
+    np.testing.assert_allclose(ttr.predict_all(tds), np.asarray(jtr.predict_all(jds)),
+                               atol=1e-5, rtol=1e-4)
+
+
+def _jax_csr():
+    from svdfeature_tpu.data import csr
+
+    return csr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["base", "rows_per_user2"])
+def test_big_epoch_k5_matches_plain_on_card(case):
+    """The big-table stacked epoch with K5 (row_dma) against its plain
+    writer on the card, R=2 (index_add_ sums in a varying order: atol 1e-6
+    + rtol 1e-5), with the launch count two a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m pytest -m cuda tests/)")
+    from svdfeature_tpu_torch.ops import cuda_scatter
+
+    x = imfb_inputs(**CASES[case])
+    dev = torch.device("cuda")
+    before = cuda_scatter.row_writer.launches
+    got = _big_epochs(x, dev, row_dma=True)
+    torch.cuda.synchronize()
+    assert cuda_scatter.row_writer.launches - before == 2 * 2 * len(x.chunk_id)
+    want = _big_epochs(x, dev)
+    for name in ("w", "b"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), atol=1e-6, rtol=1e-5)
+    assert int(got.step) == int(want.step)
 
 
 @pytest.mark.cuda

@@ -28,6 +28,7 @@ SCRIPT = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    assert "svdfeature_tpu_torch.ops.svdpp_big" in names
 
     from svdfeature_tpu_torch import convert
     from svdfeature_tpu_torch.ops.cuda_embed import train_rounds_kernel

@@ -319,14 +319,15 @@ def test_gate_agrees_with_pallas(jx, case):
 
 
 @pytest.mark.parametrize("N,M,k,item", [
-    (8193, 1, 8, "item 9"),
+    pytest.param(8193, 1, 8, "ops/svdpp_big.train_epoch_plus_big runs them", id="8193-1-8-item 9"),
     (300, 33, 8, "rows_per_user above 32"),
     (300, 32, 512, "shared memory"),
     (300, 8, 64, None),
 ])
 def test_gate_port_caps(N, M, k, item):
-    """The port's own caps: tables over 8192 rows (the big-table route),
-    more than 32 rows per user, the step block's shared memory."""
+    """The port's own caps: tables over 8192 rows (K2 takes no augmented
+    layout; the big-table epoch runs them), more than 32 rows per user, the
+    step block's shared memory."""
     x = plus_inputs()
     st = dict(x.st, w=np.zeros((N, k), np.float32), b=np.zeros(N, np.float32),
               ref_ui=np.zeros(N, np.int32))
@@ -580,14 +581,16 @@ def test_update_rounds_equals_update_all():
 @pytest.mark.parametrize("key,val,item", [
     ("common_feedback_space", "1", "item 7b"),
     ("input_type", "2", "item 8"),
-    ("num_ufeedback", "8100", "item 9"),
+    # a table over 8192 rows: big-table SVD++, which trains now
+    pytest.param("num_ufeedback", "8100", None, id="num_ufeedback-8100-item 9"),
     ("streaming", "1", "item 11"),
     ("mesh_data", "2", "item 12"),
     ("input_type", "101", "item 13"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """User-group configurations the port does not run yet raise
-    NotImplementedError naming their ROADMAP item."""
+    NotImplementedError naming their ROADMAP item; a table over 8192 rows
+    (``item`` None) trains on the big-table epoch."""
     from svdfeature_tpu_torch.cli import make_ugroup_buffer
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
@@ -597,8 +600,17 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     (tmp_path / "t.conf").write_text(
         CONF + f'buffer_feature = "{tmp_path}/train.buffer"\n'
         f'model_out_folder = "{tmp_path}/models"\n')
-    with pytest.raises(NotImplementedError, match=item):
-        SVDTrainTask().run(str(tmp_path / "t.conf"), ["num_round=1", "device=cpu", f"{key}={val}"])
+    args = ["num_round=1", "device=cpu", f"{key}={val}"]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            SVDTrainTask().run(str(tmp_path / "t.conf"), args)
+        return
+    task = SVDTrainTask()
+    task.run(str(tmp_path / "t.conf"), args)
+    tr = task.trainer
+    assert tr.hp.big_table and "chunk_users" in tr._pack_plus(task.dataset).fb
+    assert (tmp_path / "models" / "0001.model").exists()
+    assert bool(torch.isfinite(tr.state.w).all()) and int(tr.state.step) > 0
 
 
 def _kernel_vs_plain_on_card(x):
