@@ -97,8 +97,35 @@ result line):
      chunk exit the pool writeback and the slab write); examples/s beside
      the reference binary's, pack seconds and peak memory; then K5 bit for
      bit against its plain version at the three call shapes of one epoch
-     of (a) (item write, pool writeback, slab write), timed in turns with
-     index_copy_.
+     of (a) (item write, pool writeback, slab write) and the two of (d)
+     (the step's rows, the contexts' writeback), timed in turns with
+     index_copy_;
+ 12. K2 on per-round planes (csrc/fused_svdpp.cu: user and item planes
+     [R*T, G*M], a pair epoch sampled afresh for every round) against its
+     plain version at the pairwiseRank demo's shapes (the skeleton of the
+     ML-100K rank train set, 64 users x 8 rows a step, item width 2),
+     R=8 rounds in one call, twice (the kept plan), one launch a call, with
+     both times, the bound and the cost of checking a round's fresh planes;
+ 13. pairwiseRank (demo/pairwiseRank: make_ugroup_buffer on the ML-100K
+     rank fixtures, k=64, active_type=3, 40 rounds) through SVDTrainTask
+     and SVDInferTask pred=40 with the ranker: (kernel) one K2 launch a
+     round (40), (plain) use_pallas=0, (multi) the trainer's
+     update_rounds(src, 40) on the multi-round host sampler (5 launches),
+     (device) rank_device_sample=1 (1 launch); P@20 as
+     demo/pairwiseRank/eval.py computes it within 0.003 of the golden
+     0.1651, the kernel run within 0.001 of the JAX package's CPU figure
+     (scripts/rank_jax_reference.py), the count of differing rank positions
+     of the kernel and plain runs, pairs/s beside the reference binary's;
+ 14. bigRank (bench.py's KDD-Cup-geometry rank data, numpy only:
+     1,000,000 users, 624,000 items, 624,000 feedback ids, k=64, 25,000
+     users x 80 rows, 1.5M pairs a round) on the trainer: (a) the
+     per-round path, 2 rounds (the entry-stream big epoch), its probe
+     order accuracy and mean raw margin (a fresh seed-77 epoch's first 2000
+     user blocks) within 1e-4 of the JAX package's CPU figures (scripts/
+     rank_jax_reference.py --big); (b) the multi path, one block of 8
+     rounds (the user-carry body), accuracy above 0.75; K5 launch counts
+     the plan's, pairs/s beside the reference binary's, and K5 bit for bit
+     and timed at each run's call shapes.
 Each phase prints its time.  Then one JSON line describing the kernels (with each one's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 the H100 SXM's published rates at 700 W) and, last, one JSON line naming
@@ -265,6 +292,117 @@ def write_big_plus(d, csr, write_plus_buffer, a, dims):
     return conf
 
 
+# phases 12-14: pairwise ranking.  pairwiseRank is the reference's demo
+# (demo/pairwiseRank: ML-100K, k=64, active_type=3, no_user_bias=1, 40
+# rounds, P@20 as demo/pairwiseRank/eval.py computes it); bigRank is
+# bench.py's KDD-Cup-geometry rank workload (bench.py:258-300, 988-1062).
+RANK_ROUNDS = 40
+RANK_USERS, RANK_K = 943, 20  # eval.py: hits of rank < 20 over 943 users x 20
+RANK_P20_TOL = 0.003  # against golden/GOLDEN.json pairwiseRank precision_at_20
+# P@20 of the JAX package on the CPU, same data and conf, the per-round path
+# (scripts/rank_jax_reference.py)
+JAX_RANK_P20 = 0.165058
+RANK_JAX_TOL = 0.001
+PAIR_R = 8  # phase 12: rounds of per-round planes in one K2 call (a multi-path block)
+# phase 12 over PAIR_R rounds: the kernel's distance from the f64 trajectory
+# at most this many times the plain f32 version's (f32 rounding, summation
+# order: both part from f64 by 1e-4 at 8 rounds of the pair demo)
+PAIR_NOISE = 2.0
+BIG_RANK = dict(NU=1_000_000, NI=624_000, NF=624_000, KF=64, USERS=25_000, NPOS=20, NNEG=60)
+BIG_RANK_SMALL = dict(NU=2000, NI=3000, NF=3000, KF=16, USERS=500, NPOS=5, NNEG=15)  # BENCH_SMALL
+BIG_RANK_PROBE = 2000  # the probe: a fresh seed-77 epoch's first user blocks (bench.py:1026-1036)
+BIG_RANK_RUNS = {"a": dict(rounds=2, path="per-round"),  # update_all: the entry-stream epoch
+                 "b": dict(rounds=8, path="multi")}  # update_rounds: one block, the carry body
+
+
+def big_rank_arrays(small=False):
+    """bench.make_big_rank's data (bench.py:264-300), numpy only, with the
+    same default_rng(3) draws: USERS users of NPOS positives from the low
+    half of the item space and NNEG negatives from the high half (labels 1
+    / 0), their positives as feedback.  Returns the arrays of a user-group
+    dataset (as big_plus_arrays) and the dims."""
+    p = BIG_RANK_SMALL if small else BIG_RANK
+    users, nr = p["USERS"], p["NPOS"] + p["NNEG"]
+    rng = np.random.default_rng(3)
+    ex = users * nr
+    uid = np.repeat(np.arange(users, dtype=np.uint32), nr)
+    pos = rng.integers(0, p["NI"] // 2, (users, p["NPOS"]))
+    neg = rng.integers(p["NI"] // 2, p["NI"], (users, p["NNEG"]))
+    items = np.concatenate([pos, neg], axis=1).reshape(-1).astype(np.uint32)
+    labels = np.concatenate([np.ones((users, p["NPOS"]), np.float32),
+                             np.zeros((users, p["NNEG"]), np.float32)], axis=1).reshape(-1)
+    row_ptr = np.zeros(3 * ex + 1, np.int32)
+    row_ptr[1:] = np.cumsum(np.tile(np.array([0, 1, 1], np.int32), ex))
+    index = np.empty(2 * ex, np.uint32)
+    index[0::2] = uid
+    index[1::2] = items
+    arrays = dict(labels=labels, row_ptr=row_ptr, index=index, value=np.ones(2 * ex, np.float32),
+                  fb_index=pos.reshape(-1).astype(np.uint32),
+                  fb_value=np.ones(users * p["NPOS"], np.float32),
+                  block_row_ptr=np.arange(users + 1, dtype=np.int32) * nr,
+                  block_fb_ptr=np.arange(users + 1, dtype=np.int32) * p["NPOS"],
+                  extend_tag=np.zeros(users, np.int8), extra_info=np.zeros(users, np.int8))
+    return arrays, dict(NU=p["NU"], NI=p["NI"], NF=p["NF"], KF=p["KF"], EX=ex)
+
+
+def big_rank_trainer(trainer_cls, type_cls, dims, extra=()):
+    """A package's SVD++ trainer at bench.py's bigRank conf (bench.py:1000-1006)."""
+    tr = trainer_cls(type_cls(format_type=1, active_type=3))
+    for k, v in [("learning_rate", "0.005"), ("wd_user", "0.004"), ("wd_item", "0.004"),
+                 ("num_user", dims["NU"]), ("num_item", dims["NI"]), ("num_global", "0"),
+                 ("num_factor", dims["KF"]), ("active_type", "3"), ("num_ufeedback", dims["NF"]),
+                 ("wd_ufeedback", "0.004"), ("no_user_bias", "1"),
+                 ("rank_users_per_batch", "2048"), *extra]:
+        tr.set_param(k, str(v))
+    tr.init_model()
+    tr.init_trainer()
+    return tr
+
+
+def big_rank_probe_set(csr, rank, registry, arrays):
+    """(the probe, pairs a round): a fresh seed-77 pair epoch's first
+    BIG_RANK_PROBE user blocks (bench.py:1026-1036), a package's
+    PlusDataset, and the epoch's pair count."""
+    probe = rank.PairSource(plus_dataset(csr, arrays), registry.IteratorConfig(),
+                            seed=77).epoch_dataset()
+    n = min(BIG_RANK_PROBE, probe.num_block)
+    r1, f1 = int(probe.block_row_ptr[n]), int(probe.block_fb_ptr[n])
+    head = csr.PlusDataset(probe.rows.slice_rows(0, r1), probe.fb_index[:f1],
+                           probe.fb_value[:f1], probe.block_row_ptr[: n + 1],
+                           probe.block_fb_ptr[: n + 1], probe.extend_tag[:n],
+                           probe.extra_info[:n] if probe.extra_info is not None else None)
+    return head, probe.rows.num_row
+
+
+def big_rank_probe(tr, head):
+    """(raw-margin order accuracy, mean raw margin): the share of the
+    probe's [pos, neg] difference rows that score above 0, and the mean of
+    those scores (it does not saturate at 1 as the accuracy does)."""
+    margin = np.asarray(tr.predict_all(head), np.float64)
+    return float(np.mean(margin > 0.0)), float(margin.mean())
+
+
+def rank_p20(path) -> float:
+    """P@20 of a pred.txt of rank positions (demo/pairwiseRank/eval.py)."""
+    hits = sum(1 for line in pathlib.Path(path).read_text().split() if int(line) < RANK_K)
+    return hits / float(RANK_USERS * RANK_K)
+
+
+def write_rank(d, make_ugroup_main):
+    """The pairwiseRank buffers in ``d`` with a package's make_ugroup_buffer
+    (demo/pairwiseRank/run.sh); returns the CLI keys that point the demo's
+    conf at them."""
+    for split in ("base", "test"):
+        for part in ("feature", "feedback"):
+            unzip_fixture(f"ml100k.rank.{split}.{part}.gz", d / f"ua.{split}.rank.{part}")
+    make_ugroup_main([str(d / "ua.base.rank.feature"), str(d / "train.buffer"), "-fd",
+                      str(d / "ua.base.rank.feedback"), "-scale_score", "5"])
+    make_ugroup_main([str(d / "ua.test.rank.feature"), str(d / "test.buffer"), "-fd",
+                      str(d / "ua.test.rank.feedback"), "-scale_score", "1", "-max_block", "400"])
+    return [f"buffer_feature={d}/train.buffer", f"test:buffer_feature={d}/test.buffer",
+            "silent=1"]
+
+
 # phases 8 and 9: the stacked multi-IMFB slice (bench.py:626-659): the
 # implicitFeedback conf with extend_type=2, file order, rows_per_user=8
 IMFB_ROUNDS = 8
@@ -421,7 +559,7 @@ def embed_bound(arrays):
     return bound(moved, flops, R * T)
 
 
-def phase_kernel(torch, dev, failures):
+def phase_kernel(torch, dev, card, failures):
     from svdfeature_tpu_torch import convert
     from svdfeature_tpu_torch.ops.cuda_embed import launches_per_call, train_rounds_kernel
     from svdfeature_tpu_torch.ops.embed import HyperParams
@@ -497,7 +635,7 @@ def phase_kernel(torch, dev, failures):
         timing[shape]["bound"], timing[shape]["bound_by"] = embed_bound(arrays)
         print(f"phase 2 time: {shape} ms per step (B={BATCH}, median of 8 R={R} calls): "
               f"kernel {timing[shape]['kernel']:.4f} plain {timing[shape]['plain']:.4f} "
-              f"bound {timing[shape]['bound']:.6f} ({timing[shape]['bound_by']})", flush=True)
+              f"bound {timing[shape]['bound']:.6f} ({timing[shape]['bound_by']}) on {card}", flush=True)
         for name in ("kernel", "plain"):
             inputs = held[name]
             print(f"phase 2 profile: {shape} path={name} "
@@ -548,7 +686,8 @@ def device_profile(torch, run, steps, top=4):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
     tops = "; ".join(f"{_short(name)} {n} x {us / n:.2f} us" for name, (n, us) in top)
     return (f"device busy {busy / steps:.2f} us/step of {elapsed_us / steps:.2f} us/step "
-            f"elapsed under the profiler (busy share {busy / elapsed_us:.3f}); {tops}")
+            f"elapsed under the profiler (busy share {busy / elapsed_us:.3f}); {tops}; on "
+            f"{card_line()}")
 
 
 # ---- phases 3, 5 and 9: the slices ---------------------------------------------
@@ -594,14 +733,14 @@ def steady_busy_share(torch, task, wrapper, trace_slots, busy_slots, steps_per_r
     return busy / elapsed, busy, elapsed
 
 
-def report_share(phase, name, kid, share, busy, elapsed, failures, gate=True):
+def report_share(phase, name, kid, share, busy, elapsed, card, failures, gate=True):
     ok = share >= MIN_BUSY_SHARE or not gate
     if not ok:
         failures.append(f"{name} rounds: {kid} busy share below {MIN_BUSY_SHARE}")
     want = f"at least {MIN_BUSY_SHARE} wanted" if gate else "no gate"
     print(f"phase {phase} {'ok' if ok else 'FAIL'}: {name} {kid} rounds: {STEADY_ROUNDS} more "
           f"rounds, a synchronise after each: the kernel's own clock counts {busy:.2f} us/step of "
-          f"{elapsed:.2f} us/step elapsed (busy share {share:.3f}, {want})", flush=True)
+          f"{elapsed:.2f} us/step elapsed (busy share {share:.3f}, {want}) on {card}", flush=True)
 
 
 def kernel_wrappers():
@@ -688,7 +827,7 @@ def phase_slice(work, card, failures):
                         f"{ROUNDS} rounds, one cooperative launch each; T={T}", card, failures)
             if path == "kernel" and name == "basicMF":
                 share = steady_busy_share(torch, r["task"], train_rounds_kernel, 4, 4, T)
-                report_share(3, name, "K1", *share, failures, gate=False)
+                report_share(3, name, "K1", *share, card, failures, gate=False)
     return total
 
 
@@ -727,7 +866,7 @@ def phase_svdpp_slice(work, card, failures):
         print(f"phase 5 profile: {name} path={path} one more round: {line}", flush=True)
         if path == "kernel":
             share = steady_busy_share(torch, task, train_rounds_svdpp_kernel, 9, 8, len(cid))
-            report_share(5, name, "K2", *share, failures)
+            report_share(5, name, "K2", *share, card, failures)
     return launches
 
 
@@ -792,11 +931,13 @@ def svdpp_bound(x):
     u/i scatters, err*p_i and |p_i|^2), per step 2 nnz(O[c]) (k+1) for
     O @ delta over the chunk's nonzero overlaps plus 6 (k+1) per user,
     per touched row 2k, and per chunk start 4 (k+2) per live pool entry
-    (gather and flush)."""
+    (gather and flush).  Per-round user and item planes (leading dim R*T)
+    are each read once and touch their own rows."""
     st, stacked, fb = x["st"], x["stacked"], x["fb"]
     R = len(x["lrs"])
     N, k = st["w"].shape
     T, GS = stacked["label"].shape
+    UR = stacked["u_idx"].shape[0] // T  # 1, or R per-round planes
     G = GS // x["M"]
     SI = stacked["i_idx"].shape[-1]
     cid = x["chunk_id"]
@@ -804,18 +945,19 @@ def svdpp_bound(x):
     nnz = [np.count_nonzero(x["overlap"][c, :G, :G]) for c in range(x["overlap"].shape[0])]
     pool_live = (fb["fb_block"] < G).sum(axis=1)
     starts = np.concatenate([[True], cid[1:] != cid[:-1]])
-    rows = touched_rows(np.where(live[..., None], stacked["u_idx"], -1),
-                        np.where(live[..., None], stacked["i_idx"], -1))
-    flops = R * (int(live.sum()) * (5 + 4 * SI) * k
-                 + sum(2 * nnz[c] * (k + 1) + 6 * G * (k + 1) for c in cid)
-                 + rows * 2 * k
-                 + int(pool_live[cid[starts]].sum()) * 4 * (k + 2))
-    moved = 4 * (2 * N * (k + 1) + T * GS * (4 + 2 * SI) + 3 * int(pool_live.sum())
-                 + x["overlap"].size + 2 * N + 3 * R)
+    live_ur = np.tile(live, (UR, 1))[..., None]
+    rows = touched_rows(np.where(live_ur, stacked["u_idx"], -1),
+                        np.where(live_ur, stacked["i_idx"], -1))
+    flops = (R * (int(live.sum()) * (5 + 4 * SI) * k
+                  + sum(2 * nnz[c] * (k + 1) + 6 * G * (k + 1) for c in cid)
+                  + int(pool_live[cid[starts]].sum()) * 4 * (k + 2))
+             + rows * (R // UR) * 2 * k)
+    moved = 4 * (2 * N * (k + 1) + T * GS * 2 + UR * T * GS * (2 + 2 * SI)
+                 + 3 * int(pool_live.sum()) + x["overlap"].size + 2 * N + 3 * R)
     return bound(moved, flops, R * T)
 
 
-def phase_svdpp_kernel(torch, dev, failures):
+def phase_svdpp_kernel(torch, dev, card, failures):
     from svdfeature_tpu_torch import convert
     from svdfeature_tpu_torch.ops.cuda_svdpp import (
         launches_per_call, train_rounds_svdpp_kernel, train_rounds_svdpp_reference,
@@ -898,7 +1040,7 @@ def phase_svdpp_kernel(torch, dev, failures):
     timing["bound"], timing["bound_by"] = svdpp_bound(x)
     print(f"phase 4 time: band ms per step (GS=1024, median of 8 R={R} runs): "
           f"kernel {timing['kernel']:.4f} plain {timing['plain']:.4f} "
-          f"bound {timing['bound']:.6f} ({timing['bound_by']})", flush=True)
+          f"bound {timing['bound']:.6f} ({timing['bound_by']}) on {card}", flush=True)
     for name in ("kernel", "plain"):
         inputs = device_inputs(x)
         print(f"phase 4 profile: band path={name} "
@@ -998,7 +1140,7 @@ def sweep_bound(case):
     return bound(moved, case["E"] * 2 * BIG_K + U * (4 * BIG_K + 20), 1)
 
 
-def phase_big_kernels(torch, dev, big, failures):
+def phase_big_kernels(torch, dev, big, card, failures):
     """K5 and K6 on E = 2^21 rows of the bigTable table (unique targets,
     ~20% of them on the dummy row, which receives zero rows), bit for bit
     against their plain versions, with the library call's time; K4 on the
@@ -1045,7 +1187,7 @@ def phase_big_kernels(torch, dev, big, failures):
         print(f"phase 6 {'ok' if ok else 'FAIL'}: {kid} E={E} rows of W={W} into n={n} "
               f"({U} distinct targets) bit for bit against its plain version; ms per call "
               f"kernel {t['kernel']:.4f} plain {t['plain']:.4f} library {t['library']:.4f} "
-              f"bound {t['bound']:.4f} ({t['bound_by']})", flush=True)
+              f"bound {t['bound']:.4f} ({t['bound_by']}) on {card}", flush=True)
     # one session holds the kernel and its plain version (a session with
     # nothing but one ctypes launch has recorded no device events)
     print(f"phase 6 profile: K5 row_writer then its plain version "
@@ -1075,7 +1217,7 @@ def phase_big_kernels(torch, dev, big, failures):
     print(f"phase 6 {'ok' if ok5c else 'FAIL'}: K5 at bigTable (c)'s call shape E={Ec} rows "
           f"({Uc} distinct targets) bit for bit against its plain version; ms per call kernel "
           f"{t5c['kernel']:.4f} plain {t5c['plain']:.4f} library {t5c['library']:.4f} bound "
-          f"{t5c['bound']:.6f} ({t5c['bound_by']})", flush=True)
+          f"{t5c['bound']:.6f} ({t5c['bound_by']}) on {card}", flush=True)
     # the gate: no slower than the one PyTorch call for the same function,
     # beyond what the turns of this very call differ by
     allowed = max(spread["kernel"], spread["library"])
@@ -1084,7 +1226,8 @@ def phase_big_kernels(torch, dev, big, failures):
         failures.append("K5 at E=8192 slower than index_copy_")
     print(f"phase 6 {'ok' if ok_lib else 'FAIL'}: K5 at E={Ec} against index_copy_: kernel "
           f"{t5c['kernel']:.4f} ms per call, library {t5c['library']:.4f} (spread between "
-          f"turns: kernel {spread['kernel']:.4f}, library {spread['library']:.4f})", flush=True)
+          f"turns: kernel {spread['kernel']:.4f}, library {spread['library']:.4f}) on {card}",
+          flush=True)
     del work, tbl, idx, vals, idx_long, idx_c, vals_c, idx_c_long
     out["K5"] = dict(t5c, err=0.0)
     out["K6"] = dict(t6, err=0.0)
@@ -1146,7 +1289,7 @@ def phase_big_kernels(torch, dev, big, failures):
             print(f"phase 6 time: K4 {name} B=2^20 reg_method=0 ms per call kernel "
                   f"{t['kernel']:.4f} plain {t['plain']:.4f} bound {t['bound']:.4f} "
                   f"({t['bound_by']}; kernel at {t['bound'] / t['kernel']:.0%} of it), "
-                  f"{t['kernel'] * 1e6 / full['E']:.3f} ns per entry", flush=True)
+                  f"{t['kernel'] * 1e6 / full['E']:.3f} ns per entry on {card}", flush=True)
             print(f"phase 6 profile: K4 {name} sweep_update then its plain version "
                   f"{device_profile(torch, lambda: (cuda_sweep.sweep_update(work, *full['args'], hp), cuda_sweep.sweep_update_reference(work, *full['args'], hp)), 1, top=3)}",
                   flush=True)
@@ -1383,7 +1526,7 @@ def imfb_bound(x):
     return bound(moved, flops, R * T)
 
 
-def phase_imfb_kernel(torch, dev, failures):
+def phase_imfb_kernel(torch, dev, card, failures):
     from svdfeature_tpu_torch import convert
     from svdfeature_tpu_torch.ops.cuda_imfb import (
         launches_per_call, train_rounds_imfb_kernel, train_rounds_imfb_reference,
@@ -1449,7 +1592,7 @@ def phase_imfb_kernel(torch, dev, failures):
     fns = {"plain": train_rounds_imfb_reference, "kernel": train_rounds_imfb_kernel}
     samples = {"plain": [], "kernel": []}
     held = {name: device_inputs(x) for name in fns}
-    for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain") * 2:
+    for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain", "plain", "kernel"):
         inputs = held[name]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -1462,10 +1605,10 @@ def phase_imfb_kernel(torch, dev, failures):
     samples = {name: v[1:] for name, v in samples.items()}  # the first call warms up
     timing = {n: float(np.median(v)) for n, v in samples.items()}
     timing["bound"], timing["bound_by"] = imfb_bound(x)
-    print(f"phase 8 time: slice ms per step (GS=1024, nseg={x['enabled'].shape[1]}, median of 5 "
+    print(f"phase 8 time: slice ms per step (GS=1024, nseg={x['enabled'].shape[1]}, median of 3 "
           f"R={R} runs): kernel {timing['kernel']:.4f} plain {timing['plain']:.4f} "
           f"bound {timing['bound']:.6f} ({timing['bound_by']}); library call: none (no "
-          f"PyTorch call computes a stacked step)", flush=True)
+          f"PyTorch call computes a stacked step) on {card}", flush=True)
     for name in ("kernel", "plain"):
         inputs = held[name]
         print(f"phase 8 profile: slice path={name} "
@@ -1541,7 +1684,7 @@ def phase_imfb_slice(work, card, failures):
         if path == "kernel":
             share = steady_busy_share(torch, task, train_rounds_imfb_kernel, TRACE_SLOTS,
                                       TRACE_SLOTS - 1, len(cid))
-            report_share(9, "multiIMFBStacked", "K3", *share, failures)
+            report_share(9, "multiIMFBStacked", "K3", *share, card, failures)
         shutil.rmtree(d / f"models_{path}")
         del task, tr, entry
     diff = abs(results["kernel"]["rmse"] - results["plain"]["rmse"])
@@ -1774,6 +1917,14 @@ def phase_big_plus(work, card, failures):
             shapes = k5_shapes(torch, task)
             w = task.trainer.state.w
             del task
+        if tag == "d":
+            # K5's two calls a step of the stacked big epoch: the step's
+            # rows, then the contexts' writeback
+            task = r["task"]
+            shapes_d = k5_first_calls(torch, lambda: task.trainer.update_all(task.dataset),
+                                      {0: "step rows", 1: "context writeback"})
+            w_d = task.trainer.state.w
+            del task
         if tag != "a":
             del r["task"], r["entry"]
     del results["a"]["task"], results["a"]["entry"]
@@ -1783,7 +1934,21 @@ def phase_big_plus(work, card, failures):
     print(f"phase 11 {'ok' if diff < BIG_PLUS_AB_TOL else 'FAIL'}: bigSvdpp K5 (a) against its "
           f"plain version (b) end to end: |d RMSE| {diff:.2e} (tol {BIG_PLUS_AB_TOL:g})", flush=True)
 
-    # K5 at the slice's call shapes, on (a)'s trained table
+    # K5 at the slice's call shapes, on the trained tables
+    timing = time_k5_shapes(torch, 11, "bigSvdpp (a)", w, shapes, card, failures)
+    timing.update(time_k5_shapes(torch, 11, "bigSvdpp (d)", w_d, shapes_d, card, failures))
+    del w, shapes, w_d, shapes_d
+    torch.cuda.empty_cache()
+    return sum(r["launches"]["K5"] for r in results.values()), timing
+
+
+def time_k5_shapes(torch, phase, run, w, shapes, card, failures):
+    """K5 bit for bit against its plain version on table ``w`` at each
+    recorded call shape of ``run`` (``shapes``: name -> (idx, vals)), and
+    its time per call beside the plain version's, index_copy_'s and the
+    bound, in turns on the same table."""
+    from svdfeature_tpu_torch.ops import cuda_scatter
+
     W = w.shape[1]
     timing = {}
     for name, (idx, vals) in shapes.items():
@@ -1801,18 +1966,419 @@ def phase_big_plus(work, card, failures):
                           "library": lambda: work_tbl.index_copy_(0, idx_long, vals)},
                   inner=50, turns=5, spread=spread)
         t["bound"], t["bound_by"] = bound(4 * (E + E * W + U * W), 0, 1)
-        timing[name] = t
+        timing[f"{run} {name}"] = t
         del work_tbl
         if not ok:
-            failures.append(f"K5 vs plain at the {name}")
-        print(f"phase 11 {'ok' if ok else 'FAIL'}: K5 at bigSvdpp (a)'s {name} E={E} rows "
+            failures.append(f"K5 vs plain at {run}'s {name}")
+        print(f"phase {phase} {'ok' if ok else 'FAIL'}: K5 at {run}'s {name} E={E} rows "
               f"({U} distinct targets) bit for bit against its plain version; ms per call kernel "
               f"{t['kernel']:.4f} plain {t['plain']:.4f} library (index_copy_) {t['library']:.4f} "
               f"bound {t['bound']:.6f} ({t['bound_by']}); spread between turns kernel "
-              f"{spread['kernel']:.4f} library {spread['library']:.4f}", flush=True)
-    del w, shapes
-    torch.cuda.empty_cache()
-    return sum(r["launches"]["K5"] for r in results.values()), timing
+              f"{spread['kernel']:.4f} library {spread['library']:.4f} on {card}", flush=True)
+    return timing
+
+
+def k5_first_calls(torch, run_epoch, names):
+    """K5's arguments at its first calls in ``run_epoch()``, named by
+    ``names`` (index -> name): big_embed.row_writer records its calls
+    until the last index named."""
+    from svdfeature_tpu_torch.ops import big_embed
+
+    calls, real = [], big_embed.row_writer
+    last = max(names)
+
+    def recorder(w, idx, vals):
+        if len(calls) <= last:
+            calls.append((idx.clone(), vals.clone()))
+        return real(w, idx, vals)
+
+    big_embed.row_writer = recorder
+    try:
+        run_epoch()
+    finally:
+        big_embed.row_writer = real
+    torch.cuda.synchronize()
+    return {name: calls[i] for i, name in names.items()}
+
+
+# ---- phases 12-14: pairwise ranking ------------------------------------------------
+# bigRank run (a)'s probe order accuracy and mean raw margin, the JAX
+# package on the CPU, same data, conf and per-round pair stream
+# (scripts/rank_jax_reference.py --big)
+JAX_BIG_RANK = {"acc": 1.0, "margin": 0.070162}
+BIG_RANK_JAX_TOL = 1e-4  # on both
+BIG_RANK_MIN_ACC = 0.75  # bench.py:1043
+
+
+def rank_task(d, keys):
+    """An SVDTrainTask of the pairwiseRank demo configured and initialised
+    (trainer and PairSource, no round trained), models into ``d``."""
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    task = SVDTrainTask()
+    task.configure(str(ROOT / "demo" / "pairwiseRank" / "pairwiseRank.conf"), keys)
+    task.init()
+    return task
+
+
+def clone_state(st):
+    return type(st)(**{f: getattr(st, f).clone() for f in st.__dataclass_fields__})
+
+
+def phase_pair_kernel(torch, d, keys, card, failures):
+    """K2 on per-round pair planes at the pairwiseRank demo's shapes: the
+    skeleton of the ML-100K rank train set (64 users x 8 rows a step, item
+    width 2), PAIR_R freshly sampled rounds in one call, against its plain
+    version; one launch a call, again on the same tensors (the kept plan);
+    both times per step and the bound; and the cost of the wrapper's check
+    of a round's fresh planes (one host sync), per round."""
+    from svdfeature_tpu_torch.ops import cuda_svdpp
+
+    task = rank_task(d, keys + ["device=cuda"])
+    tr, src = task.trainer, task.dataset
+    tr._apply_pair_layout()
+    sk = tr._pair_skeleton(src)
+    dev = tr.state.w.device
+
+    def planes(R):
+        flats = [tr._pair_flats(src, sk) for _ in range(R)]
+        fp = torch.from_numpy(np.concatenate([f[0] for f in flats])).to(dev)
+        fn = torch.from_numpy(np.concatenate([f[1] for f in flats])).to(dev)
+        return tr._pair_stacked(sk, fp, fn)
+
+    stacked = planes(PAIR_R)
+    lrs = torch.full((PAIR_R,), 0.005, device=dev)
+    rest = (sk["chunk_id"], sk["fb"], sk["overlap"], lrs, tr.consts, tr.hp, tr._plus_hyper())
+    kern, ref = cuda_svdpp.train_rounds_svdpp_kernel, cuda_svdpp.train_rounds_svdpp_reference
+    st0 = clone_state(tr.state)
+    T, GS = sk["T"], sk["GS"]
+    shape = (f"T={T} steps, GS={GS} = {sk['G']} users x {sk['M']} rows, item width 2, "
+             f"C={sk['fb']['fb_idx'].shape[0]}, F={sk['fb']['fb_idx'].shape[1]}")
+
+    # (i) the first two rounds' planes: the kernel within ATOL + RTOL of its
+    # plain version, one launch
+    head = dict(stacked, **{p: stacked[p][: 2 * T] for p in cuda_svdpp.ROUND_PLANES})
+    rest2 = (*rest[:3], lrs[:2], *rest[4:])
+    before = kern.launches
+    got = kern(clone_state(st0), head, *rest2)
+    torch.cuda.synchronize()
+    launched2 = kern.launches - before
+    want = ref(clone_state(st0), head, *rest2)
+    errs = {}
+    ok = sk["use_kernel"] and launched2 == 1 and int(got.step) == int(want.step)
+    for name in ("w", "b"):
+        a, b = getattr(got, name), getattr(want, name)
+        errs[name] = float((a - b).abs().max())
+        ok &= bool(torch.isfinite(a).all()) and bool(((a - b).abs() <= ATOL + RTOL * b.abs()).all())
+    if not ok:
+        failures.append("K2 on per-round pair planes vs plain, R=2")
+    print(f"phase 12 {'ok' if ok else 'FAIL'}: K2 on per-round pair planes (R=2 rounds x {shape}) "
+          f"against its plain version: max|dw|={errs['w']:.3e} max|db|={errs['b']:.3e} (atol "
+          f"{ATOL:g} + rtol {RTOL:g}) launches {launched2} (one cooperative launch)", flush=True)
+
+    # (ii) PAIR_R rounds (a multi-path block) in one call, twice on the same
+    # tensors (the kept plan).  Over more rounds the f32 trajectories of any
+    # two summation orders part by more than ATOL: the kernel is held to the
+    # plain version run in f64, no further from it than PAIR_NOISE times the
+    # plain version in f32 is
+    launched = []
+    for _ in range(2):
+        before = kern.launches
+        k_state = kern(clone_state(st0), stacked, *rest)
+        torch.cuda.synchronize()
+        launched.append(kern.launches - before)
+    p32 = ref(clone_state(st0), stacked, *rest)
+    f64 = lambda x: ({k: f64(v) for k, v in x.items()} if isinstance(x, dict) else  # noqa: E731
+                     x.double() if torch.is_tensor(x) and x.is_floating_point() else x)
+    consts64 = type(tr.consts)(**{f: f64(getattr(tr.consts, f))
+                                  for f in tr.consts.__dataclass_fields__})
+    st64 = type(st0)(**{f: f64(getattr(st0, f)).clone() for f in st0.__dataclass_fields__})
+    p64 = ref(st64, f64(stacked), sk["chunk_id"], f64(sk["fb"]), f64(sk["overlap"]), lrs.double(),
+              consts64, tr.hp, tr._plus_hyper())
+    ok = launched == [1, 1] and int(k_state.step) == int(p32.step)
+    dist = {}
+    for name in ("w", "b"):
+        ref64 = getattr(p64, name)
+        dist[name] = tuple(float((getattr(x, name).double() - ref64).abs().max())
+                           for x in (k_state, p32))
+        ok &= bool(torch.isfinite(getattr(k_state, name)).all())
+        ok &= dist[name][0] <= PAIR_NOISE * dist[name][1]
+    kp = {name: float((getattr(k_state, name) - getattr(p32, name)).abs().max()) for name in "wb"}
+    if not ok:
+        failures.append(f"K2 on per-round pair planes vs plain, R={PAIR_R}")
+    print(f"phase 12 {'ok' if ok else 'FAIL'}: K2 on per-round pair planes (R={PAIR_R} rounds x "
+          f"{shape}), two calls on the same tensors: launches {launched} (one cooperative launch "
+          f"a call); max distance from the plain version in f64: kernel w {dist['w'][0]:.3e} b "
+          f"{dist['b'][0]:.3e}, plain f32 w {dist['w'][1]:.3e} b {dist['b'][1]:.3e} (the kernel's "
+          f"at most {PAIR_NOISE:g} x the plain f32's); kernel against plain f32 max|dw|="
+          f"{kp['w']:.3e} max|db|={kp['b']:.3e}", flush=True)
+    del p64, st64
+
+    # times per step, in turns, each path on its own state call after call:
+    # the kernel on the PAIR_R rounds' planes, the plain version (whose cost
+    # a step does not depend on the rounds a call holds) on the first two's
+    samples = {"plain": [], "kernel": []}
+    held = {"plain": clone_state(st0), "kernel": clone_state(st0)}
+    calls = {"plain": (ref, head, rest2, 2), "kernel": (kern, stacked, rest, PAIR_R)}
+    for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain") * 2:
+        fn, stk, args, R = calls[name]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        held[name] = fn(held[name], stk, *args)
+        end.record()
+        torch.cuda.synchronize()
+        samples[name].append(start.elapsed_time(end) / (R * T))
+    timing = {n: float(np.median(v[1:])) for n, v in samples.items()}
+    cpu = lambda a: a.cpu().numpy() if torch.is_tensor(a) else a  # noqa: E731
+    x = dict(st={"w": cpu(st0.w)}, stacked={k: cpu(v) for k, v in stacked.items()},
+             fb={k: cpu(v) for k, v in sk["fb"].items()}, overlap=cpu(sk["overlap"]),
+             chunk_id=sk["chunk_id"], lrs=np.zeros(PAIR_R), M=sk["M"])
+    timing["bound"], timing["bound_by"] = svdpp_bound(x)
+    # the check of a round's fresh planes: what the per-round path pays a round
+    checks = []
+    lr1 = lrs[:1]
+    for _ in range(8):
+        fresh = planes(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cuda_svdpp._plan(held["kernel"], fresh, sk["chunk_id"], sk["fb"], sk["overlap"], lr1,
+                         tr.consts, sk["M"])
+        checks.append(time.perf_counter() - t0)
+    timing["check_ms"] = float(np.median(checks)) * 1e3
+    print(f"phase 12 time: pair planes ms per step (median of 5 calls in turns, the kernel's of "
+          f"R={PAIR_R} rounds, the plain version's of 2): "
+          f"kernel {timing['kernel']:.4f} plain {timing['plain']:.4f} bound {timing['bound']:.6f} "
+          f"({timing['bound_by']}); the check of one round's fresh planes {timing['check_ms']:.3f} "
+          f"ms (median of 8, host clock, one host sync), a round being {T} steps, on {card}",
+          flush=True)
+    print(f"phase 12 profile: pair planes path=kernel "
+          f"{device_profile(torch, lambda: kern(held['kernel'], stacked, *rest), PAIR_R * T)}",
+          flush=True)
+    return max(errs.values()), timing
+
+
+def rank_run(d, keys, tag, extra, rounds_call):
+    """One pairwiseRank run: the tasks' trainer on the card, every kernel's
+    launch count set to 0 just before training and read just after, the
+    model of round RANK_ROUNDS saved, SVDInferTask pred with the ranker,
+    and P@20.  ``rounds_call`` None trains through SVDTrainTask.run (one
+    update_all a round, a save after each); else the trainer's
+    update_rounds(src, RANK_ROUNDS) in one call (timed, synchronised), then
+    one more call timed on the trained trainer (steady: no set-up)."""
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    conf = str(ROOT / "demo" / "pairwiseRank" / "pairwiseRank.conf")
+    args = keys + [f"model_out_folder={d}/models_{tag}", "device=cuda", *extra]
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    steady = None
+    if rounds_call is None:
+        task = SVDTrainTask()
+        t0 = time.perf_counter()
+        task.run(conf, args + [f"num_round={RANK_ROUNDS}"])
+        launches = {kid: fn.launches for kid, fn in wrappers.items()}
+        secs = task.round_seconds
+        train_s = sum(secs[1:])
+        rounds_timed = len(secs) - 1
+    else:
+        task = rank_task(d, args)
+        tr = task.trainer
+        t0 = time.perf_counter()
+        tr.update_rounds(task.dataset, RANK_ROUNDS)
+        tr.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {kid: fn.launches for kid, fn in wrappers.items()}
+        rounds_timed = RANK_ROUNDS
+        task.start_counter = RANK_ROUNDS
+        task.save_model()
+    pred = d / f"pred_{tag}.txt"
+    SVDInferTask().run(conf, args + [f"pred={RANK_ROUNDS}", f"name_pred={pred}"])
+    if rounds_call is not None:
+        t1 = time.perf_counter()
+        task.trainer.update_rounds(task.dataset, RANK_ROUNDS)
+        task.trainer.synchronize()
+        steady = time.perf_counter() - t1
+    pairs = int(task.dataset.pair_geometry()["jp"].shape[0])
+    shutil.rmtree(d / f"models_{tag}")
+    return dict(p20=rank_p20(pred), pred=pred, launches=launches, pairs=pairs,
+                pps=pairs * rounds_timed / train_s, rounds_timed=rounds_timed,
+                pps_steady=None if steady is None else pairs * RANK_ROUNDS / steady,
+                T=task.trainer._pair_sk["T"], seconds=time.perf_counter() - t0)
+
+
+def phase_rank_slice(d, keys, card, failures):
+    """pairwiseRank through the port's entry points: (kernel) SVDTrainTask
+    40 rounds, one K2 launch a round on the round's fresh pairs, then
+    SVDInferTask pred=40 with the ranker; (plain) the same with
+    use_pallas=0; (multi) update_rounds(src, 40) on the multi-round host
+    sampler, 5 K2 launches (blocks of 8 rounds); (device)
+    rank_device_sample=1, one K2 launch for the 40 rounds.  Gates: P@20
+    within RANK_P20_TOL of the golden, the kernel run within RANK_JAX_TOL
+    of the JAX package's CPU figure, exact launch counts."""
+    from svdfeature_tpu_torch.solvers.svdpp import SVDPPFeatureTrainer
+
+    golden = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["pairwiseRank"]
+    ref_s = golden["train_seconds_40rounds_cpu"]
+    blocks = -(-RANK_ROUNDS // SVDPPFeatureTrainer.PAIR_BLOCK_ROUNDS)
+    runs = {  # tag: conf keys, trains through update_rounds, K2 launches wanted, how
+        "kernel": ([], None, RANK_ROUNDS, f"{RANK_ROUNDS} rounds, one launch each"),
+        "plain": (["use_pallas=0"], None, 0, "the plain rounds"),
+        "multi": ([], True, blocks, f"{blocks} blocks of "
+                  f"{SVDPPFeatureTrainer.PAIR_BLOCK_ROUNDS} rounds, one launch each"),
+        "device": (["rank_device_sample=1"], True, 1, "all rounds in one launch"),
+    }
+    out, launches = {}, 0
+    for tag, (extra, multi, want, how) in runs.items():
+        r = rank_run(d, keys, tag, extra, multi)
+        out[tag] = r
+        launches += r["launches"]["K2"]
+        want_all = {kid: 0 for kid in r["launches"]}
+        want_all["K2"] = want
+        ok = (r["launches"] == want_all and abs(r["p20"] - golden["precision_at_20"]) < RANK_P20_TOL)
+        jax_line = ""
+        if tag == "kernel":
+            ok &= JAX_RANK_P20 is not None and abs(r["p20"] - JAX_RANK_P20) < RANK_JAX_TOL
+            jax_line = (f"; minus JAX CPU {r['p20'] - JAX_RANK_P20:+.6f} (tol {RANK_JAX_TOL:g})"
+                        if JAX_RANK_P20 is not None else "; no JAX CPU figure")
+        if not ok:
+            failures.append(f"pairwiseRank ({tag})")
+        ref_pps = r["pairs"] * 40 / ref_s
+        timed_how = (f"rounds 2-{RANK_ROUNDS}, saves excluded" if multi is None else
+                     f"the {RANK_ROUNDS}-round call with its set-up; {r['pps_steady']:,.0f} pairs/s "
+                     f"for {RANK_ROUNDS} more rounds in one call")
+        print(f"phase 13 {'ok' if ok else 'FAIL'}: pairwiseRank ({tag}) P@20 {r['p20']:.4f} "
+              f"(golden {golden['precision_at_20']}, tol {RANK_P20_TOL:g}{jax_line}); launches "
+              f"{r['launches']} (want K2 {want}: {how}; T={r['T']} steps a round); "
+              f"{r['pairs']:,} pairs a round (examples/s of SVDTrainTask count the "
+              f"{RANK_USERS}-user set's rows); {r['pps']:,.0f} pairs/s ({timed_how}; reference "
+              f"binary {ref_pps:,.0f} pairs/s: 40 rounds in {ref_s} s); run "
+              f"{r['seconds']:.1f} s; on {card}", flush=True)
+    # the per-round path's host work a round: one epoch's sample placed on the
+    # grid (PairSource.epoch_pairs, the producer thread's work)
+    task = rank_task(d, keys + ["device=cuda"])
+    task.trainer._apply_pair_layout()
+    sk = task.trainer._pair_skeleton(task.dataset)
+    samp = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        task.trainer._pair_flats(task.dataset, sk)
+        samp.append(time.perf_counter() - t0)
+    print(f"phase 13: pairwiseRank host sampling of one epoch (epoch_pairs and the slot "
+          f"placement, the per-round path's producer thread): {np.median(samp) * 1e3:.1f} ms "
+          f"(median of 5, host clock); K2's round is {sk['T']} steps; on {card}", flush=True)
+    del task, sk
+    a = out["kernel"]["pred"].read_text().split()
+    b = out["plain"]["pred"].read_text().split()
+    differ = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+    print(f"phase 13: pairwiseRank pred.txt of the kernel run against the plain run: {differ} of "
+          f"{len(a)} rank positions differ (P@20 {out['kernel']['p20']:.4f} against "
+          f"{out['plain']['p20']:.4f})", flush=True)
+    return launches
+
+
+def phase_big_rank(torch, card, failures):
+    """bigRank (bench.py's KDD-Cup-geometry rank workload, numpy only:
+    1,000,000 users, 624,000 items, 624,000 feedback ids, k=64, 25,000
+    users x 80 rows, 1.5M pairs a round) on the trainer at bench.py's
+    conf (2048 users x 8 pairs a step): (a) update_all twice, the per-round
+    path's entry-stream big epoch, K5; (b) update_rounds(src, 8), one
+    block of the multi path, the user-carry body from the candidate
+    plan, K5.  Gates: (a)'s probe accuracy and mean margin within
+    BIG_RANK_JAX_TOL of the JAX package's CPU figures, (b)'s accuracy
+    above BIG_RANK_MIN_ACC, K5's launch
+    counts the plan's; K5 at each run's call shapes against its plain
+    version, timed."""
+    from svdfeature_tpu_torch.data import csr, rank, registry
+    from svdfeature_tpu_torch.ops.svdpp_big import k5_launches
+    from svdfeature_tpu_torch.params import SVDTypeParam
+    from svdfeature_tpu_torch.solvers.svdpp import SVDPPFeatureTrainer
+
+    t0 = time.perf_counter()
+    arrays, dims = big_rank_arrays()
+    full = plus_dataset(csr, arrays)
+    n = dims["NU"] + dims["NI"] + dims["NF"] + 1
+    print(f"phase 14: bigRank data ({dims['EX']:,} rows of {BIG_RANK['USERS']:,} users, table "
+          f"{n:,} rows, k={dims['KF']}) made in {time.perf_counter() - t0:.1f} s", flush=True)
+    ref_pps = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["bigRank"]["examples_per_sec_cpu"]
+    head, pairs = big_rank_probe_set(csr, rank, registry, arrays)
+    wrappers = kernel_wrappers()
+    total_k5, timing = 0, {}
+    for tag, run in BIG_RANK_RUNS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        tr = big_rank_trainer(SVDPPFeatureTrainer, SVDTypeParam, dims, [("device", "cuda")])
+        src = rank.PairSource(full, registry.IteratorConfig(), seed=10)
+        R = run["rounds"]
+        for fn in wrappers.values():
+            fn.launches = 0
+        secs = []
+        if run["path"] == "per-round":
+            for _ in range(R):
+                t1 = time.perf_counter()
+                tr.update_all(src)
+                tr.synchronize()
+                secs.append(time.perf_counter() - t1)
+        else:
+            t1 = time.perf_counter()
+            tr.update_rounds(src, R)
+            tr.synchronize()
+            secs.append(time.perf_counter() - t1)
+        launches = {kid: fn.launches for kid, fn in wrappers.items()}
+        sk = tr._pair_sk
+        carry = "chunk_users" in sk["fb"]
+        want = {kid: 0 for kid in launches}
+        want["K5"] = R * k5_launches(sk["chunk_id"], carry)
+        acc, margin = big_rank_probe(tr, head)
+        peak = torch.cuda.max_memory_allocated()
+        ok = (launches == want and tr.hp.big_table and carry == (tag == "b")
+              and math.isfinite(acc))
+        if tag == "a":
+            jax = JAX_BIG_RANK or {}
+            ok &= bool(jax) and all(abs(got - jax[key]) < BIG_RANK_JAX_TOL
+                                    for key, got in (("acc", acc), ("margin", margin)))
+            gate = (f"minus JAX CPU {acc - jax['acc']:+.6f}, margin minus JAX CPU "
+                    f"{margin - jax['margin']:+.6f} (tol {BIG_RANK_JAX_TOL:g} on both)"
+                    if jax else "no JAX CPU figure")
+            pps = pairs * (R - 1) / sum(secs[1:])
+            timed_how = f"rounds 2-{R}, each synchronised"
+        else:
+            ok &= acc > BIG_RANK_MIN_ACC
+            gate = f"above {BIG_RANK_MIN_ACC} wanted"
+            t1 = time.perf_counter()  # one more block: no skeleton or geometry to build
+            tr.update_rounds(src, R)
+            tr.synchronize()
+            pps = pairs * R / (time.perf_counter() - t1)
+            timed_how = (f"one more block of {R} rounds in one call; the first, with the "
+                         f"skeleton and the geometry, {pairs * R / secs[0]:,.0f}")
+        if not ok:
+            failures.append(f"bigRank run ({tag})")
+        total_k5 += launches["K5"]
+        exits = int(np.count_nonzero(np.concatenate([[True], np.diff(sk["chunk_id"]) != 0])))
+        print(f"phase 14 {'ok' if ok else 'FAIL'}: bigRank ({tag}) {run['path']} path, "
+              f"{'user-carry' if carry else 'entry-stream'} big epoch, {R} rounds: probe order "
+              f"accuracy {acc:.6f}, mean margin {margin:.6f} ({gate}); launches {launches} "
+              f"(want K5 {want['K5']} = {R} "
+              f"rounds x (T={len(sk['chunk_id'])} + {2 if carry else 1} x {exits} chunk exits)); "
+              f"{pairs:,} pairs a round; {pps:,.0f} pairs/s ({timed_how}; reference binary "
+              f"{ref_pps:,}/s); round seconds {[round(x, 3) for x in secs]}; peak device memory "
+              f"{peak / 2**30:.2f} GiB; run {time.perf_counter() - t_run:.1f} s; on {card}",
+              flush=True)
+        # K5 at this run's call shapes: the first chunk's step writes, then
+        # its exit's pool writeback (and with the carry the slab write)
+        run0 = int(np.argmax(sk["chunk_id"] != sk["chunk_id"][0])) or len(sk["chunk_id"])
+        names = {0: "step write" if not carry else "item write", run0: "pool writeback"}
+        if carry:
+            names[run0 + 1] = "slab write"
+        epoch = (lambda: tr.update_all(src)) if tag == "a" else (lambda: tr.update_rounds(src, 1))
+        shapes = k5_first_calls(torch, epoch, names)
+        timing.update(time_k5_shapes(torch, 14, f"bigRank ({tag})", tr.state.w, shapes, card,
+                                     failures))
+        del tr, src, shapes
+    return total_k5, timing
 
 
 def kernel_line(name, source, replaces, launches, max_err, timing):
@@ -1855,22 +2421,22 @@ def main() -> int:
         print(f"{name} took {now - clock['t']:.1f} s", flush=True)
         clock["t"] = now
 
-    k1_err, k1_timing = phase_kernel(torch, dev, failures)
+    k1_err, k1_timing = phase_kernel(torch, dev, card, failures)
     phase_time("phase 2")
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         k1_launches = phase_slice(pathlib.Path(work), card, failures)
         phase_time("phase 3")
-        k2_err, k2_timing = phase_svdpp_kernel(torch, dev, failures)
+        k2_err, k2_timing = phase_svdpp_kernel(torch, dev, card, failures)
         phase_time("phase 4")
         k2_launches = phase_svdpp_slice(pathlib.Path(work), card, failures)
         phase_time("phase 5")
         big = bigtable_arrays()
-        big_timing = phase_big_kernels(torch, dev, big, failures)
+        big_timing = phase_big_kernels(torch, dev, big, card, failures)
         phase_time("phase 6")
         big_launches = phase_bigtable(pathlib.Path(work), big, card, failures)
         phase_time("phase 7")
-        k3_err, k3_timing = phase_imfb_kernel(torch, dev, failures)
+        k3_err, k3_timing = phase_imfb_kernel(torch, dev, card, failures)
         phase_time("phase 8")
         k3_launches = phase_imfb_slice(pathlib.Path(work), card, failures)
         phase_time("phase 9")
@@ -1878,6 +2444,17 @@ def main() -> int:
         phase_time("phase 10")
         k5_plus_launches, _ = phase_big_plus(pathlib.Path(work), card, failures)
         phase_time("phase 11")
+        from svdfeature_tpu_torch.cli import make_ugroup_buffer
+
+        rank_dir = pathlib.Path(work) / "pairwiseRank"
+        rank_dir.mkdir()
+        rank_keys = write_rank(rank_dir, make_ugroup_buffer.main)
+        pair_err, _ = phase_pair_kernel(torch, rank_dir, rank_keys, card, failures)
+        phase_time("phase 12")
+        k2_rank_launches = phase_rank_slice(rank_dir, rank_keys, card, failures)
+        phase_time("phase 13")
+        k5_rank_launches, _ = phase_big_rank(torch, card, failures)
+        phase_time("phase 14")
 
     if failures:
         print(f"FAILED phases: {failures}", flush=True)
@@ -1889,7 +2466,8 @@ def main() -> int:
                     k1_timing["basicMF"]),
         kernel_line("fused_svdpp (svdpp_rounds, one cooperative launch a call)",
                     "svdfeature_tpu_torch/csrc/fused_svdpp.cu",
-                    "svdfeature_tpu/ops/pallas_svdpp.py:110", k2_launches, k2_err, k2_timing),
+                    "svdfeature_tpu/ops/pallas_svdpp.py:110", k2_launches + k2_rank_launches,
+                    max(k2_err, pair_err), k2_timing),
         kernel_line("fused_imfb (imfb_rounds, one cooperative launch a call)",
                     "svdfeature_tpu_torch/csrc/fused_imfb.cu",
                     "svdfeature_tpu/ops/pallas_svdpp.py:110", k3_launches, k3_err, k3_timing),
@@ -1898,7 +2476,7 @@ def main() -> int:
                     big_timing["K4"]["err"], big_timing["K4"]),
         kernel_line("row_writer (row_write)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:43",
-                    big_launches["K5"] + k5_plus_launches,
+                    big_launches["K5"] + k5_plus_launches + k5_rank_launches,
                     big_timing["K5"]["err"], big_timing["K5"]),
         kernel_line("row_reader (row_read)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:111", big_launches["K6"],

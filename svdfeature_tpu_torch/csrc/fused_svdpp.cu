@@ -6,7 +6,10 @@
 // with D=0 (launched by train_rounds_svdpp_pallas), and computes what it
 // computes, in f32 (the TPU kernel reads tables and payloads in bf16):
 // the overlap-carried form of ops/svdpp.train_epoch_plus.  Chunk c holds G
-// users; step t of it holds up to M rows of each (slot s = g*M + m).
+// users; step t of it holds up to M rows of each (slot s = g*M + m).  The
+// user and item planes may hold one epoch per round ([R*T, G*M]: pairwise-
+// rank epochs sampled afresh for every round, the TPU kernel's round_spec),
+// the labels, weights, pools and overlaps staying the epoch's.
 //   * chunk start (first step of a chunk): the flush adds the previous
 //     chunk's accumulated per-user deltas to its pool rows,
 //     w[fb_idx] += dacc[fb_block] * fval (and b with user bias); then the
@@ -99,7 +102,9 @@ struct Rounds {
   // barrier after each [4..7] (which waits for the slowest block); and the
   // apply phase's product as block 0's product group sees it [8]
   long long* trace;
-  int N, k, G, M, SI, T, R, F, active_type, with_user_bias;
+  // UR: the rounds of the user and item planes, 1 (every round reads the
+  // same) or R (per-round planes, [R*T, G*M])
+  int N, k, G, M, SI, T, R, F, active_type, with_user_bias, UR;
   float base_score, scale_lr_fb, wd_fb, wd_fbb;
 };
 
@@ -111,14 +116,18 @@ struct Slot {
   float uv, iv[kMaxItems], label, weight;
 };
 
-__device__ __forceinline__ Slot load_slot(const Rounds& a, int64_t x) {
+// Slot x (of the T*G*M of a round) in round r.  With per-round planes
+// (UR == R: a pair epoch sampled afresh for every round) the user and item
+// planes of round r start at r*T*G*M; label and weight are the epoch's.
+__device__ __forceinline__ Slot load_slot(const Rounds& a, int64_t x, int r) {
   Slot s;
-  s.u = __ldg(a.u_idx + x);
-  s.uv = __ldg(a.u_val + x);
+  const int64_t xu = x + (a.UR > 1 ? (int64_t)r * a.T * a.G * a.M : 0);
+  s.u = __ldg(a.u_idx + xu);
+  s.uv = __ldg(a.u_val + xu);
 #pragma unroll
   for (int e = 0; e < kMaxItems; ++e) {
-    s.it[e] = e < a.SI ? __ldg(a.i_idx + x * a.SI + e) : a.N - 1;
-    s.iv[e] = e < a.SI ? __ldg(a.i_val + x * a.SI + e) : 0.0f;
+    s.it[e] = e < a.SI ? __ldg(a.i_idx + xu * a.SI + e) : a.N - 1;
+    s.iv[e] = e < a.SI ? __ldg(a.i_val + xu * a.SI + e) : 0.0f;
   }
   s.label = __ldg(a.label + x);
   s.weight = __ldg(a.weight + x);
@@ -294,7 +303,7 @@ __global__ void __launch_bounds__(kMaxThreads) svdpp_rounds_kernel(const Rounds 
   const bool pipelined = G <= nblocks;
   const bool has_slot = pipelined && bid < G && warp < a.M;
   Slot next;
-  if (has_slot) next = load_slot(a, (int64_t)bid * a.M + warp);
+  if (has_slot) next = load_slot(a, (int64_t)bid * a.M + warp, 0);
 
   bool started = false;  // the first flush of a call is skipped
   for (int r = 0; r < a.R; ++r) {
@@ -327,12 +336,15 @@ __global__ void __launch_bounds__(kMaxThreads) svdpp_rounds_kernel(const Rounds 
       // the step: every read of w, b and agg
       if (pipelined) {
         if (bid < G) step_user(a, bid, next, lr, lr_fb, log_d, log_db, smem);
-        const int tn = t + 1 < T ? t + 1 : 0;  // the last step of the call reads slot 0 in vain
-        if (has_slot) next = load_slot(a, ((int64_t)tn * G + bid) * a.M + warp);
+        // the next step, in this round or the next; the last step of the
+        // call reads step 0 of round 0 in vain
+        const int tn = t + 1 < T ? t + 1 : 0;
+        const int rn = t + 1 < T ? r : (r + 1 < a.R ? r + 1 : 0);
+        if (has_slot) next = load_slot(a, ((int64_t)tn * G + bid) * a.M + warp, rn);
       } else {
         for (int g = bid; g < G; g += nblocks) {
           Slot slot;
-          if (warp < a.M) slot = load_slot(a, ((int64_t)t * G + g) * a.M + warp);
+          if (warp < a.M) slot = load_slot(a, ((int64_t)t * G + g) * a.M + warp, r);
           step_user(a, g, slot, lr, lr_fb, log_d, log_db, smem);
           __syncthreads();
         }
@@ -365,7 +377,7 @@ __global__ void __launch_bounds__(kMaxThreads) svdpp_rounds_kernel(const Rounds 
 
 // R rounds x T steps in one cooperative launch.  ``ptrs`` holds the 27
 // pointers of Rounds in its order (the last, trace, may be null), ``ints``
-// its 10 ints, ``floats`` its 4 floats; the grid (one block per SM) is
+// its 11 ints, ``floats`` its 4 floats; the grid (one block per SM) is
 // written to ``grid_out``.
 extern "C" int svdpp_rounds(void* const* ptrs, const int* ints, const float* floats,
                             int* grid_out, void* stream) {
@@ -407,12 +419,13 @@ extern "C" int svdpp_rounds(void* const* ptrs, const int* ints, const float* flo
   a.F = ints[7];
   a.active_type = ints[8];
   a.with_user_bias = ints[9];
+  a.UR = ints[10];
   a.base_score = floats[0];
   a.scale_lr_fb = floats[1];
   a.wd_fb = floats[2];
   a.wd_fbb = floats[3];
   if (a.M < 1 || a.M > 32 || a.k < 1 || a.G < 1 || a.T < 1 || a.R < 1 || a.SI < 1 ||
-      a.SI > kMaxItems)
+      a.SI > kMaxItems || (a.UR != 1 && a.UR != a.R))
     return (int)cudaErrorInvalidValue;
   // a warp per slot of a user, at least 8 warps for the other phases
   const int warps = a.M > kWarpsPerBlock ? a.M : kWarpsPerBlock;

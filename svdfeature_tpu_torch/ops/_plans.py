@@ -7,13 +7,15 @@ sync) and the device tensors derived from them are made once per set of
 tensors and kept as a ``Plan`` while the same, unmodified tensors
 (``_version``) come again, as they do round after round; the kernel's
 scratch is one zeroed allocation kept per layout, device and stream.
+A plan keeps its tensors alive; a trainer drops the plans of its tensors
+when it goes (``release_plans``, solvers/base.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +35,24 @@ class Plan:
     n_live: torch.Tensor  # 0-d int32: slots of weight > 0
     scalars: tuple = ()  # the kernel's int and float arguments of the last call ...
     scalar_args: tuple = ()  # ... and their ctypes arrays, with the grid's int
+
+
+_LISTS: List[List[Plan]] = []  # every wrapper's kept plans
+
+
+def plan_list() -> List[Plan]:
+    """A wrapper's list of kept plans, known to ``release_plans``."""
+    plans: List[Plan] = []
+    _LISTS.append(plans)
+    return plans
+
+
+def release_plans(ids: Iterable[int]) -> None:
+    """Drop every kept plan that holds a tensor whose id is in ``ids`` (a
+    trainer's staged tensors, when the trainer goes)."""
+    ids = set(ids)
+    for plans in _LISTS:
+        plans[:] = [plan for plan in plans if ids.isdisjoint(plan.ids)]
 
 
 def find_plan(plans: List[Plan], tensors: Sequence[torch.Tensor], key: tuple) -> Optional[Plan]:

@@ -51,7 +51,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import losses
-from ._plans import Plan, find_plan, keep_plan, kept_scratch, launch_args
+from ._plans import Plan, find_plan, keep_plan, kept_scratch, launch_args, plan_list
 from .cuda_scatter import _entry_point, _raw_stream, check_tensors
 from .embed import BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState, train_rounds
 
@@ -150,7 +150,7 @@ def _check_inputs(state: TrainState, planes: Dict[str, torch.Tensor],
         raise ValueError(f"global index outside the {NG}-slot table")
 
 
-_PLANS: List[Plan] = []
+_PLANS = plan_list()
 _STATIC = ("u_idx", "u_val", "i_idx", "i_val", "label", "weight", "g_idx", "g_val")
 # the order of csrc/fused_embed.cu's struct EmbedRounds
 _ROUNDS_POINTERS = (

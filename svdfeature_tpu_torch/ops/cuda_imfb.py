@@ -31,7 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ._plans import Plan, find_plan, keep_plan, kept_scratch, launch_args
+from ._plans import Plan, find_plan, keep_plan, kept_scratch, launch_args, plan_list
 from .cuda_scatter import _entry_point, _raw_stream, check_tensors
 from .cuda_svdpp import (_PLAIN, MAX_ROWS_PER_USER, _check_inputs, big_table_failure,
                          device_schedule, kernel_failure, semantic_failure)
@@ -113,7 +113,7 @@ def _check_contexts(
         raise ValueError(f"the pad context {nseg - 1} holds pool entries of nonzero value")
 
 
-_PLANS: List[Plan] = []
+_PLANS = plan_list()
 _STATIC = ("u_idx", "u_val", "i_idx", "i_val", "label", "weight", "ctx_slots")
 _POOL = ("fb_idx", "fb_val", "fb_ctx")
 # the order of csrc/fused_imfb.cu's struct ImfbRounds

@@ -24,7 +24,12 @@ decay logs are formed in the kernel; the scratch is one allocation.
 
 Semantics (f32 throughout) are those of ops/svdpp.train_epoch_plus per
 round; the TPU kernel reads tables and payloads in bf16, so the port is
-held to the f32 path.  Both versions update ``state.w`` / ``state.b`` in
+held to the f32 path.  As in the TPU kernel (pallas_svdpp.py:488-497,
+``round_spec``), the user and item planes may carry one epoch per round,
+leading dim R*T instead of T (pairwise-rank epochs sampled afresh every
+round, solvers/svdpp.py); round r then reads rows [r*T, (r+1)*T) of them,
+while labels, weights, the chunk ids, the pools and the overlaps are the
+epoch's.  Both versions update ``state.w`` / ``state.b`` in
 place and return the new TrainState.
 """
 
@@ -37,7 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ._plans import MAX_PLANS, Plan, find_plan, keep_plan, kept_scratch, launch_args
+from ._plans import MAX_PLANS, Plan, find_plan, keep_plan, kept_scratch, launch_args, plan_list
 from .cuda_embed import KERNEL_ACTIVE_TYPES, MAX_TABLE_ROWS
 from .cuda_scatter import _raw_stream, check_tensors
 from .embed import HyperParams, TrainConsts, TrainState
@@ -136,10 +141,40 @@ def train_rounds_svdpp_reference(
     ph: PlusHyper,
 ) -> TrainState:
     """The plain version of the kernel: R rounds of
-    ops/svdpp.train_epoch_plus, round r at lr ``lrs[r]``."""
-    for r in range(lrs.shape[0]):
-        state = train_epoch_plus(state, stacked, chunk_id, fb, fb_overlap, lrs[r], consts, hp, ph)
+    ops/svdpp.train_epoch_plus, round r at lr ``lrs[r]`` on round r's
+    user and item planes where they are per-round."""
+    R = lrs.shape[0]
+    plane_rounds(stacked, R)
+    for r in range(R):
+        state = train_epoch_plus(state, round_planes(stacked, r), chunk_id, fb, fb_overlap,
+                                 lrs[r], consts, hp, ph)
     return state
+
+
+ROUND_PLANES = ("u_idx", "u_val", "i_idx", "i_val")
+
+
+def plane_rounds(stacked: Dict[str, torch.Tensor], R: int) -> int:
+    """The rounds the user and item planes hold: 1 (``[T, ...]``, every
+    round trains the same epoch) or R (``[R*T, ...]``); raises on another
+    shape."""
+    T = stacked["label"].shape[0]
+    n = {stacked[p].shape[0] for p in ROUND_PLANES}
+    if n == {T}:
+        return 1
+    if n == {R * T}:
+        return R
+    raise ValueError(f"user/item planes of leading dims {sorted(n)}: expected {T} or "
+                     f"{R} rounds x {T} steps")
+
+
+def round_planes(stacked: Dict[str, torch.Tensor], r: int) -> Dict[str, torch.Tensor]:
+    """Round r's epoch of ``stacked``: its slice of per-round user and item
+    planes, the epoch's other planes."""
+    T = stacked["label"].shape[0]
+    if stacked["u_idx"].shape[0] == T:
+        return stacked
+    return dict(stacked, **{p: stacked[p][r * T:(r + 1) * T] for p in ROUND_PLANES})
 
 
 def _check_inputs(
@@ -152,9 +187,11 @@ def _check_inputs(
     G: int,
     SI: int,
     seg_key: str = "fb_block",
+    UR: int = 1,
 ) -> Tuple[torch.Tensor, List[int]]:
     """Device, dtype, shape, contiguity and index bounds of everything the
     kernel dereferences; raises ValueError on what it does not take.
+    ``UR`` is the rounds the user and item planes hold (1, or R).
 
     Returns the segment starts of each user in each chunk's pool, ``seg
     [C, G+1]`` (user g owns entries [seg[c, g], seg[c, g+1]); a user's
@@ -176,10 +213,10 @@ def _check_inputs(
         "fb_val": (fb["fb_val"], torch.float32, (C, F)),
         seg_key: (fb[seg_key], torch.int32, (C, F)),
         "fb_overlap": (fb_overlap, torch.float32, (C, G + 1, G + 1)),
-        "u_idx": (planes["u_idx"], torch.int32, (n,)),
-        "u_val": (planes["u_val"], torch.float32, (n,)),
-        "i_idx": (planes["i_idx"], torch.int32, (n * SI,)),
-        "i_val": (planes["i_val"], torch.float32, (n * SI,)),
+        "u_idx": (planes["u_idx"], torch.int32, (UR * n,)),
+        "u_val": (planes["u_val"], torch.float32, (UR * n,)),
+        "i_idx": (planes["i_idx"], torch.int32, (UR * n * SI,)),
+        "i_val": (planes["i_val"], torch.float32, (UR * n * SI,)),
         "label": (planes["label"], torch.float32, (n,)),
         "weight": (planes["weight"], torch.float32, (n,)),
     }
@@ -225,7 +262,7 @@ def device_schedule(
             seg[:, -1].contiguous())
 
 
-_PLANS: List[Plan] = []
+_PLANS = plan_list()
 _MAX_PLANS = MAX_PLANS
 _STATIC = ("u_idx", "u_val", "i_idx", "i_val", "label", "weight")
 _POOL = ("fb_idx", "fb_val", "fb_block")
@@ -239,12 +276,15 @@ _ROUNDS_POINTERS = (
 _SLOT = {name: i for i, name in enumerate(_ROUNDS_POINTERS)}
 
 
-def _plan(state, stacked, chunk_id, fb, fb_overlap, lrs, consts, M: int) -> _Plan:
+def _plan(state, stacked, chunk_id, fb, fb_overlap, lrs, consts, M: int) -> Plan:
     """The checked planes of this call: from the cache when the very same
-    tensors come again unmodified, else checked now (one host sync)."""
+    tensors come again unmodified, else checked now (one host sync).
+    Fresh per-round planes (a pair epoch sampled each round) are new
+    tensors, so each is checked once: the check guards the index bounds."""
     tensors = (*[stacked[p] for p in _STATIC], *[fb[p] for p in _POOL], fb_overlap)
     cid = np.asarray(chunk_id)
-    key = (state.w.shape[0], M, cid.tobytes())
+    UR = plane_rounds(stacked, lrs.shape[0])
+    key = (state.w.shape[0], M, UR, cid.tobytes())
     plan = find_plan(_PLANS, tensors, key)
     if plan is not None:
         return plan
@@ -264,7 +304,7 @@ def _plan(state, stacked, chunk_id, fb, fb_overlap, lrs, consts, M: int) -> _Pla
         "weight": stacked["weight"].reshape(-1),
     }
     planes = {p: x.contiguous() for p, x in planes.items()}
-    seg, _ = _check_inputs(state, planes, fb, fb_overlap, lrs, consts, GS // M, SI)
+    seg, _ = _check_inputs(state, planes, fb, fb_overlap, lrs, consts, GS // M, SI, UR=UR)
     sched = device_schedule(cid, seg, state.w.device)
     ptrs = (ctypes.c_void_p * len(_ROUNDS_POINTERS))()
     for name, x in planes.items():
@@ -338,9 +378,9 @@ def train_rounds_svdpp_kernel(
                     ("wd_ib", consts.wd_item_bias), ("trace", trace)):
         ptrs[_SLOT[name]] = None if x is None else x.data_ptr()
     scalars = (N, k, G, M, stacked["i_idx"].shape[-1], T, R, fb["fb_idx"].shape[1],
-               hp.active_type, 0 if hp.no_user_bias else 1, hp.base_score,
-               ph.scale_lr_ufeedback, ph.wd_ufeedback, ph.wd_ufeedback_bias)
-    ints, floats, grid = launch_args(plan, scalars, 10)
+               hp.active_type, 0 if hp.no_user_bias else 1, plane_rounds(stacked, R),
+               hp.base_score, ph.scale_lr_ufeedback, ph.wd_ufeedback, ph.wd_ufeedback_bias)
+    ints, floats, grid = launch_args(plan, scalars, 11)
     err = lib.svdpp_rounds(ptrs, ints, floats, ctypes.byref(grid), stream)
     if err:
         raise RuntimeError(f"svdpp_rounds launch failed: CUDA error {err}")

@@ -113,7 +113,7 @@ def _slot_sums(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     ``index_add_`` (on the card, B atomics on one address)."""
     if n == 1:
         return vals.sum().reshape(1)
-    return torch.zeros(n, dtype=torch.float32, device=vals.device).index_add_(
+    return torch.zeros(n, dtype=vals.dtype, device=vals.device).index_add_(
         0, idx.reshape(-1).long(), vals.reshape(-1))
 
 

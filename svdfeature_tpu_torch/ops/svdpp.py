@@ -20,7 +20,9 @@ users (slot s = g*M + m); chunk c owns a feedback pool ``[F]`` of
 end with user G and value 0, and the overlap matrix ``O[c] [G+1, G+1]``.
 
 The update is in place: ``state.w`` / ``state.b`` change (the JAX package
-donates the state) and the returned TrainState holds them.
+donates the state) and the returned TrainState holds them.  The working
+type follows the table's (f32; f64 gives chip_smoke.py a yardstick of the
+f32 rounding).
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ def _fb_aggregates(
     fval = cfb["fb_val"]
     idx = cfb["fb_idx"].long()
     blk = cfb["fb_block"].long()
-    zeros = torch.zeros((nseg,), dtype=torch.float32, device=w.device)
-    fb_sum = torch.zeros((nseg, w.shape[1]), dtype=torch.float32, device=w.device)
+    zeros = torch.zeros((nseg,), dtype=w.dtype, device=w.device)
+    fb_sum = torch.zeros((nseg, w.shape[1]), dtype=w.dtype, device=w.device)
     fb_sum.index_add_(0, blk, w[idx] * fval[:, None])
     norm = zeros.clone().index_add_(0, blk, fval * fval)
     fb_bias = zeros.index_add_(0, blk, b[idx] * fval) if with_bias else zeros
@@ -153,8 +155,8 @@ def train_epoch_plus(
     with_bias = not hp.no_user_bias
     cid = np.asarray(chunk_id)
     first = _is_first(cid)
-    dacc = torch.zeros((G + 1, k), dtype=torch.float32, device=dev)
-    dbacc = torch.zeros((G + 1,), dtype=torch.float32, device=dev)
+    dacc = torch.zeros((G + 1, k), dtype=w.dtype, device=dev)
+    dbacc = torch.zeros((G + 1,), dtype=w.dtype, device=dev)
 
     def pool(c: int) -> Dict[str, torch.Tensor]:
         return {name: a[c] for name, a in fb.items()}

@@ -27,7 +27,8 @@ as it selects the jnp path in the JAX package.
 
 from __future__ import annotations
 
-from typing import BinaryIO, Dict, List, Optional, Tuple
+import weakref
+from typing import BinaryIO, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +38,7 @@ from ..data.batching import pack_csr
 from ..data.csr import CSRDataset
 from ..model import SVDModel
 from ..ops import big_embed, tile_sweep
+from ..ops._plans import release_plans
 from ..ops.cuda_embed import kernel_supported, train_rounds_kernel
 from ..ops.embed import (BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState, predict_batches,
                          train_rounds)
@@ -100,6 +102,10 @@ class SVDFeatureTrainer:
         # the last round schedule on the device: a constant learning rate
         # is staged once, not before every round's launch
         self._lrs_staged = (None, None)
+        # ids of the staged planes that the kernel wrappers' kept plans may
+        # hold: those plans go with the trainer
+        self._plan_ids: Set[int] = set()
+        weakref.finalize(self, release_plans, self._plan_ids)
 
     # ---- configuration -----------------------------------------------------
     def set_param(self, name: str, val: str) -> None:
@@ -304,6 +310,7 @@ class SVDFeatureTrainer:
                 )
                 arrays = tile_sweep.attach_sweep_runs(arrays, hp.sweep_tile, hp.sweep_ecap)
             arrays = stacked_from_numpy(arrays, self.state.w.device)
+            self._plan_ids.add(id(arrays["label"]))
             self._pack_cache[key] = (arrays, ds.num_row)
         return self._pack_cache[key]
 

@@ -143,6 +143,7 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
                 enabled=gate_from_numpy(self._imfb_enabled(packed.ctx_depth), dev),
                 perm=packed.perm,
             )
+            self._plan_ids.add(id(self._imfb_cache[key].stacked["label"]))
             self.pack_seconds += time.perf_counter() - t0
         return self._imfb_cache[key]
 

@@ -3,8 +3,8 @@
 Counterpart of svdfeature_tpu/solvers/registry.py (create_svd_trainer /
 create_svd_ranker, apex_svd.cpp:32-47).  The port has the base solver on
 the random-order format, the SVD++ solver (extend_type=1, or the
-user-group format) and multi-IMFB (extend_type=2) so far; every other
-solver raises NotImplementedError naming its ROADMAP item.
+user-group format), multi-IMFB (extend_type=2) and the ranker so far;
+every other solver raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,4 +38,6 @@ def create_svd_trainer(mtype: SVDTypeParam):
 
 def create_svd_ranker(mtype: SVDTypeParam):
     """apex_svd.cpp:45-47."""
-    raise NotImplementedError("the ranker (use_ranker=1) is ROADMAP Queue 1 item 8")
+    from .ranker import SVDFeatureRanker
+
+    return SVDFeatureRanker(mtype)

@@ -38,7 +38,7 @@ COPIES = [
     "data/csr.py", "data/text.py", "data/native.py", "data/buffer.py",
     "data/batching.py", "cli/svd_feature.py", "cli/svd_feature_infer.py",
     "cli/make_feature_buffer.py", "data/batching_plus.py", "cli/make_ugroup_buffer.py",
-    "data/batching_imfb.py",
+    "data/batching_imfb.py", "data/rank.py", "utils/evaluator.py",
 ]
 ML100K = dict(num_user=943, num_item=1682, num_factor=64, base_score=3.0)
 

@@ -580,7 +580,8 @@ def test_update_rounds_equals_update_all():
 
 @pytest.mark.parametrize("key,val,item", [
     ("common_feedback_space", "1", "item 7b"),
-    ("input_type", "2", "item 8"),
+    # pairwise rank (input_type=2), which trains now
+    pytest.param("input_type", "2", None, id="input_type-2-item 8"),
     # a table over 8192 rows: big-table SVD++, which trains now
     pytest.param("num_ufeedback", "8100", None, id="num_ufeedback-8100-item 9"),
     ("streaming", "1", "item 11"),
@@ -590,7 +591,8 @@ def test_update_rounds_equals_update_all():
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """User-group configurations the port does not run yet raise
     NotImplementedError naming their ROADMAP item; a table over 8192 rows
-    (``item`` None) trains on the big-table epoch."""
+    and a pairwise-rank source (``item`` None) train, on the big-table
+    epoch and on the pair skeleton."""
     from svdfeature_tpu_torch.cli import make_ugroup_buffer
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
@@ -601,6 +603,8 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
         CONF + f'buffer_feature = "{tmp_path}/train.buffer"\n'
         f'model_out_folder = "{tmp_path}/models"\n')
     args = ["num_round=1", "device=cpu", f"{key}={val}"]
+    if key == "input_type":  # ratings of 4 and above the positives, 2 and below the negatives
+        args += ["pos_sample_lowerb=4", "neg_sample_upperb=2"]
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             SVDTrainTask().run(str(tmp_path / "t.conf"), args)
@@ -608,7 +612,10 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     task = SVDTrainTask()
     task.run(str(tmp_path / "t.conf"), args)
     tr = task.trainer
-    assert tr.hp.big_table and "chunk_users" in tr._pack_plus(task.dataset).fb
+    if key == "input_type":
+        assert tr._pair_src is task.dataset and tr._pair_sk["use_kernel"]
+    else:
+        assert tr.hp.big_table and "chunk_users" in tr._pack_plus(task.dataset).fb
     assert (tmp_path / "models" / "0001.model").exists()
     assert bool(torch.isfinite(tr.state.w).all()) and int(tr.state.step) > 0
 
