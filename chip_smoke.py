@@ -30,9 +30,9 @@ result line):
      T=159, 8 chunks) and one row per user (T=4088), active_type 0/2,
      no_user_bias 0/1, a synthetic pairwise (item width 2) case and a case
      with more users per step (256) than the kernel's resident grid has
-     blocks, each one cooperative launch, with both times (the kernel's on
-     the same device tensors call after call, as the trainer calls it) and a
-     profile;
+     blocks, each one cooperative launch, with both times (three R=2 runs
+     each, the kernel's on the same device tensors call after call, as the
+     trainer calls it) and a profile;
   5. the implicitFeedback slice: make_ugroup_buffer -fd, SVDTrainTask (40
      rounds, sort_blocks=1 rows_per_user=8, device=cuda), SVDInferTask;
      the final test RMSE must lie in the GOLDEN.json band and every step
@@ -64,8 +64,8 @@ result line):
      128 units x 8 rows, T=449, D=2, nseg=129), once more on the same
      tensors (the kept plan), and on synthetic stacked sets with
      no_user_bias=1 and ufeedback_disable_level=1 at rows_per_user 1 and
-     2, each call exactly one launch, with both times, the bound and a
-     profile;
+     2, each call exactly one launch, with both times (two R=2 runs each),
+     the bound and a profile;
   9. the stacked slice: the depth-2 transform of the implicitFeedback train
      set (write_plus_buffer) and the stock test buffer (make_ugroup_buffer
      -fd), SVDTrainTask (extend_type=2 rows_per_user=8, 8 rounds,
@@ -125,11 +125,34 @@ result line):
      rank_jax_reference.py --big); (b) the multi path, one block of 8
      rounds (the user-carry body), accuracy above 0.75; K5 launch counts
      the plan's, pairs/s beside the reference binary's, and K5 bit for bit
-     and timed at each run's call shapes.
-Each phase prints its time.  Then one JSON line describing the kernels (with each one's bound: the
-larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
-the H100 SXM's published rates at 700 W) and, last, one JSON line naming
-the device.
+     and timed at each run's call shapes;
+ 15. the shared feedback space (common_feedback_space=1, the per-batch
+     refresh epochs): the implicitFeedback train and test sets with
+     user-space follow feedback (user u follows min(its feedback count,
+     100) distinct users drawn by default_rng(7), value 1/sqrt(n),
+     num_ufeedback=943) through SVDTrainTask / SVDInferTask with
+     use_pallas set: (a) SVD++ at sort_blocks=1 rows_per_user=8, 5 rounds,
+     (b) the depth-2 stacked transform under extend_type=2, 2 rounds; no
+     kernel launches (K1, K2 and K3 refuse the shared space), the test
+     RMSE within 1e-4 of the JAX package's CPU figure
+     (scripts/refresh_jax_reference.py), examples/s beside phase 5's;
+ 16. the bilinear solver (extend_type=15) through the tasks, use_pallas
+     set, K2 and K3 never launched: (a) num_bi_feedback=0 on the
+     implicitFeedback band setting, 8 rounds, every round equal to the
+     port's plain SVD++ run on the same file-order pack to 1e-6 and within
+     0.01 of golden/bilinear.rmse.tsv; (b) num_bi_feedback=1682 (the
+     item-item W_bi of the integrated neighbourhood model), 8 rounds; (c)
+     phase 15's follow data on the refresh route, 3 rounds; (d) bigSvdpp's
+     geometry cut to its first 20,000 users with two property ids each
+     (num_bi_feedback=64, W_bi 624,000 x 64; start_ufeedback=64 keeps the
+     property ids out of the factor sum), 2 rounds, K5 launches the plan's; (b)-(d) within 1e-4 of the JAX package's CPU figure
+     (scripts/bilinear_jax_reference.py); then K5 bit for bit at (d)'s
+     W_bi write, timed in turns with index_copy_.
+Each phase prints its time, and the script its total.  Then one JSON
+line describing the kernels, all six and K5 once more at big bilinear's
+W_bi write (with each one's bound: the larger of its bytes over 3.35 TB/s
+and its f32 operations over 67 TFLOP/s, the H100 SXM's published rates at
+700 W) and, last, one JSON line naming the device.
 """
 
 from __future__ import annotations
@@ -281,15 +304,7 @@ def write_big_plus(d, csr, write_plus_buffer, a, dims):
     write_plus_buffer(str(d / "probe.buffer"), plus_dataset(csr, a, BIG_PLUS_PROBE))
     write_plus_buffer(str(d / "imfb.buffer"),
                       stack_depth2(plus_dataset(csr, a, BIG_PLUS_IMFB_USERS), csr))
-    conf = d / "bigSvdpp.conf"
-    conf.write_text(
-        "format_type = 1\nbase_score = 3\nlearning_rate = 0.005\nwd_item = 0.004\n"
-        "wd_user = 0.004\nwd_ufeedback = 0.004\n"
-        f"num_user = {dims['NU']}\nnum_item = {dims['NI']}\nnum_ufeedback = {dims['NF']}\n"
-        f"num_global = 0\nnum_factor = {dims['KF']}\n"
-        "sort_blocks = 1\nrows_per_user = 4\nusers_per_batch = 4096\n"
-        f'test:buffer_feature = "{d}/probe.buffer"\nsilent = 1\n')
-    return conf
+    return big_plus_conf(d, dims, "probe.buffer")
 
 
 # phases 12-14: pairwise ranking.  pairwiseRank is the reference's demo
@@ -461,6 +476,150 @@ def write_imfb(d, load_plus_text, csr, write_plus_buffer, make_ugroup_main):
     return ds
 
 
+def write_implicit(d, make_ugroup_main):
+    """Write the implicitFeedback demo's train.buffer and test.buffer into
+    directory ``d`` from the ML-100K fixtures with a package's
+    make_ugroup_buffer -fd (demo/implicitFeedback/run.sh)."""
+    for split, (fx, fb_fx) in (("train", ("ml100k.base.group.feature.gz", "ml100k.base.feedback.gz")),
+                               ("test", ("ml100k.test.ug.feature.gz", "ml100k.test.feedback.gz"))):
+        unzip_fixture(fx, d / f"{split}.feature")
+        unzip_fixture(fb_fx, d / f"{split}.feedback")
+        make_ugroup_main([str(d / f"{split}.feature"), str(d / f"{split}.buffer"),
+                          "-fd", str(d / f"{split}.feedback")])
+
+
+# phases 15 and 16: the shared feedback space and the bilinear solver.  Phase
+# 15's data is the implicitFeedback train and test sets with user-space
+# feedback in place of their item feedback, the social "follow" feedback that
+# common_feedback_space=1 exists for: user u follows n_u = min(its train
+# feedback count, FOLLOW_MAX) distinct users drawn from [0, 943) by
+# default_rng(FOLLOW_SEED) in user order, each entry of value 1/sqrt(n_u).
+FOLLOW_USERS = 943
+FOLLOW_MAX = 100
+FOLLOW_SEED = 7
+FOLLOW_KEYS = [f"num_ufeedback={FOLLOW_USERS}", "common_feedback_space=1"]
+BAND_KEYS = ["sort_blocks=1", "rows_per_user=8"]  # the implicitFeedback band setting
+REFRESH_RUNS = {  # tag: the buffer it trains, conf keys beside implicitFeedback.conf's, rounds
+    "a": dict(buffer="train.buffer", keys=[*BAND_KEYS, *FOLLOW_KEYS], rounds=5),  # SVD++
+    # the depth-2 stacked transform, as phase 9 trains it (file order)
+    "b": dict(buffer="imfb.buffer", keys=["extend_type=2", "rows_per_user=8", *FOLLOW_KEYS],
+              rounds=2),
+}
+# phase 16: bilinear (extend_type=15).  (a) no user properties, which is plain
+# SVD++ (COMPONENTS.md #10); (b) the integrated neighbourhood model: every
+# feedback item is a user property, W_bi[item, item']; (c) the follow data on
+# the refresh route; (d) bigSvdpp's geometry, the first BIG_BI_USERS users
+# with BIG_BI_PROPS property ids from [0, BIG_BI_NBF) each (default_rng(1))
+# before their feedback.  The bilinear pack keeps file order (it takes no
+# sort_blocks, as the JAX solver's), so (a)'s SVD++ run is at sort_blocks=0.
+BIG_BI_USERS = BIG_PLUS_IMFB_USERS
+BIG_BI_NBF = 64
+BIG_BI_PROPS = 2
+BI_RUNS = {  # tag: its data directory, conf keys beside its conf's, rounds
+    "a": dict(data="implicitFeedback", keys=[*BAND_KEYS, "extend_type=15", "num_bi_feedback=0"],
+              rounds=8),
+    "b": dict(data="implicitFeedback", keys=[*BAND_KEYS, "extend_type=15",
+                                             "num_bi_feedback=1682", "start_ufeedback=0"], rounds=8),
+    "c": dict(data="follow", keys=[*BAND_KEYS, *FOLLOW_KEYS, "extend_type=15",
+                                   f"num_bi_feedback={FOLLOW_USERS}", "start_ufeedback=0"], rounds=3),
+    # the property ids leave the factor sum (start_ufeedback): with them in
+    # it, 64 ids shared by every user of a 4096-user step diverge (NaN by
+    # round 2 in both packages)
+    "d": dict(data="bigBilinear", keys=["extend_type=15", f"num_bi_feedback={BIG_BI_NBF}",
+                                        f"start_ufeedback={BIG_BI_NBF}"], rounds=2),
+}
+
+
+def block_user(blk) -> int:
+    """The user of a user-group block: its first row's user entry (-1 for a
+    block without rows)."""
+    d = blk.data
+    return int(d.index[d.row_ptr[1]]) if d.num_row else -1
+
+
+def follow_lists(train):
+    """The followed users of each user (see FOLLOW_SEED)."""
+    counts = np.zeros(FOLLOW_USERS, np.int64)
+    for blk in train.blocks():
+        if block_user(blk) >= 0:
+            counts[block_user(blk)] += blk.num_ufeedback
+    rng = np.random.default_rng(FOLLOW_SEED)
+    return [rng.choice(FOLLOW_USERS, size=min(int(c), FOLLOW_MAX), replace=False) for c in counts]
+
+
+def with_follow(ds, csr, lists):
+    """``ds`` with each block's feedback replaced by its user's follow list."""
+    blocks = []
+    for blk in ds.blocks():
+        ids = lists[block_user(blk)] if block_user(blk) >= 0 else np.zeros(0, np.int64)
+        val = np.full(len(ids), 1.0 / np.sqrt(max(len(ids), 1)), np.float32)
+        blocks.append(csr.PlusBlock(ids.astype(np.uint32), val, blk.data, extend_tag=blk.extend_tag))
+    return csr.PlusDataset.from_blocks(blocks)
+
+
+def write_follow(d, load_plus_text, csr, write_plus_buffer):
+    """Write phase 15's buffers into directory ``d`` with a package's own
+    parser, classes and writer: the follow train set (train.buffer), its
+    depth-2 stacked transform (imfb.buffer, as phase 9 makes it) and the
+    follow test set (test.buffer)."""
+    def load(feature, feedback):
+        return load_plus_text("x", "y", text=fixture_text(feature), feedback_text=fixture_text(feedback))
+
+    train = load("ml100k.base.group.feature.gz", "ml100k.base.feedback.gz")
+    lists = follow_lists(train)
+    train = with_follow(train, csr, lists)
+    write_plus_buffer(str(d / "train.buffer"), train)
+    write_plus_buffer(str(d / "imfb.buffer"), stack_depth2(train, csr))
+    write_plus_buffer(str(d / "test.buffer"),
+                      with_follow(load("ml100k.test.ug.feature.gz", "ml100k.test.feedback.gz"),
+                                  csr, lists))
+
+
+def big_bi_arrays(a):
+    """big_plus_arrays' arrays cut to the first BIG_BI_USERS blocks, each
+    with BIG_BI_PROPS distinct property ids from [0, BIG_BI_NBF)
+    (default_rng(1)), of value 1, before its feedback."""
+    n = BIG_BI_USERS
+    rng = np.random.default_rng(1)
+    first = rng.integers(0, BIG_BI_NBF, n)
+    props = np.stack([first, (first + rng.integers(1, BIG_BI_NBF, n)) % BIG_BI_NBF], axis=1)
+    old_ptr = a["block_fb_ptr"][: n + 1].astype(np.int64)
+    new_ptr = old_ptr + BIG_BI_PROPS * np.arange(n + 1)
+    fb_index = np.empty(int(new_ptr[-1]), np.uint32)
+    old = np.arange(int(old_ptr[-1]))
+    blk = np.repeat(np.arange(n), np.diff(old_ptr))
+    fb_index[old + BIG_BI_PROPS * (blk + 1)] = a["fb_index"][: old_ptr[-1]]
+    for j in range(BIG_BI_PROPS):
+        fb_index[new_ptr[:-1] + j] = props[:, j]
+    return dict(a, fb_index=fb_index, fb_value=np.ones(len(fb_index), np.float32),
+                block_fb_ptr=new_ptr.astype(np.int32))
+
+
+def big_plus_conf(d, dims, probe):
+    """bigSvdpp's conf (bench.py:929-941) in directory ``d``, tested on the
+    ``probe`` buffer there; returns its path."""
+    conf = d / "bigSvdpp.conf"
+    conf.write_text(
+        "format_type = 1\nbase_score = 3\nlearning_rate = 0.005\nwd_item = 0.004\n"
+        "wd_user = 0.004\nwd_ufeedback = 0.004\n"
+        f"num_user = {dims['NU']}\nnum_item = {dims['NI']}\nnum_ufeedback = {dims['NF']}\n"
+        f"num_global = 0\nnum_factor = {dims['KF']}\n"
+        "sort_blocks = 1\nrows_per_user = 4\nusers_per_batch = 4096\n"
+        f'test:buffer_feature = "{d}/{probe}"\nsilent = 1\n')
+    return conf
+
+
+def write_big_bilinear(d, csr, write_plus_buffer, a, dims):
+    """Write phase 16 (d)'s buffers into directory ``d`` with a package's own
+    classes and writer: big_bi_arrays' train set and its first
+    BIG_PLUS_PROBE user blocks as the probe, with bigSvdpp's conf; returns
+    the conf path."""
+    b = big_bi_arrays(a)
+    write_plus_buffer(str(d / "train.buffer"), plus_dataset(csr, b, BIG_BI_USERS))
+    write_plus_buffer(str(d / "probe.buffer"), plus_dataset(csr, b, BIG_PLUS_PROBE))
+    return big_plus_conf(d, dims, "probe.buffer")
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -620,7 +779,7 @@ def phase_kernel(torch, dev, card, failures):
         fns = {"plain": train_rounds_reference, "kernel": train_rounds_kernel}
         samples = {"plain": [], "kernel": []}
         held = {name: device_inputs(arrays) for name in fns}
-        for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain") * 3:
+        for name in ("plain", "kernel", "kernel", "plain") * 2:
             inputs = held[name]
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -833,19 +992,15 @@ def phase_slice(work, card, failures):
 
 def phase_svdpp_slice(work, card, failures):
     """implicitFeedback (demo/implicitFeedback/run.sh) at the RMSE band's
-    setting, sort_blocks=1 rows_per_user=8 (golden/derive_rmse_bands.py)."""
+    setting, sort_blocks=1 rows_per_user=8 (golden/derive_rmse_bands.py).
+    Returns the K2 launches and the kernel run's examples/s."""
     from svdfeature_tpu_torch.cli import make_ugroup_buffer
     from svdfeature_tpu_torch.ops.cuda_svdpp import launches_per_call, train_rounds_svdpp_kernel
 
     name = "implicitFeedback"
     d = work / name
     d.mkdir(parents=True)
-    for split, (fx, fb_fx) in (("train", ("ml100k.base.group.feature.gz", "ml100k.base.feedback.gz")),
-                               ("test", ("ml100k.test.ug.feature.gz", "ml100k.test.feedback.gz"))):
-        unzip_fixture(fx, d / f"{split}.feature")
-        unzip_fixture(fb_fx, d / f"{split}.feedback")
-        make_ugroup_buffer.main([str(d / f"{split}.feature"), str(d / f"{split}.buffer"),
-                                 "-fd", str(d / f"{split}.feedback")])
+    write_implicit(d, make_ugroup_buffer.main)
     import torch
 
     launches = 0
@@ -855,7 +1010,7 @@ def phase_svdpp_slice(work, card, failures):
         cid = task.trainer._pack_plus(task.dataset).chunk_id
         want = ROUNDS * launches_per_call(cid, 1) if path == "kernel" else 0
         if path == "kernel":
-            launches = r["launches"]["K2"]
+            launches, eps = r["launches"]["K2"], r["eps_steady"]
         starts = int(np.count_nonzero(np.concatenate([[True], cid[1:] != cid[:-1]])))
         report_demo(5, name, path, r, "K2", want,
                     f"{ROUNDS} rounds, one cooperative launch each; T={len(cid)}, "
@@ -867,7 +1022,7 @@ def phase_svdpp_slice(work, card, failures):
         if path == "kernel":
             share = steady_busy_share(torch, task, train_rounds_svdpp_kernel, 9, 8, len(cid))
             report_share(5, name, "K2", *share, card, failures)
-    return launches
+    return launches, eps
 
 
 # ---- phase 4: the SVD++ kernel vs plain ---------------------------------------
@@ -1025,7 +1180,7 @@ def phase_svdpp_kernel(torch, dev, card, failures):
     fns = {"plain": train_rounds_svdpp_reference, "kernel": train_rounds_svdpp_kernel}
     samples = {"plain": [], "kernel": []}
     held = {name: list(device_inputs(x)) for name in fns}
-    for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain") * 3:
+    for name in ("plain", "kernel", "kernel", "plain") * 2:
         inputs = held[name]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -1038,7 +1193,7 @@ def phase_svdpp_kernel(torch, dev, card, failures):
     samples = {name: v[1:] for name, v in samples.items()}  # the first call warms up
     timing = {n: float(np.median(v)) for n, v in samples.items()}
     timing["bound"], timing["bound_by"] = svdpp_bound(x)
-    print(f"phase 4 time: band ms per step (GS=1024, median of 8 R={R} runs): "
+    print(f"phase 4 time: band ms per step (GS=1024, median of 3 R={R} runs): "
           f"kernel {timing['kernel']:.4f} plain {timing['plain']:.4f} "
           f"bound {timing['bound']:.6f} ({timing['bound_by']}) on {card}", flush=True)
     for name in ("kernel", "plain"):
@@ -1592,7 +1747,7 @@ def phase_imfb_kernel(torch, dev, card, failures):
     fns = {"plain": train_rounds_imfb_reference, "kernel": train_rounds_imfb_kernel}
     samples = {"plain": [], "kernel": []}
     held = {name: device_inputs(x) for name in fns}
-    for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain", "plain", "kernel"):
+    for name in ("plain", "kernel", "kernel", "plain", "kernel", "plain"):
         inputs = held[name]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -1605,7 +1760,7 @@ def phase_imfb_kernel(torch, dev, card, failures):
     samples = {name: v[1:] for name, v in samples.items()}  # the first call warms up
     timing = {n: float(np.median(v)) for n, v in samples.items()}
     timing["bound"], timing["bound_by"] = imfb_bound(x)
-    print(f"phase 8 time: slice ms per step (GS=1024, nseg={x['enabled'].shape[1]}, median of 3 "
+    print(f"phase 8 time: slice ms per step (GS=1024, nseg={x['enabled'].shape[1]}, median of 2 "
           f"R={R} runs): kernel {timing['kernel']:.4f} plain {timing['plain']:.4f} "
           f"bound {timing['bound']:.6f} ({timing['bound_by']}); library call: none (no "
           f"PyTorch call computes a stacked step) on {card}", flush=True)
@@ -1957,6 +2112,7 @@ def time_k5_shapes(torch, phase, run, w, shapes, card, failures):
         got = cuda_scatter.row_writer(w.clone(), idx, vals)
         want = cuda_scatter.row_writer_reference(w.clone(), idx, vals)
         ok = torch.equal(got, want) and bool((got[-1] == 0).all())
+        err = float((got - want).abs().max())
         del got, want
         work_tbl = w.clone()
         idx_long = idx.long()
@@ -1966,6 +2122,7 @@ def time_k5_shapes(torch, phase, run, w, shapes, card, failures):
                           "library": lambda: work_tbl.index_copy_(0, idx_long, vals)},
                   inner=50, turns=5, spread=spread)
         t["bound"], t["bound_by"] = bound(4 * (E + E * W + U * W), 0, 1)
+        t["err"] = err
         timing[f"{run} {name}"] = t
         del work_tbl
         if not ok:
@@ -2381,6 +2538,177 @@ def phase_big_rank(torch, card, failures):
     return total_k5, timing
 
 
+# ---- phases 15-16: the shared feedback space and the bilinear solver ---------------
+# Test RMSE after each run's rounds (run d: the probe's), the JAX package on
+# the CPU, same data and conf: scripts/refresh_jax_reference.py --run a|b and
+# scripts/bilinear_jax_reference.py --run b|c|d.
+JAX_REFRESH_RMSE = {"a": 1.001765, "b": 1.010718}
+JAX_BILINEAR_RMSE = {"b": 0.954964, "c": 0.997885, "d": 0.167179}
+REFRESH_JAX_TOL = 1e-4
+BI_JAX_TOL = 1e-4
+BI_GOLDEN_TOL = 0.01  # tests/test_golden_full.py:173-181, against golden/bilinear.rmse.tsv
+BI_AB_TOL = 1e-6  # (a) against the port's plain SVD++ run, every round
+
+
+def task_run(conf, d, tag, keys, rounds, evals):
+    """Train ``rounds`` rounds through SVDTrainTask on the card, every
+    kernel's launch count set to 0 just before and read just after, then
+    evaluate the checkpoints ``evals`` (SVDInferTask keys) -> (the trained
+    task, {round: RMSE}, launches, examples/s of rounds 2.. (round 1 less
+    its packing for a run of one round), round seconds)."""
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    common = [f"model_out_folder={d}/models_{tag}", "device=cuda", "silent=1", *keys]
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    task = SVDTrainTask()
+    task.run(str(conf), common + [f"num_round={rounds}"])
+    launches = {kid: fn.launches for kid, fn in wrappers.items()}
+    log = d / f"rmse_{tag}.tsv"
+    SVDInferTask().run(str(conf), common + [*evals, f"log_eval={log}"])
+    rmse = {int(r): float(v) for r, v in (line.split() for line in log.read_text().splitlines())}
+    shutil.rmtree(d / f"models_{tag}")
+    secs = task.round_seconds
+    train = secs[1:] if rounds > 1 else [secs[0] - task.trainer.pack_seconds]
+    return task, rmse, launches, task.dataset_rows() * len(train) / sum(train), secs
+
+
+def phase_refresh(work, card, failures, k2_eps):
+    """The per-batch refresh epochs of a shared feedback space: phase 15's
+    follow data (common_feedback_space=1) through SVDTrainTask /
+    SVDInferTask, (a) SVD++ at the band setting, 5 rounds, (b) the depth-2
+    stacked transform under extend_type=2, 2 rounds, use_pallas set.  Gates:
+    no kernel launch (K1, K2 and K3 refuse the shared space), the route,
+    the test RMSE within REFRESH_JAX_TOL of the JAX package's CPU figure."""
+    from svdfeature_tpu_torch.data import csr
+    from svdfeature_tpu_torch.data.buffer import write_plus_buffer
+    from svdfeature_tpu_torch.data.text import load_plus_text
+
+    d = work / "follow"
+    d.mkdir()
+    write_follow(d, load_plus_text, csr, write_plus_buffer)
+    conf = ROOT / "demo" / "implicitFeedback" / "implicitFeedback.conf"
+    for tag, run in REFRESH_RUNS.items():
+        R = run["rounds"]
+        task, rmse, launches, eps, secs = task_run(
+            conf, d, f"refresh_{tag}", [f"buffer_feature={d}/{run['buffer']}",
+                                        f"test:buffer_feature={d}/test.buffer", *run["keys"]],
+            R, [f"start={R}", f"end={R + 1}"])
+        tr = task.trainer
+        entry = tr._pack_plus(task.dataset)
+        stacked = type(entry).__name__ == "ImfbEntry"
+        jax = JAX_REFRESH_RMSE[tag]
+        ok = (not any(launches.values()) and tr.model.param.common_feedback_space == 1
+              and not tr.hp.big_table and tr.use_pallas and stacked == (tag == "b")
+              and (entry.fb_overlap is None or not stacked)
+              and jax is not None and abs(rmse[R] - jax) < REFRESH_JAX_TOL)
+        if not ok:
+            failures.append(f"refresh run ({tag})")
+        jax_txt = f"minus JAX CPU {rmse[R] - jax:+.6f}" if jax is not None else "no JAX CPU figure"
+        print(f"phase 15 {'ok' if ok else 'FAIL'}: follow ({tag}) {' '.join(run['keys'])} "
+              f"{type(tr).__name__} refresh epoch (T={len(entry.chunk_id)}) through "
+              f"SVDTrainTask/SVDInferTask: test RMSE after {R} rounds {rmse[R]:.6f} ({jax_txt}, "
+              f"tol {REFRESH_JAX_TOL:g}); launches {launches} (want all 0 with use_pallas=1); "
+              f"training {eps:,.0f} examples/s rounds 2-{R} (phase 5's K2 run, disjoint space: "
+              f"{k2_eps:,.0f}); round seconds {[round(x, 3) for x in secs]} on {card}", flush=True)
+        del task, tr, entry
+
+
+def phase_bilinear(torch, work, card, failures):
+    """The bilinear solver (extend_type=15) through SVDTrainTask /
+    SVDInferTask, use_pallas set: (a) no user properties at the
+    implicitFeedback band setting, 8 rounds, every round against the port's
+    plain SVD++ run on the same pack (file order) to BI_AB_TOL and against
+    golden/bilinear.rmse.tsv to BI_GOLDEN_TOL; (b) the integrated
+    neighbourhood model (W_bi 1682 x 1682), 8 rounds; (c) the follow data
+    on the refresh route, 3 rounds; (d) big bilinear on bigSvdpp's geometry
+    (BIG_BI_USERS users, W_bi 624,000 x 64), 2 rounds, K5 launches the
+    plan's.  (b)-(d) within BI_JAX_TOL of the JAX package's CPU figure; K2
+    and K3 never launch.  Then K5 bit for bit at (d)'s W_bi write, timed
+    against index_copy_.  Returns (K5 launches, K5 timing)."""
+    from svdfeature_tpu_torch.data import csr
+    from svdfeature_tpu_torch.data.buffer import write_plus_buffer
+    from svdfeature_tpu_torch.ops.svdpp_bilinear import k5_launches_bi
+
+    golden = [float(line.split()[1]) for line in
+              (ROOT / "golden" / "bilinear.rmse.tsv").read_text().splitlines()]
+    implicit = ROOT / "demo" / "implicitFeedback" / "implicitFeedback.conf"
+    d = work / "bigBilinear"
+    d.mkdir()
+    t0 = time.perf_counter()
+    arrays, dims = big_plus_arrays()
+    big_conf = write_big_bilinear(d, csr, write_plus_buffer, arrays, dims)
+    del arrays
+    print(f"phase 16: big bilinear data ({BIG_BI_USERS:,} users of bigSvdpp, {BIG_BI_PROPS} "
+          f"property ids each, table {dims['NU'] + dims['NI'] + dims['NF'] + 1:,} rows, W_bi "
+          f"{dims['NI']:,} x {BIG_BI_NBF}) written in {time.perf_counter() - t0:.1f} s", flush=True)
+    k5, timing = 0, {}
+    for tag, run in BI_RUNS.items():
+        R = run["rounds"]
+        dd = work / run["data"]
+        data = [f"buffer_feature={dd}/train.buffer"]
+        if tag == "d":
+            conf, evals = big_conf, ["start=0", f"end={R + 1}", f"step={R}"]
+        else:
+            conf, evals = implicit, ["start=1", f"end={R + 1}"]
+            data.append(f"test:buffer_feature={dd}/test.buffer")
+        torch.cuda.reset_peak_memory_stats()
+        task, rmse, launches, eps, secs = task_run(conf, dd, f"bi_{tag}", data + run["keys"], R,
+                                                   evals)
+        tr = task.trainer
+        entry = tr._pack_plus(task.dataset)
+        cid = entry.chunk_id
+        want = {kid: 0 for kid in launches}
+        want["K5"] = R * k5_launches_bi(cid, BIG_BI_NBF) if tag == "d" else 0
+        k5 += launches["K5"]
+        ok = (launches == want and type(tr).__name__ == "SVDBiLinearTrainer" and tr.use_pallas
+              and tr.hp.big_table == (tag == "d") and math.isfinite(rmse[R]))
+        route = ("refresh" if tr.model.param.common_feedback_space else
+                 "big-table" if tr.hp.big_table else "carried")
+        line = (f"{type(tr).__name__} {route} epoch (T={len(cid)}, W_bi "
+                f"{tr.W_bi.shape[0] - 1:,} x {tr.W_bi.shape[1]}); launches {launches} "
+                f"(want {want}); training {eps:,.0f} examples/s; round seconds "
+                f"{[round(x, 3) for x in secs]}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if tag == "a":
+            # the port's plain SVD++ rounds on the pack the bilinear solver
+            # trains (file order, 8 rows a user)
+            _, plain, plain_l, plain_eps, _ = task_run(
+                implicit, dd, "bi_a_svdpp", data + ["sort_blocks=0", "rows_per_user=8",
+                                                    "use_pallas=0"], R, evals)
+            ab = max(abs(rmse[r] - plain[r]) for r in range(1, R + 1))
+            gold = max(abs(rmse[r] - golden[r - 1]) for r in range(1, R + 1))
+            ok &= ab <= BI_AB_TOL and gold < BI_GOLDEN_TOL and not any(plain_l.values())
+            print(f"phase 16 {'ok' if ok else 'FAIL'}: implicitFeedback ({tag}) "
+                  f"{' '.join(run['keys'])}: test RMSE by round "
+                  f"{' '.join(f'{rmse[r]:.6f}' for r in range(1, R + 1))}; max |d| to the plain "
+                  f"SVD++ run (sort_blocks=0, use_pallas=0; {plain_eps:,.0f} examples/s) {ab:.2e} "
+                  f"(tol {BI_AB_TOL:g}); max |d| to golden/bilinear.rmse.tsv {gold:.6f} (tol "
+                  f"{BI_GOLDEN_TOL:g}); {line} on {card}", flush=True)
+        else:
+            jax = JAX_BILINEAR_RMSE[tag]
+            ok &= jax is not None and abs(rmse[R] - jax) < BI_JAX_TOL
+            if tag == "d":
+                ok &= rmse[R] < rmse[0]
+            what = "probe" if tag == "d" else "test"
+            start = f"{rmse[0]:.6f} -> " if tag == "d" else ""
+            jax_txt = f"minus JAX CPU {rmse[R] - jax:+.6f}" if jax is not None else "no JAX CPU figure"
+            print(f"phase 16 {'ok' if ok else 'FAIL'}: {run['data']} ({tag}) "
+                  f"{' '.join(run['keys'])}: {what} RMSE {start}{rmse[R]:.6f} after {R} rounds "
+                  f"({jax_txt}, tol {BI_JAX_TOL:g}); {line} on {card}", flush=True)
+        if not ok:
+            failures.append(f"bilinear run ({tag})")
+        if tag == "d":
+            shapes = k5_first_calls(torch, lambda: tr.update_all(task.dataset), {1: "W_bi write"})
+            timing = time_k5_shapes(torch, 16, "big bilinear (d)", tr.W_bi, shapes, card, failures)
+            del shapes
+        del task, tr, entry
+        torch.cuda.empty_cache()
+    return k5, timing
+
+
 def kernel_line(name, source, replaces, launches, max_err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": timing["kernel"],
@@ -2389,6 +2717,7 @@ def kernel_line(name, source, replaces, launches, max_err, timing):
 
 
 def main() -> int:
+    start = time.perf_counter()
     card = card_line()
     print(f"phase 0: {card}", flush=True)
     import torch
@@ -2429,7 +2758,7 @@ def main() -> int:
         phase_time("phase 3")
         k2_err, k2_timing = phase_svdpp_kernel(torch, dev, card, failures)
         phase_time("phase 4")
-        k2_launches = phase_svdpp_slice(pathlib.Path(work), card, failures)
+        k2_launches, k2_eps = phase_svdpp_slice(pathlib.Path(work), card, failures)
         phase_time("phase 5")
         big = bigtable_arrays()
         big_timing = phase_big_kernels(torch, dev, big, card, failures)
@@ -2455,6 +2784,11 @@ def main() -> int:
         phase_time("phase 13")
         k5_rank_launches, _ = phase_big_rank(torch, card, failures)
         phase_time("phase 14")
+        phase_refresh(pathlib.Path(work), card, failures, k2_eps)
+        phase_time("phase 15")
+        k5_bi_launches, k5_bi_timing = phase_bilinear(torch, pathlib.Path(work), card, failures)
+        phase_time("phase 16")
+    print(f"chip_smoke.py took {time.perf_counter() - start:.1f} s on {card}", flush=True)
 
     if failures:
         print(f"FAILED phases: {failures}", flush=True)
@@ -2478,6 +2812,12 @@ def main() -> int:
                     "svdfeature_tpu/ops/pallas_scatter.py:43",
                     big_launches["K5"] + k5_plus_launches + k5_rank_launches,
                     big_timing["K5"]["err"], big_timing["K5"]),
+        # K5 on big bilinear's path (phase 16 (d)): its W_bi write
+        kernel_line("row_writer (row_write), W_bi rows of big bilinear",
+                    "svdfeature_tpu_torch/csrc/row_scatter.cu",
+                    "svdfeature_tpu/ops/pallas_scatter.py:43", k5_bi_launches,
+                    k5_bi_timing["big bilinear (d) W_bi write"]["err"],
+                    k5_bi_timing["big bilinear (d) W_bi write"]),
         kernel_line("row_reader (row_read)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:111", big_launches["K6"],
                     big_timing["K6"]["err"], big_timing["K6"]),

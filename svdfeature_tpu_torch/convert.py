@@ -113,3 +113,16 @@ def gate_from_numpy(enabled: np.ndarray, device: torch.device) -> torch.Tensor:
     chunk's local context trains, 0.0 for disabled depths, unused slots
     and the pad context) on ``device`` as f32."""
     return _f32(enabled, device)
+
+
+def bilinear_from_numpy(W_bi, up, device: torch.device):
+    """Stage the bilinear solver's arrays on ``device`` as f32: ``W_bi
+    [num_item, nbf]`` with one zero dummy row appended (the port's
+    ``W_bi_pad``, ops/svdpp_bilinear.py) and the per-slot user properties
+    ``up [C, G+1, nbf]``; either may be None (none staged).  Returns
+    (W_bi_pad, up)."""
+    W_pad = None
+    if W_bi is not None:
+        W = np.asarray(W_bi, np.float32)
+        W_pad = _f32(np.concatenate([W, np.zeros((1, W.shape[1]), np.float32)]), device)
+    return W_pad, None if up is None else _f32(up, device)

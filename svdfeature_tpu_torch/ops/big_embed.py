@@ -231,7 +231,7 @@ def _global_step(g, g_idx, g_val, err, cg, lr, consts: TrainConsts, hp):
 
 
 def _forward_entries(state: TrainState, batch: Dict[str, torch.Tensor], lr, consts: TrainConsts,
-                     hp, p_u_extra=None, bias_extra=None) -> Forward:
+                     hp, p_u_extra=None, bias_extra=None, bias_plugin=None) -> Forward:
     """Front half of the big-table step (big_embed.py:199-316): the lazy
     global catch-up, the forward with the lazy row catch-up applied to the
     gathered rows, the error and the global-bias update.  Shared with the
@@ -243,7 +243,9 @@ def _forward_entries(state: TrainState, batch: Dict[str, torch.Tensor], lr, cons
     ``p_u_extra [B, k]`` / ``bias_extra [B]`` inject the SVD++ feedback
     term (prepare_svdpp / get_bias_svdpp, apex_svd_base.h:429-437): it
     joins ``p_u`` before the item entries are formed, so item rows move
-    with the full user factor (update_no_decay, :408-416)."""
+    with the full user factor (update_no_decay, :408-416).  ``bias_plugin
+    [B]`` adds a solver's plugin bias (get_bias_plugin, :436-438) after the
+    item bias, outside the no_user_bias gate (big_embed.py:274-277)."""
     w, g = state.w, state.g
     k = hp.num_factor
     if not 0 < k <= w.shape[1] - 2:
@@ -279,6 +281,8 @@ def _forward_entries(state: TrainState, batch: Dict[str, torch.Tensor], lr, cons
         p_u = p_u + p_u_extra
     score = hp.base_score + _gather_sum(g, g_idx, batch["g_val"])
     score = score + (i_val * bi).sum(dim=1)
+    if bias_plugin is not None:
+        score = score + bias_plugin
     if not hp.no_user_bias:
         score = score + (u_val * bu).sum(dim=1)
         if bias_extra is not None:
@@ -383,11 +387,11 @@ def apply_entries(w, step0, ent_idx, payload, rows_u, rows_i, wu, wi, lr, consts
 
 
 def dedup_step(state: TrainState, batch: Dict[str, torch.Tensor], lr, consts: TrainConsts, hp,
-               p_u_extra=None, bias_extra=None) -> Tuple[TrainState, Forward]:
-    """One sorted-dedup step, with the optional SVD++ feedback term of
-    ``_forward_entries``; returns the new TrainState and the forward's
-    outputs (the SVD++ recurrence reads ``err`` and ``p_i``)."""
-    f = _forward_entries(state, batch, lr, consts, hp, p_u_extra, bias_extra)
+               p_u_extra=None, bias_extra=None, bias_plugin=None) -> Tuple[TrainState, Forward]:
+    """One sorted-dedup step, with the optional SVD++ feedback term and
+    plugin bias of ``_forward_entries``; returns the new TrainState and the
+    forward's outputs (the SVD++ recurrence reads ``err`` and ``p_i``)."""
+    f = _forward_entries(state, batch, lr, consts, hp, p_u_extra, bias_extra, bias_plugin)
     ent_idx = torch.cat([batch["u_idx"].reshape(-1), batch["i_idx"].reshape(-1)])
     payload = entry_payload(f.p_u, f.p_i, f.coef_u, f.coef_i, hp.no_user_bias)
     w = apply_entries(state.w, state.step, ent_idx, payload, f.rows_u, f.rows_i, f.wu, f.wi,

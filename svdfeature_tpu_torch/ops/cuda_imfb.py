@@ -34,7 +34,7 @@ import torch
 from ._plans import Plan, find_plan, keep_plan, kept_scratch, launch_args, plan_list
 from .cuda_scatter import _entry_point, _raw_stream, check_tensors
 from .cuda_svdpp import (_PLAIN, MAX_ROWS_PER_USER, _check_inputs, big_table_failure,
-                         device_schedule, kernel_failure, semantic_failure)
+                         device_schedule, kernel_failure, shared_space_failure)
 from .embed import HyperParams, TrainConsts, TrainState
 from .imfb import train_epoch_imfb_carried
 from .svdpp import PlusHyper
@@ -45,12 +45,12 @@ def gate_failure(hp: HyperParams, state: TrainState, stacked, ph: PlusHyper) -> 
 
     The semantic conditions of ``pallas_imfb_supported``
     (pallas_svdpp.py:653-682) without its TPU layout limits: those of the
-    SVD++ path (``cuda_svdpp.semantic_failure``, which no route takes yet,
-    ``big_table_failure``, whose tables the big-table stacked epoch runs,
-    and ``kernel_failure``) and an item width of 1; plus at most 32 rows
-    per unit.  The solver sends the kernel's other refusals to the plain
-    rounds."""
-    reason = (semantic_failure(hp, state, stacked, ph)
+    SVD++ path (``cuda_svdpp.shared_space_failure``, whose configurations
+    the stacked refresh epoch runs, ``big_table_failure``, whose tables the
+    big-table stacked epoch runs, and ``kernel_failure``) and an item width
+    of 1; plus at most 32 rows per unit.  The solver sends the kernel's
+    other refusals to the plain rounds."""
+    reason = (shared_space_failure(ph, "ops/imfb.train_epoch_imfb")
               or big_table_failure(hp, state, "ops/imfb.train_epoch_imfb_big")
               or kernel_failure(hp, state, stacked))
     if reason is not None:

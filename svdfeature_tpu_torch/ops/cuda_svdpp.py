@@ -57,17 +57,15 @@ MAX_STEP_SMEM_BYTES = 48 * 1024
 _PLAIN = "the plain rounds run it"
 
 
-def semantic_failure(hp: HyperParams, state: TrainState, stacked, ph: PlusHyper) -> Optional[str]:
-    """Why no route of the port, kernel or plain, runs this user-group
-    configuration yet, or None: the feedback space shared with the user
-    rows (the per-batch refresh epoch, at any table size: a big table
-    keeps the standard layout there).  Shared with the stacked path
-    (ops/cuda_imfb.py)."""
+def shared_space_failure(ph: PlusHyper, epoch: str) -> Optional[str]:
+    """K2's and K3's refusal of a feedback space shared with the user rows
+    (common_feedback_space=1), naming the per-batch refresh ``epoch`` that
+    runs it, at any table size: their chunk closed form needs pool rows
+    that no step writes (pallas_svdpp.py:80-107 refuses it too)."""
     if ph.off_user <= 0:
-        return (
-            "a feedback space shared with the user rows (common_feedback_space=1) "
-            "needs the per-batch refresh path (ROADMAP Queue 1 item 7b)"
-        )
+        return ("a feedback space shared with the user rows (common_feedback_space=1) aliases "
+                "the pool rows that the kernel's chunk closed form keeps apart; the per-batch "
+                f"refresh epoch {epoch} runs it")
     return None
 
 
@@ -105,12 +103,12 @@ def gate_failure(
 ) -> Optional[str]:
     """Why K2 does not take this configuration, or None.
 
-    ``semantic_failure``, ``big_table_failure``, ``kernel_failure``, item width 1 or 2
+    ``shared_space_failure``, ``big_table_failure``, ``kernel_failure``, item width 1 or 2
     (pairwise-rank difference rows), at most 32 rows per user, and the
     step's shared memory."""
     n, k = state.w.shape
     M = ph.rows_per_user
-    reason = (semantic_failure(hp, state, stacked, ph)
+    reason = (shared_space_failure(ph, "ops/svdpp.train_epoch_plus_refresh")
               or big_table_failure(hp, state, "ops/svdpp_big.train_epoch_plus_big")
               or kernel_failure(hp, state, stacked))
     if reason is not None:

@@ -4,15 +4,15 @@ PyTorch.
 Counterpart of svdfeature_tpu/ops/imfb.py (SVDPPMultiIMFB,
 apex_multi_imfb.h:31-194) in f32: ``_damp_widened``,
 ``train_epoch_imfb_carried`` (the overlap-carried form),
-``train_epoch_imfb_big`` (the per-step refresh form on the augmented
-big-table layout, tables over 8192 rows, writing through K5) and
-``predict_batches_imfb``.  The carried epoch is ops/svdpp.train_epoch_plus
-with the chunk's local feedback contexts in place of its users, and it
-reuses that module's ``_fb_aggregates`` / ``_fb_writeback`` with the pool
-keyed by ``fb_ctx`` (the JAX package's ``_ctx_aggregates``) and its row
-update, ops/embed.general_step.  Not ported yet, raising
-NotImplementedError: ``train_epoch_imfb`` (the per-batch refresh on the
-standard layout, for common_feedback_space=1: ROADMAP Queue 1 item 7b).
+``_imfb_step`` / ``train_epoch_imfb`` (the per-batch refresh form on the
+standard layout, for a feedback space shared with the user rows,
+common_feedback_space=1), ``train_epoch_imfb_big`` (the per-step refresh
+form on the augmented big-table layout, tables over 8192 rows, writing
+through K5) and ``predict_batches_imfb``.  The carried epoch is
+ops/svdpp.train_epoch_plus with the chunk's local feedback contexts in
+place of its users, and it reuses that module's ``_fb_aggregates`` /
+``_fb_writeback`` with the pool keyed by ``fb_ctx`` (the JAX package's
+``_ctx_aggregates``) and its row update, ops/embed.general_step.
 
 Layout (data/batching_imfb.py).  Names: ``RM`` is rows_per_user (rows of
 a unit, a block with rows, trained side by side in one step: slot
@@ -36,6 +36,7 @@ donates the state) and the returned TrainState holds them.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -43,7 +44,8 @@ import torch
 
 from .big_embed import dedup_step
 from .embed import HyperParams, TrainConsts, TrainState, forward_scores, general_step
-from .svdpp import _PLANES, PlusHyper, _fb_aggregates, _fb_writeback, _is_first
+from .svdpp import (_PLANES, PlusHyper, _fb_aggregates, _fb_hyper, _fb_writeback, _inv_norm,
+                    _is_first)
 from .svdpp_big import _fb_writeback_big
 
 
@@ -109,9 +111,7 @@ def train_epoch_imfb_carried(
     nseg = enabled.shape[1]
     k = w.shape[1]
     dev = w.device
-    lr_fb = lr * ph.scale_lr_ufeedback
-    d = 1.0 - lr_fb * ph.wd_ufeedback
-    db = 1.0 - lr_fb * ph.wd_ufeedback_bias
+    lr_fb, d, db = _fb_hyper(lr, ph)
     with_bias = not hp.no_user_bias
     cid = np.asarray(chunk_id)
     first = _is_first(cid)
@@ -124,7 +124,7 @@ def train_epoch_imfb_carried(
         if first[t]:
             _fb_writeback(w, b, _ctx_pool(fb, pc), dacc, dbacc if with_bias else None)
             fb_sum, norm, fb_bias = _fb_aggregates(w, b, _ctx_pool(fb, c), nseg, with_bias)
-            inv = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
+            inv = _inv_norm(norm)
             O = fb_overlap[c]
             dacc.zero_()
             dbacc.zero_()
@@ -143,15 +143,6 @@ def train_epoch_imfb_carried(
             fb_bias = fb_bias + O @ delta_b
     _fb_writeback(w, b, _ctx_pool(fb, pc), dacc, dbacc if with_bias else None)
     return state
-
-
-def train_epoch_imfb(*args, **kwargs):
-    """The per-batch pool refresh epoch, for a feedback space shared with
-    the user rows (common_feedback_space=1): not ported yet."""
-    raise NotImplementedError(
-        "multi-IMFB with common_feedback_space=1 (the per-batch refresh epoch) "
-        "is ROADMAP Queue 1 item 7b"
-    )
 
 
 def _context_deltas(err, p_i, weight, ctx, fb_sum, fb_bias, norm, inv, gate, lr_fb, d, db,
@@ -178,6 +169,60 @@ def _context_deltas(err, p_i, weight, ctx, fb_sum, fb_bias, norm, inv, gate, lr_
     return delta, (fb_bias * (torch.pow(db, nrow) - 1.0) + lr_fb * norm * S_b) * inv * gate
 
 
+def _imfb_step(state: TrainState, batch: Dict[str, torch.Tensor], cfb: Dict[str, torch.Tensor],
+               enabled: torch.Tensor, lr, consts: TrainConsts, hp: HyperParams, ph: PlusHyper,
+               lr_fb, d, db) -> TrainState:
+    """One stacked step of the per-batch refresh form (svdfeature_tpu/ops/
+    imfb.py:83-171), in place: the chunk's context aggregates from the
+    live tables before the lazy catch-up, the row update with the
+    contexts' feedback term, the step's context deltas written straight
+    back between the scatters and the decays.  As in the JAX package, this
+    step applies no nonnegative clamps (imfb.py:151-171), where the SVD++
+    refresh step and the carried epoch do: the asymmetry is kept.  ``cfb``
+    is the chunk's pool with the context slot as ``fb_block``."""
+    with_bias = not hp.no_user_bias
+    ctx = batch["ctx_slots"].long()  # [G*RM, D]
+    nseg = enabled.shape[0]
+    w, b = state.w, state.b
+    fb_sum, norm, fb_bias = _fb_aggregates(w, b, cfb, nseg, with_bias)
+    inv = _inv_norm(norm)
+
+    def writeback(err, p_i):
+        delta, delta_b = _context_deltas(err, p_i, batch["weight"], ctx, fb_sum, fb_bias, norm,
+                                         inv, enabled * (norm > 0), lr_fb, d, db, ph, with_bias)
+        _fb_writeback(w, b, cfb, delta, delta_b)
+
+    no_clamps = dataclasses.replace(hp, user_nonnegative=0, item_nonnegative=0)
+    bias_extra = fb_bias[ctx].sum(dim=1) if with_bias else None
+    return general_step(state, batch, lr, consts, no_clamps, fb_sum[ctx].sum(dim=1), bias_extra,
+                        after_scatter=writeback)[0]
+
+
+@torch.no_grad()
+def train_epoch_imfb(
+    state: TrainState,
+    stacked: Dict[str, torch.Tensor],
+    chunk_id: np.ndarray,
+    fb: Dict[str, torch.Tensor],
+    enabled: torch.Tensor,
+    lr: torch.Tensor,
+    consts: TrainConsts,
+    hp: HyperParams,
+    ph: PlusHyper,
+) -> TrainState:
+    """One pass of the stacked epoch in the per-batch refresh form
+    (svdfeature_tpu/ops/imfb.train_epoch_imfb): a host loop of
+    ``_imfb_step`` over the T steps with the chunk ids on the host, the
+    route of a feedback space shared with the user rows."""
+    lr_fb, d, db = _fb_hyper(lr, ph)
+    planes = _PLANES + ("ctx_slots",)
+    for t, c in enumerate(np.asarray(chunk_id).tolist()):
+        batch = {p: stacked[p][t] for p in planes}
+        state = _imfb_step(state, batch, _ctx_pool(fb, c), enabled[c], lr, consts, hp, ph,
+                           lr_fb, d, db)
+    return state
+
+
 def _imfb_step_big(state: TrainState, batch: Dict[str, torch.Tensor], cfb: Dict[str, torch.Tensor],
                    enabled: torch.Tensor, lr, consts: TrainConsts, hp: HyperParams,
                    ph: PlusHyper, lr_fb, d, db) -> TrainState:
@@ -196,7 +241,7 @@ def _imfb_step_big(state: TrainState, batch: Dict[str, torch.Tensor], cfb: Dict[
     fb_sum, norm, fb_bias = _fb_aggregates(state.w[:, :k], state.w[:, k], cfb, nseg, with_bias)
     bias_extra = fb_bias[ctx].sum(dim=1) if with_bias else None
     state, f = dedup_step(state, batch, lr, consts, hp, fb_sum[ctx].sum(dim=1), bias_extra)
-    inv = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
+    inv = _inv_norm(norm)
     gate = enabled * (norm > 0)
     delta, delta_b = _context_deltas(f.err, f.p_i, batch["weight"], ctx, fb_sum, fb_bias, norm,
                                      inv, gate, lr_fb, d, db, ph, with_bias)
@@ -224,9 +269,7 @@ def train_epoch_imfb_big(
     context writeback."""
     if not hp.big_table or hp.sweep_table:
         raise ValueError("the big-table stacked epoch takes the augmented dedup layout")
-    lr_fb = lr * ph.scale_lr_ufeedback
-    d = 1.0 - lr_fb * ph.wd_ufeedback
-    db = 1.0 - lr_fb * ph.wd_ufeedback_bias
+    lr_fb, d, db = _fb_hyper(lr, ph)
     planes = _PLANES + ("ctx_slots",)
     for t, c in enumerate(np.asarray(chunk_id).tolist()):
         batch = {p: stacked[p][t] for p in planes}

@@ -2,17 +2,18 @@
 
 Counterpart of svdfeature_tpu/ops/svdpp.py (SVDPPFeature,
 apex_svd_base.h:484-592) in f32: ``_fb_aggregates``, ``_fb_writeback``,
-``_fb_recurrence`` (a step's feedback deltas, shared with the big-table
-epoch), ``train_epoch_plus`` (the overlap-carried form) and
-``predict_batches_plus``.  The u/i/g row update of each step, the JAX
-package's ``_row_update`` (svdpp.py:225-296) without its fused branch, is
-ops/embed.general_step with the feedback term: every reg mode (the lazy
-catch-up on the example's u/i/g ids, never on feedback pool rows), the
-global segment, the clamps and every loss.  Segment sums and scatters are
+``_fb_deltas`` / ``_fb_recurrence`` (a step's feedback deltas, shared with
+the big-table and bilinear epochs), ``train_epoch_plus`` (the
+overlap-carried form), ``_plus_step`` / ``train_epoch_plus_refresh`` (the
+per-batch refresh form, for a feedback space shared with the user rows,
+common_feedback_space=1) and ``predict_batches_plus``.  The u/i/g row
+update of each step, the JAX package's ``_row_update``
+(svdpp.py:225-296) without its fused branch, is ops/embed.general_step
+with the feedback term: every reg mode (the lazy catch-up on the
+example's u/i/g ids, never on feedback pool rows), the global segment,
+the clamps and every loss.  Segment sums and scatters are
 ``index_add_``; the one-hot matmul forms of the JAX package exist only
-because TPU scatters serialize and have no counterpart here.  The per-batch refresh
-form (``train_epoch_plus_refresh``, for common_feedback_space=1) is not
-ported yet (ROADMAP Queue 1 item 7b).
+because TPU scatters serialize and have no counterpart here.
 
 Layout (data/batching_plus.py): step t holds up to M rows of each of G
 users (slot s = g*M + m); chunk c owns a feedback pool ``[F]`` of
@@ -98,11 +99,12 @@ def _ov_mul(O, d: torch.Tensor) -> torch.Tensor:
     return O @ d
 
 
-def _fb_recurrence(err, p_i, weight, fb_sum, fb_bias, norm, inv, O, dacc, dbacc, lr_fb, d, db,
-                   M: int, with_bias: bool):
-    """The per-step feedback recurrence of train_epoch_plus on padded
-    ``[G+1]`` deltas: the users' deltas (damped for M > 1) accumulate in
-    ``dacc`` / ``dbacc`` in place; returns the carried (fb_sum, fb_bias)."""
+def _fb_deltas(err, p_i, weight, fb_sum, fb_bias, norm, inv, lr_fb, d, db, M: int,
+               with_bias: bool):
+    """A step's per-user feedback deltas, padded to ``[G+1]``: (delta
+    ``[G+1, k]``, delta_b ``[G+1]`` or None), the reference's per-row
+    recurrence (update_svdpp, apex_svd_base.h:512-520) over each user's M
+    rows of the step, implicitly damped for M > 1."""
     G, k = fb_sum.shape
     m_g = weight.reshape(G, M).sum(dim=1)  # present rows of each user
     errpi = (err[:, None] * p_i).reshape(G, M, k).sum(dim=1)
@@ -115,14 +117,42 @@ def _fb_recurrence(err, p_i, weight, fb_sum, fb_bias, norm, inv, O, dacc, dbacc,
         err_g = err_g / (1.0 + lr_fb * norm * (m_g - 1.0) * (m_g > 0))
     dtmp = fb_sum * (torch.pow(d, m_g) - 1.0)[:, None] + lr_fb * norm[:, None] * errpi
     delta_pad = torch.cat([dtmp * inv[:, None], torch.zeros_like(dtmp[:1])])
+    if not with_bias:
+        return delta_pad, None
+    dtmp_b = fb_bias * (torch.pow(db, m_g) - 1.0) + lr_fb * norm * err_g
+    return delta_pad, torch.cat([dtmp_b * inv, torch.zeros_like(dtmp_b[:1])])
+
+
+def _fb_recurrence(err, p_i, weight, fb_sum, fb_bias, norm, inv, O, dacc, dbacc, lr_fb, d, db,
+                   M: int, with_bias: bool):
+    """The per-step feedback recurrence of train_epoch_plus: the users'
+    deltas (``_fb_deltas``) accumulate in ``dacc`` / ``dbacc`` in place;
+    returns the carried (fb_sum, fb_bias)."""
+    G = fb_sum.shape[0]
+    delta_pad, delta_b_pad = _fb_deltas(err, p_i, weight, fb_sum, fb_bias, norm, inv, lr_fb, d,
+                                        db, M, with_bias)
     dacc += delta_pad
     fb_sum = fb_sum + _ov_mul(O, delta_pad)[:G]
     if with_bias:
-        dtmp_b = fb_bias * (torch.pow(db, m_g) - 1.0) + lr_fb * norm * err_g
-        delta_b_pad = torch.cat([dtmp_b * inv, torch.zeros_like(dtmp_b[:1])])
         dbacc += delta_b_pad
         fb_bias = fb_bias + _ov_mul(O, delta_b_pad)[:G]
     return fb_sum, fb_bias
+
+
+def _inv_norm(norm: torch.Tensor) -> torch.Tensor:
+    """1 / norm where the norm is positive, else 0."""
+    return torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
+
+
+def _fb_hyper(lr, ph: PlusHyper):
+    """(lr_fb, d, db): the feedback rate and its two decay factors."""
+    lr_fb = lr * ph.scale_lr_ufeedback
+    return lr_fb, 1.0 - lr_fb * ph.wd_ufeedback, 1.0 - lr_fb * ph.wd_ufeedback_bias
+
+
+def _pool(fb: Dict[str, torch.Tensor], c: int) -> Dict[str, torch.Tensor]:
+    """Chunk c's feedback pool."""
+    return {name: fb[name][c] for name in ("fb_idx", "fb_val", "fb_block")}
 
 
 @torch.no_grad()
@@ -149,26 +179,20 @@ def train_epoch_plus(
     G = GS // M
     k = w.shape[1]
     dev = w.device
-    lr_fb = lr * ph.scale_lr_ufeedback
-    d = 1.0 - lr_fb * ph.wd_ufeedback
-    db = 1.0 - lr_fb * ph.wd_ufeedback_bias
+    lr_fb, d, db = _fb_hyper(lr, ph)
     with_bias = not hp.no_user_bias
     cid = np.asarray(chunk_id)
     first = _is_first(cid)
     dacc = torch.zeros((G + 1, k), dtype=w.dtype, device=dev)
     dbacc = torch.zeros((G + 1,), dtype=w.dtype, device=dev)
-
-    def pool(c: int) -> Dict[str, torch.Tensor]:
-        return {name: a[c] for name, a in fb.items()}
-
     pc = int(cid[0])
     for t in range(T):
         c = int(cid[t])
         if first[t]:
-            _fb_writeback(w, b, pool(pc), dacc, dbacc if with_bias else None)
-            s, nrm, sb = _fb_aggregates(w, b, pool(c), G + 1, with_bias)
+            _fb_writeback(w, b, _pool(fb, pc), dacc, dbacc if with_bias else None)
+            s, nrm, sb = _fb_aggregates(w, b, _pool(fb, c), G + 1, with_bias)
             fb_sum, fb_bias, norm = s[:G], sb[:G], nrm[:G]
-            inv = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
+            inv = _inv_norm(norm)
             O = fb_overlap[c]
             dacc.zero_()
             dbacc.zero_()
@@ -179,7 +203,63 @@ def train_epoch_plus(
         state, err, p_i = general_step(state, batch, lr, consts, hp, fb_slot, fbb_slot)
         fb_sum, fb_bias = _fb_recurrence(err, p_i, batch["weight"], fb_sum, fb_bias, norm, inv, O,
                                          dacc, dbacc, lr_fb, d, db, M, with_bias)
-    _fb_writeback(w, b, pool(pc), dacc, dbacc if with_bias else None)
+    _fb_writeback(w, b, _pool(fb, pc), dacc, dbacc if with_bias else None)
+    return state
+
+
+def _plus_step(state: TrainState, batch: Dict[str, torch.Tensor], cfb: Dict[str, torch.Tensor],
+               lr, consts: TrainConsts, hp: HyperParams, ph: PlusHyper, lr_fb, d, db,
+               bias_plugin: Optional[torch.Tensor] = None,
+               return_err: bool = False):
+    """One step of the per-batch refresh form (svdfeature_tpu/ops/svdpp.py:
+    115-222), in place: the users' aggregates of the chunk's pool ``cfb``
+    from the live tables, before the step's lazy catch-up (the reference
+    prepares the feedback before the block's regularize calls,
+    apex_svd_base.h:568-582); the row update with the feedback term; the
+    users' deltas written straight back to the pool, between the scatters
+    and the decays (``general_step``'s ``after_scatter``).  No overlap, no
+    carried sums.  Returns the state, and with ``return_err`` the step's
+    error as well."""
+    M = ph.rows_per_user
+    G = batch["label"].shape[0] // M
+    with_bias = not hp.no_user_bias
+    w, b = state.w, state.b
+    s, nrm, sb = _fb_aggregates(w, b, cfb, G + 1, with_bias)
+    fb_sum, fb_bias, norm = s[:G], sb[:G], nrm[:G]
+    inv = _inv_norm(norm)
+
+    def writeback(err, p_i):
+        delta, delta_b = _fb_deltas(err, p_i, batch["weight"], fb_sum, fb_bias, norm, inv, lr_fb,
+                                    d, db, M, with_bias)
+        _fb_writeback(w, b, cfb, delta, delta_b)
+
+    state, err, _ = general_step(
+        state, batch, lr, consts, hp, fb_sum.repeat_interleave(M, dim=0),
+        fb_bias.repeat_interleave(M) if with_bias else None, bias_plugin, writeback)
+    return (state, err) if return_err else state
+
+
+@torch.no_grad()
+def train_epoch_plus_refresh(
+    state: TrainState,
+    stacked: Dict[str, torch.Tensor],
+    chunk_id: np.ndarray,
+    fb: Dict[str, torch.Tensor],
+    lr: torch.Tensor,
+    consts: TrainConsts,
+    hp: HyperParams,
+    ph: PlusHyper,
+) -> TrainState:
+    """One pass over the ``[T, G*M]`` steps, each gathering its chunk's pool
+    and writing straight back (``_plus_step``): the route of a feedback
+    space shared with the user rows, where mid-chunk row updates alias
+    pool rows and the overlap closed form of train_epoch_plus does not
+    hold (svdfeature_tpu/ops/svdpp.train_epoch_plus_refresh).
+    ``chunk_id`` is host numpy."""
+    lr_fb, d, db = _fb_hyper(lr, ph)
+    for t, c in enumerate(np.asarray(chunk_id).tolist()):
+        batch = {p: stacked[p][t] for p in _PLANES}
+        state = _plus_step(state, batch, _pool(fb, c), lr, consts, hp, ph, lr_fb, d, db)
     return state
 
 
@@ -205,7 +285,7 @@ def predict_batches_plus(
     for t in range(T):
         if first[t]:
             c = int(cid[t])
-            s, _, sb = _fb_aggregates(w, b, {n: a[c] for n, a in fb.items()}, G + 1, with_bias)
+            s, _, sb = _fb_aggregates(w, b, _pool(fb, c), G + 1, with_bias)
             fb_slot = s[:G].repeat_interleave(M, dim=0)
             fbb_slot = sb[:G].repeat_interleave(M) if with_bias else None
         batch = {p: stacked[p][t] for p in _PLANES}

@@ -54,7 +54,8 @@ from .big_embed import (_global_catchup, _global_step, apply_entries, dedup_step
                         sorted_dedup, write_rows_unique)
 from .embed import (_PLANES, HyperParams, TrainConsts, TrainState, _apply_factor_reg,
                     _gather_sum, _touch_counts)
-from .svdpp import PlusHyper, _fb_aggregates, _fb_recurrence, _is_first
+from .svdpp import (PlusHyper, _fb_aggregates, _fb_hyper, _fb_recurrence, _inv_norm, _is_first,
+                    _pool)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -225,9 +226,7 @@ def train_epoch_plus_big(
     k = hp.num_factor
     dev = state.w.device
     dummy = state.w.shape[0] - 1
-    lr_fb = lr * ph.scale_lr_ufeedback
-    d = 1.0 - lr_fb * ph.wd_ufeedback
-    db = 1.0 - lr_fb * ph.wd_ufeedback_bias
+    lr_fb, d, db = _fb_hyper(lr, ph)
     with_bias = not hp.no_user_bias
     cid = np.asarray(chunk_id)
     first = _is_first(cid)
@@ -239,13 +238,10 @@ def train_epoch_plus_big(
         no_rows_u = torch.zeros((0, 1, state.w.shape[1]), dtype=F32, device=dev)
         no_wu = torch.zeros((0, 1, k), dtype=F32, device=dev)
 
-    def pool(c: int) -> Dict[str, torch.Tensor]:
-        return {name: fb[name][c] for name in ("fb_idx", "fb_val", "fb_block")}
-
     def chunk_exit(w: torch.Tensor, c: int) -> None:
         # pool first, then the slab, then the next chunk's gather: the
         # regions are disjoint only in that order (svdpp_big.py:273-281)
-        _fb_writeback_big(w, pool(c), dacc, dbacc if with_bias else None, k, hp.row_dma)
+        _fb_writeback_big(w, _pool(fb, c), dacc, dbacc if with_bias else None, k, hp.row_dma)
         if carry_users:
             ids = chunk_users[c]
             write_rows_unique(w, ids, _keep_rows(uslab, ids != dummy), row_dma=hp.row_dma)
@@ -261,9 +257,9 @@ def train_epoch_plus_big(
                 ids = chunk_users[c]
                 uslab = _keep_rows(gather_rows(w, ids), ids != dummy)
                 wd_u_g = consts.wd_u_row[ids]
-            s, nrm, sb = _fb_aggregates(w[:, :k], w[:, k], pool(c), G + 1, with_bias)
+            s, nrm, sb = _fb_aggregates(w[:, :k], w[:, k], _pool(fb, c), G + 1, with_bias)
             fb_sum, fb_bias, norm = s[:G], sb[:G], nrm[:G]
-            inv = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-30), 0.0)
+            inv = _inv_norm(norm)
             O = _ov_slice(fb_overlap, c)
             dacc.zero_()
             dbacc.zero_()

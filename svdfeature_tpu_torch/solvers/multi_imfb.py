@@ -27,9 +27,14 @@ before K3's gate (JAX solvers/multi_imfb.py:405-415); that epoch reads no
 context overlap, so none is staged for it.  All-DEFAULT data on a big
 table takes the big SVD++ epoch.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-common_feedback_space=1 (item 7b) and ``mesh_*`` > 1 (item 12); streaming
-buffers (item 11) are refused where they are loaded (data/registry.py).
+With common_feedback_space=1 (the pool rows are user rows) every round of
+stacked data is the per-batch refresh epoch ops/imfb.train_epoch_imfb, at
+any table size, and the pack computes no context overlap, as in the JAX
+solver (solvers/multi_imfb.py:197, 341, 397-404).
+
+Not ported yet, raising NotImplementedError naming its ROADMAP item:
+``mesh_*`` > 1 (item 12); streaming buffers (item 11) are refused where
+they are loaded (data/registry.py).
 """
 
 from __future__ import annotations
@@ -47,8 +52,7 @@ from ..data.batching_imfb import pack_imfb
 from ..data.batching_plus import compute_fb_overlap
 from ..data.csr import TAG_DEFAULT, PlusDataset
 from ..ops.cuda_imfb import gate_failure, train_rounds_imfb_kernel, train_rounds_imfb_reference
-from ..ops.cuda_svdpp import semantic_failure
-from ..ops.imfb import predict_batches_imfb, train_epoch_imfb_big
+from ..ops.imfb import predict_batches_imfb, train_epoch_imfb, train_epoch_imfb_big
 from .svdpp import PlusEntry, SVDPPFeatureTrainer
 
 
@@ -59,7 +63,8 @@ class ImfbEntry:
     stacked: Dict[str, torch.Tensor]  # [T, G*RM(, S)] planes, ctx_slots [T, G*RM, D]
     chunk_id: np.ndarray  # [T] on the host: the launch loop reads it
     fb: Dict[str, torch.Tensor]  # fb_idx / fb_val / fb_ctx [C, F], ctx_depth [C, nseg-1]
-    fb_overlap: Optional[torch.Tensor]  # [C, nseg, nseg]; None on big tables
+    # [C, nseg, nseg]; None on big tables and under a shared feedback space
+    fb_overlap: Optional[torch.Tensor]
     enabled: torch.Tensor  # [C, nseg] update gate
     perm: np.ndarray  # dataset row -> packed slot
 
@@ -130,8 +135,9 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
             arrays = packed.device_arrays()
             chunk_id = arrays.pop("chunk_id")
             # closed-form carried aggregates: per-chunk context overlaps
-            # (the big-table epoch refreshes them every step instead)
-            overlap = None if self.hp.big_table else compute_fb_overlap(
+            # (the big-table and refresh epochs gather every step instead)
+            refresh = self.hp.big_table or m.param.common_feedback_space
+            overlap = None if refresh else compute_fb_overlap(
                 packed.fb_idx, packed.fb_val, packed.fb_ctx, packed.ctx_depth.shape[1]
             )
             fb, overlap_t = pool_from_numpy(packed.fb_arrays(), overlap, dev)
@@ -151,12 +157,13 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         if not isinstance(entry, ImfbEntry):  # all-DEFAULT (SVD++) or random order (base)
             return super()._train(entry, lrs)
         ph = self._plus_hyper()
-        reason = semantic_failure(self.hp, self.state, entry.stacked, ph)
-        if reason is not None:
-            raise NotImplementedError(reason)
-        if self.hp.big_table:
+        if self.model.param.common_feedback_space or self.hp.big_table:
+            # the refresh epochs: the shared space's (pool rows alias user
+            # rows) at any table size, else the big table's
+            epoch = (train_epoch_imfb if self.model.param.common_feedback_space
+                     else train_epoch_imfb_big)
             for lr in self._staged_lrs(lrs):
-                self.state = train_epoch_imfb_big(
+                self.state = epoch(
                     self.state, entry.stacked, entry.chunk_id, entry.fb, entry.enabled, lr,
                     self.consts, self.hp, ph)
             return

@@ -23,8 +23,15 @@ as on the base solver's big route), never the tile sweep.  The pack then
 takes the factored feedback overlap and, where every unit's user segment
 is one constant id distinct within its chunk and reg_method < 4
 (``_carry_users_plan``), the user-carry plan and the items' static
-sorted-dedup layout.  With common_feedback_space=1 a big table keeps the
-standard layout, which the port does not train yet (item 7b).
+sorted-dedup layout.
+
+With common_feedback_space=1 the feedback pool rows are user rows, so a
+step's row updates move the pool and the chunk closed form of the
+carried epoch (and of K2) does not hold: every round is
+ops/svdpp.train_epoch_plus_refresh, which gathers each step's pool and
+writes its deltas straight back, at any table size (a big table keeps the
+standard layout there), as the JAX solver does (solvers/svdpp.py:318-335,
+600-615).  Pair sources under a shared space train through it too.
 
 A PairSource (pairwise rank, input_type 2/3, data/rank.py) trains a
 freshly sampled pair epoch every round (svdfeature_tpu/solvers/svdpp.py:
@@ -44,9 +51,9 @@ big table the user-carry epoch from the candidate plan) where
 refuses (pointwise rows, rank-difference labels, feature hierarchies,
 global features, rows of several entries) packs each epoch afresh.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-common_feedback_space=1 (item 7b) and ``mesh_*`` > 1 (item 12); streaming
-buffers (item 11) are refused where they are loaded (data/registry.py).
+Not ported yet, raising NotImplementedError naming its ROADMAP item:
+``mesh_*`` > 1 (item 12); streaming buffers (item 11) are refused where
+they are loaded (data/registry.py).
 """
 
 from __future__ import annotations
@@ -62,10 +69,10 @@ from ..convert import pool_from_numpy, stacked_from_numpy
 from ..data.batching_plus import pack_plus
 from ..data.csr import PlusDataset
 from ..ops.big_embed import make_dedup_layout
-from ..ops.cuda_svdpp import (gate_failure, round_planes, semantic_failure,
-                              train_rounds_svdpp_kernel, train_rounds_svdpp_reference)
+from ..ops.cuda_svdpp import (gate_failure, round_planes, train_rounds_svdpp_kernel,
+                              train_rounds_svdpp_reference)
 from ..ops.embed import HyperParams
-from ..ops.svdpp import PlusHyper, predict_batches_plus
+from ..ops.svdpp import PlusHyper, predict_batches_plus, train_epoch_plus_refresh
 from ..ops.svdpp_big import LAYOUT_PLANES, train_epoch_plus_big
 from .base import SVDFeatureTrainer
 
@@ -264,13 +271,23 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             self.pack_seconds += time.perf_counter() - t0
         return self._plus_cache[key]
 
+    def _kernel_ok(self, stacked: Dict[str, torch.Tensor], fb: Dict[str, torch.Tensor]) -> bool:
+        """Whether a round goes through K2: use_pallas is set and K2's gate
+        takes the configuration (the JAX solver's ``_pallas_plus_ok``)."""
+        return bool(self.use_pallas
+                    and gate_failure(self.hp, self.state, stacked, fb, self._plus_hyper()) is None)
+
     def _train(self, entry: Union[PlusEntry, Dict[str, torch.Tensor]], lrs: List[float]) -> None:
         if not isinstance(entry, PlusEntry):  # a random-order pack: the base solver
             return super()._train(entry, lrs)
         ph = self._plus_hyper()
-        reason = semantic_failure(self.hp, self.state, entry.stacked, ph)
-        if reason is not None:
-            raise NotImplementedError(reason)
+        if self.model.param.common_feedback_space:
+            # pool rows alias user rows: the per-batch refresh epoch
+            for lr in self._staged_lrs(lrs):
+                self.state = train_epoch_plus_refresh(
+                    self.state, entry.stacked, entry.chunk_id, entry.fb, lr, self.consts, self.hp,
+                    ph)
+            return
         if self.hp.big_table:
             # a host loop of steps per round, writing through K5 with
             # use_pallas (hp.row_dma); with the carry plan, the user-carry body
@@ -282,8 +299,7 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             return
         # K2 where use_pallas is set and its gate passes, else the plain
         # rounds (the JAX solver's Pallas-or-jnp choice)
-        use_kernel = self.use_pallas and gate_failure(
-            self.hp, self.state, entry.stacked, entry.fb, ph) is None
+        use_kernel = self._kernel_ok(entry.stacked, entry.fb)
         fn = train_rounds_svdpp_kernel if use_kernel else train_rounds_svdpp_reference
         self.state = fn(
             self.state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap,
@@ -332,7 +348,9 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         rng_state = ds.rng.get_state()
         eds = ds.epoch_dataset()
         ds.rng.set_state(rng_state)  # round 1 samples the same stream
-        packed = self._pack_numpy(eds)
+        # the SVD++ layout whatever a subclass packs (the JAX skeleton calls
+        # pack_plus itself, svdpp.py:788)
+        packed = SVDPPFeatureTrainer._pack_numpy(self, eds)
         T, GS = packed.label.shape
         rows = ds._rows_cat
         Rr = rows.num_row
@@ -377,8 +395,7 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         # K2 where use_pallas is set and its gate passes on the pair planes
         # (item width 2), else the plain rounds; big tables take the big epoch
         probe = dict(static, u_idx=torch.empty((T, GS, 1)), i_idx=torch.empty((T, GS, 2)))
-        sk["use_kernel"] = bool(self.use_pallas and not self.hp.big_table and gate_failure(
-            self.hp, self.state, probe, fb, self._plus_hyper()) is None)
+        sk["use_kernel"] = not self.hp.big_table and self._kernel_ok(probe, fb)
         return sk
 
     def _pair_pool_started(self):

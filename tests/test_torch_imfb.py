@@ -361,7 +361,7 @@ GATE_CASES = {
     "item_width2": (dict(Si=2), PLAIN),
     "item_width3": (dict(Si=3), PLAIN),
     "global": (dict(NG=7), PLAIN),
-    "shared_feedback_space": (dict(off_user=0), "ROADMAP Queue 1 item 7b"),
+    "shared_feedback_space": (dict(off_user=0), "refresh epoch ops/imfb.train_epoch_imfb runs it"),
 }
 
 
@@ -679,7 +679,9 @@ def _cli_slice(tmp_path, extra=""):
 
 
 @pytest.mark.parametrize("key,val,item", [
-    ("common_feedback_space", "1", "item 7b"),
+    # a feedback space shared with the user rows: the stacked refresh
+    # epoch, which trains now
+    pytest.param("common_feedback_space", "1", None, id="common_feedback_space-1-item 7b"),
     # a 8,266-row table: big-table multi-IMFB, which trains now
     pytest.param("num_ufeedback", "8100", None, id="num_ufeedback-8100-item 9"),
     ("streaming", "1", "item 11"),
@@ -688,7 +690,9 @@ def _cli_slice(tmp_path, extra=""):
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """Stacked configurations the port does not run yet raise
     NotImplementedError naming their ROADMAP item; a table over 8192 rows
-    (``item`` None) trains on the big-table stacked epoch."""
+    and a shared feedback space (``item`` None) train, on the big-table
+    stacked epoch and on the stacked refresh epoch (which matches the JAX
+    CLI's checkpoints, eval RMSE and pred output)."""
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
     _write_sets(tmp_path)
@@ -703,17 +707,40 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     task = SVDTrainTask()
     task.run(str(tmp_path / "t.conf"), args)
     tr = task.trainer
-    assert tr.hp.big_table and type(tr._pack_plus(task.dataset)).__name__ == "ImfbEntry"
-    assert (tmp_path / "models" / "0001.model").exists()
-    assert bool(torch.isfinite(tr.state.w).all()) and int(tr.state.step) > 0
+    entry = tr._pack_plus(task.dataset)
+    assert type(entry).__name__ == "ImfbEntry"
+    assert tr.hp.big_table == (key == "num_ufeedback")
+    assert (entry.fb_overlap is None) and bool(torch.isfinite(tr.state.w).all())
+    assert (tmp_path / "models" / "0001.model").exists() and int(tr.state.step) > 0
+    if key == "common_feedback_space":
+        (tmp_path / "cli").mkdir()
+        _cli_slice(tmp_path / "cli", "common_feedback_space = 1\n")
 
 
-def test_unported_epochs_raise():
-    """The refresh epoch names its ROADMAP item."""
+def test_unported_epochs_raise(jx):
+    """The stacked refresh epoch, which raised naming ROADMAP item 7b, now
+    trains: R=2 rounds of train_epoch_imfb on the synthetic depth-2 set
+    against the JAX package's (atol 1e-6; here on the disjoint layout,
+    which the refresh form trains as well: tests/test_torch_refresh.py
+    holds the shared one)."""
     from svdfeature_tpu_torch.ops import imfb
 
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        imfb.train_epoch_imfb()
+    x = imfb_inputs(rows_per_user=2, no_user_bias=1)
+    state, stacked, cid, fb, _, enabled, lrs, consts, hp, ph = torch_args(x)
+    for lr in lrs:
+        state = imfb.train_epoch_imfb(state, stacked, cid, fb, enabled, lr, consts, hp, ph)
+    jnp = jx.jnp
+    js = jx.embed.TrainState(**{n: jnp.asarray(v) for n, v in x.st.items()})
+    for lr in x.lrs:
+        js = jx.imfb.train_epoch_imfb(
+            js, {n: jnp.asarray(v) for n, v in x.stacked.items()}, jnp.asarray(x.chunk_id),
+            {n: jnp.asarray(v) for n, v in x.fb.items()}, jnp.asarray(x.enabled),
+            jnp.float32(lr), jx.embed.TrainConsts(**{n: jnp.asarray(v) for n, v in x.cs.items()}),
+            jx.embed.HyperParams(**x.hp), *FBH.values(), rows_per_user=2)
+    for name in ("w", "b"):
+        np.testing.assert_allclose(getattr(state, name).numpy(), np.asarray(getattr(js, name)),
+                                   atol=1e-6, rtol=0, err_msg=name)
+    assert int(state.step) == int(js.step)
 
 
 # ---- big-table multi-IMFB (ops/imfb.train_epoch_imfb_big) -------------------

@@ -29,7 +29,8 @@ SCRIPT = textwrap.dedent(
     for name in names:
         importlib.import_module(name)
     assert "svdfeature_tpu_torch.ops.svdpp_big" in names
-    for new in ("data.rank", "utils.evaluator", "ops.pair_sample", "solvers.ranker"):
+    for new in ("data.rank", "utils.evaluator", "ops.pair_sample", "solvers.ranker",
+                "ops.svdpp_bilinear", "solvers.bilinear"):
         assert "svdfeature_tpu_torch." + new in names
 
     from svdfeature_tpu_torch import convert

@@ -57,11 +57,13 @@ def jx():
                            svdpp=svdpp, SVDTypeParam=SVDTypeParam, ranker=ranker, solver=solver)
 
 
-def skewed_text(seed=4, n_users=12, g_feats=True):
+def skewed_text(seed=4, n_users=12, g_feats=True, follow=False):
     """(rows, feedback) text of tests/test_rank.py's _skewed_pair_ds
     (``g_feats``) and _noglobal_pair_ds: 2..30 rows a user, the low item
-    ids the positives everywhere."""
+    ids the positives everywhere; with ``follow`` each user also follows
+    three users (feedback ids in the user space)."""
     rng = np.random.RandomState(seed)
+    frng = np.random.RandomState(seed + 100)
     rows, fb = [], []
     for u in range(n_users):
         n = 2 + (7 * (u % 5))
@@ -69,7 +71,8 @@ def skewed_text(seed=4, n_users=12, g_feats=True):
         for i in items:
             seg = "1 1 1 0:0.5" if g_feats else "0 1 1"
             rows.append(f"{float(1 if i < 15 else 0)} {seg} {u}:1 {i}:1")
-        fb.append(f"{len(items)} 0")
+        ids = frng.choice(n_users, 3, replace=False) if follow else []
+        fb.append(f"{len(items)} {len(ids)}" + "".join(f" {j}:0.5" for j in ids))
     return "\n".join(rows), "\n".join(fb)
 
 
@@ -202,6 +205,11 @@ PER_ROUND = {
     # pointwise rows: a fresh packed epoch a round (_pair_entry)
     "entry-pointwise": dict(extra=MULTI, text=NOGLOBAL, big=False,
                             cfg=dict(rank_sample_pointwise=1)),
+    # follow feedback in a feedback space shared with the user rows: a
+    # fresh packed epoch a round on the per-batch refresh epoch
+    "entry-shared-space": dict(extra=MULTI + [("common_feedback_space", "1"),
+                                              ("num_ufeedback", "16")],
+                               text=dict(NOGLOBAL, follow=True), big=False),
 }
 
 

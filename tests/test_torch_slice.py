@@ -133,12 +133,16 @@ def test_cuda_device_without_card_raises():
 
 
 @pytest.mark.parametrize("key,val,item", [
-    ("extend_type", "15", "item 10"),
+    # the bilinear solver, which trains now: on random-order data, the base solver
+    pytest.param("extend_type", "15", None, id="extend_type-15-item 10"),
+    ("extend_type", "30", "item 10"),
     ("mesh_data", "2", "item 12"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """Configurations the port does not run yet raise NotImplementedError
-    naming their ROADMAP item instead of training something else."""
+    naming their ROADMAP item instead of training something else; the
+    bilinear solver (``item`` None) trains random-order data on the base
+    solver, as the JAX package does, and saves its BModel section."""
     feat = tmp_path / "train.feature"
     feat.write_text("".join(f"{i % 5 + 1} 0 1 1 {i % 7}:1 {i % 11}:1\n" for i in range(40)))
     conf = tmp_path / "t.conf"
@@ -147,8 +151,19 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
         f'num_factor = 4\nbase_score = 0.5\nbatch_size = 8\nsilent = 1\n'
         f'model_out_folder = "{tmp_path}/m"\n'
     )
-    with pytest.raises(NotImplementedError, match=item):
-        TTrain().run(str(conf), ["num_round=1", "device=cpu", f"{key}={val}"])
+    args = ["num_round=1", "device=cpu", f"{key}={val}"]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            TTrain().run(str(conf), args)
+        return
+    task = TTrain()
+    task.run(str(conf), args)
+    tr = task.trainer
+    assert type(tr).__name__ == "SVDBiLinearTrainer" and tuple(tr.W_bi.shape) == (12, 0)
+    with open(tmp_path / "m" / "0001.model", "rb") as f:
+        raw = f.read()
+    assert raw.endswith(b"\0" * 128 + (0).to_bytes(4, "little") + (11).to_bytes(4, "little"))
+    assert np.isfinite(tr.state.w.numpy()).all() and int(tr.state.step) == 40
 
 
 @pytest.mark.parametrize("key,val", [

@@ -579,7 +579,8 @@ def test_update_rounds_equals_update_all():
 
 
 @pytest.mark.parametrize("key,val,item", [
-    ("common_feedback_space", "1", "item 7b"),
+    # a feedback space shared with the user rows: the refresh epoch, which trains now
+    pytest.param("common_feedback_space", "1", None, id="common_feedback_space-1-item 7b"),
     # pairwise rank (input_type=2), which trains now
     pytest.param("input_type", "2", None, id="input_type-2-item 8"),
     # a table over 8192 rows: big-table SVD++, which trains now
@@ -590,9 +591,10 @@ def test_update_rounds_equals_update_all():
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """User-group configurations the port does not run yet raise
-    NotImplementedError naming their ROADMAP item; a table over 8192 rows
-    and a pairwise-rank source (``item`` None) train, on the big-table
-    epoch and on the pair skeleton."""
+    NotImplementedError naming their ROADMAP item; a table over 8192 rows,
+    a pairwise-rank source and a shared feedback space (``item`` None)
+    train, on the big-table epoch, on the pair skeleton and on the refresh
+    epoch (which matches the JAX CLI's checkpoints and eval RMSE)."""
     from svdfeature_tpu_torch.cli import make_ugroup_buffer
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
@@ -614,10 +616,15 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     tr = task.trainer
     if key == "input_type":
         assert tr._pair_src is task.dataset and tr._pair_sk["use_kernel"]
+    elif key == "common_feedback_space":
+        assert not tr.hp.big_table and tr.model.off_ufeedback == tr.model.off_user
     else:
         assert tr.hp.big_table and "chunk_users" in tr._pack_plus(task.dataset).fb
     assert (tmp_path / "models" / "0001.model").exists()
     assert bool(torch.isfinite(tr.state.w).all()) and int(tr.state.step) > 0
+    if key == "common_feedback_space":
+        (tmp_path / "cli").mkdir()
+        _cli_slice(tmp_path / "cli", "common_feedback_space = 1\n")
 
 
 def _kernel_vs_plain_on_card(x):

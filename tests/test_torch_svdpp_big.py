@@ -309,13 +309,27 @@ def test_solver_routes_big_table(monkeypatch, jx, case):
 
 def test_common_feedback_space_keeps_small_layout(monkeypatch, jx):
     """common_feedback_space=1 keeps the standard layout above the
-    threshold (the JAX solver's rule), where the port raises for item 7b."""
+    threshold (the JAX solver's rule) and trains on the per-batch refresh
+    epoch there, as the JAX solver does: two rounds agree within 1e-5."""
+    from svdfeature_tpu.data.text import load_plus_text as jload
+
     jtr, ttr = _trainers(monkeypatch, jx, {"common_feedback_space": 1, "num_ufeedback": 10})
     assert not ttr.hp.big_table and not jtr.hp.big_table
     assert ttr.state.b.shape[0] > 0
     rows, fbs = synth_text(9, fb_bound=10)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        ttr.update_all(load_plus_text("x", "y", text=rows, feedback_text=fbs))
+    jds = jload("x", "y", text=rows, feedback_text=fbs)
+    tds = load_plus_text("x", "y", text=rows, feedback_text=fbs)
+    before = cuda_scatter.row_writer.launches
+    for _ in range(2):
+        jtr.update_all(jds)
+        ttr.update_all(tds)
+    assert cuda_scatter.row_writer.launches == before
+    for name in ("w", "b", "g"):
+        np.testing.assert_allclose(getattr(ttr.state, name).numpy(),
+                                   np.asarray(getattr(jtr.state, name)), atol=1e-5, rtol=0,
+                                   err_msg=name)
+    np.testing.assert_allclose(ttr.predict_all(tds), np.asarray(jtr.predict_all(jds)),
+                               atol=1e-5, rtol=0)
 
 
 def test_factored_overlap_staged(monkeypatch, jx):
