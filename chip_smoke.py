@@ -147,7 +147,24 @@ result line):
      (num_bi_feedback=64, W_bi 624,000 x 64; start_ufeedback=64 keeps the
      property ids out of the factor sum), 2 rounds, K5 launches the plan's; (b)-(d) within 1e-4 of the JAX package's CPU figure
      (scripts/bilinear_jax_reference.py); then K5 bit for bit at (d)'s
-     W_bi write, timed in turns with index_copy_.
+     W_bi write, timed in turns with index_copy_;
+ 17. GBRT through SVDTrainTask / SVDInferTask with device=cuda (the trees
+     fitted on the host, the model walked on the card in the evals by
+     ops/gbrt_forward.py, plain PyTorch; no kernel launches): (a) RegGBRT
+     (extend_type=31) on the implicitFeedback buffers at the reference
+     binary's recorded tree parameters, 6 rounds, every round's test RMSE
+     within 5e-6 of golden/gbrt_reg.rmse.tsv, every eval of a model of more
+     than one tree on the card's walk (counted in
+     gbrt_forward.forward_trees.walks), the last model's card walk within
+     1e-5 of its host walk; (b) the 6-tree model walked over the training
+     set (90,570 rows, 18.4M entries) on the card and on the host, within
+     1e-5, both timed (CUDA events, median of 5); (c) APLambda
+     (extend_type=30, active_type=3, lambda_ap_alpha=0.5,
+     lambda_ap_reject=1) on the pairwiseRank training set read as plain
+     user-group data, 3 rounds and an eval, the trained model's scores of
+     the implicitFeedback test set (a card walk) within 1e-5 of the JAX
+     package's CPU run (scripts/gbrt_jax_reference.py, SVDInferTask pred:
+     the moments and every 397th score).
 Each phase prints its time, and the script its total.  Then one JSON
 line describing the kernels, all six and K5 once more at big bilinear's
 W_bi write (with each one's bound: the larger of its bytes over 3.35 TB/s
@@ -2550,6 +2567,63 @@ BI_GOLDEN_TOL = 0.01  # tests/test_golden_full.py:173-181, against golden/biline
 BI_AB_TOL = 1e-6  # (a) against the port's plain SVD++ run, every round
 
 
+# phase 17: GBRT.  (a) RegGBRT (extend_type=31) on the implicitFeedback
+# workload at the reference binary's recorded tree parameters (the keys of
+# tests/test_golden_full.py:191-220 beside implicitFeedback.conf, which holds
+# its BASIC keys), 6 rounds, every round's test RMSE against
+# golden/gbrt_reg.rmse.tsv; (b) the walk of that 6-tree model over the
+# training set on the card and on the host; (c) APLambda (extend_type=30,
+# the settings of tests/test_gbrt.py:193-205) on the pairwiseRank training
+# set read as plain user-group data (input_type=0), 3 rounds, its scores of
+# the implicitFeedback test set (the same users, items and feedback ids;
+# the rank test file is the ranker's protocol, not rows) against the JAX
+# package's CPU run.
+GBRT_TREE_KEYS = ["num_spec_sparse=943", "learning_rate=0.3", "min_split_loss=1",
+                  "min_split_instance=100", "min_child_instance=20", "min_child_weight=5",
+                  "min_split_weight=10", "max_depth=5", "rt_loss_type=1"]
+GBRT_REG_KEYS = ["extend_type=31", *GBRT_TREE_KEYS]
+GBRT_GOLDEN_TOL = 5e-6  # tests/test_golden_full.py:220
+GBRT_WALK_TOL = 1e-5  # the card's f32 sum over trees against the host's f64 one
+GBRT_WALK_TURNS = 5
+APLAMBDA_ROUNDS = 3
+APLAMBDA_KEYS = ["input_type=0", "use_ranker=0", "extend_type=30", "active_type=3",
+                 "lambda_ap_alpha=0.5", "lambda_ap_reject=1", *GBRT_TREE_KEYS]
+APLAMBDA_STRIDE = 397  # the scores compared one by one: every 397th test row
+APLAMBDA_JAX_TOL = 1e-5
+# the JAX package on the CPU, same data and keys (scripts/gbrt_jax_reference.py):
+# the test set's scores after APLAMBDA_ROUNDS rounds, their moments and every
+# APLAMBDA_STRIDE-th one
+JAX_APLAMBDA = {
+    "n": 9430, "mean": -0.723800963644444, "std": 0.7115816294611343,
+    "min": -1.4532462358474731, "max": 0.8733869791030884,
+    "sample": [
+        0.08807764947414398, -0.02670930325984955, -1.4151403903961182, -1.390661358833313,
+        0.4333652853965759, 0.4934263527393341, -1.3987302780151367, -1.3976922035217285,
+        -0.25614601373672485, 0.5441046953201294, -1.0446743965148926, -0.5494420528411865,
+        -1.3911155462265015, -1.4050225019454956, 0.4930814802646637, -1.3971585035324097,
+        -1.3623459339141846, -1.4227733612060547, 0.6716591119766235, -1.4165626764297485,
+        -1.3724582195281982, -1.41551673412323, -1.431038737297058, -1.4085074663162231,
+    ]}
+
+
+def score_summary(scores) -> dict:
+    """What phase 17 (c) compares of a score vector: its count, mean,
+    standard deviation, extremes (f64) and every APLAMBDA_STRIDE-th score."""
+    s = np.asarray(scores, np.float64)
+    return {"n": int(len(s)), "mean": float(s.mean()), "std": float(s.std()),
+            "min": float(s.min()), "max": float(s.max()),
+            "sample": [float(v) for v in s[::APLAMBDA_STRIDE]]}
+
+
+def summary_diff(got, want) -> float:
+    """The largest |d| between two score summaries (inf if the counts
+    differ)."""
+    if got["n"] != want["n"] or len(got["sample"]) != len(want["sample"]):
+        return math.inf
+    d = [abs(got[k] - want[k]) for k in ("mean", "std", "min", "max")]
+    return max(d + [abs(a - b) for a, b in zip(got["sample"], want["sample"])])
+
+
 def task_run(conf, d, tag, keys, rounds, evals):
     """Train ``rounds`` rounds through SVDTrainTask on the card, every
     kernel's launch count set to 0 just before and read just after, then
@@ -2709,6 +2783,134 @@ def phase_bilinear(torch, work, card, failures):
     return k5, timing
 
 
+def walk_pair(tr, ds):
+    """A GBRT trainer's host walk (device_forward=0) and its card walk
+    (-1: auto) of dataset ``ds`` -> (host, card) predictions."""
+    out = []
+    for mode in (0, -1):
+        tr.device_forward = mode
+        tr._fwd_cache.clear()
+        out.append(tr.predict_all(ds))
+    return out
+
+
+def phase_gbrt(torch, work, rank_dir, rank_keys, card, failures):
+    """GBRT on the card through SVDTrainTask / SVDInferTask (the trees are
+    fitted on the host, as in the JAX package; the card walks the model in
+    the evals): (a) RegGBRT on implicitFeedback at the golden's
+    parameters, every round's test RMSE within GBRT_GOLDEN_TOL of
+    golden/gbrt_reg.rmse.tsv, every eval of a model of more than one tree
+    on the card's walk, the last model's card walk within GBRT_WALK_TOL of
+    its host walk (device_forward=0); (b) the 6-tree model walked over the
+    training set on the card and on the host, within GBRT_WALK_TOL, both
+    timed; (c) APLambda on the pairwiseRank training set, its scores of
+    (a)'s test set within APLAMBDA_JAX_TOL of the JAX package's CPU run."""
+    from svdfeature_tpu_torch.cli import make_ugroup_buffer
+    from svdfeature_tpu_torch.data.buffer import read_plus_buffer
+    from svdfeature_tpu_torch.ops import gbrt_forward
+
+    golden = [float(line.split()[1]) for line in
+              (ROOT / "golden" / "gbrt_reg.rmse.tsv").read_text().splitlines()]
+    R = len(golden)
+    d = work / "gbrt"
+    d.mkdir()
+    write_implicit(d, make_ugroup_buffer.main)
+    test = read_plus_buffer(str(d / "test.buffer"))
+    conf = ROOT / "demo" / "implicitFeedback" / "implicitFeedback.conf"
+    data = [f"buffer_feature={d}/train.buffer", f"test:buffer_feature={d}/test.buffer"]
+    gbrt_forward.forward_trees.walks = 0
+    task, rmse, launches, eps, secs = task_run(conf, d, "reg", data + GBRT_REG_KEYS, R,
+                                               ["start=1", f"end={R + 1}"])
+    walks = gbrt_forward.forward_trees.walks
+    gold = max(abs(rmse.get(r, math.inf) - golden[r - 1]) for r in range(1, R + 1))
+    tr, ds = task.trainer, task.dataset
+    host, card_pred = walk_pair(tr, test)  # the last model, the trainer that saved it
+    last = float(np.max(np.abs(card_pred.astype(np.float64) - host)))
+    ok = (type(tr).__name__ == "RegGBRTTrainer" and tr.device.type == "cuda"
+          and not any(launches.values()) and gold < GBRT_GOLDEN_TOL and walks == R - 1
+          and gbrt_forward.forward_trees.walks == walks + 1 and last < GBRT_WALK_TOL)
+    if not ok:
+        failures.append("GBRT (a)")
+    nodes = [t.tree.num_nodes for t in tr.trees]
+    print(f"phase 17 {'ok' if ok else 'FAIL'}: RegGBRT (a) implicitFeedback "
+          f"{' '.join(GBRT_REG_KEYS)}: test RMSE by round "
+          f"{' '.join(f'{rmse[r]:.6f}' for r in sorted(rmse))}; max |d| to "
+          f"golden/gbrt_reg.rmse.tsv {gold:.2e} (tol {GBRT_GOLDEN_TOL:g}); card walks {walks} of "
+          f"{R} evals (want {R - 1}: a 1-tree model walks on the host); the last model's card "
+          f"walk against its host walk max |d| {last:.2e} (tol {GBRT_WALK_TOL:g}); trees of "
+          f"{min(nodes)}-{max(nodes)} nodes; launches {launches} (want all 0); round seconds "
+          f"{[round(x, 2) for x in secs]} ({ds.rows.num_row:,} rows, host fit; {eps:,.0f} "
+          f"examples/s rounds 2-{R}) on {card}", flush=True)
+
+    # (b) the walk at its real size: the 6-tree model over the training set
+    entry = tr._assemble(ds)
+    smat, n = entry["smat"], len(tr.trees)
+    args = ([t.tree for t in tr.trees], smat, [tr._tree_gids(entry, ti) for ti in range(n)],
+            [tr._tree_weights(entry, ti) for ti in range(n)], entry["base_pred"])
+    staged = gbrt_forward.stage_rows(smat, tr.device)
+    card_out = gbrt_forward.forward_trees(*args, tr.device, staged)
+    # the whole call (stacking, copies, walk, copy back), then the walk
+    # alone on the staged model
+    model = gbrt_forward.stage_model(args[0], args[2], args[3], tr.device)
+    base = torch.from_numpy(entry["base_pred"].astype(np.float32)).to(tr.device)
+    card_ms, walk_ms = [], []
+    for fn, times in ((lambda: gbrt_forward.forward_trees(*args, tr.device, staged), card_ms),
+                      (lambda: gbrt_forward.walk(model, staged, base), walk_ms)):
+        for _ in range(GBRT_WALK_TURNS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+    host_ms = []
+    for _ in range(GBRT_WALK_TURNS):
+        t0 = time.perf_counter()
+        host_out = entry["base_pred"].copy()
+        for ti in range(n):
+            host_out = host_out + tr.trees[ti].tree.predict_rows(
+                smat, tr._tree_gids(entry, ti)) * tr._tree_weights(entry, ti)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    walk_d = float(np.max(np.abs(card_out - host_out)))
+    ok = walk_d < GBRT_WALK_TOL and len(card_out) == smat.num_row
+    if not ok:
+        failures.append("GBRT (b)")
+    print(f"phase 17 {'ok' if ok else 'FAIL'}: GBRT walk (b) of the {n}-tree model over the "
+          f"training set ({smat.num_row:,} rows, {len(smat.findex):,} entries, {smat.nfeat:,} "
+          f"features, depth {model['depth']}): card walk (forward_trees, stacking and copies "
+          f"included) median {float(np.median(card_ms)):.3f} ms of "
+          f"{[round(x, 3) for x in card_ms]}, of which the walk on the staged model median "
+          f"{float(np.median(walk_ms)):.3f} ms of {[round(x, 3) for x in walk_ms]}; host walk "
+          f"median {float(np.median(host_ms)):.1f} ms of {[round(x, 1) for x in host_ms]}; max "
+          f"|d| {walk_d:.2e} (tol {GBRT_WALK_TOL:g}) on {card}", flush=True)
+    del task, tr, ds, entry, smat, args, staged, model, base
+    torch.cuda.empty_cache()
+
+    # (c) APLambda on the pairwiseRank training set, scored on (a)'s test set
+    Ra = APLAMBDA_ROUNDS
+    gbrt_forward.forward_trees.walks = 0
+    task, _, launches, eps, secs = task_run(
+        ROOT / "demo" / "pairwiseRank" / "pairwiseRank.conf", rank_dir, "aplambda",
+        rank_keys + APLAMBDA_KEYS + [f"test:buffer_feature={d}/test.buffer"], Ra,
+        [f"start={Ra}", f"end={Ra + 1}"])
+    got = score_summary(task.trainer.predict_all(test))
+    walks = gbrt_forward.forward_trees.walks
+    diff = summary_diff(got, JAX_APLAMBDA)
+    ok = (type(task.trainer).__name__ == "APLambdaGBRTTrainer" and walks == 2
+          and not any(launches.values()) and diff < APLAMBDA_JAX_TOL)
+    if not ok:
+        failures.append("GBRT (c)")
+    print(f"phase 17 {'ok' if ok else 'FAIL'}: APLambda (c) pairwiseRank training set "
+          f"({task.dataset.rows.num_row:,} rows) {' '.join(APLAMBDA_KEYS)}, {Ra} rounds: "
+          f"implicitFeedback test scores n={got['n']:,} mean {got['mean']:.6f} std "
+          f"{got['std']:.6f} min {got['min']:.6f} max {got['max']:.6f}; max |d| to the JAX CPU "
+          f"run (moments and every {APLAMBDA_STRIDE}th score) {diff:.2e} (tol "
+          f"{APLAMBDA_JAX_TOL:g}); card walks {walks} (want 2: the eval, the scores); launches "
+          f"{launches} (want all 0); round seconds {[round(x, 2) for x in secs]} "
+          f"({eps:,.0f} examples/s rounds 2-{Ra}) on {card}", flush=True)
+    shutil.rmtree(d)
+
+
 def kernel_line(name, source, replaces, launches, max_err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": timing["kernel"],
@@ -2788,6 +2990,8 @@ def main() -> int:
         phase_time("phase 15")
         k5_bi_launches, k5_bi_timing = phase_bilinear(torch, pathlib.Path(work), card, failures)
         phase_time("phase 16")
+        phase_gbrt(torch, pathlib.Path(work), rank_dir, rank_keys, card, failures)
+        phase_time("phase 17")
     print(f"chip_smoke.py took {time.perf_counter() - start:.1f} s on {card}", flush=True)
 
     if failures:

@@ -319,16 +319,16 @@ def test_checkpoints_byte_compatible_both_ways(jx):
 
 
 def test_registry():
-    """extend_type=15 makes the bilinear trainer; 30 and 31 still raise for
-    ROADMAP item 10 (GBRT)."""
+    """extend_type=15 makes the bilinear trainer; 30 and 31, which train now,
+    make the GBRT trainers (APLambda, Reg), as the JAX registry does."""
     from svdfeature_tpu_torch.params import SVDTypeParam
+    from svdfeature_tpu_torch.solvers.gbrt import APLambdaGBRTTrainer, RegGBRTTrainer
     from svdfeature_tpu_torch.solvers.registry import create_svd_trainer
 
     assert type(create_svd_trainer(SVDTypeParam(format_type=1, extend_type=15))) \
         is SVDBiLinearTrainer
-    for et in (30, 31):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            create_svd_trainer(SVDTypeParam(format_type=1, extend_type=et))
+    for et, cls in ((30, APLambdaGBRTTrainer), (31, RegGBRTTrainer)):
+        assert type(create_svd_trainer(SVDTypeParam(format_type=1, extend_type=et))) is cls
 
 
 @pytest.mark.parametrize("extra", [{}, {"common_feedback_space": 1, "num_ufeedback": 30}],

@@ -39,6 +39,9 @@ COPIES = [
     "data/batching.py", "cli/svd_feature.py", "cli/svd_feature_infer.py",
     "cli/make_feature_buffer.py", "data/batching_plus.py", "cli/make_ugroup_buffer.py",
     "data/batching_imfb.py", "data/rank.py", "utils/evaluator.py",
+    "solvers/gbrt/tree.py", "solvers/gbrt/schedulers.py", "data/combinators.py",
+    "cli/line_shuffle.py", "cli/line_reorder.py", "cli/svdpp_randorder.py",
+    "cli/combine_ugroup.py", "utils/csr_builder.py",
 ]
 ML100K = dict(num_user=943, num_item=1682, num_factor=64, base_score=3.0)
 

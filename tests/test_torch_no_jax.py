@@ -30,7 +30,11 @@ SCRIPT = textwrap.dedent(
         importlib.import_module(name)
     assert "svdfeature_tpu_torch.ops.svdpp_big" in names
     for new in ("data.rank", "utils.evaluator", "ops.pair_sample", "solvers.ranker",
-                "ops.svdpp_bilinear", "solvers.bilinear"):
+                "ops.svdpp_bilinear", "solvers.bilinear", "solvers.gbrt.trainer",
+                "solvers.gbrt.tree", "solvers.gbrt.schedulers", "solvers.gbrt.np_losses",
+                "ops.gbrt_forward", "data.combinators", "cli.line_shuffle",
+                "cli.line_reorder", "cli.svdpp_randorder", "cli.combine_ugroup",
+                "utils.csr_builder"):
         assert "svdfeature_tpu_torch." + new in names
 
     from svdfeature_tpu_torch import convert

@@ -135,14 +135,18 @@ def test_cuda_device_without_card_raises():
 @pytest.mark.parametrize("key,val,item", [
     # the bilinear solver, which trains now: on random-order data, the base solver
     pytest.param("extend_type", "15", None, id="extend_type-15-item 10"),
-    ("extend_type", "30", "item 10"),
+    # APLambda GBRT, which trains now: the user-group format, as in JAX
+    pytest.param("extend_type", "30", None, id="extend_type-30-item 10"),
     ("mesh_data", "2", "item 12"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """Configurations the port does not run yet raise NotImplementedError
     naming their ROADMAP item instead of training something else; the
     bilinear solver (``item`` None) trains random-order data on the base
-    solver, as the JAX package does, and saves its BModel section."""
+    solver, as the JAX package does, and saves its BModel section; APLambda
+    GBRT reads the text as user-group data (one block a user, the user id
+    its spec-sparse feature, the item id its root) and writes the JAX CLI's
+    checkpoints byte for byte."""
     feat = tmp_path / "train.feature"
     feat.write_text("".join(f"{i % 5 + 1} 0 1 1 {i % 7}:1 {i % 11}:1\n" for i in range(40)))
     conf = tmp_path / "t.conf"
@@ -155,6 +159,21 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             TTrain().run(str(conf), args)
+        return
+    if val == "30":
+        # the same rows a user at a time: one block each, pairs inside it
+        lines = feat.read_text().splitlines(keepends=True)
+        feat.write_text("".join(sorted(lines, key=lambda line: int(line.split()[4][:-2]))))
+        gbrt = ["num_spec_sparse=7", "scale_score=5", "active_type=3", "min_split_instance=2",
+                "min_child_instance=1", "min_split_weight=0.1", "min_child_weight=0.05"]
+        TTrain().run(str(conf), ["num_round=2", "device=cpu", f"{key}={val}", *gbrt])
+        port = [(tmp_path / "m" / f"{r:04d}.model").read_bytes() for r in range(3)]
+        task = JTrain()
+        task.run(str(conf), ["num_round=2", f"{key}={val}", *gbrt])
+        assert type(task.trainer).__name__ == "APLambdaGBRTTrainer"
+        assert len(task.trainer.trees) == 2
+        assert np.any(np.asarray(task.trainer.trees[1].tree.split_value) != 0)
+        assert port == [(tmp_path / "m" / f"{r:04d}.model").read_bytes() for r in range(3)]
         return
     task = TTrain()
     task.run(str(conf), args)

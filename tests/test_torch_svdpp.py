@@ -587,14 +587,17 @@ def test_update_rounds_equals_update_all():
     pytest.param("num_ufeedback", "8100", None, id="num_ufeedback-8100-item 9"),
     ("streaming", "1", "item 11"),
     ("mesh_data", "2", "item 12"),
-    ("input_type", "101", "item 13"),
+    # the attach combinator (input_type 101: the buffer, the text attached), which trains now
+    pytest.param("input_type", "101", None, id="input_type-101-item 13"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """User-group configurations the port does not run yet raise
     NotImplementedError naming their ROADMAP item; a table over 8192 rows,
-    a pairwise-rank source and a shared feedback space (``item`` None)
-    train, on the big-table epoch, on the pair skeleton and on the refresh
-    epoch (which matches the JAX CLI's checkpoints and eval RMSE)."""
+    a pairwise-rank source, a shared feedback space and an attached text
+    source (``item`` None) train, on the big-table epoch, on the pair
+    skeleton, on the refresh epoch and on the primary blocks interleaved
+    with the attached ones (the last two match the JAX CLI's checkpoints
+    and eval RMSE)."""
     from svdfeature_tpu_torch.cli import make_ugroup_buffer
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
@@ -607,6 +610,9 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     args = ["num_round=1", "device=cpu", f"{key}={val}"]
     if key == "input_type":  # ratings of 4 and above the positives, 2 and below the negatives
         args += ["pos_sample_lowerb=4", "neg_sample_upperb=2"]
+    if val == "101":
+        args += [f"attach:data_in={tmp_path}/train.feature",
+                 f"attach:feedback_in={tmp_path}/train.feedback"]
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             SVDTrainTask().run(str(tmp_path / "t.conf"), args)
@@ -614,7 +620,9 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     task = SVDTrainTask()
     task.run(str(tmp_path / "t.conf"), args)
     tr = task.trainer
-    if key == "input_type":
+    if val == "101":
+        assert task.dataset.num_block == 2 * NUM_USER and task.dataset.extra_info.sum() == NUM_USER
+    elif key == "input_type":
         assert tr._pair_src is task.dataset and tr._pair_sk["use_kernel"]
     elif key == "common_feedback_space":
         assert not tr.hp.big_table and tr.model.off_ufeedback == tr.model.off_user
@@ -625,6 +633,11 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     if key == "common_feedback_space":
         (tmp_path / "cli").mkdir()
         _cli_slice(tmp_path / "cli", "common_feedback_space = 1\n")
+    if val == "101":
+        cli = tmp_path / "cli"
+        cli.mkdir()
+        _cli_slice(cli, f'input_type = 101\nattach:data_in = "{cli}/train.feature"\n'
+                   f'attach:feedback_in = "{cli}/train.feedback"\n')
 
 
 def _kernel_vs_plain_on_card(x):
