@@ -164,7 +164,25 @@ result line):
      user-group data, 3 rounds and an eval, the trained model's scores of
      the implicitFeedback test set (a card walk) within 1e-5 of the JAX
      package's CPU run (scripts/gbrt_jax_reference.py, SVDInferTask pred:
-     the moments and every 397th score).
+     the moments and every 397th score);
+ 18. out-of-core training (streaming=1) through SVDTrainTask and
+     SVDInferTask, the test sets read a chunk at a time too, on the buffers
+     of the earlier phases: (g) basicMF, chunks of 16384 examples (K1, one
+     launch a chunk, 40 rounds, in the GOLDEN band); (a) bigTable's tile
+     sweep (K4) and (c) its sorted dedup (K5), chunks of 2^20 and 2^19
+     examples (whole batches), 3 rounds, the probe within 1e-5 of phase 7
+     (a)'s staged one and within 1e-4 of the JAX CPU figures; (b)
+     implicitFeedback at sort_blocks=1 rows_per_user=8, chunks of 256 users
+     sorted within themselves (K2, 40 rounds, in the GOLDEN band); (d)
+     bigSvdpp's user-carry epoch (K5), chunks of 32768 users, 2 rounds; (e)
+     the stacked set, chunks of 512 units with the open contexts carried
+     (K3, 8 rounds); (b), (d), (e) within 1e-4 of the JAX package's
+     streamed runs (scripts/streaming_jax_reference.py).  Launch counts the
+     chunks' plans', no chunk tensor left in a kernel plan after a round,
+     examples/s beside the staged run of the same phase, the seconds a round
+     waits for chunks against those it trains them (measured in the trainer
+     hooks), peak device memory; (f) in (a) the device memory held beyond a
+     round's start at a chunk's entry within (prefetch + 1) staged chunks.
 Each phase prints its time, and the script its total.  Then one JSON
 line describing the kernels, all six and K5 once more at big bilinear's
 W_bi write (with each one's bound: the larger of its bytes over 3.35 TB/s
@@ -200,6 +218,10 @@ BIG_NU, BIG_NI, BIG_K = 1_000_000, 1_048_576, 64
 BIG_EX = 1 << 21  # training examples per round
 BIG_PROBE = 4096  # test rows: the first training rows (bench.py:870)
 BIG_ROUNDS = 3
+# rows of a block of the train buffer's file: a streamed chunk ends at a
+# block's end, so blocks that divide phase 18's chunks (2^19, 2^20 rows)
+# keep every chunk a whole number of batches (2^12, 2^20)
+BIG_FILE_BATCH = 4096
 BIG_CONF = {  # bench.py:859-868
     "base_score": "3", "learning_rate": "0.005", "wd_item": "0.004", "wd_user": "0.004",
     "num_item": str(BIG_NI), "num_user": str(BIG_NU), "num_factor": str(BIG_K),
@@ -232,12 +254,12 @@ def bigtable_arrays(nu=BIG_NU, ni=BIG_NI, ex=BIG_EX):
 
 
 def write_bigtable(csr_dataset, write_csr_buffer, d, arrays):
-    """Write bigTable's train buffer (``arrays`` of bigtable_arrays), its
-    probe (the first BIG_PROBE rows) as the test buffer and its conf into
-    directory ``d`` with a package's own CSRDataset and buffer writer;
-    returns (conf path, dataset)."""
+    """Write bigTable's train buffer (``arrays`` of bigtable_arrays) in file
+    blocks of BIG_FILE_BATCH rows, its probe (the first BIG_PROBE rows) as
+    the test buffer and its conf into directory ``d`` with a package's own
+    CSRDataset and buffer writer; returns (conf path, dataset)."""
     ds = csr_dataset(**arrays)
-    write_csr_buffer(str(d / "train.buffer"), ds)
+    write_csr_buffer(str(d / "train.buffer"), ds, BIG_FILE_BATCH)
     write_csr_buffer(str(d / "test.buffer"), ds.slice_rows(0, BIG_PROBE))
     conf = d / "bigTable.conf"
     conf.write_text("".join(f"{k} = {v}\n" for k, v in BIG_CONF.items())
@@ -1002,9 +1024,10 @@ def phase_slice(work, card, failures):
             report_demo(3, name, path, r, "K1", want,
                         f"{ROUNDS} rounds, one cooperative launch each; T={T}", card, failures)
             if path == "kernel" and name == "basicMF":
+                eps = r["eps_steady"]  # what phase 18's streamed run is set beside
                 share = steady_busy_share(torch, r["task"], train_rounds_kernel, 4, 4, T)
                 report_share(3, name, "K1", *share, card, failures, gate=False)
-    return total
+    return total, eps
 
 
 def phase_svdpp_slice(work, card, failures):
@@ -1599,9 +1622,11 @@ def phase_bigtable(work, big, card, failures):
         failures.append("bigTable (a) vs (b)")
     print(f"phase 7 {'ok' if diff < BIG_AB_TOL else 'FAIL'}: bigTable K4 (a) against its plain "
           f"version (b) end to end: |d RMSE| {diff:.2e} (tol {BIG_AB_TOL:g})", flush=True)
-    return {"K4": results["a"]["launches"]["K4"],
-            "K5": results["c"]["launches"]["K5"] + results["d"]["launches"]["K5"],
-            "K6": sum(r["launches"]["K6"] for r in results.values())}
+    launches = {"K4": results["a"]["launches"]["K4"],
+                "K5": results["c"]["launches"]["K5"] + results["d"]["launches"]["K5"],
+                "K6": sum(r["launches"]["K6"] for r in results.values())}
+    # what phase 18 holds its streamed runs of the same settings to
+    return launches, {tag: dict(eps=results[tag]["eps"], rmse=results[tag]["rmse1"]) for tag in "ac"}
 
 
 # ---- phase 8: K3 vs plain ----------------------------------------------------
@@ -1841,7 +1866,7 @@ def phase_imfb_slice(work, card, failures):
               and abs(rmse - ref_rmse) < IMFB_GOLDEN_TOL and type(tr).__name__ == "SVDPPMultiIMFBTrainer")
         if not ok:
             failures.append(f"stacked slice ({path})")
-        results[path] = dict(rmse=rmse, launches=launches)
+        results[path] = dict(rmse=rmse, launches=launches, eps=eps)
         starts = int(np.count_nonzero(np.concatenate([[True], cid[1:] != cid[:-1]])))
         print(f"phase 9 {'ok' if ok else 'FAIL'}: multiIMFBStacked path={path} test RMSE after "
               f"{IMFB_ROUNDS} rounds {rmse:.6f} (minus JAX CPU {rmse - JAX_IMFB_RMSE:+.6f}, tol "
@@ -1864,7 +1889,7 @@ def phase_imfb_slice(work, card, failures):
         failures.append("stacked slice kernel vs plain")
     print(f"phase 9 {'ok' if diff < IMFB_AB_TOL else 'FAIL'}: K3 against its plain version end "
           f"to end: |d RMSE| {diff:.2e} (tol {IMFB_AB_TOL:g})", flush=True)
-    return results["kernel"]["launches"]["K3"]
+    return results["kernel"]["launches"]["K3"], results["kernel"]["eps"]
 
 
 # ---- phase 10: the general route ------------------------------------------------
@@ -2111,7 +2136,7 @@ def phase_big_plus(work, card, failures):
     timing.update(time_k5_shapes(torch, 11, "bigSvdpp (d)", w_d, shapes_d, card, failures))
     del w, shapes, w_d, shapes_d
     torch.cuda.empty_cache()
-    return sum(r["launches"]["K5"] for r in results.values()), timing
+    return sum(r["launches"]["K5"] for r in results.values()), timing, results["a"]["eps"]
 
 
 def time_k5_shapes(torch, phase, run, w, shapes, card, failures):
@@ -2567,6 +2592,62 @@ BI_GOLDEN_TOL = 0.01  # tests/test_golden_full.py:173-181, against golden/biline
 BI_AB_TOL = 1e-6  # (a) against the port's plain SVD++ run, every round
 
 
+# phase 18: out-of-core training (streaming=1).  Each run reads a buffer
+# that an earlier phase wrote a chunk at a time through SVDTrainTask, and
+# its test set a chunk at a time through SVDInferTask.  tag: the phase that
+# wrote its data and its directory, conf keys beside its conf's, rounds,
+# the test set's chunk.  (a) and (c) cut bigTable's 2^21 rows into chunks of
+# whole batches (BIG_FILE_BATCH), so they follow phase 7's staged runs;
+# (b), (d) and (e) sort within chunks or carry contexts across them; (g)'s
+# chunks end at the ends of make_feature_buffer's blocks of 1000 rows, so
+# its batches differ from phase 3's (gated on the GOLDEN band).
+STREAM_RUNS = {
+    "g": dict(phase=3, data="basicMF", rounds=ROUNDS, test_chunk=4096,
+              keys=[f"batch_size={BATCH}", "stream_chunk=16384"]),
+    "a": dict(phase=7, data="bigTable", rounds=BIG_ROUNDS, test_chunk=2048,
+              keys=["batch_size=1048576", "stream_chunk=1048576"]),
+    "c": dict(phase=7, data="bigTable", rounds=BIG_ROUNDS, test_chunk=2048,
+              keys=["batch_size=4096", "stream_chunk=524288"]),
+    "b": dict(phase=5, data="implicitFeedback", rounds=ROUNDS, test_chunk=256,
+              keys=[*BAND_KEYS, "stream_chunk=256"]),
+    "d": dict(phase=11, data="bigSvdpp", rounds=2, test_chunk=1024, keys=["stream_chunk=32768"]),
+    "e": dict(phase=9, data="multiIMFBStacked", rounds=IMFB_ROUNDS, test_chunk=256,
+              keys=["extend_type=2", "rows_per_user=8", "stream_chunk=512"]),
+}
+STREAM_PREFETCH = 2  # the depth of data/streaming.py's chunk queue (its default)
+# the JAX package's streamed runs on the CPU, same data, conf and chunks
+# (scripts/streaming_jax_reference.py --run b|d|e): the test RMSE after the
+# last round ((b), (e)) and the probe's ((d))
+JAX_STREAM_RMSE = {"b": 0.949836, "d": 0.170776, "e": 0.952257}
+STREAM_JAX_TOL = 1e-4
+STREAM_STAGED_TOL = 1e-5  # (a) against phase 7 (a)'s staged probe
+
+
+def stream_task_args(tag, d):
+    """(conf, arguments) of phase 18's run ``tag`` on the buffers in ``d``,
+    the directory of the phase that wrote them."""
+    run = STREAM_RUNS[tag]
+    if run["data"] == "bigTable":
+        conf, buffers = d / "bigTable.conf", []
+    elif run["data"] == "basicMF":
+        conf = ROOT / "demo" / "basicMF" / "basicMF.conf"
+        buffers = [f"buffer_feature={d}/train.buffer", f"test:buffer_feature={d}/test.buffer"]
+    elif run["data"] == "bigSvdpp":
+        conf, buffers = d / "bigSvdpp.conf", [f"buffer_feature={d}/train.buffer"]
+    else:
+        conf = ROOT / "demo" / "implicitFeedback" / "implicitFeedback.conf"
+        buffers = [f"buffer_feature={d}/train.buffer", f"test:buffer_feature={d}/test.buffer"]
+    return conf, [*buffers, *run["keys"], "streaming=1", "test:streaming=1",
+                  f"test:stream_chunk={run['test_chunk']}"]
+
+
+def stream_evals(tag):
+    """The SVDInferTask span of run ``tag``: rounds 0 and R for a probe
+    (bigTable, bigSvdpp), the last round for a test set."""
+    R = STREAM_RUNS[tag]["rounds"]
+    return ["start=0", f"end={R + 1}", f"step={R}"] if tag in "acd" else [f"start={R}", f"end={R + 1}"]
+
+
 # phase 17: GBRT.  (a) RegGBRT (extend_type=31) on the implicitFeedback
 # workload at the reference binary's recorded tree parameters (the keys of
 # tests/test_golden_full.py:191-220 beside implicitFeedback.conf, which holds
@@ -2911,6 +2992,191 @@ def phase_gbrt(torch, work, rank_dir, rank_keys, card, failures):
     shutil.rmtree(d)
 
 
+# ---- phase 18: out-of-core training ---------------------------------------------------
+def stream_run(work, tag):
+    """One phase-18 run through SVDTrainTask + SVDInferTask, every kernel's
+    launch count set to 0 just before training and read just after.  After
+    each streamed round (at its checkpoint's save) it reads the trainer's
+    stream hooks (the seconds the round waited for chunks and trained them,
+    the device memory held beyond the round's start at a chunk's entry, the
+    largest chunk) and how many of the round's chunk tensors a kernel
+    wrapper's plan list still holds; it counts the launches each chunk's
+    plan implies."""
+    import dataclasses
+    import weakref
+
+    import torch
+
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+    from svdfeature_tpu_torch.ops import _plans
+    from svdfeature_tpu_torch.ops.svdpp_big import k5_launches
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    run = STREAM_RUNS[tag]
+    R = run["rounds"]
+    d = work / run["data"]
+    conf, keys = stream_task_args(tag, d)
+    args = [*keys, f"model_out_folder={d}/models_s{tag}", "device=cuda", "silent=1"]
+    refs, rounds, chunks = [], [], []
+
+    class Task(SVDTrainTask):
+        def init(self):
+            super().init()
+            tr = self.trainer
+            stage, train = tr.chunk_stream.stage, tr.train_chunk
+
+            def staging(entry, device):
+                staged = stage(entry, device)
+                refs.extend(weakref.ref(t) for t in staged.tensors)
+                return staged
+
+            def training(staged):
+                e = staged.entry
+                cid = getattr(e, "chunk_id", None)
+                steps = e["label"].shape[0] if cid is None else len(cid)
+                k5 = 0 if cid is None else k5_launches(cid, "chunk_users" in e.fb)
+                chunks.append(dict(steps=steps, k5=k5))
+                train(staged)
+
+            tr.chunk_stream.stage = staging
+            tr.train_chunk = tr.train_chunk_plus = tr.train_chunk_imfb = training
+
+        def save_model(self):
+            stats = self.trainer.chunk_stream.stats
+            if stats.chunks:  # after a streamed round
+                held = {id(t) for plans in _plans._LISTS for plan in plans for t in plan.tensors}
+                rounds.append(dict(stats=dataclasses.replace(stats), held=sum(
+                    1 for r in refs if r() is not None and id(r()) in held)))
+                refs.clear()
+            super().save_model()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    task = Task()
+    t0 = time.perf_counter()
+    task.run(str(conf), args + [f"num_round={R}"])
+    launches = {kid: fn.launches for kid, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tr = task.trainer
+    state_bytes = sum(getattr(tr.state, f.name).nbytes for f in dataclasses.fields(tr.state))
+    streamed = hasattr(task.dataset, "chunks")
+    log = d / f"rmse_s{tag}.tsv"
+    infer = SVDInferTask()
+    infer.run(str(conf), args + [*stream_evals(tag), f"log_eval={log}"])
+    rmse = [float(line.split()[1]) for line in log.read_text().splitlines()]
+    shutil.rmtree(d / f"models_s{tag}")
+    secs = task.round_seconds
+    res = dict(rmse=rmse, launches=launches, rounds=rounds, chunks=chunks, R=R, peak=peak,
+               state_bytes=state_bytes, secs=secs, rows=task.dataset_rows(),
+               eps=task.dataset_rows() * (R - 1) / sum(secs[1:]),
+               streamed=streamed and hasattr(infer.dataset, "chunks"),
+               trainer=type(tr).__name__, big=bool(tr.hp.big_table),
+               sweep=bool(tr.hp.sweep_table), seconds=time.perf_counter() - t0)
+    del task, tr, infer
+    return res
+
+
+def phase_stream(work, staged, card, failures):
+    """Out-of-core training through the port's entry points, on the buffers
+    of phases 5, 7, 9 and 11 read a chunk at a time (STREAM_RUNS): (a)
+    bigTable's tile sweep (K4) and (c) its sorted dedup (K5) in chunks of
+    whole batches, probes within STREAM_STAGED_TOL of phase 7 (a)'s staged
+    one ((a)) and within 1e-4 of the JAX CPU figures; (b) implicitFeedback
+    (K2, sorted within chunks) in its GOLDEN band; (d) bigSvdpp's user-carry
+    epoch (K5); (e) the stacked set (K3, contexts carried across chunks);
+    (b), (d), (e) within STREAM_JAX_TOL of the JAX package's streamed runs.
+    Every launch count is the chunks' plans', no plan list keeps a chunk
+    tensor after a round, and (f) in (a) the device memory held beyond a
+    round's start stays within (STREAM_PREFETCH + 1) chunks.  Each run
+    prints examples/s beside the staged run of its phase, the waiting and
+    training seconds of a round, and its peak device memory."""
+    golden = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["implicitFeedback"]
+    golden_mf = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["basicMF"]
+    kernel_of = {"g": "K1", "a": "K4", "c": "K5", "b": "K2", "d": "K5", "e": "K3"}
+    totals = {}
+    for tag in STREAM_RUNS:
+        run = STREAM_RUNS[tag]
+        r = stream_run(work, tag)
+        kid = kernel_of[tag]
+        n_chunks = len(r["chunks"])
+        if kid in ("K4", "K5") and tag != "d":
+            count, how = sum(c["steps"] for c in r["chunks"]), "one a step"
+        elif tag == "d":
+            count, how = sum(c["k5"] for c in r["chunks"]), "the big epochs' plans"
+        else:
+            count, how = n_chunks, "one a chunk"
+        want = {k: 0 for k in r["launches"]}
+        want[kid] = count
+        final = r["rmse"][-1]
+        checks = [r["launches"] == want, r["streamed"], math.isfinite(final),
+                  n_chunks == r["R"] * (n_chunks // r["R"]) and n_chunks >= 2 * r["R"],
+                  len(r["rounds"]) == r["R"], all(x["held"] == 0 for x in r["rounds"])]
+        if tag in "acd":
+            checks.append(final < r["rmse"][0])
+        if tag in "ac":
+            jax = JAX_BIG_RMSE[1 << 20 if tag == "a" else 4096]
+            checks += [r["big"], r["sweep"] == (tag == "a")]
+            vs = f"minus JAX CPU (staged) {final - jax:+.6f}, tol {BIG_JAX_TOL:g}"
+            checks.append(abs(final - jax) < BIG_JAX_TOL)
+            d_staged = final - staged[tag]["rmse"]
+            vs += f"; minus phase 7 ({tag}) staged {d_staged:+.2e}"
+            if tag == "a":
+                vs += f", tol {STREAM_STAGED_TOL:g}"
+                checks.append(abs(d_staged) < STREAM_STAGED_TOL)
+        elif tag == "g":
+            checks.append(abs(final - golden_mf["final_rmse"]) < golden_mf["rmse_band"])
+            vs = f"golden {golden_mf['final_rmse']} band {golden_mf['rmse_band']}"
+        else:
+            jax = JAX_STREAM_RMSE[tag]
+            checks.append(jax is not None and abs(final - jax) < STREAM_JAX_TOL)
+            vs = (f"minus JAX CPU streamed {final - jax:+.6f}, tol {STREAM_JAX_TOL:g}"
+                  if jax is not None else "no JAX CPU figure")
+            if tag == "b":
+                checks.append(abs(final - golden["final_rmse"]) < golden["rmse_band"])
+                vs += f"; golden {golden['final_rmse']} band {golden['rmse_band']}"
+        ok = all(checks)
+        if not ok:
+            failures.append(f"streamed run ({tag})")
+        totals[kid] = totals.get(kid, 0) + r["launches"][kid]
+        wait = [x["stats"].wait_s for x in r["rounds"]]
+        train = [x["stats"].train_s for x in r["rounds"]]
+        what = "probe" if tag in "acd" else "test"
+        print(f"phase 18 {'ok' if ok else 'FAIL'}: streamed ({tag}) {run['data']} "
+              f"{' '.join(run['keys'])} {r['trainer']} through SVDTrainTask/SVDInferTask "
+              f"(test set streamed in chunks of {run['test_chunk']}): {what} RMSE "
+              f"{' -> '.join(f'{x:.6f}' for x in r['rmse'])} after {r['R']} rounds ({vs}); "
+              f"launches {r['launches']} (want {kid} {count}: {how}; {n_chunks} chunks = "
+              f"{r['R']} rounds x {n_chunks // r['R']}); training {r['eps']:,.0f} examples/s "
+              f"rounds 2-{r['R']} (phase {run['phase']}'s staged run {staged[tag]['eps']:,.0f}); "
+              f"round seconds {[round(x, 3) for x in r['secs']]}; a round waited "
+              f"{min(wait):.3f}-{max(wait):.3f} s for its chunks and spent {min(train):.3f}-"
+              f"{max(train):.3f} s training them (the hooks' clocks); peak device memory "
+              f"{r['peak'] / 2**20:.1f} MiB; run {r['seconds']:.1f} s; on {card}", flush=True)
+        if tag == "a":
+            # (f) memory and overlap: the device memory held beyond a
+            # round's start (which holds the trainer's state) at a chunk's
+            # entry, against (prefetch + 1) chunks
+            for i, x in enumerate(r["rounds"]):
+                st = x["stats"]
+                bound = (STREAM_PREFETCH + 1) * st.max_chunk_bytes
+                ok_f = st.max_excess_bytes <= bound and x["held"] == 0
+                if not ok_f:
+                    failures.append(f"streamed memory (f) round {i + 1}")
+                print(f"phase 18 {'ok' if ok_f else 'FAIL'}: (f) streamed (a) round {i + 1}: "
+                      f"{x['held']} chunk tensors in the kernel plans after the round; device memory "
+                      f"at a chunk's entry beyond the round's start at most "
+                      f"{st.max_excess_bytes / 2**20:.1f} MiB (want <= {STREAM_PREFETCH + 1} x the "
+                      f"largest staged chunk's {st.max_chunk_bytes / 2**20:.1f} MiB = "
+                      f"{bound / 2**20:.1f} MiB); allocated at the round's start "
+                      f"{st.base_bytes / 2**20:.1f} MiB, the trainer's state "
+                      f"{r['state_bytes'] / 2**20:.1f} MiB; waited {st.wait_s:.3f} s for "
+                      f"{st.chunks} chunks, trained {st.train_s:.3f} s", flush=True)
+    return totals
+
+
 def kernel_line(name, source, replaces, launches, max_err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": timing["kernel"],
@@ -2956,7 +3222,7 @@ def main() -> int:
     phase_time("phase 2")
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        k1_launches = phase_slice(pathlib.Path(work), card, failures)
+        k1_launches, k1_eps = phase_slice(pathlib.Path(work), card, failures)
         phase_time("phase 3")
         k2_err, k2_timing = phase_svdpp_kernel(torch, dev, card, failures)
         phase_time("phase 4")
@@ -2965,15 +3231,15 @@ def main() -> int:
         big = bigtable_arrays()
         big_timing = phase_big_kernels(torch, dev, big, card, failures)
         phase_time("phase 6")
-        big_launches = phase_bigtable(pathlib.Path(work), big, card, failures)
+        big_launches, big_staged = phase_bigtable(pathlib.Path(work), big, card, failures)
         phase_time("phase 7")
         k3_err, k3_timing = phase_imfb_kernel(torch, dev, card, failures)
         phase_time("phase 8")
-        k3_launches = phase_imfb_slice(pathlib.Path(work), card, failures)
+        k3_launches, k3_eps = phase_imfb_slice(pathlib.Path(work), card, failures)
         phase_time("phase 9")
         phase_general(pathlib.Path(work), card, failures)
         phase_time("phase 10")
-        k5_plus_launches, _ = phase_big_plus(pathlib.Path(work), card, failures)
+        k5_plus_launches, _, big_plus_eps = phase_big_plus(pathlib.Path(work), card, failures)
         phase_time("phase 11")
         from svdfeature_tpu_torch.cli import make_ugroup_buffer
 
@@ -2992,6 +3258,10 @@ def main() -> int:
         phase_time("phase 16")
         phase_gbrt(torch, pathlib.Path(work), rank_dir, rank_keys, card, failures)
         phase_time("phase 17")
+        stream_launches = phase_stream(pathlib.Path(work), dict(
+            big_staged, g=dict(eps=k1_eps), b=dict(eps=k2_eps), d=dict(eps=big_plus_eps),
+            e=dict(eps=k3_eps)), card, failures)
+        phase_time("phase 18")
     print(f"chip_smoke.py took {time.perf_counter() - start:.1f} s on {card}", flush=True)
 
     if failures:
@@ -3000,21 +3270,25 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_line("fused_embed (sgd_rounds, one cooperative launch a call)",
                     "svdfeature_tpu_torch/csrc/fused_embed.cu",
-                    "svdfeature_tpu/ops/pallas_embed.py:75", k1_launches, k1_err,
+                    "svdfeature_tpu/ops/pallas_embed.py:75", k1_launches + stream_launches["K1"],
+                    k1_err,
                     k1_timing["basicMF"]),
         kernel_line("fused_svdpp (svdpp_rounds, one cooperative launch a call)",
                     "svdfeature_tpu_torch/csrc/fused_svdpp.cu",
-                    "svdfeature_tpu/ops/pallas_svdpp.py:110", k2_launches + k2_rank_launches,
+                    "svdfeature_tpu/ops/pallas_svdpp.py:110",
+                    k2_launches + k2_rank_launches + stream_launches["K2"],
                     max(k2_err, pair_err), k2_timing),
         kernel_line("fused_imfb (imfb_rounds, one cooperative launch a call)",
                     "svdfeature_tpu_torch/csrc/fused_imfb.cu",
-                    "svdfeature_tpu/ops/pallas_svdpp.py:110", k3_launches, k3_err, k3_timing),
+                    "svdfeature_tpu/ops/pallas_svdpp.py:110", k3_launches + stream_launches["K3"],
+                    k3_err, k3_timing),
         kernel_line("tile_sweep (sweep_apply)", "svdfeature_tpu_torch/csrc/tile_sweep.cu",
-                    "svdfeature_tpu/ops/tile_sweep.py:143", big_launches["K4"],
+                    "svdfeature_tpu/ops/tile_sweep.py:143", big_launches["K4"] + stream_launches["K4"],
                     big_timing["K4"]["err"], big_timing["K4"]),
         kernel_line("row_writer (row_write)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:43",
-                    big_launches["K5"] + k5_plus_launches + k5_rank_launches,
+                    big_launches["K5"] + k5_plus_launches + k5_rank_launches
+                    + stream_launches["K5"],
                     big_timing["K5"]["err"], big_timing["K5"]),
         # K5 on big bilinear's path (phase 16 (d)): its W_bi write
         kernel_line("row_writer (row_write), W_bi rows of big bilinear",

@@ -42,6 +42,7 @@ class SVDInferTask:
         self.inferencer = None
         self.ranker = None
         self.dataset = None
+        self._stream_labels: Optional[np.ndarray] = None  # a streaming source's, read once
 
     def set_param_inner(self, name: str, val: str) -> None:
         if name == "model_out_folder":
@@ -141,8 +142,13 @@ class SVDInferTask:
     # ---- tasks ----------------------------------------------------------------
     def _labels(self) -> np.ndarray:
         """Labels in dataset-row order (a user-group dataset keeps its rows
-        in ``rows``)."""
+        in ``rows``); a streaming source's read a chunk at a time, once."""
         ds = self.dataset
+        if hasattr(ds, "chunks"):
+            if self._stream_labels is None:
+                parts = [c.rows.labels if hasattr(c, "rows") else c.labels for c in ds.chunks()]
+                self._stream_labels = np.concatenate(parts) if parts else np.zeros(0, np.float32)
+            return self._stream_labels
         return ds.rows.labels if hasattr(ds, "rows") else ds.labels
 
     def task_eval(self) -> None:

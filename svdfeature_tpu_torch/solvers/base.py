@@ -19,6 +19,14 @@ batches dense enough that most table tiles are touched, else
 overrides the auto rule: -1 auto, 0 off, 1 on.  Checkpoints and
 prediction read the de-augmented state.
 
+A streaming source (``streaming=1``, data/streaming.StreamingCSRBuffer)
+trains a round a chunk at a time, as the JAX solver does
+(solvers/base.py:411-505): a producer thread reads and packs the next chunk
+to the stream's stable shapes (``pack_chunk``) and stages it on the device
+(``stage_chunk``, solvers/streamed.py) while the caller's thread trains the
+last (``train_chunk``: the round's route on the chunk, K1, K4 or K5); its
+evaluation packs and scores one chunk at a time.
+
 The device is explicit: config key ``device`` (default ``cuda``).  With
 ``device=cuda`` and no card the trainer raises instead of running on the
 CPU.  ``use_pallas=0`` selects the plain PyTorch rounds on the device,
@@ -27,6 +35,7 @@ as it selects the jnp path in the JAX package.
 
 from __future__ import annotations
 
+import warnings
 import weakref
 from typing import BinaryIO, Dict, List, Optional, Set, Tuple
 
@@ -44,6 +53,7 @@ from ..ops.embed import (BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState, p
                          train_rounds)
 from ..params import ParameterSet, SVDModelParam, SVDTrainParam, SVDTypeParam
 from ..utils.sparse_feature_array import SparseFeatureArray
+from .streamed import ChunkStream, Staged
 
 DEFAULT_BATCH_SIZE = 1024
 
@@ -106,6 +116,9 @@ class SVDFeatureTrainer:
         # hold: those plans go with the trainer
         self._plan_ids: Set[int] = set()
         weakref.finalize(self, release_plans, self._plan_ids)
+        # the staging of streamed chunks (solvers/streamed.py), with the
+        # last streamed round's measurements in .stats
+        self.chunk_stream = ChunkStream()
 
     # ---- configuration -----------------------------------------------------
     def set_param(self, name: str, val: str) -> None:
@@ -314,6 +327,79 @@ class SVDFeatureTrainer:
             self._pack_cache[key] = (arrays, ds.num_row)
         return self._pack_cache[key]
 
+    # ---- streaming (out-of-core) ------------------------------------------------
+    def _stream_seg_caps(self, raw_caps) -> Tuple[int, int, int]:
+        """Stable per-row segment caps for streamed chunks: the stream's
+        pre-scan measures raw widths, and a feature hierarchy expands each
+        id by its parent list at pack time, so a cap grows by the worst
+        expansion factor (1 + most parents of an id)."""
+        caps = list(raw_caps)
+        for seg, feat in ((1, self.feat_user), (2, self.feat_item)):
+            if feat is not None and feat.num_row:
+                mp = int(np.diff(feat.row_ptr).max(initial=0))
+                caps[seg] = int(raw_caps[seg]) * (1 + mp)
+        return tuple(caps)
+
+    def pack_chunk(self, chunk: CSRDataset, min_batches: int, max_nnz):
+        """One streamed chunk packed to the stream's stable shapes, its
+        planes as CPU tensors (numpy work: the producer thread runs it);
+        on a sweep table with its sweep plans and runs, as ``_pack``."""
+        m = self.model
+        packed = pack_csr(
+            chunk,
+            self.batch_size,
+            m.num_rows,
+            m.param.num_global,
+            m.off_user,
+            m.off_item,
+            feat_user=self.feat_user,
+            feat_item=self.feat_item,
+            num_user=m.param.num_user,
+            num_item=m.param.num_item,
+            seg_caps=self._stream_seg_caps(max_nnz),
+            min_batches=min_batches,
+        )
+        arrays = packed.arrays()
+        if self.hp.sweep_table:
+            hp = self.hp
+            arrays = tile_sweep.attach_sweep_plans(
+                arrays, int(self.state.w.shape[0]), hp.sweep_tile, hp.sweep_ecap
+            )
+            arrays = tile_sweep.attach_sweep_runs(arrays, hp.sweep_tile, hp.sweep_ecap)
+        return stacked_from_numpy(arrays, torch.device("cpu")), chunk.num_row
+
+    def stage_chunk(self, entry) -> Staged:
+        """A packed chunk on the training device (producer thread; pinned
+        memory, side stream: solvers/streamed.py)."""
+        return self.chunk_stream.stage(entry, self.state.w.device)
+
+    def train_chunk(self, staged: Staged) -> None:
+        """One pass of the round's route over a staged chunk (caller's
+        thread): the training stream waits for the chunk's copy, and the
+        chunk's kernel plans go when its launches are enqueued."""
+        with self.chunk_stream.training(staged) as entry:
+            self._train(entry, [self.learning_rate])
+
+    def _stream_round(self, run, ds) -> None:
+        """One streamed round: ``run`` is one of data/streaming.py's
+        round functions."""
+        self.chunk_stream.begin_round(self.state.w.device)
+        run(self, ds)
+
+    def _round_stream_chunk(self, ds) -> None:
+        """Round examples_per_chunk down to a batch_size multiple (up for
+        tiny values): the streamed trajectory equals the staged run only
+        when every chunk splits into whole batches."""
+        epc = ds.examples_per_chunk
+        if epc % self.batch_size:
+            new = max(self.batch_size, epc - epc % self.batch_size)
+            warnings.warn(
+                f"streaming: examples_per_chunk={epc} is not a multiple of "
+                f"batch_size={self.batch_size}; rounding to {new} to keep "
+                "the staged-run trajectory guarantee"
+            )
+            ds.examples_per_chunk = new
+
     # ---- training / prediction --------------------------------------------------
     def _staged_lrs(self, lrs: List[float]) -> torch.Tensor:
         """The round schedule ``lrs`` as an f32 tensor on the training
@@ -345,13 +431,31 @@ class SVDFeatureTrainer:
         self.state = fn(self.state, stacked, lr_t, self.consts, self.hp)
 
     def update_all(self, ds: CSRDataset) -> None:
-        """One pass over the dataset (one round)."""
+        """One pass over the dataset (one round); a streaming source a chunk
+        at a time."""
+        if hasattr(ds, "chunks"):
+            from ..data.streaming import stream_train_round
+
+            self._round_stream_chunk(ds)
+            self._stream_round(stream_train_round, ds)
+            return
         stacked, _ = self._pack(ds)
         self._train(stacked, [self.learning_rate])
+
+    def _stream_rounds(self, ds, num_rounds: int) -> None:
+        """update_rounds on a streaming source: a streamed round at a time,
+        the lr decay schedule applied between them on the host."""
+        for _ in range(num_rounds):
+            self.update_all(ds)
+            if self.tparam.decay_learning_rate:
+                self.learning_rate *= self.tparam.decay_rate
+                self.round_counter += 1
 
     def update_rounds(self, ds: CSRDataset, num_rounds: int) -> None:
         """Run num_rounds full passes, applying the per-round lr decay
         schedule (set_round semantics) on the host."""
+        if hasattr(ds, "chunks"):
+            return self._stream_rounds(ds, num_rounds)
         stacked, _ = self._pack(ds)
         lrs = []
         for _ in range(num_rounds):
@@ -363,6 +467,18 @@ class SVDFeatureTrainer:
 
     def predict_all(self, ds: CSRDataset) -> np.ndarray:
         state = self.state_or_model()
+        if hasattr(ds, "chunks"):
+            # a streaming source: bounded memory, one chunk at a time (the
+            # reference's task_eval reads its iterator so,
+            # svd_feature_infer.cpp:243-277)
+            Tc = -(-min(ds.examples_per_chunk, ds.num_row) // self.batch_size)
+            dev = state.w.device
+            out = []
+            for chunk in ds.chunks():
+                planes, nrow = self.pack_chunk(chunk, Tc, ds.max_nnz)
+                stacked = {name: x.to(dev) for name, x in planes.items()}
+                out.append(predict_batches(state, stacked, self.hp).reshape(-1)[:nrow].cpu().numpy())
+            return np.concatenate(out) if out else np.zeros(0, np.float32)
         stacked, nrow = self._pack(ds)
         preds = predict_batches(state, stacked, self.hp)
         return preds.reshape(-1)[:nrow].cpu().numpy()

@@ -30,16 +30,20 @@ stages.  The checkpoint appends BParam (136 bytes) and W_bi after the
 SVDModel section (apex_svd_bilinear.h:63-72), byte-compatible with the
 JAX package's.
 
-Not ported yet: ``mesh_*`` > 1 (ROADMAP item 12) and streamed buffers
-(item 11), refused where the base trainer and the data registry refuse
-them.
+A streaming buffer trains a chunk at a time through the SVD++ trainer's
+hooks, each chunk packed with these extras (JAX :260-318): at the stream's
+caps, sorted within the chunk with ``sort_blocks`` (the JAX chunk pack
+passes it), and evaluated a chunk at a time in file order (:476-548).
+
+Not ported yet: ``mesh_*`` > 1 (ROADMAP item 12), refused where the base
+trainer refuses it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import struct
-from typing import BinaryIO, List
+from typing import BinaryIO, List, Optional
 
 import numpy as np
 import torch
@@ -133,17 +137,18 @@ class SVDBiLinearTrainer(SVDPPFeatureTrainer):
                        reg_bi=self.reg_bi_feedback, off_item=self.model.off_item)
 
     # ---- packing: the filtered pool and the user-property matrix -------------
-    def _pack_numpy(self, ds: PlusDataset):
+    def _pack_numpy(self, ds: PlusDataset, caps: Optional[dict] = None,
+                    sort_blocks: Optional[bool] = None):
         """``pack_plus`` at the JAX bilinear solver's layout: file order
-        (its pack passes no ``sort_blocks``), the factored overlap on big
-        tables."""
+        (its staged pack passes no ``sort_blocks``) unless a streamed chunk
+        asks otherwise, the factored overlap on big tables."""
         m = self.model
         return pack_plus(
             ds, self.users_per_batch, m.num_rows, m.param.num_global, m.off_user, m.off_item,
             m.off_ufeedback, feat_user=self.feat_user, feat_item=self.feat_item,
             num_user=m.param.num_user, num_item=m.param.num_item,
             num_ufeedback=m.param.num_ufeedback, rows_per_user=self.rows_per_user,
-            factored_overlap=self.hp.big_table)
+            sort_blocks=bool(sort_blocks), factored_overlap=self.hp.big_table, **(caps or {}))
 
     def _bi_extras(self, packed):
         """(filtered pool, up, overlap) of a packing (JAX :156-189): the
@@ -174,8 +179,9 @@ class SVDBiLinearTrainer(SVDPPFeatureTrainer):
                 up[c, raw["fb_block"][c][mask], local[c][mask]] = raw["fb_val"][c][mask]
         return fb, up, overlap
 
-    def _stage_packed(self, packed) -> BiEntry:
-        dev = self.state.w.device
+    def _entry(self, packed, dev: torch.device, plan: bool = True) -> BiEntry:
+        """A packed dataset's entry with the bilinear extras on ``dev``
+        (no carry plan: the big bilinear epoch is the entry-stream one)."""
         arrays = packed.device_arrays()
         chunk_id = arrays.pop("chunk_id")
         fbd, up, overlap = self._bi_extras(packed)
@@ -200,17 +206,7 @@ class SVDBiLinearTrainer(SVDPPFeatureTrainer):
                 self.state = epoch(self.state, self.W_bi, *common, entry.fb_overlap, entry.up, lr,
                                    self.consts, self.hp, ph, bh)
 
-    def predict_all(self, ds) -> np.ndarray:
-        if hasattr(ds, "epoch_dataset"):  # PairSource: one fresh pair epoch
-            self._apply_pair_layout()
-            if self._pair_src is ds and self._pair_future is not None:
-                self._pair_future.result()  # its draw first: one thread on the rng at a time
-            entry = self._stage_packed(self._pack_numpy(ds.epoch_dataset()))
-        elif isinstance(ds, PlusDataset):
-            entry = self._pack_plus(ds)
-        else:  # random order: the base solver's forward
-            return super().predict_all(ds)
-        preds = predict_batches_bi(self.state_or_model(), self.W_bi, entry.stacked, entry.chunk_id,
-                                   entry.fb, entry.up, self.hp, self.model.off_item,
-                                   self.rows_per_user)
+    def _predict_entry(self, state, entry: BiEntry) -> np.ndarray:
+        preds = predict_batches_bi(state, self.W_bi, entry.stacked, entry.chunk_id, entry.fb,
+                                   entry.up, self.hp, self.model.off_item, self.rows_per_user)
         return preds.reshape(-1).cpu().numpy()[entry.perm]

@@ -51,15 +51,25 @@ big table the user-carry epoch from the candidate plan) where
 refuses (pointwise rows, rank-difference labels, feature hierarchies,
 global features, rows of several entries) packs each epoch afresh.
 
+A streaming user-group buffer (``streaming=1``,
+data/streaming.StreamingPlusBuffer) trains a round a chunk of
+``stream_chunk`` user blocks at a time (svdfeature_tpu/solvers/svdpp.py:
+653-740, 1196-1238): the producer thread packs each chunk to the stream's
+stable caps (``pack_plus_chunk``; ``sort_blocks`` sorts within the chunk;
+on a big table with the chunk's carry plan and dedup layout) and stages it
+(solvers/streamed.py), and each chunk trains as a staged dataset does (K2,
+the big epoch through K5, or the refresh epoch under a shared space).
+Its evaluation packs and scores one chunk at a time.
+
 Not ported yet, raising NotImplementedError naming its ROADMAP item:
-``mesh_*`` > 1 (item 12); streaming buffers (item 11) are refused where
-they are loaded (data/registry.py).
+``mesh_*`` > 1 (item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -75,6 +85,8 @@ from ..ops.embed import HyperParams
 from ..ops.svdpp import PlusHyper, predict_batches_plus, train_epoch_plus_refresh
 from ..ops.svdpp_big import LAYOUT_PLANES, train_epoch_plus_big
 from .base import SVDFeatureTrainer
+
+CPU = torch.device("cpu")
 
 
 @dataclasses.dataclass
@@ -213,9 +225,11 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         ids = u_idx[:, :, 0].reshape(T, GS // M, M).astype(np.int64)
         return _chunk_users_from_slots(ids, packed.chunk_id, self.model.num_rows)
 
-    def _pack_numpy(self, ds: PlusDataset):
+    def _pack_numpy(self, ds: PlusDataset, caps: Optional[dict] = None,
+                    sort_blocks: Optional[bool] = None):
         """``pack_plus`` of ``ds`` at the trainer's layout (numpy only, so a
-        producer thread may run it)."""
+        producer thread may run it); a streamed chunk passes the stream's
+        ``caps`` and its own ordering."""
         m = self.model
         return pack_plus(
             ds,
@@ -230,33 +244,40 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             num_user=m.param.num_user,
             num_item=m.param.num_item,
             num_ufeedback=m.param.num_ufeedback,
-            sort_blocks=bool(self.sort_blocks),
+            sort_blocks=bool(self.sort_blocks) if sort_blocks is None else sort_blocks,
             rows_per_user=self.rows_per_user,
             # the dense O is O(G^2) per chunk: big tables take the
             # exact factored form (ops/svdpp_big._ov_mul)
             factored_overlap=self.hp.big_table,
+            **(caps or {}),
         )
 
-    def _stage_packed(self, packed) -> PlusEntry:
-        """A packed dataset staged on the training device, with the carry
-        plan and the items' static dedup layout where the big route takes
-        them."""
-        dev = self.state.w.device
+    def _entry(self, packed, dev: torch.device, plan: bool = True) -> PlusEntry:
+        """A packed dataset's entry on ``dev``; for training (``plan``),
+        with the carry plan, padded to the pool's chunk rows (a streamed
+        chunk's reserved all-padding chunk: JAX svdpp.py:687-700), and the
+        items' static dedup layout where the big route takes them."""
         arrays = packed.device_arrays()
         chunk_id = arrays.pop("chunk_id")
         fbd = packed.fb_arrays()
-        plan = (self._carry_users_plan(packed)
-                if self.hp.big_table and self.hp.reg_method < 4 else None)
-        if plan is not None:
-            fbd["chunk_users"] = plan
+        carry = (self._carry_users_plan(packed)
+                 if plan and self.hp.big_table and self.hp.reg_method < 4 else None)
+        if carry is not None:
+            full = np.full((fbd["fb_idx"].shape[0], carry.shape[1]), self.model.num_rows, np.int32)
+            full[: carry.shape[0]] = carry
+            fbd["chunk_users"] = full
             # the item entries' schedule is the same every round: their
             # sorted-dedup layout is made here, once
             T = packed.i_idx.shape[0]
             layout = make_dedup_layout(packed.i_idx.reshape(T, -1).astype(np.int64))
             arrays.update(zip(LAYOUT_PLANES, layout))
         fb, overlap = pool_from_numpy(fbd, packed.fb_overlap, dev)
-        entry = PlusEntry(stacked=stacked_from_numpy(arrays, dev), chunk_id=chunk_id, fb=fb,
-                          fb_overlap=overlap, perm=packed.perm)
+        return PlusEntry(stacked=stacked_from_numpy(arrays, dev), chunk_id=chunk_id, fb=fb,
+                         fb_overlap=overlap, perm=packed.perm)
+
+    def _stage_packed(self, packed) -> PlusEntry:
+        """A packed dataset staged on the training device."""
+        entry = self._entry(packed, self.state.w.device)
         self._plan_ids.add(id(entry.stacked["label"]))
         return entry
 
@@ -270,6 +291,62 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             self._plus_cache[key] = self._stage_packed(self._pack_numpy(ds))
             self.pack_seconds += time.perf_counter() - t0
         return self._plus_cache[key]
+
+    # ---- streaming (out-of-core user-group buffers) -----------------------------
+    def _stream_caps(self, caps: dict) -> dict:
+        """The stream's pack caps with the segment caps widened by the
+        feature hierarchies' expansion."""
+        return dict(caps, seg_caps=self._stream_seg_caps(caps["seg_caps"]))
+
+    def pack_plus_chunk(self, chunk: PlusDataset, caps: dict) -> PlusEntry:
+        """One streamed chunk packed to the stream's stable caps in file
+        order, or with ``sort_blocks`` sorted within the chunk (the stream
+        never holds the whole dataset), as an entry of CPU tensors (the
+        producer thread runs it)."""
+        packed = self._pack_numpy(chunk, self._stream_caps(caps), sort_blocks=bool(self.sort_blocks))
+        return self._entry(packed, CPU)
+
+    stage_chunk_plus = SVDFeatureTrainer.stage_chunk
+    train_chunk_plus = SVDFeatureTrainer.train_chunk
+
+    def _round_blocks_per_chunk(self, ds) -> None:
+        """Round blocks_per_chunk down to a users_per_batch multiple (up
+        for tiny values): a streamed round equals the staged run on the
+        same (chunk-locally ordered) blocks only when every chunk splits
+        into whole user batches."""
+        bpc = ds.blocks_per_chunk
+        if bpc % self.users_per_batch:
+            new = max(self.users_per_batch, bpc - bpc % self.users_per_batch)
+            warnings.warn(
+                f"streaming: blocks_per_chunk={bpc} is not a multiple of "
+                f"users_per_batch={self.users_per_batch}; rounding to {new} "
+                "to keep the staged-run trajectory guarantee"
+            )
+            ds.blocks_per_chunk = new
+
+    def _stream_round_plus(self, ds) -> None:
+        from ..data.streaming import stream_train_round_plus
+
+        self._round_blocks_per_chunk(ds)
+        self._stream_round(stream_train_round_plus, ds)
+
+    def _predict_entry(self, state, entry: PlusEntry) -> np.ndarray:
+        """Scores of a staged entry in dataset-row order (perm maps a
+        dataset row to its packed slot t*G*M + g*M + m)."""
+        preds = predict_batches_plus(
+            state, entry.stacked, entry.chunk_id, entry.fb, self.hp, self.rows_per_user
+        )
+        return preds.reshape(-1).cpu().numpy()[entry.perm]
+
+    def _predict_stream(self, ds) -> np.ndarray:
+        """Bounded-memory scores of a streaming source, one chunk at a time
+        in file order."""
+        caps = self._stream_caps(ds.plan_caps(self.users_per_batch, self.rows_per_user))
+        state = self.state_or_model()
+        out = [self._predict_entry(state, self._entry(
+            self._pack_numpy(chunk, caps, sort_blocks=False), state.w.device, plan=False))
+            for chunk in ds.chunks()]
+        return np.concatenate(out) if out else np.zeros(0, np.float32)
 
     def _kernel_ok(self, stacked: Dict[str, torch.Tensor], fb: Dict[str, torch.Tensor]) -> bool:
         """Whether a round goes through K2: use_pallas is set and K2's gate
@@ -652,8 +729,11 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
     # ---- training / prediction ------------------------------------------------------
     def update_all(self, ds) -> None:
         """One pass over the dataset (one round); a PairSource trains a
-        freshly sampled pair epoch; a random-order dataset takes the base
-        solver's pass."""
+        freshly sampled pair epoch; a streaming source a chunk at a time; a
+        random-order dataset takes the base solver's pass."""
+        if hasattr(ds, "plan_caps"):  # StreamingPlusBuffer
+            self._stream_round_plus(ds)
+            return
         if hasattr(ds, "epoch_dataset"):  # PairSource
             self._apply_pair_layout()
             if self._pair_device_ok(ds):
@@ -672,7 +752,8 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         decay schedule (set_round semantics) built on the host; a
         PairSource takes the device sampler, the multi-round host sampler
         or a round at a time, in that order of preference; a random-order
-        dataset takes the base solver's passes."""
+        dataset or a streaming source takes the base solver's passes (a
+        streamed round at a time)."""
         if not isinstance(ds, PlusDataset) and not hasattr(ds, "epoch_dataset"):
             return super().update_rounds(ds, num_rounds)
         lrs = []
@@ -701,6 +782,8 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         self.learning_rate = saved
 
     def predict_all(self, ds) -> np.ndarray:
+        if hasattr(ds, "plan_caps"):  # StreamingPlusBuffer
+            return self._predict_stream(ds)
         if hasattr(ds, "epoch_dataset"):  # PairSource: one fresh pair epoch
             self._apply_pair_layout()
             if self._pair_src is ds and self._pair_future is not None:
@@ -710,9 +793,4 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             entry = self._pack_plus(ds)
         else:  # random order: the base solver's forward
             return super().predict_all(ds)
-        state = self.state_or_model()
-        preds = predict_batches_plus(
-            state, entry.stacked, entry.chunk_id, entry.fb, self.hp, self.rows_per_user
-        )
-        # perm maps dataset row -> packed slot (t*G*M + g*M + m)
-        return preds.reshape(-1).cpu().numpy()[entry.perm]
+        return self._predict_entry(self.state_or_model(), entry)

@@ -41,7 +41,7 @@ COPIES = [
     "data/batching_imfb.py", "data/rank.py", "utils/evaluator.py",
     "solvers/gbrt/tree.py", "solvers/gbrt/schedulers.py", "data/combinators.py",
     "cli/line_shuffle.py", "cli/line_reorder.py", "cli/svdpp_randorder.py",
-    "cli/combine_ugroup.py", "utils/csr_builder.py",
+    "cli/combine_ugroup.py", "utils/csr_builder.py", "data/streaming.py", "data/pages.py",
 ]
 ML100K = dict(num_user=943, num_item=1682, num_factor=64, base_score=3.0)
 

@@ -684,15 +684,17 @@ def _cli_slice(tmp_path, extra=""):
     pytest.param("common_feedback_space", "1", None, id="common_feedback_space-1-item 7b"),
     # a 8,266-row table: big-table multi-IMFB, which trains now
     pytest.param("num_ufeedback", "8100", None, id="num_ufeedback-8100-item 9"),
-    ("streaming", "1", "item 11"),
+    # a streamed buffer (out-of-core): the stacked stream, which trains now
+    pytest.param("streaming", "1", None, id="streaming-1-item 11"),
     ("mesh_data", "2", "item 12"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """Stacked configurations the port does not run yet raise
-    NotImplementedError naming their ROADMAP item; a table over 8192 rows
-    and a shared feedback space (``item`` None) train, on the big-table
-    stacked epoch and on the stacked refresh epoch (which matches the JAX
-    CLI's checkpoints, eval RMSE and pred output)."""
+    NotImplementedError naming their ROADMAP item; a table over 8192 rows,
+    a shared feedback space and a streamed buffer (``item`` None) train, on
+    the big-table stacked epoch, on the stacked refresh epoch (which
+    matches the JAX CLI's checkpoints, eval RMSE and pred output) and a
+    chunk at a time."""
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
     _write_sets(tmp_path)
@@ -707,6 +709,10 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     task = SVDTrainTask()
     task.run(str(tmp_path / "t.conf"), args)
     tr = task.trainer
+    if key == "streaming":
+        assert not tr._plain_svdpp(task.dataset) and tr.chunk_stream.stats.chunks == 1
+        assert (tmp_path / "models" / "0001.model").exists() and int(tr.state.step) > 0
+        return
     entry = tr._pack_plus(task.dataset)
     assert type(entry).__name__ == "ImfbEntry"
     assert tr.hp.big_table == (key == "num_ufeedback")

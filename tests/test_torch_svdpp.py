@@ -585,7 +585,8 @@ def test_update_rounds_equals_update_all():
     pytest.param("input_type", "2", None, id="input_type-2-item 8"),
     # a table over 8192 rows: big-table SVD++, which trains now
     pytest.param("num_ufeedback", "8100", None, id="num_ufeedback-8100-item 9"),
-    ("streaming", "1", "item 11"),
+    # a streamed buffer (out-of-core), which trains now
+    pytest.param("streaming", "1", None, id="streaming-1-item 11"),
     ("mesh_data", "2", "item 12"),
     # the attach combinator (input_type 101: the buffer, the text attached), which trains now
     pytest.param("input_type", "101", None, id="input_type-101-item 13"),
@@ -593,11 +594,11 @@ def test_update_rounds_equals_update_all():
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """User-group configurations the port does not run yet raise
     NotImplementedError naming their ROADMAP item; a table over 8192 rows,
-    a pairwise-rank source, a shared feedback space and an attached text
-    source (``item`` None) train, on the big-table epoch, on the pair
-    skeleton, on the refresh epoch and on the primary blocks interleaved
-    with the attached ones (the last two match the JAX CLI's checkpoints
-    and eval RMSE)."""
+    a pairwise-rank source, a shared feedback space, an attached text
+    source and a streamed buffer (``item`` None) train, on the big-table
+    epoch, on the pair skeleton, on the refresh epoch, on the primary
+    blocks interleaved with the attached ones (the last two match the JAX
+    CLI's checkpoints and eval RMSE) and a chunk at a time."""
     from svdfeature_tpu_torch.cli import make_ugroup_buffer
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
@@ -626,6 +627,8 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
         assert tr._pair_src is task.dataset and tr._pair_sk["use_kernel"]
     elif key == "common_feedback_space":
         assert not tr.hp.big_table and tr.model.off_ufeedback == tr.model.off_user
+    elif key == "streaming":
+        assert hasattr(task.dataset, "plan_caps") and tr.chunk_stream.stats.chunks == 1
     else:
         assert tr.hp.big_table and "chunk_users" in tr._pack_plus(task.dataset).fb
     assert (tmp_path / "models" / "0001.model").exists()
