@@ -182,12 +182,29 @@ result line):
      examples/s beside the staged run of the same phase, the seconds a round
      waits for chunks against those it trains them (measured in the trainer
      hooks), peak device memory; (f) in (a) the device memory held beyond a
-     round's start at a chunk's entry within (prefetch + 1) staged chunks.
+     round's start at a chunk's entry within (prefetch + 1) staged chunks;
+ 19. the base solver on a 2x2 mesh: three torchrun calls of 4 ranks
+     (``python -m torch.distributed.run --nproc_per_node=4 chip_smoke.py
+     --mesh-rank ...``; each rank runs the train CLI, then the infer CLI,
+     with mesh_data=2 mesh_model=2, and distributed=1 in (a) and (b) while
+     (c) joins the world through the mesh keys alone; the backend is
+     printed: gloo when the ranks share the one card; no rank may hold
+     memory on a card but its own), each with a timeout: (a)
+     basicMF 40 rounds on phase 3's buffers, in the GOLDEN band and within
+     1e-4 of phase 3's RMSE; (b) bigTable at batch 4096 on phase 7 (c)'s
+     buffers, 3 rounds, mesh_big by its auto rule, the probe within 1e-4
+     of phase 7 (c)'s and K5 launched once a step on every rank (512 a
+     round) and no other kernel; (c) basicMF streamed (streaming=1) in
+     chunks of whole batches, 5 rounds, within 1e-5 of (a) at round 5;
+     then K5 at the mesh slab's shape (one step's gathered stream into
+     [1,024,290 x 68]) bit for bit against its plain version, timed in turns
+     with it and with index_copy_.
 Each phase prints its time, and the script its total.  Then one JSON
-line describing the kernels, all six and K5 once more at big bilinear's
-W_bi write (with each one's bound: the larger of its bytes over 3.35 TB/s
-and its f32 operations over 67 TFLOP/s, the H100 SXM's published rates at
-700 W) and, last, one JSON line naming the device.
+line describing the kernels, all six, K5 once more at big bilinear's
+W_bi write and once more for the mesh slabs' writes (with each one's
+bound: the larger of its bytes over 3.35 TB/s and its f32 operations
+over 67 TFLOP/s, the H100 SXM's published rates at 700 W) and, last, one
+JSON line naming the device.
 """
 
 from __future__ import annotations
@@ -1025,9 +1042,10 @@ def phase_slice(work, card, failures):
                         f"{ROUNDS} rounds, one cooperative launch each; T={T}", card, failures)
             if path == "kernel" and name == "basicMF":
                 eps = r["eps_steady"]  # what phase 18's streamed run is set beside
+                rmse = r["rmse"]  # what phase 19's mesh run is held to
                 share = steady_busy_share(torch, r["task"], train_rounds_kernel, 4, 4, T)
                 report_share(3, name, "K1", *share, card, failures, gate=False)
-    return total, eps
+    return total, eps, rmse
 
 
 def phase_svdpp_slice(work, card, failures):
@@ -3177,6 +3195,238 @@ def phase_stream(work, staged, card, failures):
     return totals
 
 
+# ---- phase 19: the base solver on a 2x2 mesh -------------------------------------
+# One torchrun world of MESH_RANKS processes on this node (gloo on the CUDA
+# tensors when they share a card, parallel/comm.py), launched once a run;
+# each rank runs the train CLI, then the infer CLI (chip_smoke.py
+# --mesh-rank): (a) basicMF on phase 3's buffers, 40 rounds, evaluated at
+# rounds MESH_STREAM_ROUNDS and 40; (b) bigTable at batch 4096 on phase 7
+# (c)'s buffers and settings, 3 rounds, mesh_big by its auto rule (a slab of
+# 1,024,290 rows: K5 on every rank, one launch a step); (c) basicMF's train
+# rows again in file blocks of BATCH rows, streamed in chunks of whole
+# batches (so they follow (a)), MESH_STREAM_ROUNDS rounds.
+MESH_RANKS = 4
+MESH_KEYS = ["mesh_data=2", "mesh_model=2", "device=cuda", "silent=1"]
+# (a) and (b) join the world by distributed=1, (c) by the mesh keys alone
+MESH_JOIN = {"a": ["distributed=1"], "b": ["distributed=1"], "c": []}
+MESH_TIMEOUT_S = {"a": 240, "b": 420, "c": 180}  # each torchrun call, the build excluded
+MESH_TOL = 1e-4  # (a) against phase 3's test RMSE, (b) against phase 7 (c)'s probe
+MESH_STREAM_ROUNDS = 5
+MESH_STREAM_TOL = 1e-5  # (c) against (a) at the same round: the same batches
+MESH_STREAM_CHUNK = 4 * BATCH
+
+
+def mesh_rank(argv):
+    """A rank of phase 19's world: ``chip_smoke.py --mesh-rank OUT TRAIN
+    ARGS -- INFER ARGS`` under torchrun.  Runs the train CLI with every
+    kernel's launch count set to 0 just before and read just after, then
+    the infer CLI, and writes what it measured to OUT.rank<r>.json."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from svdfeature_tpu_torch.cli import svd_feature, svd_feature_infer
+
+    out, rest = argv[0], argv[1:]
+    cut = rest.index("--")
+    local = os.environ["LOCAL_RANK"]
+    pathlib.Path(f"{out}.pid{local}").write_text(str(os.getpid()))  # for the parent's cleanup
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    svd_feature.main(rest[:cut])
+    launches = {kid: fn.launches for kid, fn in wrappers.items()}
+    t1 = time.perf_counter()
+    svd_feature_infer.main(rest[cut + 1:])
+    rank, own = dist.get_rank(), torch.cuda.current_device()
+    # a tensor made before the rank set its card lands on card 0
+    stray = sum(torch.cuda.max_memory_allocated(i)
+                for i in range(torch.cuda.device_count()) if i != own)
+    pathlib.Path(f"{out}.rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, launches=launches, train_s=t1 - t0, infer_s=time.perf_counter() - t1,
+        backend=str(dist.get_backend()), device=str(own),
+        peak=torch.cuda.max_memory_allocated(own), stray=stray)))
+    return 0
+
+
+def mesh_run(work, tag, train, infer):
+    """One torchrun call of phase 19 (``train`` and ``infer``: CLI
+    arguments, the conf first): its ranks' JSON and its output, or None
+    and the output when it failed or ran out of MESH_TIMEOUT_S (then it
+    and every rank it started are killed)."""
+    import os
+    import signal
+
+    out = work / f"mesh_{tag}"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={MESH_RANKS}", str(ROOT / "chip_smoke.py"), "--mesh-rank", str(out),
+           *map(str, train), "--", *map(str, infer)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        log, _ = proc.communicate(timeout=MESH_TIMEOUT_S[tag])
+    except subprocess.TimeoutExpired:
+        proc.terminate()  # torchrun passes it on to its ranks
+        try:
+            log, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        for pid in work.glob(f"mesh_{tag}.pid*"):
+            try:
+                os.kill(int(pid.read_text()), signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        return None, f"{log}\ntimed out after {MESH_TIMEOUT_S[tag]} s"
+    if proc.returncode != 0:
+        return None, log
+    return [json.loads(pathlib.Path(f"{out}.rank{r}.json").read_text())
+            for r in range(MESH_RANKS)], log
+
+
+def mesh_k5(torch, dev, big, card, failures):
+    """K5 at a mesh_big slab's shape: the slab of model position 0 of the
+    2x2 bigTable mesh ([n_real + 1, W], the scratch row last) and the write
+    of one batch-4096 step's gathered stream (its 8192 local ids in sorted
+    order, each owned run's last entry to its row, the rest as zeros to the
+    scratch row; parallel/mesh_big.py), bit for bit against its plain
+    version and timed in turns with it and with index_copy_."""
+    from svdfeature_tpu_torch.ops import big_embed, cuda_scatter
+    from svdfeature_tpu_torch.parallel import mesh_big
+
+    n = BIG_NU + BIG_NI + 1
+    n_real, n_phys = mesh_big.big_layout(n, 2)
+    W = big_embed.aug_width(BIG_K)
+    ent = np.concatenate([big["index"][0:2 * BATCH:2].astype(np.int64),
+                          BIG_NU + big["index"][1:2 * BATCH:2].astype(np.int64)])
+    loc = np.sort(np.where(ent < n_real, ent, n_real))  # position 0 owns rows [0, n_real)
+    last = np.append(loc[1:] != loc[:-1], True) & (loc != n_real)
+    E, U = loc.size, int(last.sum()) + 1  # rows written, the scratch row included
+    rng = np.random.default_rng(19)
+    slab = torch.from_numpy(rng.standard_normal((n_phys, W), dtype=np.float32)).to(dev)
+    slab[-1] = 0.0
+    idx = torch.from_numpy(np.where(last, loc, n_real).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(np.where(last[:, None], rng.standard_normal((E, W), dtype=np.float32),
+                                     0.0).astype(np.float32)).to(dev)
+    idx_long = idx.long()
+    ok = torch.equal(cuda_scatter.row_writer(slab.clone(), idx, vals),
+                     cuda_scatter.row_writer_reference(slab.clone(), idx, vals))
+    work = slab.clone()
+    t = timed(torch, {"plain": lambda: cuda_scatter.row_writer_reference(work, idx, vals),
+                      "kernel": lambda: cuda_scatter.row_writer(work, idx, vals),
+                      "library": lambda: work.index_copy_(0, idx_long, vals)}, inner=200, turns=10)
+    t["bound"], t["bound_by"] = bound(4 * (E + E * W + U * W), 0, 1)
+    if not ok:
+        failures.append("K5 vs plain at the mesh slab")
+    print(f"phase 19 {'ok' if ok else 'FAIL'}: K5 at the 2x2 mesh_big slab [{n_phys} x {W}] "
+          f"(model position 0), one step's gathered stream E={E} ({U} distinct targets, the "
+          f"scratch row included) bit for bit against its plain version; ms per call kernel "
+          f"{t['kernel']:.4f} plain {t['plain']:.4f} library (index_copy_) {t['library']:.4f} "
+          f"bound {t['bound']:.6f} ({t['bound_by']}) on {card}", flush=True)
+    return dict(t, err=0.0)
+
+
+def phase_mesh(torch, work, big, staged, card, failures):
+    """The base solver on a 2x2 mesh through the train and infer CLIs under
+    torchrun (MESH_RANKS ranks): (a) basicMF, in its GOLDEN band and within
+    MESH_TOL of phase 3's RMSE; (b) bigTable at batch 4096 on mesh_big
+    slabs, its probe within MESH_TOL of phase 7 (c)'s, K5 launched once a
+    step on every rank and nothing else; (c) basicMF streamed in chunks of
+    whole batches, within MESH_STREAM_TOL of (a) at the same round; then
+    K5 at the slab's shape.  Returns the K5 launches of every rank, with
+    the K5 timing."""
+    from svdfeature_tpu_torch.data.buffer import read_csr_buffer, write_csr_buffer
+
+    golden = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["basicMF"]
+    mf, bt = work / "basicMF", work / "bigTable"
+    mf_conf = ROOT / "demo" / "basicMF" / "basicMF.conf"
+    ds, _ = read_csr_buffer(str(mf / "train.buffer"))
+    write_csr_buffer(str(mf / f"train{BATCH}.buffer"), ds, BATCH)  # blocks of whole batches
+    runs = {
+        "a": ([mf_conf, f"buffer_feature={mf}/train.buffer", f"num_round={ROUNDS}",
+               f"batch_size={BATCH}"],
+              [f"test:buffer_feature={mf}/test.buffer", f"start={MESH_STREAM_ROUNDS}",
+               f"end={ROUNDS + 1}", f"step={ROUNDS - MESH_STREAM_ROUNDS}"]),
+        "b": ([bt / "bigTable.conf", f"num_round={BIG_ROUNDS}", "batch_size=4096"],
+              [f"start={BIG_ROUNDS}", f"end={BIG_ROUNDS + 1}"]),
+        "c": ([mf_conf, f"buffer_feature={mf}/train{BATCH}.buffer",
+               f"num_round={MESH_STREAM_ROUNDS}", f"batch_size={BATCH}", "streaming=1",
+               f"stream_chunk={MESH_STREAM_CHUNK}"],
+              [f"test:buffer_feature={mf}/test.buffer", "test:streaming=1",
+               f"test:stream_chunk={BATCH}", f"start={MESH_STREAM_ROUNDS}",
+               f"end={MESH_STREAM_ROUNDS + 1}"]),
+    }
+    rmse, k5 = {}, 0
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    for tag, (train, infer) in runs.items():
+        t0 = time.perf_counter()
+        models = f"model_out_folder={work}/mesh_models_{tag}"
+        log_json, log_eval = work / f"mesh_{tag}.jsonl", work / f"mesh_{tag}.tsv"
+        keys = [*MESH_JOIN[tag], *MESH_KEYS, models]
+        ranks, out = mesh_run(work, tag, [*train, *keys, f"log_jsonl={log_json}"],
+                              [train[0], *keys, *infer, f"log_eval={log_eval}"])
+        secs = time.perf_counter() - t0
+        found = re.search(r"distributed: .*", out)
+        backend = found.group(0) if found else "no backend line"
+        if ranks is None:
+            failures.append(f"mesh run ({tag})")
+            print(f"phase 19 FAIL: mesh ({tag}) torchrun failed after {secs:.1f} s; its output "
+                  f"ends:\n{out[-4000:]}", flush=True)
+            continue
+        shutil.rmtree(work / f"mesh_models_{tag}", ignore_errors=True)
+        rmse[tag] = dict(line.split() for line in log_eval.read_text().splitlines())
+        round_s = [json.loads(x)["round_s"] for x in log_json.read_text().splitlines()]
+        rows = 90570 if tag != "b" else BIG_EX
+        eps = rows * (len(round_s) - 1) / sum(round_s[1:])
+        launches = [r["launches"] for r in ranks]
+        want = {kid: 0 for kid in launches[0]}
+        if tag == "a":
+            final, first = float(rmse[tag][str(ROUNDS)]), float(rmse[tag][str(MESH_STREAM_ROUNDS)])
+            ref = staged["phase3"]
+            checks = [abs(final - golden["final_rmse"]) < golden["rmse_band"],
+                      abs(final - ref) < MESH_TOL]
+            vs = (f"test RMSE {first:.6f} at round {MESH_STREAM_ROUNDS}, {final:.6f} at {ROUNDS} "
+                  f"(golden {golden['final_rmse']} band {golden['rmse_band']}; minus phase 3's "
+                  f"single-card run {final - ref:+.2e}, tol {MESH_TOL:g})")
+        elif tag == "b":
+            final = float(rmse[tag][str(BIG_ROUNDS)])
+            ref = staged["c"]["rmse"]
+            steps = BIG_ROUNDS * (BIG_EX // 4096)
+            want["K5"] = steps
+            k5 += sum(x["K5"] for x in launches)
+            checks = [abs(final - ref) < MESH_TOL, abs(final - JAX_BIG_RMSE[4096]) < MESH_TOL]
+            vs = (f"probe RMSE {final:.6f} after {BIG_ROUNDS} rounds (minus phase 7 (c) "
+                  f"{final - ref:+.2e}, minus JAX CPU {final - JAX_BIG_RMSE[4096]:+.2e}, tol "
+                  f"{MESH_TOL:g}); K5 one a step on every rank, {steps} steps")
+        else:
+            final = float(rmse[tag][str(MESH_STREAM_ROUNDS)])
+            ref = float(rmse["a"][str(MESH_STREAM_ROUNDS)]) if "a" in rmse else math.nan
+            checks = [abs(final - ref) < MESH_STREAM_TOL]
+            vs = (f"streamed in chunks of {MESH_STREAM_CHUNK} (whole batches), test set in "
+                  f"chunks of {BATCH}: test RMSE {final:.6f} at round {MESH_STREAM_ROUNDS} "
+                  f"(minus (a) at that round {final - ref:+.2e}, tol {MESH_STREAM_TOL:g})")
+        checks.append(all(x == want for x in launches))
+        checks.append(not any(x["stray"] for x in ranks))
+        ok = all(checks) and math.isfinite(final)
+        if not ok:
+            failures.append(f"mesh run ({tag})")
+        print(f"phase 19 {'ok' if ok else 'FAIL'}: mesh ({tag}) {MESH_RANKS} ranks, "
+              f"{' '.join(map(str, keys[:-1]))} {' '.join(map(str, train[1:]))}: {vs}; launches "
+              f"on each rank {launches} (want {want}); ranks {[x['backend'] for x in ranks]} "
+              f"on cuda:{[x['device'] for x in ranks]}, bytes on the other cards "
+              f"{[x['stray'] for x in ranks]} (want 0), {backend}; training {eps:,.0f} "
+              f"examples/s rounds 2-{len(round_s)} (round seconds "
+              f"{[round(x, 3) for x in round_s]}); train CLI "
+              f"{max(x['train_s'] for x in ranks):.1f} s, infer CLI "
+              f"{max(x['infer_s'] for x in ranks):.1f} s, peak device memory a rank "
+              f"{max(x['peak'] for x in ranks) / 2**30:.2f} GiB; the call {secs:.1f} s; on {card}",
+              flush=True)
+    timing = mesh_k5(torch, torch.device("cuda", 0), big, card, failures)
+    return k5, timing
+
+
 def kernel_line(name, source, replaces, launches, max_err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": timing["kernel"],
@@ -3185,6 +3435,8 @@ def kernel_line(name, source, replaces, launches, max_err, timing):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 19's torchrun world
+        return mesh_rank(sys.argv[2:])
     start = time.perf_counter()
     card = card_line()
     print(f"phase 0: {card}", flush=True)
@@ -3222,7 +3474,7 @@ def main() -> int:
     phase_time("phase 2")
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        k1_launches, k1_eps = phase_slice(pathlib.Path(work), card, failures)
+        k1_launches, k1_eps, k1_rmse = phase_slice(pathlib.Path(work), card, failures)
         phase_time("phase 3")
         k2_err, k2_timing = phase_svdpp_kernel(torch, dev, card, failures)
         phase_time("phase 4")
@@ -3262,6 +3514,9 @@ def main() -> int:
             big_staged, g=dict(eps=k1_eps), b=dict(eps=k2_eps), d=dict(eps=big_plus_eps),
             e=dict(eps=k3_eps)), card, failures)
         phase_time("phase 18")
+        k5_mesh_launches, k5_mesh_timing = phase_mesh(
+            torch, pathlib.Path(work), big, dict(big_staged, phase3=k1_rmse), card, failures)
+        phase_time("phase 19")
     print(f"chip_smoke.py took {time.perf_counter() - start:.1f} s on {card}", flush=True)
 
     if failures:
@@ -3288,8 +3543,13 @@ def main() -> int:
         kernel_line("row_writer (row_write)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:43",
                     big_launches["K5"] + k5_plus_launches + k5_rank_launches
-                    + stream_launches["K5"],
+                    + stream_launches["K5"] + k5_mesh_launches,
                     big_timing["K5"]["err"], big_timing["K5"]),
+        # K5 on the 2x2 mesh_big path (phase 19 (b)): each rank's slab writes
+        kernel_line("row_writer (row_write), slab writes of the 2x2 mesh_big, every rank",
+                    "svdfeature_tpu_torch/csrc/row_scatter.cu",
+                    "svdfeature_tpu/ops/pallas_scatter.py:43", k5_mesh_launches,
+                    k5_mesh_timing["err"], k5_mesh_timing),
         # K5 on big bilinear's path (phase 16 (d)): its W_bi write
         kernel_line("row_writer (row_write), W_bi rows of big bilinear",
                     "svdfeature_tpu_torch/csrc/row_scatter.cu",

@@ -5,6 +5,12 @@ svd_feature_infer.cpp:35-398, with the dispatch the fork commented out
 restored: pred>=0 -> task_pred / task_pred_rank (``use_ranker=1``), else
 task_eval).  ``test:``-prefixed keys route to the test iterator
 (:198-220).
+
+On a mesh (``mesh_data`` x ``mesh_model`` > 1, a torchrun world; the
+``distributed=1`` key joins it first) every rank loads each model and
+shards it, predicts its data columns on its slab, and ends with all the
+predictions in single-device row order; rank 0 alone writes ``log_eval``
+and the pred file.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 
 from ..config import ConfigSaver
 from ..data.registry import IteratorConfig, load_csr_source, load_plus_source
+from ..parallel import comm
 from ..params import SVDTypeParam, input_type, svd_type
 from ..solvers.registry import create_svd_ranker, create_svd_trainer
 
@@ -39,6 +46,8 @@ class SVDInferTask:
         self.use_ranker = 0
         self.num_item_set = 0
         self.silent = 0
+        self.distributed = 0
+        self.device_name = "cuda"
         self.inferencer = None
         self.ranker = None
         self.dataset = None
@@ -76,6 +85,10 @@ class SVDInferTask:
             self.use_ranker = int(val)
         if name == "num_item_set":
             self.num_item_set = int(val)
+        if name == "distributed":
+            self.distributed = int(val)
+        if name == "device":
+            self.device_name = val
 
     def configure(self, conf_path: str, cli_args: List[str]) -> None:
         self.cfg.load_file(conf_path)
@@ -85,6 +98,8 @@ class SVDInferTask:
         self.mtype.decide_format(
             svd_type.USER_GROUP_FORMAT if self.input_type == 2 else svd_type.AUTO_DETECT
         )
+        if self.distributed:
+            comm.init_distributed(self.device_name)
 
     def _model_path(self, i: int) -> str:
         return os.path.join(self.name_model_in_folder, "%04d.model" % i)
@@ -152,23 +167,27 @@ class SVDInferTask:
         return ds.rows.labels if hasattr(ds, "rows") else ds.labels
 
     def task_eval(self) -> None:
-        fo = open(self.name_eval, "a") if self.name_eval else sys.stdout
+        writer = comm.rank() == 0
+        fo = (open(self.name_eval, "a") if self.name_eval else sys.stdout) if writer else None
         try:
             i = self.start
             while i < self.end and self._load_model(i):
                 p = self.inferencer.predict_all(self.dataset)
                 diff = (p - self._labels()) * self.scale_score
                 rmse = math.sqrt(float(np.mean(diff * diff)))
-                fo.write("%d\t%f\n" % (i, rmse))
+                if writer:
+                    fo.write("%d\t%f\n" % (i, rmse))
                 i += self.step
         finally:
-            if fo is not sys.stdout:
+            if fo is not None and fo is not sys.stdout:
                 fo.close()
 
     def task_pred(self) -> None:
         if not self._load_model(self.pred_model):
             raise RuntimeError(f"fail to load model {self.pred_model}")
         p = self.inferencer.predict_all(self.dataset) * self.scale_score
+        if comm.rank():
+            return
         with open(self.name_pred, "wb" if self.pred_binary else "w") as fo:
             if self.pred_binary:
                 fo.write(np.asarray(p, "<f4").tobytes())
@@ -182,6 +201,8 @@ class SVDInferTask:
         if not self._load_model(self.pred_model):
             raise RuntimeError(f"fail to load model {self.pred_model}")
         results = self.ranker.process_dataset(self.dataset)
+        if comm.rank():
+            return
         with open(self.name_pred, "wb" if self.pred_binary else "w") as fo:
             if self.pred_binary:
                 fo.write(np.asarray(results, "<i4").tobytes())
@@ -194,6 +215,8 @@ class SVDInferTask:
     def run(self, conf_path: str, cli_args: List[str]) -> None:
         self.configure(conf_path, cli_args)
         self.init()
+        if comm.rank():  # the world is joined by now, by distributed=1 or the mesh
+            self.silent = 1
         if self.pred_model >= 0:
             if self.use_ranker:
                 self.task_pred_rank()

@@ -6,12 +6,16 @@ together, and links the objects into one shared library with a plain C
 interface, ``build/kernels/libsvdfeature_kernels.so`` at the repository
 root, which is loaded with ctypes.  The build runs at first use, and again
 whenever a source or the flags change (a stamp file beside the library
-holds their hash).  Nothing is built when a module is imported.
+holds their hash).  Nothing is built when a module is imported.  The
+ranks of a mesh start together on a fresh tree: an exclusive ``fcntl``
+lock on ``build/kernels/.build.lock`` lets one process build while the
+others wait, then find the library fresh.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -66,15 +70,30 @@ def _digest(sources) -> str:
 
 def build() -> pathlib.Path:
     """Compile the kernels if the library is missing or stale; returns
-    its path.  Raises RuntimeError if nvcc fails; its output is kept in
-    ``build/kernels/nvcc.log``."""
+    its path.  One process at a time builds (the lock file); a process
+    that waited finds the library fresh.  Raises RuntimeError if nvcc
+    fails; its output is kept in ``build/kernels/nvcc.log``."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = _digest(sources + sorted(CSRC_DIR.glob("*.cuh")))
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
-    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+
+    def fresh() -> bool:
+        return lib.exists() and stamp.exists() and stamp.read_text() == digest
+
+    if fresh():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes, or the process dies
+        if not fresh():
+            _compile(sources, lib, stamp, digest)
+    return lib
+
+
+def _compile(sources, lib: pathlib.Path, stamp: pathlib.Path, digest: str) -> None:
+    """nvcc on every source at once, then the link; the library and its
+    stamp replace the old ones only when all of it succeeded."""
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
     objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources]
@@ -95,9 +114,8 @@ def build() -> pathlib.Path:
         obj.unlink(missing_ok=True)
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{''.join(logs)[-4000:]}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    os.replace(tmp, lib)  # atomic: a process that loads it never reads half a file
     stamp.write_text(digest)
-    return lib
 
 
 @functools.cache

@@ -35,7 +35,7 @@ new TrainState.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -350,6 +350,11 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr, consts: Tr
 _PLANES = ("g_idx", "g_val", "u_idx", "u_val", "i_idx", "i_val", "label", "weight")
 
 
+def batches(stacked: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """The ``T`` batches (views) of stacked ``[T, B, ...]`` training planes."""
+    return [{p: stacked[p][t] for p in _PLANES} for t in range(stacked["label"].shape[0])]
+
+
 @torch.no_grad()
 def train_rounds(
     state: TrainState,
@@ -362,10 +367,9 @@ def train_rounds(
     ``train_step`` per batch (embed.py:753-775).  The plain version of K1
     (ops/cuda_embed.train_rounds_kernel) and the route of every
     configuration K1 does not take."""
-    T = stacked["label"].shape[0]
-    batches = [{p: stacked[p][t] for p in _PLANES} for t in range(T)]
+    bs = batches(stacked)
     for r in range(lrs.shape[0]):
-        for batch in batches:
+        for batch in bs:
             state = train_step(state, batch, lrs[r], consts, hp)
     return state
 

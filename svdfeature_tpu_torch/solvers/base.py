@@ -27,6 +27,18 @@ to the stream's stable shapes (``pack_chunk``) and stages it on the device
 last (``train_chunk``: the round's route on the chunk, K1, K4 or K5); its
 evaluation packs and scores one chunk at a time.
 
+With ``mesh_data`` x ``mesh_model`` > 1 the trainer runs on a mesh of as
+many processes, launched by torchrun (solvers/base.py:223-291 and
+parallel/*): each rank holds the row slab of its ``model`` position and
+trains on the batch columns of its ``data`` position
+(parallel/mesh.py), a slab of more than ``BIG_TABLE_ROWS`` rows on the
+card in the augmented layout with the sorted-dedup step through K5
+(parallel/mesh_big.py; config key ``mesh_big``: -1 auto, 0 off, 1 on).
+The ranks of data row 0 unshard the table for a checkpoint and rank 0
+writes it; every rank ends a prediction with all of them.  The derived
+solvers name the ROADMAP item of their own mesh (``MESH_ITEM``) and
+refuse one.
+
 The device is explicit: config key ``device`` (default ``cuda``).  With
 ``device=cuda`` and no card the trainer raises instead of running on the
 CPU.  ``use_pallas=0`` selects the plain PyTorch rounds on the device,
@@ -35,6 +47,7 @@ as it selects the jnp path in the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 import weakref
 from typing import BinaryIO, Dict, List, Optional, Set, Tuple
@@ -51,6 +64,9 @@ from ..ops._plans import release_plans
 from ..ops.cuda_embed import kernel_supported, train_rounds_kernel
 from ..ops.embed import (BIG_TABLE_ROWS, HyperParams, TrainConsts, TrainState, predict_batches,
                          train_rounds)
+from ..parallel import comm
+from ..parallel import mesh as pmesh
+from ..parallel import mesh_big as pbig
 from ..params import ParameterSet, SVDModelParam, SVDTrainParam, SVDTypeParam
 from ..utils.sparse_feature_array import SparseFeatureArray
 from .streamed import ChunkStream, Staged
@@ -75,6 +91,9 @@ class SVDFeatureTrainer:
     # large tables take the augmented-row big-table route; a derived solver
     # whose epoch drives the state itself opts out until its route is ported
     SUPPORTS_BIG_TABLE = True
+    # a solver whose mesh step is not ported names its ROADMAP Queue 1 item
+    # here and refuses mesh_data * mesh_model > 1 (None: the base mesh)
+    MESH_ITEM: Optional[str] = None
 
     def __init__(self, mtype: SVDTypeParam):
         self.mtype = mtype
@@ -99,8 +118,18 @@ class SVDFeatureTrainer:
         # (ops/tile_sweep.py).  -1 = auto (on for batches dense enough that
         # most tiles are touched anyway), 0 = off, 1 = force on
         self.big_sweep = -1
+        # the device mesh (parallel/comm.py): mesh_data x mesh_model ranks;
+        # 1x1 is the single-device trainer
         self.mesh_data = 1
         self.mesh_model = 1
+        # mesh_big: the augmented big-slab mesh step (parallel/mesh_big.py).
+        # -1 = auto (on when a shard's slab exceeds BIG_TABLE_ROWS rows on
+        # the card), 0 = off, 1 = force on
+        self.mesh_big = -1
+        self.mesh: Optional[comm.Mesh] = None  # this rank's mesh, once sharded
+        self._mesh_big = False
+        self._mesh_rows = 0  # padded table rows (small slabs) or n_real (big)
+        self._tbl_rows = 0  # table rows, dummy included, before sharding
         self.round_counter = 0
         self.learning_rate: float = 0.01
         self.model: Optional[SVDModel] = None
@@ -134,6 +163,8 @@ class SVDFeatureTrainer:
             self.mesh_data = int(val)
         if name == "mesh_model":
             self.mesh_model = int(val)
+        if name == "mesh_big":
+            self.mesh_big = int(val)
         if name == "seed":
             self.seed = int(val)
         if name == "exact_rng":
@@ -155,6 +186,7 @@ class SVDFeatureTrainer:
 
     # ---- model lifecycle ----------------------------------------------------
     def init_model(self) -> None:
+        self._join_mesh()
         self.model = SVDModel.rand_init(
             self.mparam, self.mtype, device=self.device, seed=self.seed,
             exact_rng=self.exact_rng,
@@ -163,17 +195,29 @@ class SVDFeatureTrainer:
         self._space_allocated = True
 
     def load_model(self, f: BinaryIO) -> None:
+        self._join_mesh()
         self.model = SVDModel.load(f, self.mtype, device=self.device)
         self.mparam = self.model.param
         self._space_allocated = True
 
-    def save_model(self, f: BinaryIO) -> None:
+    def save_model(self, f: Optional[BinaryIO]) -> None:
+        """Write the model to ``f``.  On a mesh every rank calls it: the
+        ranks of data row 0 unshard the table (an all-gather over
+        ``model``), and only the one given a file (rank 0) writes."""
+        if self.mesh is not None and self.mesh.d:
+            return
         self._sync_model_from_state()
-        self.model.save(f)
+        if f is not None:
+            self.model.save(f)
 
     def _std_state(self) -> TrainState:
         """The state in the standard (w, b, ref) layout whatever the
-        big-table packing (views of the augmented table)."""
+        big-table packing (views of the augmented table); on a mesh the
+        whole table, gathered over ``model`` (a collective)."""
+        if self.mesh is not None:
+            if self._mesh_big:
+                return pbig.unshard_big(self.state, self.mesh, self.hp.num_factor, self._tbl_rows)
+            return pmesh.unshard_state(self.state, self.mesh, self._tbl_rows)
         if self.hp is not None and self.hp.big_table:
             return big_embed.deaugment_state(
                 self.state, self.hp.num_factor, n_rows=self.model.num_rows + 1
@@ -191,11 +235,27 @@ class SVDFeatureTrainer:
             self.model.g = st.g[:-1].clone(**copy)
 
     # ---- trainer lifecycle ---------------------------------------------------
-    def init_trainer(self) -> None:
-        if self.mesh_data * self.mesh_model > 1:
+    def _check_mesh_supported(self) -> None:
+        """Refuse a mesh where this solver's mesh step is not ported."""
+        if self.MESH_ITEM:
             raise NotImplementedError(
-                "mesh_data/mesh_model > 1: multi-GPU is ROADMAP Queue 1 item 12"
+                f"mesh_data/mesh_model > 1: the {type(self).__name__} mesh is ROADMAP "
+                f"Queue 1 item {self.MESH_ITEM}"
             )
+
+    def _join_mesh(self) -> None:
+        """On a mesh of more than one position, before the first tensor:
+        refuse an unported mesh, check the world's size and join it, so that
+        each rank's card is the current device when the model is made (a
+        no-op once joined, as after ``distributed=1``)."""
+        if self.mesh_data * self.mesh_model == 1:
+            return
+        self._check_mesh_supported()
+        comm.check_world(self.mesh_data * self.mesh_model)
+        comm.init_distributed(self.device_name)
+
+    def init_trainer(self) -> None:
+        self._join_mesh()
         if self.name_feat_user and self.name_feat_user != "NULL":
             self.feat_user = SparseFeatureArray.load(self.name_feat_user)
         if self.name_feat_item and self.name_feat_item != "NULL":
@@ -217,7 +277,9 @@ class SVDFeatureTrainer:
         self.hp = self._build_hp()
         self.learning_rate = self.tparam.learning_rate
         self.round_counter = 0
-        if self.hp.big_table:
+        if self.mesh_data * self.mesh_model > 1:
+            self._init_mesh()
+        elif self.hp.big_table:
             # the sweep needs whole tiles; the decay-rate row tables are
             # padded to match (pad rows decay by 0 and are never addressed)
             tile = self.hp.sweep_tile if self.hp.sweep_table else 0
@@ -226,10 +288,40 @@ class SVDFeatureTrainer:
             self.consts.wd_u_row = torch.nn.functional.pad(self.consts.wd_u_row, pad)
             self.consts.wd_i_row = torch.nn.functional.pad(self.consts.wd_i_row, pad)
 
+    def _init_mesh(self) -> None:
+        """Shard the trainer over the (mesh_data x mesh_model) mesh of this
+        process's torchrun world (solvers/base.py:223-291), joined by
+        ``_join_mesh``: the batch grows to a multiple of mesh_data, and
+        this rank keeps its row slab, in the augmented big-slab layout
+        where mesh_big says so (with K5 writes where use_pallas is set)."""
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = comm.make_mesh(self.mesh_data, self.mesh_model, dev)
+        # the batch's columns split over the data ranks
+        if self.batch_size % self.mesh_data:
+            self.batch_size += self.mesh_data - self.batch_size % self.mesh_data
+        self._tbl_rows = int(self.state.w.shape[0])
+        slab = -(-self._tbl_rows // self.mesh_model)
+        self._mesh_big = self.mesh_big == 1 or (
+            self.mesh_big == -1 and slab > BIG_TABLE_ROWS and dev.type == "cuda")
+        if self._mesh_big:
+            k = self.model.num_factor
+            self.hp = dataclasses.replace(self.hp, num_factor=k, row_dma=self.use_pallas,
+                                          big_table=False, sweep_table=False)
+            self.state, self._mesh_rows = pbig.shard_state_big(self.state, self.mesh, k)
+            self.consts = pbig.shard_consts_big(self.consts, self.mesh, self._mesh_rows)
+        else:
+            self.state, self._mesh_rows = pmesh.shard_state(self.state, self.mesh)
+            self.consts = pmesh.shard_consts(self.consts, self.mesh, self._mesh_rows)
+
     def _build_hp(self) -> HyperParams:
         p = self.model.param
         n_tbl = self.model.num_rows + 1
-        big = self.SUPPORTS_BIG_TABLE and n_tbl > BIG_TABLE_ROWS
+        # the single-device big route only off a mesh: a mesh shards the
+        # table into slabs instead (solvers/base.py:297-303)
+        big = (self.SUPPORTS_BIG_TABLE and n_tbl > BIG_TABLE_ROWS
+               and self.mesh_data * self.mesh_model == 1)
         # tile-sweep auto rule: worthwhile once the batch's entries would
         # touch most tiles anyway (>= ~ECAP/2 entries per tile on average
         # at the minimum 2 entries/example); sparse batches keep the
@@ -322,6 +414,8 @@ class SVDFeatureTrainer:
                     arrays, int(self.state.w.shape[0]), hp.sweep_tile, hp.sweep_ecap
                 )
                 arrays = tile_sweep.attach_sweep_runs(arrays, hp.sweep_tile, hp.sweep_ecap)
+            if self.mesh is not None:
+                arrays = pmesh.put_process_sharded(arrays, self.mesh)
             arrays = stacked_from_numpy(arrays, self.state.w.device)
             self._plan_ids.add(id(arrays["label"]))
             self._pack_cache[key] = (arrays, ds.num_row)
@@ -370,7 +464,10 @@ class SVDFeatureTrainer:
 
     def stage_chunk(self, entry) -> Staged:
         """A packed chunk on the training device (producer thread; pinned
-        memory, side stream: solvers/streamed.py)."""
+        memory, side stream: solvers/streamed.py); on a mesh this rank's
+        data columns of it."""
+        if self.mesh is not None:
+            entry = pmesh.put_process_sharded(entry, self.mesh)
         return self.chunk_stream.stage(entry, self.state.w.device)
 
     def train_chunk(self, staged: Staged) -> None:
@@ -411,6 +508,13 @@ class SVDFeatureTrainer:
 
     def _train(self, stacked: Dict[str, torch.Tensor], lrs: List[float]) -> None:
         lr_t = self._staged_lrs(lrs)
+        if self.mesh is not None:
+            # every rank runs the same per-shard steps on its slab and
+            # columns; the big slabs write through K5 (hp.row_dma)
+            fn = pbig.sharded_train_rounds_big if self._mesh_big else pmesh.sharded_train_rounds
+            self.state = fn(self.state, stacked, lr_t, self.consts, self.hp, self.mesh,
+                            self._mesh_rows)
+            return
         if self.hp.big_table:
             # a host loop of R x T steps (the JAX solver scans the same
             # step, solvers/base.py:245-251); hp.row_dma (use_pallas) sends
@@ -465,23 +569,35 @@ class SVDFeatureTrainer:
                 self.round_counter += 1
         self._train(stacked, lrs)
 
+    def _predict_stacked(self, stacked: Dict[str, torch.Tensor], nrow: int) -> np.ndarray:
+        """The first ``nrow`` predictions of staged ``[T, B]`` planes; on a
+        mesh each rank scores its columns on its slab and the predictions
+        are gathered over ``data`` in single-device order, on every rank."""
+        if self.mesh is not None:
+            fn = pbig.sharded_predict_big if self._mesh_big else pmesh.sharded_predict
+            preds = pmesh.gather_predictions(
+                fn(self.state, stacked, self.hp, self.mesh, self._mesh_rows), self.mesh)
+        else:
+            preds = predict_batches(self._std_state(), stacked, self.hp)
+        return preds.reshape(-1)[:nrow].cpu().numpy()
+
     def predict_all(self, ds: CSRDataset) -> np.ndarray:
-        state = self.state_or_model()
+        if self.state is None:
+            self.init_trainer()
         if hasattr(ds, "chunks"):
             # a streaming source: bounded memory, one chunk at a time (the
             # reference's task_eval reads its iterator so,
             # svd_feature_infer.cpp:243-277)
             Tc = -(-min(ds.examples_per_chunk, ds.num_row) // self.batch_size)
-            dev = state.w.device
+            dev = self.state.w.device
             out = []
             for chunk in ds.chunks():
                 planes, nrow = self.pack_chunk(chunk, Tc, ds.max_nnz)
-                stacked = {name: x.to(dev) for name, x in planes.items()}
-                out.append(predict_batches(state, stacked, self.hp).reshape(-1)[:nrow].cpu().numpy())
+                if self.mesh is not None:
+                    planes = pmesh.put_process_sharded(planes, self.mesh)
+                out.append(self._predict_stacked({n: x.to(dev) for n, x in planes.items()}, nrow))
             return np.concatenate(out) if out else np.zeros(0, np.float32)
-        stacked, nrow = self._pack(ds)
-        preds = predict_batches(state, stacked, self.hp)
-        return preds.reshape(-1)[:nrow].cpu().numpy()
+        return self._predict_stacked(*self._pack(ds))
 
     def state_or_model(self) -> TrainState:
         if self.state is None:

@@ -35,8 +35,8 @@ hooks, each chunk packed with these extras (JAX :260-318): at the stream's
 caps, sorted within the chunk with ``sort_blocks`` (the JAX chunk pack
 passes it), and evaluated a chunk at a time in file order (:476-548).
 
-Not ported yet: ``mesh_*`` > 1 (ROADMAP item 12), refused where the base
-trainer refuses it.
+Not ported yet: ``mesh_*`` > 1 (ROADMAP item 12d), refused by
+``init_trainer``.
 """
 
 from __future__ import annotations
@@ -88,6 +88,8 @@ class BiEntry(PlusEntry):
 
 
 class SVDBiLinearTrainer(SVDPPFeatureTrainer):
+    MESH_ITEM = "12d (bilinear_mesh, bilinear_mesh_big)"
+
     def __init__(self, mtype):
         super().__init__(mtype)
         self.bparam = BParam()

@@ -115,6 +115,10 @@ class GBRTTrainer:
         self.device_forward = -1
         self.device_name = "cuda"
         self.device: Optional[torch.device] = None
+        # read only to refuse a mesh: the trees are fitted on the host, and
+        # neither package trains GBRT on one
+        self.mesh_data = 1
+        self.mesh_model = 1
         # GBRTTrainParam (lr schedule with min clamp, apex_gbrt.h:36-81)
         self.learning_rate = 0.01
         self.decay_learning_rate = 0
@@ -146,6 +150,10 @@ class GBRTTrainer:
             self.device_forward = int(val)
         if name == "device":
             self.device_name = val
+        if name == "mesh_data":
+            self.mesh_data = int(val)
+        if name == "mesh_model":
+            self.mesh_model = int(val)
         if name == "chg_baseline_mode":
             self.chg_baseline_mode = int(val)
         if name == "feature_item":
@@ -175,6 +183,11 @@ class GBRTTrainer:
         self.device = resolve_device(self.device_name)
 
     def init_trainer(self) -> None:
+        if self.mesh_data * self.mesh_model > 1:
+            raise NotImplementedError(
+                "mesh_data/mesh_model > 1: GBRT fits its trees on the host and has no mesh in "
+                "either package (ROADMAP Queue 1 item 12 ports the factorization solvers' meshes, "
+                "12a-12d)")
         self.device = resolve_device(self.device_name)
         if self.tax_name and self.tax_name != "NULL":
             if self.mparam.use_tax_root:

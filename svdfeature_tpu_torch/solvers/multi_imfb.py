@@ -42,7 +42,7 @@ trainer's streaming path.  Its evaluation packs and scores a chunk at a
 time.
 
 Not ported yet, raising NotImplementedError naming its ROADMAP item:
-``mesh_*`` > 1 (item 12).
+``mesh_*`` > 1 (item 12c).
 """
 
 from __future__ import annotations
@@ -79,6 +79,8 @@ class ImfbEntry:
 
 
 class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
+    MESH_ITEM = "12c (imfb_mesh, imfb_mesh_big)"
+
     def __init__(self, mtype):
         super().__init__(mtype)
         self.disable_levels = set()

@@ -41,6 +41,8 @@ class SVDFeatureRanker:
         self.top_k = 0
         self.num_item_set = 0
         self.device_name = "cuda"
+        self.mesh_data = 1  # read only to refuse a mesh (ROADMAP item 12b)
+        self.mesh_model = 1
         self.name_feat_user: Optional[str] = None
         self.name_feat_item: Optional[str] = None
         self.feat_user: Optional[SparseFeatureArray] = None
@@ -56,11 +58,19 @@ class SVDFeatureRanker:
             self.top_k = int(val)
         if name == "device":
             self.device_name = val
+        if name == "mesh_data":
+            self.mesh_data = int(val)
+        if name == "mesh_model":
+            self.mesh_model = int(val)
 
     def load_model(self, f: BinaryIO) -> None:
         self.model = SVDModel.load(f, self.mtype, device=resolve_device(self.device_name))
 
     def init_ranker(self, num_item_set: int) -> None:
+        if self.mesh_data * self.mesh_model > 1:
+            raise NotImplementedError(
+                "mesh_data/mesh_model > 1: the ranker's mesh is ROADMAP Queue 1 item 12b "
+                "(with svdpp_mesh and the pair rounds)")
         self.num_item_set = num_item_set
         if self.name_feat_user and self.name_feat_user != "NULL":
             self.feat_user = SparseFeatureArray.load(self.name_feat_user)

@@ -62,7 +62,8 @@ the big epoch through K5, or the refresh epoch under a shared space).
 Its evaluation packs and scores one chunk at a time.
 
 Not ported yet, raising NotImplementedError naming its ROADMAP item:
-``mesh_*`` > 1 (item 12).
+``mesh_*`` > 1, the SVD++ mesh with the ranker's mesh rounds (item 12b);
+the base mesh (parallel/mesh.py) does not take user-group data.
 """
 
 from __future__ import annotations
@@ -134,6 +135,8 @@ def _chunk_users_from_slots(uid_slots: np.ndarray, cid: np.ndarray, dummy: int):
 
 
 class SVDPPFeatureTrainer(SVDFeatureTrainer):
+
+    MESH_ITEM = "12b (svdpp_mesh, svdpp_mesh_big, the ranker's mesh rounds)"
 
     def __init__(self, mtype):
         super().__init__(mtype)

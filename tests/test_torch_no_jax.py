@@ -34,7 +34,8 @@ SCRIPT = textwrap.dedent(
                 "solvers.gbrt.tree", "solvers.gbrt.schedulers", "solvers.gbrt.np_losses",
                 "ops.gbrt_forward", "data.combinators", "cli.line_shuffle",
                 "cli.line_reorder", "cli.svdpp_randorder", "cli.combine_ugroup",
-                "utils.csr_builder", "data.streaming", "data.pages", "solvers.streamed"):
+                "utils.csr_builder", "data.streaming", "data.pages", "solvers.streamed",
+                "parallel.comm", "parallel.mesh", "parallel.mesh_big", "solvers.example"):
         assert "svdfeature_tpu_torch." + new in names
 
     from svdfeature_tpu_torch import convert

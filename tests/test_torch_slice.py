@@ -137,11 +137,14 @@ def test_cuda_device_without_card_raises():
     pytest.param("extend_type", "15", None, id="extend_type-15-item 10"),
     # APLambda GBRT, which trains now: the user-group format, as in JAX
     pytest.param("extend_type", "30", None, id="extend_type-30-item 10"),
-    ("mesh_data", "2", "item 12"),
+    # the base solver's mesh, which trains now: outside a torchrun world of
+    # mesh_data * mesh_model ranks it is a ValueError naming torchrun
+    pytest.param("mesh_data", "2", "torchrun", id="mesh_data-2-item 12"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     """Configurations the port does not run yet raise NotImplementedError
-    naming their ROADMAP item instead of training something else; the
+    naming their ROADMAP item instead of training something else (a mesh
+    outside a torchrun world, ValueError naming torchrun); the
     bilinear solver (``item`` None) trains random-order data on the base
     solver, as the JAX package does, and saves its BModel section; APLambda
     GBRT reads the text as user-group data (one block a user, the user id
@@ -157,7 +160,7 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
     )
     args = ["num_round=1", "device=cpu", f"{key}={val}"]
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError if item == "torchrun" else NotImplementedError, match=item):
             TTrain().run(str(conf), args)
         return
     if val == "30":
