@@ -161,7 +161,7 @@ result line):
      1e-5, both timed (CUDA events, median of 5); (c) APLambda
      (extend_type=30, active_type=3, lambda_ap_alpha=0.5,
      lambda_ap_reject=1) on the pairwiseRank training set read as plain
-     user-group data, 3 rounds and an eval, the trained model's scores of
+     user-group data, 2 rounds and an eval, the trained model's scores of
      the implicitFeedback test set (a card walk) within 1e-5 of the JAX
      package's CPU run (scripts/gbrt_jax_reference.py, SVDInferTask pred:
      the moments and every 397th score);
@@ -174,7 +174,7 @@ result line):
      (a)'s staged one and within 1e-4 of the JAX CPU figures; (b)
      implicitFeedback at sort_blocks=1 rows_per_user=8, chunks of 256 users
      sorted within themselves (K2, 40 rounds, in the GOLDEN band); (d)
-     bigSvdpp's user-carry epoch (K5), chunks of 32768 users, 2 rounds; (e)
+     bigSvdpp's user-carry epoch (K5), chunks of 32768 users, 1 round; (e)
      the stacked set, chunks of 512 units with the open contexts carried
      (K3, 8 rounds); (b), (d), (e) within 1e-4 of the JAX package's
      streamed runs (scripts/streaming_jax_reference.py).  Launch counts the
@@ -183,13 +183,13 @@ result line):
      waits for chunks against those it trains them (measured in the trainer
      hooks), peak device memory; (f) in (a) the device memory held beyond a
      round's start at a chunk's entry within (prefetch + 1) staged chunks;
- 19. the base solver on a 2x2 mesh: three torchrun calls of 4 ranks
-     (``python -m torch.distributed.run --nproc_per_node=4 chip_smoke.py
-     --mesh-rank ...``; each rank runs the train CLI, then the infer CLI,
-     with mesh_data=2 mesh_model=2, and distributed=1 in (a) and (b) while
-     (c) joins the world through the mesh keys alone; the backend is
-     printed: gloo when the ranks share the one card; no rank may hold
-     memory on a card but its own), each with a timeout: (a)
+ 19. the base solver on a 2x2 mesh, in one torchrun call of 4 ranks with
+     phase 20's runs (``python -m torch.distributed.run --nproc_per_node=4
+     chip_smoke.py --mesh-rank ...``, with a timeout; each rank runs the
+     train CLI, then the infer CLI, of every run with mesh_data=2
+     mesh_model=2: (c) first, joining the world through the mesh keys
+     alone, then distributed=1; the backend is printed: gloo when the ranks
+     share the one card; no rank may hold memory on a card but its own): (a)
      basicMF 40 rounds on phase 3's buffers, in the GOLDEN band and within
      1e-4 of phase 3's RMSE; (b) bigTable at batch 4096 on phase 7 (c)'s
      buffers, 3 rounds, mesh_big by its auto rule, the probe within 1e-4
@@ -198,10 +198,20 @@ result line):
      chunks of whole batches, 5 rounds, within 1e-5 of (a) at round 5;
      then K5 at the mesh slab's shape (one step's gathered stream into
      [1,024,290 x 68]) bit for bit against its plain version, timed in turns
-     with it and with index_copy_.
+     with it and with index_copy_;
+ 20. the SVD++ and multi-IMFB trainers on the same 2x2 mesh, in that call:
+     (a) implicitFeedback at the band setting 5 rounds, (c) pairwiseRank 3
+     rounds (a fresh packed pair epoch a round) then the ranker with the
+     same mesh keys, (d) the depth-2 stacked set 2 rounds, no kernel; (b)
+     bigSvdpp 2 rounds, (e) big multi-IMFB 1 round and (f) bigSvdpp
+     streamed 1 round on mesh_big slabs, K5 twice a mesh step on every rank
+     (exact counts); every figure within 1e-4 of the JAX package's 2x2 CPU
+     mesh (scripts/mesh_plus_jax_reference.py; (c) P@20 within 0.001 and
+     its checkpoint's w within 1e-4), (b) within 1e-4 of phase 11 (a) at
+     round 2; then K5 at the mesh pool writeback's shape bit for bit.
 Each phase prints its time, and the script its total.  Then one JSON
 line describing the kernels, all six, K5 once more at big bilinear's
-W_bi write and once more for the mesh slabs' writes (with each one's
+W_bi write and once more for each mesh's writes (with each one's
 bound: the larger of its bytes over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s, the H100 SXM's published rates at 700 W) and, last, one
 JSON line naming the device.
@@ -1825,9 +1835,9 @@ def phase_imfb_kernel(torch, dev, card, failures):
           f"bound {timing['bound']:.6f} ({timing['bound_by']}); library call: none (no "
           f"PyTorch call computes a stacked step) on {card}", flush=True)
     for name in ("kernel", "plain"):
-        inputs = held[name]
-        print(f"phase 8 profile: slice path={name} "
-              f"{device_profile(torch, lambda: fns[name](*inputs, hp, ph), R * T)}", flush=True)
+        inputs = held[name][:6] + [held[name][6][:1]] + held[name][7:]  # one round
+        print(f"phase 8 profile: slice path={name} one round "
+              f"{device_profile(torch, lambda: fns[name](*inputs, hp, ph), T)}", flush=True)
     return max_err, timing
 
 
@@ -2034,12 +2044,11 @@ def big_plus_run(conf, d, tag):
     secs = task.round_seconds
     rows = task.dataset_rows()
     log = d / f"rmse_{tag}.tsv"
-    SVDInferTask().run(str(conf), args + ["start=0", f"end={R + 1}", f"step={R}",
-                                          f"log_eval={log}"])
-    rmse = dict(line.split() for line in log.read_text().splitlines())
+    SVDInferTask().run(str(conf), args + ["start=0", f"end={R + 1}", f"log_eval={log}"])
+    rmse = {int(r): float(x) for r, x in (line.split() for line in log.read_text().splitlines())}
     shutil.rmtree(d / f"models_{tag}")
     train = secs[1:] if R > 1 else [secs[0] - tr.pack_seconds]
-    return dict(task=task, entry=entry, rmse0=float(rmse["0"]), rmse1=float(rmse[str(R)]),
+    return dict(task=task, entry=entry, rmse=rmse, rmse0=rmse[0], rmse1=rmse[R],
                 launches=launches, want_k5=R * per_round, T=len(cid), starts=starts, carry=carry,
                 trainer=type(tr).__name__, big=bool(tr.hp.big_table), secs=secs,
                 pack=tr.pack_seconds, eps=rows * len(train) / sum(train), peak=peak,
@@ -2131,6 +2140,8 @@ def phase_big_plus(work, card, failures):
                   flush=True)
             shapes = k5_shapes(torch, task)
             w = task.trainer.state.w
+            # chunk 0's pool, what phase 20 times K5's mesh pool writeback on
+            pool = {k: r["entry"].fb[k][0].cpu() for k in ("fb_idx", "fb_val", "fb_block")}
             del task
         if tag == "d":
             # K5's two calls a step of the stacked big epoch: the step's
@@ -2154,7 +2165,11 @@ def phase_big_plus(work, card, failures):
     timing.update(time_k5_shapes(torch, 11, "bigSvdpp (d)", w_d, shapes_d, card, failures))
     del w, shapes, w_d, shapes_d
     torch.cuda.empty_cache()
-    return sum(r["launches"]["K5"] for r in results.values()), timing, results["a"]["eps"]
+    # what phase 20 holds its mesh runs to: (a)'s probe RMSE every round, the
+    # steps a round of (a) and (d), (a)'s chunk-0 pool
+    prior = dict(rmse=results["a"]["rmse"], T={"b": results["a"]["T"], "e": results["d"]["T"]},
+                 pool=pool)
+    return sum(r["launches"]["K5"] for r in results.values()), timing, results["a"]["eps"], prior
 
 
 def time_k5_shapes(torch, phase, run, w, shapes, card, failures):
@@ -2628,7 +2643,7 @@ STREAM_RUNS = {
               keys=["batch_size=4096", "stream_chunk=524288"]),
     "b": dict(phase=5, data="implicitFeedback", rounds=ROUNDS, test_chunk=256,
               keys=[*BAND_KEYS, "stream_chunk=256"]),
-    "d": dict(phase=11, data="bigSvdpp", rounds=2, test_chunk=1024, keys=["stream_chunk=32768"]),
+    "d": dict(phase=11, data="bigSvdpp", rounds=1, test_chunk=1024, keys=["stream_chunk=32768"]),
     "e": dict(phase=9, data="multiIMFBStacked", rounds=IMFB_ROUNDS, test_chunk=256,
               keys=["extend_type=2", "rows_per_user=8", "stream_chunk=512"]),
 }
@@ -2636,7 +2651,7 @@ STREAM_PREFETCH = 2  # the depth of data/streaming.py's chunk queue (its default
 # the JAX package's streamed runs on the CPU, same data, conf and chunks
 # (scripts/streaming_jax_reference.py --run b|d|e): the test RMSE after the
 # last round ((b), (e)) and the probe's ((d))
-JAX_STREAM_RMSE = {"b": 0.949836, "d": 0.170776, "e": 0.952257}
+JAX_STREAM_RMSE = {"b": 0.949836, "d": 0.172368, "e": 0.952257}
 STREAM_JAX_TOL = 1e-4
 STREAM_STAGED_TOL = 1e-5  # (a) against phase 7 (a)'s staged probe
 
@@ -2673,7 +2688,7 @@ def stream_evals(tag):
 # golden/gbrt_reg.rmse.tsv; (b) the walk of that 6-tree model over the
 # training set on the card and on the host; (c) APLambda (extend_type=30,
 # the settings of tests/test_gbrt.py:193-205) on the pairwiseRank training
-# set read as plain user-group data (input_type=0), 3 rounds, its scores of
+# set read as plain user-group data (input_type=0), 2 rounds, its scores of
 # the implicitFeedback test set (the same users, items and feedback ids;
 # the rank test file is the ranker's protocol, not rows) against the JAX
 # package's CPU run.
@@ -2684,7 +2699,7 @@ GBRT_REG_KEYS = ["extend_type=31", *GBRT_TREE_KEYS]
 GBRT_GOLDEN_TOL = 5e-6  # tests/test_golden_full.py:220
 GBRT_WALK_TOL = 1e-5  # the card's f32 sum over trees against the host's f64 one
 GBRT_WALK_TURNS = 5
-APLAMBDA_ROUNDS = 3
+APLAMBDA_ROUNDS = 2
 APLAMBDA_KEYS = ["input_type=0", "use_ranker=0", "extend_type=30", "active_type=3",
                  "lambda_ap_alpha=0.5", "lambda_ap_reject=1", *GBRT_TREE_KEYS]
 APLAMBDA_STRIDE = 397  # the scores compared one by one: every 397th test row
@@ -2693,15 +2708,15 @@ APLAMBDA_JAX_TOL = 1e-5
 # the test set's scores after APLAMBDA_ROUNDS rounds, their moments and every
 # APLAMBDA_STRIDE-th one
 JAX_APLAMBDA = {
-    "n": 9430, "mean": -0.723800963644444, "std": 0.7115816294611343,
-    "min": -1.4532462358474731, "max": 0.8733869791030884,
+    "n": 9430, "mean": -0.5162180118588682, "std": 0.5346481842269246,
+    "min": -1.0511434078216553, "max": 0.6796727180480957,
     "sample": [
-        0.08807764947414398, -0.02670930325984955, -1.4151403903961182, -1.390661358833313,
-        0.4333652853965759, 0.4934263527393341, -1.3987302780151367, -1.3976922035217285,
-        -0.25614601373672485, 0.5441046953201294, -1.0446743965148926, -0.5494420528411865,
-        -1.3911155462265015, -1.4050225019454956, 0.4930814802646637, -1.3971585035324097,
-        -1.3623459339141846, -1.4227733612060547, 0.6716591119766235, -1.4165626764297485,
-        -1.3724582195281982, -1.41551673412323, -1.431038737297058, -1.4085074663162231,
+        -0.035242367535829544, -0.061057668179273605, -1.0128318071365356, -1.0191397666931152,
+        0.3467128574848175, 0.40286707878112793, -1.018925428390503, -1.022909164428711,
+        -0.4023544192314148, 0.4806911051273346, -0.7483452558517456, -0.39527618885040283,
+        -1.0138139724731445, -1.0246533155441284, 0.4191383719444275, -1.0213751792907715,
+        -0.9627816677093506, -1.0337953567504883, 0.5120158791542053, -1.0232833623886108,
+        -0.9891818761825562, -1.0144000053405762, -1.0305792093276978, -1.0319039821624756,
     ]}
 
 
@@ -3087,9 +3102,10 @@ def stream_run(work, tag):
     rmse = [float(line.split()[1]) for line in log.read_text().splitlines()]
     shutil.rmtree(d / f"models_s{tag}")
     secs = task.round_seconds
+    train = secs[1:] if R > 1 else secs  # one round: its packing, on the producer thread
     res = dict(rmse=rmse, launches=launches, rounds=rounds, chunks=chunks, R=R, peak=peak,
                state_bytes=state_bytes, secs=secs, rows=task.dataset_rows(),
-               eps=task.dataset_rows() * (R - 1) / sum(secs[1:]),
+               eps=task.dataset_rows() * len(train) / sum(train),
                streamed=streamed and hasattr(infer.dataset, "chunks"),
                trainer=type(tr).__name__, big=bool(tr.hp.big_table),
                sweep=bool(tr.hp.sweep_table), seconds=time.perf_counter() - t0)
@@ -3162,13 +3178,14 @@ def phase_stream(work, staged, card, failures):
         wait = [x["stats"].wait_s for x in r["rounds"]]
         train = [x["stats"].train_s for x in r["rounds"]]
         what = "probe" if tag in "acd" else "test"
+        when = f"rounds 2-{r['R']}" if r["R"] > 1 else "round 1"
         print(f"phase 18 {'ok' if ok else 'FAIL'}: streamed ({tag}) {run['data']} "
               f"{' '.join(run['keys'])} {r['trainer']} through SVDTrainTask/SVDInferTask "
               f"(test set streamed in chunks of {run['test_chunk']}): {what} RMSE "
               f"{' -> '.join(f'{x:.6f}' for x in r['rmse'])} after {r['R']} rounds ({vs}); "
               f"launches {r['launches']} (want {kid} {count}: {how}; {n_chunks} chunks = "
               f"{r['R']} rounds x {n_chunks // r['R']}); training {r['eps']:,.0f} examples/s "
-              f"rounds 2-{r['R']} (phase {run['phase']}'s staged run {staged[tag]['eps']:,.0f}); "
+              f"{when} (phase {run['phase']}'s staged run {staged[tag]['eps']:,.0f}); "
               f"round seconds {[round(x, 3) for x in r['secs']]}; a round waited "
               f"{min(wait):.3f}-{max(wait):.3f} s for its chunks and spent {min(train):.3f}-"
               f"{max(train):.3f} s training them (the hooks' clocks); peak device memory "
@@ -3209,18 +3226,38 @@ MESH_RANKS = 4
 MESH_KEYS = ["mesh_data=2", "mesh_model=2", "device=cuda", "silent=1"]
 # (a) and (b) join the world by distributed=1, (c) by the mesh keys alone
 MESH_JOIN = {"a": ["distributed=1"], "b": ["distributed=1"], "c": []}
-MESH_TIMEOUT_S = {"a": 240, "b": 420, "c": 180}  # each torchrun call, the build excluded
+# each torchrun call of phases 19 and 20, the build excluded
+MESH_TIMEOUT_S = 900  # the torchrun call of phases 19 and 20, the build excluded
 MESH_TOL = 1e-4  # (a) against phase 3's test RMSE, (b) against phase 7 (c)'s probe
 MESH_STREAM_ROUNDS = 5
 MESH_STREAM_TOL = 1e-5  # (c) against (a) at the same round: the same batches
 MESH_STREAM_CHUNK = 4 * BATCH
 
 
+def count_mesh_steps():
+    """A counter of the steps the user-group mesh bodies run on this rank:
+    the rounds loop of parallel/svdpp_mesh.py, which the four mesh modules
+    share, wrapped where each of them calls it."""
+    from svdfeature_tpu_torch.parallel import imfb_mesh, imfb_mesh_big, svdpp_mesh, svdpp_mesh_big
+
+    count, real = [0], svdpp_mesh._rounds
+
+    def rounds(step_fn, state, stacked, chunk_id, fb, lrs, ph, extra=None):
+        count[0] += len(chunk_id) * lrs.shape[0]
+        return real(step_fn, state, stacked, chunk_id, fb, lrs, ph, extra)
+
+    for mod in (svdpp_mesh, svdpp_mesh_big, imfb_mesh, imfb_mesh_big):
+        mod._rounds = rounds
+    return count
+
+
 def mesh_rank(argv):
-    """A rank of phase 19's world: ``chip_smoke.py --mesh-rank OUT TRAIN
-    ARGS -- INFER ARGS`` under torchrun.  Runs the train CLI with every
-    kernel's launch count set to 0 just before and read just after, then
-    the infer CLI, and writes what it measured to OUT.rank<r>.json."""
+    """A rank of phase 19's and phase 20's worlds: ``chip_smoke.py --mesh-rank
+    OUT TRAIN ARGS -- INFER ARGS [--next TRAIN ARGS -- INFER ARGS ...]``
+    under torchrun.  For each run, runs the train CLI with every kernel's
+    launch count set to 0 just before and read just after, then the infer
+    CLI, and writes what it measured, a record a run, to
+    OUT.rank<r>.json."""
     import os
 
     import torch
@@ -3229,44 +3266,60 @@ def mesh_rank(argv):
     from svdfeature_tpu_torch.cli import svd_feature, svd_feature_infer
 
     out, rest = argv[0], argv[1:]
-    cut = rest.index("--")
     local = os.environ["LOCAL_RANK"]
     pathlib.Path(f"{out}.pid{local}").write_text(str(os.getpid()))  # for the parent's cleanup
     wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    svd_feature.main(rest[:cut])
-    launches = {kid: fn.launches for kid, fn in wrappers.items()}
-    t1 = time.perf_counter()
-    svd_feature_infer.main(rest[cut + 1:])
-    rank, own = dist.get_rank(), torch.cuda.current_device()
-    # a tensor made before the rank set its card lands on card 0
-    stray = sum(torch.cuda.max_memory_allocated(i)
-                for i in range(torch.cuda.device_count()) if i != own)
-    pathlib.Path(f"{out}.rank{rank}.json").write_text(json.dumps(dict(
-        rank=rank, launches=launches, train_s=t1 - t0, infer_s=time.perf_counter() - t1,
-        backend=str(dist.get_backend()), device=str(own),
-        peak=torch.cuda.max_memory_allocated(own), stray=stray)))
+    steps = count_mesh_steps()
+    groups, records = [[]], []
+    for arg in rest:
+        if arg == "--next":
+            groups.append([])
+        else:
+            groups[-1].append(arg)
+    for group in groups:
+        cut = group.index("--")
+        if records:  # the rank's card is set by the first run's world
+            torch.cuda.reset_peak_memory_stats(torch.cuda.current_device())
+        for fn in wrappers.values():
+            fn.launches = 0
+        steps[0] = 0
+        t0 = time.perf_counter()
+        svd_feature.main(group[:cut])
+        launches = {kid: fn.launches for kid, fn in wrappers.items()}
+        t1 = time.perf_counter()
+        svd_feature_infer.main(group[cut + 1:])
+        own = torch.cuda.current_device()
+        # a tensor made before the rank set its card lands on card 0
+        stray = sum(torch.cuda.max_memory_allocated(i)
+                    for i in range(torch.cuda.device_count()) if i != own)
+        records.append(dict(
+            rank=dist.get_rank(), launches=launches, steps=steps[0], train_s=t1 - t0,
+            infer_s=time.perf_counter() - t1, backend=str(dist.get_backend()), device=str(own),
+            peak=torch.cuda.max_memory_allocated(own), stray=stray))
+    pathlib.Path(f"{out}.rank{dist.get_rank()}.json").write_text(json.dumps(records))
     return 0
 
 
-def mesh_run(work, tag, train, infer):
-    """One torchrun call of phase 19 (``train`` and ``infer``: CLI
-    arguments, the conf first): its ranks' JSON and its output, or None
-    and the output when it failed or ran out of MESH_TIMEOUT_S (then it
-    and every rank it started are killed)."""
+def mesh_run(work, tag, runs):
+    """One torchrun call (``runs``: (train, infer) CLI arguments, the conf
+    first, for each run; its files under ``work`` named by ``tag``): for
+    every rank the list of its runs' records, and the call's output; or
+    None and the output when it failed or ran out of MESH_TIMEOUT_S (then
+    it and every rank it started are killed)."""
     import os
     import signal
 
     out = work / f"mesh_{tag}"
+    args = []
+    for train, infer in runs:
+        args += [*(["--next"] if args else []), *map(str, train), "--", *map(str, infer)]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={MESH_RANKS}", str(ROOT / "chip_smoke.py"), "--mesh-rank", str(out),
-           *map(str, train), "--", *map(str, infer)]
+           *args]
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     try:
-        log, _ = proc.communicate(timeout=MESH_TIMEOUT_S[tag])
+        log, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.terminate()  # torchrun passes it on to its ranks
         try:
@@ -3279,7 +3332,7 @@ def mesh_run(work, tag, train, infer):
                 os.kill(int(pid.read_text()), signal.SIGKILL)
             except ProcessLookupError:
                 pass
-        return None, f"{log}\ntimed out after {MESH_TIMEOUT_S[tag]} s"
+        return None, f"{log}\ntimed out after {MESH_TIMEOUT_S} s"
     if proc.returncode != 0:
         return None, log
     return [json.loads(pathlib.Path(f"{out}.rank{r}.json").read_text())
@@ -3328,53 +3381,78 @@ def mesh_k5(torch, dev, big, card, failures):
     return dict(t, err=0.0)
 
 
-def phase_mesh(torch, work, big, staged, card, failures):
-    """The base solver on a 2x2 mesh through the train and infer CLIs under
-    torchrun (MESH_RANKS ranks): (a) basicMF, in its GOLDEN band and within
-    MESH_TOL of phase 3's RMSE; (b) bigTable at batch 4096 on mesh_big
-    slabs, its probe within MESH_TOL of phase 7 (c)'s, K5 launched once a
-    step on every rank and nothing else; (c) basicMF streamed in chunks of
-    whole batches, within MESH_STREAM_TOL of (a) at the same round; then
-    K5 at the slab's shape.  Returns the K5 launches of every rank, with
-    the K5 timing."""
+def phase_mesh_runs(work):
+    """Phase 19's runs, (c) first (it joins the world by the mesh keys
+    alone, before any run with distributed=1): tag -> (train, infer) CLI
+    arguments, the conf first, the mesh keys, model folder and logs
+    included; writes (c)'s train buffer in file blocks of whole batches."""
     from svdfeature_tpu_torch.data.buffer import read_csr_buffer, write_csr_buffer
 
-    golden = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["basicMF"]
     mf, bt = work / "basicMF", work / "bigTable"
     mf_conf = ROOT / "demo" / "basicMF" / "basicMF.conf"
     ds, _ = read_csr_buffer(str(mf / "train.buffer"))
     write_csr_buffer(str(mf / f"train{BATCH}.buffer"), ds, BATCH)  # blocks of whole batches
     runs = {
-        "a": ([mf_conf, f"buffer_feature={mf}/train.buffer", f"num_round={ROUNDS}",
-               f"batch_size={BATCH}"],
-              [f"test:buffer_feature={mf}/test.buffer", f"start={MESH_STREAM_ROUNDS}",
-               f"end={ROUNDS + 1}", f"step={ROUNDS - MESH_STREAM_ROUNDS}"]),
-        "b": ([bt / "bigTable.conf", f"num_round={BIG_ROUNDS}", "batch_size=4096"],
-              [f"start={BIG_ROUNDS}", f"end={BIG_ROUNDS + 1}"]),
         "c": ([mf_conf, f"buffer_feature={mf}/train{BATCH}.buffer",
                f"num_round={MESH_STREAM_ROUNDS}", f"batch_size={BATCH}", "streaming=1",
                f"stream_chunk={MESH_STREAM_CHUNK}"],
               [f"test:buffer_feature={mf}/test.buffer", "test:streaming=1",
                f"test:stream_chunk={BATCH}", f"start={MESH_STREAM_ROUNDS}",
                f"end={MESH_STREAM_ROUNDS + 1}"]),
+        "a": ([mf_conf, f"buffer_feature={mf}/train.buffer", f"num_round={ROUNDS}",
+               f"batch_size={BATCH}"],
+              [f"test:buffer_feature={mf}/test.buffer", f"start={MESH_STREAM_ROUNDS}",
+               f"end={ROUNDS + 1}", f"step={ROUNDS - MESH_STREAM_ROUNDS}"]),
+        "b": ([bt / "bigTable.conf", f"num_round={BIG_ROUNDS}", "batch_size=4096"],
+              [f"start={BIG_ROUNDS}", f"end={BIG_ROUNDS + 1}"]),
     }
-    rmse, k5 = {}, 0
-    torch.cuda.empty_cache()  # the ranks share the card with this process
+    out = {}
     for tag, (train, infer) in runs.items():
-        t0 = time.perf_counter()
-        models = f"model_out_folder={work}/mesh_models_{tag}"
+        keys = [*MESH_JOIN[tag], *MESH_KEYS, f"model_out_folder={work}/mesh_models_{tag}"]
+        out[tag] = ([*train, *keys, f"log_jsonl={work}/mesh_{tag}.jsonl"],
+                    [train[0], *keys, *infer, f"log_eval={work}/mesh_{tag}.tsv"])
+    return out
+
+
+def mesh_call(work, runs):
+    """The one torchrun call of phases 19 and 20 (``runs``: name -> (train,
+    infer)): (name -> the records of every rank, or None when the call
+    failed; its output; its seconds; ``runs``)."""
+    t0 = time.perf_counter()
+    ranks, log = mesh_run(work, "mesh", list(runs.values()))
+    secs = time.perf_counter() - t0
+    records = None if ranks is None else {
+        name: [r[i] for r in ranks] for i, name in enumerate(runs)}
+    return records, log, secs, runs
+
+
+def phase_mesh(torch, work, big, staged, card, failures, call=None):
+    """The base solver on a 2x2 mesh through the train and infer CLIs under
+    torchrun (MESH_RANKS ranks): (a) basicMF, in its GOLDEN band and within
+    MESH_TOL of phase 3's RMSE; (b) bigTable at batch 4096 on mesh_big
+    slabs, its probe within MESH_TOL of phase 7 (c)'s, K5 launched once a
+    step on every rank and nothing else; (c) basicMF streamed in chunks of
+    whole batches, within MESH_STREAM_TOL of (a) at the same round; then
+    K5 at the slab's shape.  ``call``: the records, output and seconds of
+    the torchrun call that ran phase_mesh_runs (mesh_call; None: make one).
+    Returns the K5 launches of every rank, with the K5 timing."""
+    golden = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["basicMF"]
+    if call is None:
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+        call = mesh_call(work, {f"19{tag}": run for tag, run in phase_mesh_runs(work).items()})
+    records, out, secs, runs = call
+    found = re.search(r"distributed: .*", out)
+    backend = found.group(0) if found else "no backend line"
+    rmse, k5 = {}, 0
+    for tag in ("a", "b", "c"):
+        train = [str(x) for x in runs[f"19{tag}"][0][1:]]
         log_json, log_eval = work / f"mesh_{tag}.jsonl", work / f"mesh_{tag}.tsv"
-        keys = [*MESH_JOIN[tag], *MESH_KEYS, models]
-        ranks, out = mesh_run(work, tag, [*train, *keys, f"log_jsonl={log_json}"],
-                              [train[0], *keys, *infer, f"log_eval={log_eval}"])
-        secs = time.perf_counter() - t0
-        found = re.search(r"distributed: .*", out)
-        backend = found.group(0) if found else "no backend line"
-        if ranks is None:
+        if records is None:
             failures.append(f"mesh run ({tag})")
-            print(f"phase 19 FAIL: mesh ({tag}) torchrun failed after {secs:.1f} s; its output "
-                  f"ends:\n{out[-4000:]}", flush=True)
+            print(f"phase 19 FAIL: mesh ({tag}): the torchrun call failed after {secs:.1f} s; "
+                  f"its output ends:\n{out[-4000:]}", flush=True)
             continue
+        ranks = records[f"19{tag}"]
         shutil.rmtree(work / f"mesh_models_{tag}", ignore_errors=True)
         rmse[tag] = dict(line.split() for line in log_eval.read_text().splitlines())
         round_s = [json.loads(x)["round_s"] for x in log_json.read_text().splitlines()]
@@ -3412,8 +3490,9 @@ def phase_mesh(torch, work, big, staged, card, failures):
         ok = all(checks) and math.isfinite(final)
         if not ok:
             failures.append(f"mesh run ({tag})")
+        shown = [x for x in train if not x.startswith(("model_out_folder=", "log_jsonl="))]
         print(f"phase 19 {'ok' if ok else 'FAIL'}: mesh ({tag}) {MESH_RANKS} ranks, "
-              f"{' '.join(map(str, keys[:-1]))} {' '.join(map(str, train[1:]))}: {vs}; launches "
+              f"{' '.join(shown)}: {vs}; launches "
               f"on each rank {launches} (want {want}); ranks {[x['backend'] for x in ranks]} "
               f"on cuda:{[x['device'] for x in ranks]}, bytes on the other cards "
               f"{[x['stray'] for x in ranks]} (want 0), {backend}; training {eps:,.0f} "
@@ -3421,9 +3500,224 @@ def phase_mesh(torch, work, big, staged, card, failures):
               f"{[round(x, 3) for x in round_s]}); train CLI "
               f"{max(x['train_s'] for x in ranks):.1f} s, infer CLI "
               f"{max(x['infer_s'] for x in ranks):.1f} s, peak device memory a rank "
-              f"{max(x['peak'] for x in ranks) / 2**30:.2f} GiB; the call {secs:.1f} s; on {card}",
-              flush=True)
+              f"{max(x['peak'] for x in ranks) / 2**30:.2f} GiB; on {card}", flush=True)
     timing = mesh_k5(torch, torch.device("cuda", 0), big, card, failures)
+    return k5, timing
+
+
+# ---- phase 20: the user-group solvers on a 2x2 mesh --------------------------------
+# Six runs of the SVD++ and multi-IMFB trainers through the train and infer
+# CLIs on MESH_RANKS ranks (mesh_data=2 mesh_model=2), in one torchrun call
+# of chip_smoke.py --mesh-rank, on the data earlier phases wrote: (a) implicitFeedback at its
+# band setting (phase 5's buffers); (c) pairwiseRank (phase 13's), a fresh
+# packed pair epoch a round, then the ranker on the same mesh keys; (d) the
+# depth-2 stacked set (phase 9's); (b) bigSvdpp on mesh_big slabs by the auto
+# rule (phase 11's, K5 twice a step on every rank); (e) big multi-IMFB (phase
+# 11 (d)'s data); (f) (b) streamed in phase 18 (d)'s chunks.
+MESH_PLUS_RUNS = {  # tag: its data (a phase's directory), keys beside its conf, rounds, slabs
+    "a": dict(data="implicitFeedback", keys=BAND_KEYS, rounds=5, big=False),
+    "c": dict(data="pairwiseRank", keys=[], rounds=3, big=False),
+    "d": dict(data="multiIMFBStacked", keys=["extend_type=2", "rows_per_user=8"], rounds=2,
+              big=False),
+    "b": dict(data="bigSvdpp", keys=[], rounds=2, big=True),
+    "e": dict(data="bigSvdpp", keys=["extend_type=2"], buffer="imfb.buffer", rounds=1, big=True),
+    "f": dict(data="bigSvdpp", keys=["streaming=1", "stream_chunk=32768", "test:streaming=1",
+                                     "test:stream_chunk=1024"], rounds=1, big=True),
+}
+
+
+def mesh_plus_args(tag, d, out):
+    """(train, infer) CLI arguments, the conf first, of phase 20's run
+    ``tag`` on the data in ``d`` (the directory of the phase that wrote it),
+    its models, eval log or pred file under ``out``; the mesh keys are the
+    caller's."""
+    run = MESH_PLUS_RUNS[tag]
+    R = run["rounds"]
+    if run["data"] == "bigSvdpp":
+        conf = d / "bigSvdpp.conf"
+        data = [f"buffer_feature={d}/{run.get('buffer', 'train.buffer')}"]
+    else:
+        demo = "pairwiseRank" if tag == "c" else "implicitFeedback"
+        conf = ROOT / "demo" / demo / f"{demo}.conf"
+        data = [f"buffer_feature={d}/train.buffer", f"test:buffer_feature={d}/test.buffer"]
+    common = [*data, *run["keys"], f"model_out_folder={out}/models", "silent=1"]
+    infer = ([f"pred={R}", f"name_pred={out}/pred.txt"] if tag == "c" else
+             [f"start={R}", f"end={R + 1}", f"log_eval={out}/eval.tsv"])
+    return [conf, *common, f"num_round={R}"], [conf, *common, *infer]
+
+
+# the JAX package's 2x2 mesh on 4 CPU devices, same data, conf and rounds
+# (scripts/mesh_plus_jax_reference.py --run a|b|c|d|e|f): the test RMSE after
+# the last round (a, d), the probe's (b, e, f), P@20 (c); (c)'s round-3 w is
+# scripts/mesh_plus_jax_rank_w.npy
+JAX_MESH_PLUS = {"a": 0.991498, "b": 0.170734, "c": 0.085684, "d": 0.997761, "e": 0.172171,
+                 "f": 0.172368}
+MESH_PLUS_TOL = 1e-4  # every figure against JAX's; (b) against phase 11 (a) at round 2 too
+MESH_PLUS_P20_TOL = RANK_JAX_TOL
+MESH_PLUS_W_TOL = 1e-4  # (c)'s checkpoint, max abs over w, against JAX's
+
+
+def mesh_plus_expected_steps(work, prior):
+    """The steps each big run must take (K5 writes twice a step): (b) and
+    (e) phase 11's T a round, (f) the stream's stable steps a chunk times
+    its chunks (data/streaming.StreamingPlusBuffer.plan_caps)."""
+    from svdfeature_tpu_torch.data.streaming import StreamingPlusBuffer
+
+    src = StreamingPlusBuffer(str(work / "bigSvdpp" / "train.buffer"), blocks_per_chunk=32768)
+    t_cap = src.plan_caps(4096, 4, sort_local=True)["t_cap"]  # bigSvdpp.conf's G, M, sort_blocks
+    chunks = -(-src.num_block // src.blocks_per_chunk)
+    return {"b": MESH_PLUS_RUNS["b"]["rounds"] * prior["T"]["b"],
+            "e": MESH_PLUS_RUNS["e"]["rounds"] * prior["T"]["e"],
+            "f": MESH_PLUS_RUNS["f"]["rounds"] * t_cap * chunks}
+
+
+def round5_single(work):
+    """Phase 5's single-card test RMSE at round 5, from its kept checkpoint
+    (None where it was not kept)."""
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+
+    d = work / "implicitFeedback"
+    if not (d / "models_kernel" / "0005.model").exists():
+        return None
+    SVDInferTask().run(str(ROOT / "demo" / "implicitFeedback" / "implicitFeedback.conf"), [
+        f"test:buffer_feature={d}/test.buffer", f"model_out_folder={d}/models_kernel",
+        "device=cuda", "silent=1", "start=5", "end=6", f"log_eval={d}/rmse_round5.tsv"])
+    return float((d / "rmse_round5.tsv").read_text().split()[-1])
+
+
+def mesh_plus_k5(torch, dev, pool, card, failures):
+    """K5 at the pool writeback of the 2x2 SVD++ mesh_big slab: the slab of
+    model position 0 ([n_real + 1, W], the scratch row last), which holds
+    the feedback rows (the first NF rows of the table), and one chunk's
+    FULL pool (phase 11 (a)'s chunk 0) in its local ids, merged by
+    ops/svdpp_big._fb_writeback_big (non-owned entries to the scratch row
+    with zeros).  Bit for bit against the plain version, timed in turns
+    with it and with index_copy_."""
+    from svdfeature_tpu_torch.ops import big_embed, svdpp_big
+    from svdfeature_tpu_torch.parallel import mesh_big, svdpp_mesh
+
+    k = BIG_PLUS["KF"]
+    n = BIG_PLUS["NU"] + BIG_PLUS["NI"] + BIG_PLUS["NF"] + 1
+    n_real, n_phys = mesh_big.big_layout(n, 2)
+    rng = np.random.default_rng(20)
+    slab = torch.from_numpy(rng.standard_normal((n_phys, big_embed.aug_width(k)),
+                                                dtype=np.float32)).to(dev)
+    slab[-1] = 0.0
+    cfb = svdpp_mesh.local_pool({name: x.to(dev) for name, x in pool.items()}, "fb_block",
+                                0, n_real, n_real)
+    G = int(pool["fb_block"].max())  # the pool's padding block
+    delta = torch.from_numpy(rng.standard_normal((G + 1, k), dtype=np.float32)).to(dev)
+    delta_b = torch.from_numpy(rng.standard_normal(G + 1, dtype=np.float32)).to(dev)
+    name = "pool writeback (model position 0)"
+    shapes = k5_first_calls(torch, lambda: svdpp_big._fb_writeback_big(
+        slab.clone(), cfb, delta, delta_b, k, True), {0: name})
+    timing = time_k5_shapes(torch, 20, "the 2x2 SVD++ mesh_big slab", slab, shapes, card, failures)
+    return timing[f"the 2x2 SVD++ mesh_big slab {name}"]
+
+
+def phase_mesh_plus_runs(work):
+    """Phase 20's runs: tag -> (train, infer) CLI arguments, the conf
+    first, the mesh keys and logs included (its output directories made)."""
+    runs = {}
+    for tag, run in MESH_PLUS_RUNS.items():
+        out = work / f"mesh20_{tag}"
+        out.mkdir()
+        train, infer = mesh_plus_args(tag, work / run["data"], out)
+        keys = ["distributed=1", *MESH_KEYS]
+        runs[tag] = ([*train, *keys, f"log_jsonl={out}/train.jsonl"], [*infer, *keys])
+    return runs
+
+
+def phase_mesh_plus(torch, work, prior, card, failures, call):
+    """The SVD++ and multi-IMFB trainers on a 2x2 mesh through the train
+    and infer CLIs under torchrun (MESH_PLUS_RUNS, in ``call``: the records,
+    output, seconds and runs of the torchrun call that ran
+    phase_mesh_plus_runs, mesh_call): every figure within MESH_PLUS_TOL of
+    the JAX package's 2x2 CPU mesh (P@20 within MESH_PLUS_P20_TOL, (c)'s
+    checkpoint within MESH_PLUS_W_TOL of JAX's), (b) within MESH_PLUS_TOL of
+    phase 11 (a) at round 2; no kernel on small slabs, K5 twice a mesh step
+    on every rank on big ones (exact counts), the same steps on every rank
+    and none on another card; then K5 at the mesh pool writeback's shape.
+    ``prior``: phase 11's figures (mesh_plus_expected_steps, its round-2
+    probe RMSE, its chunk-0 pool).  Returns the K5 launches of every rank,
+    with the K5 timing."""
+    from svdfeature_tpu_torch.model import SVDModel
+    from svdfeature_tpu_torch.params import SVDTypeParam
+
+    expected = mesh_plus_expected_steps(work, prior)
+    single5 = round5_single(work)
+    k5 = 0
+    records, _, secs, _ = call
+    if records is None:
+        failures.append("mesh call (phase 20)")
+        print(f"phase 20 FAIL: the torchrun call failed after {secs:.1f} s", flush=True)
+    else:
+        tags = list(MESH_PLUS_RUNS)
+        ranks = [[records[f"20{tag}"][r] for tag in tags] for r in range(MESH_RANKS)]
+        print(f"phase 20: runs {tags} on {MESH_RANKS} ranks "
+              f"{[r[0]['backend'] for r in ranks]} on cuda:{[r[0]['device'] for r in ranks]}",
+              flush=True)
+        for i, tag in enumerate(tags):
+            recs = [r[i] for r in ranks]
+            run, out = MESH_PLUS_RUNS[tag], work / f"mesh20_{tag}"
+            R = run["rounds"]
+            jax = JAX_MESH_PLUS[tag]
+            lines = [json.loads(x) for x in (out / "train.jsonl").read_text().splitlines()]
+            round_s = [x["round_s"] for x in lines]
+            rows = lines[0]["examples"]
+            steps = recs[0]["steps"]
+            launches = [x["launches"] for x in recs]
+            want = {kid: 0 for kid in launches[0]}
+            if run["big"]:
+                want["K5"] = 2 * steps
+                k5 += sum(x["K5"] for x in launches)
+            checks = [all(x == want for x in launches), steps > 0,
+                      all(x["steps"] == steps for x in recs), not any(x["stray"] for x in recs),
+                      steps == expected.get(tag, steps)]
+            if tag == "c":
+                final = rank_p20(out / "pred.txt")
+                with open(out / "models" / f"{R:04d}.model", "rb") as f:
+                    w = SVDModel.load(f, SVDTypeParam.from_bytes(f.read(4)),
+                                      device=torch.device("cpu")).w.numpy()
+                jw = np.load(ROOT / "scripts" / "mesh_plus_jax_rank_w.npy")
+                dw = float(np.abs(w - jw).max()) if w.shape == jw.shape else math.inf
+                checks += [abs(final - jax) < MESH_PLUS_P20_TOL, dw < MESH_PLUS_W_TOL]
+                vs = (f"P@20 {final:.6f} after {R} rounds with the ranker on the same mesh keys "
+                      f"(minus JAX CPU mesh {final - jax:+.6f}, tol {MESH_PLUS_P20_TOL:g}); "
+                      f"round-{R} checkpoint w max |port - JAX CPU mesh| {dw:.2e} (tol "
+                      f"{MESH_PLUS_W_TOL:g})")
+            else:
+                final = float((out / "eval.tsv").read_text().split()[-1])
+                what = "probe" if run["big"] else "test"
+                checks.append(abs(final - jax) < MESH_PLUS_TOL)
+                vs = (f"{what} RMSE {final:.6f} after {R} rounds (minus JAX CPU mesh "
+                      f"{final - jax:+.2e}, tol {MESH_PLUS_TOL:g})")
+                if tag == "a":
+                    vs += (f"; phase 5's single card at round 5 "
+                           f"{'not kept' if single5 is None else f'{single5:.6f}'}")
+                if tag == "b":
+                    ref = prior["rmse"][R]
+                    checks.append(abs(final - ref) < MESH_PLUS_TOL)
+                    vs += f"; minus phase 11 (a) at round {R} {final - ref:+.2e}"
+            ok = all(checks) and math.isfinite(final)
+            if not ok:
+                failures.append(f"mesh run 20 ({tag})")
+            train_s = round_s[1:] if R > 1 else round_s
+            per_round = steps // R
+            eps = rows * len(train_s) / sum(train_s)
+            ms = 1e3 * sum(train_s) / (per_round * len(train_s))
+            when = f"rounds 2-{R}" if R > 1 else "round 1, its packing included"
+            print(f"phase 20 {'ok' if ok else 'FAIL'}: mesh ({tag}) "
+                  f"{' '.join(run['keys']) or 'default'} {run['data']}: {vs}; {steps} mesh steps "
+                  f"on each rank (want {expected.get(tag, 'the same on every rank')}); launches "
+                  f"on each rank {launches} (want {want}); bytes on the other cards "
+                  f"{[x['stray'] for x in recs]} (want 0); training {eps:,.0f} examples/s, "
+                  f"{ms:.2f} ms a mesh step, {when} (round seconds {round_s}); train CLI "
+                  f"{max(x['train_s'] for x in recs):.1f} s, infer CLI "
+                  f"{max(x['infer_s'] for x in recs):.1f} s, peak device memory a rank "
+                  f"{max(x['peak'] for x in recs) / 2**30:.2f} GiB; on {card}", flush=True)
+            shutil.rmtree(out / "models", ignore_errors=True)
+    timing = mesh_plus_k5(torch, torch.device("cuda", 0), prior["pool"], card, failures)
     return k5, timing
 
 
@@ -3435,7 +3729,7 @@ def kernel_line(name, source, replaces, launches, max_err, timing):
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 19's torchrun world
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 19's or 20's torchrun world
         return mesh_rank(sys.argv[2:])
     start = time.perf_counter()
     card = card_line()
@@ -3491,7 +3785,8 @@ def main() -> int:
         phase_time("phase 9")
         phase_general(pathlib.Path(work), card, failures)
         phase_time("phase 10")
-        k5_plus_launches, _, big_plus_eps = phase_big_plus(pathlib.Path(work), card, failures)
+        k5_plus_launches, _, big_plus_eps, big_plus = phase_big_plus(pathlib.Path(work), card,
+                                                                     failures)
         phase_time("phase 11")
         from svdfeature_tpu_torch.cli import make_ugroup_buffer
 
@@ -3514,9 +3809,22 @@ def main() -> int:
             big_staged, g=dict(eps=k1_eps), b=dict(eps=k2_eps), d=dict(eps=big_plus_eps),
             e=dict(eps=k3_eps)), card, failures)
         phase_time("phase 18")
+        # phases 19 and 20 share one torchrun call of MESH_RANKS ranks
+        mesh_runs = {f"19{tag}": run for tag, run in phase_mesh_runs(pathlib.Path(work)).items()}
+        mesh_runs.update({f"20{tag}": run
+                          for tag, run in phase_mesh_plus_runs(pathlib.Path(work)).items()})
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+        call = mesh_call(pathlib.Path(work), mesh_runs)
+        print(f"phases 19-20: one torchrun call of {MESH_RANKS} ranks, runs {list(mesh_runs)}: "
+              f"{'ok' if call[0] is not None else 'FAIL'} in {call[2]:.1f} s", flush=True)
+        phase_time("phases 19-20's torchrun call")
         k5_mesh_launches, k5_mesh_timing = phase_mesh(
-            torch, pathlib.Path(work), big, dict(big_staged, phase3=k1_rmse), card, failures)
-        phase_time("phase 19")
+            torch, pathlib.Path(work), big, dict(big_staged, phase3=k1_rmse), card, failures,
+            call)
+        phase_time("phase 19's checks")
+        k5_plus_mesh_launches, k5_plus_mesh_timing = phase_mesh_plus(
+            torch, pathlib.Path(work), big_plus, card, failures, call)
+        phase_time("phase 20's checks")
     print(f"chip_smoke.py took {time.perf_counter() - start:.1f} s on {card}", flush=True)
 
     if failures:
@@ -3543,13 +3851,20 @@ def main() -> int:
         kernel_line("row_writer (row_write)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:43",
                     big_launches["K5"] + k5_plus_launches + k5_rank_launches
-                    + stream_launches["K5"] + k5_mesh_launches,
+                    + stream_launches["K5"] + k5_mesh_launches + k5_plus_mesh_launches,
                     big_timing["K5"]["err"], big_timing["K5"]),
         # K5 on the 2x2 mesh_big path (phase 19 (b)): each rank's slab writes
         kernel_line("row_writer (row_write), slab writes of the 2x2 mesh_big, every rank",
                     "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:43", k5_mesh_launches,
                     k5_mesh_timing["err"], k5_mesh_timing),
+        # K5 on the 2x2 SVD++ / multi-IMFB mesh_big path (phase 20 (b), (e), (f)):
+        # each rank's row writes and pool writebacks
+        kernel_line("row_writer (row_write), row writes and pool writebacks of the 2x2 SVD++ "
+                    "and multi-IMFB mesh_big, every rank",
+                    "svdfeature_tpu_torch/csrc/row_scatter.cu",
+                    "svdfeature_tpu/ops/pallas_scatter.py:43", k5_plus_mesh_launches,
+                    k5_plus_mesh_timing["err"], k5_plus_mesh_timing),
         # K5 on big bilinear's path (phase 16 (d)): its W_bi write
         kernel_line("row_writer (row_write), W_bi rows of big bilinear",
                     "svdfeature_tpu_torch/csrc/row_scatter.cu",

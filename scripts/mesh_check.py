@@ -7,8 +7,8 @@ Usage, from the repository root:
 
 Builds the kernels, writes the basicMF buffers (the ML-100K fixtures) and
 bigTable's synthetic buffers as phases 3 and 7 do, then runs
-``chip_smoke.phase_mesh`` (three torchrun calls of 4 ranks: basicMF,
-bigTable on mesh_big slabs with K5, basicMF streamed; then K5 at the
+``chip_smoke.phase_mesh`` (one torchrun call of 4 ranks: basicMF streamed,
+basicMF, bigTable on mesh_big slabs with K5; then K5 at the
 slab's shape).  With one card the ranks share it through gloo; with four
 (one a rank) they take NCCL.  Unlike chip_smoke.py, which holds phase 19
 to phase 3's and phase 7 (c)'s RMSE measured in the same run, this script

@@ -20,9 +20,11 @@ torch.distributed, launched by torchrun::
   ranks on one device, so ranks that share a card talk through gloo.  On
   ``device=cpu`` it is gloo.  The rule is printed at start-up by rank 0.
 - **Collectives.**  ``psum`` is one ``all_reduce`` of the concatenated
-  tensors.  ``all_gather`` is one ``all_gather`` of the concatenated
-  tensors, stacked in group order; both backends take CPU and CUDA
-  tensors for it.  A group of one rank makes no collective.
+  tensors (one dtype).  ``all_gather`` is one ``all_gather`` of the
+  concatenated tensors, stacked in group order; tensors of several 4-byte
+  dtypes (int32 ids beside f32 floats) travel as their bits in one call.
+  Both backends take CPU and CUDA tensors for it.  A group of one rank
+  makes no collective.
 
 Every rank must create every group, in the same order, groups it is not in
 included (``make_mesh``), or the ranks hang.  ``init_process_group`` gets a
@@ -173,20 +175,24 @@ def make_mesh(n_data: int, n_model: int, device: torch.device,
     return mesh
 
 
-def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def _flat(tensors: Sequence[torch.Tensor], bits: bool = False) -> torch.Tensor:
+    """The tensors concatenated; with ``bits``, tensors of 4-byte dtypes
+    as their int32 bits (a gather moves bytes, so they come back exact)."""
     dtypes = {t.dtype for t in tensors}
+    if bits and all(t.element_size() == 4 for t in tensors):
+        return torch.cat([t.reshape(-1).view(torch.int32) for t in tensors])
     if len(dtypes) != 1:
         raise ValueError(f"one collective takes tensors of one dtype, got {dtypes}")
     return torch.cat([t.reshape(-1) for t in tensors])
 
 
 def _split(flat: torch.Tensor, like: Sequence[torch.Tensor], lead=()) -> List[torch.Tensor]:
-    """Cut the columns of ``flat [*lead, L]`` back into tensors shaped as
-    ``like`` (each with the leading dims ``lead``)."""
+    """Cut the columns of ``flat [*lead, L]`` back into tensors shaped and
+    typed as ``like`` (each with the leading dims ``lead``)."""
     out, at = [], 0
     for t in like:
         n = t.numel()
-        out.append(flat[..., at:at + n].reshape(*lead, *t.shape))
+        out.append(flat[..., at:at + n].view(t.dtype).reshape(*lead, *t.shape))
         at += n
     return out
 
@@ -204,11 +210,12 @@ def psum(mesh: Mesh, axis: str, *tensors: torch.Tensor) -> List[torch.Tensor]:
 
 def all_gather(mesh: Mesh, axis: str, *tensors: torch.Tensor) -> List[torch.Tensor]:
     """``[n, *shape]`` stacks of ``tensors`` over the ``axis`` group in
-    group order (``jax.lax.all_gather``), in one ``all_gather``."""
+    group order (``jax.lax.all_gather``), in one ``all_gather`` whatever
+    their 4-byte dtypes."""
     group = mesh.groups[axis]
     if group is None:
         return [t[None] for t in tensors]
-    flat = _flat(tensors)
+    flat = _flat(tensors, bits=True)
     parts = [torch.empty_like(flat) for _ in range(mesh.size(axis))]
     dist.all_gather(parts, flat, group=group)
     return _split(torch.stack(parts), tensors, lead=(len(parts),))

@@ -22,12 +22,12 @@ parallel/comm.py take the places of ``jax.lax.psum`` / ``all_gather``:
   row), so the replicas stay equal; the global bias takes the psum'd batch
   statistics over ``data``.
 
-A step makes at most five collectives: the batch's touch counts, the
+A step makes at most four collectives: the batch's touch counts, the
 number of examples and the global slots' counts, psum'd over ``data`` in
 one call (they depend on the batch alone); the forward's partial sums over
-``model``; the gathered ids and the gathered floats over ``data``; the
-global update's sums over ``data`` (skipped with no global feature: the
-one slot is the dummy, 0 after every step).  On a small slab the step is
+``model``; the ids and floats of the row updates, gathered over ``data``
+in one call; the global update's sums over ``data`` (skipped with no
+global feature: the one slot is the dummy, 0 after every step).  On a small slab the step is
 plain torch, as the JAX mesh step is jnp: no kernel takes it.  Parity with
 JAX's mesh step and its single-device step is held by
 tests/test_torch_mesh.py within rtol 2e-5 + atol 1e-6 per step: psum and
@@ -145,9 +145,10 @@ def _local_gather_sum(tab, idx, val, lo: int, n_local: int, dummy: int) -> torch
     return _gather_sum(tab, li, lv)
 
 
-def _sharded_forward(w, b, batch, hp: HyperParams, mesh: Mesh, lo: int, n_local: int,
+def forward_partials(w, b, batch, hp: HyperParams, lo: int, n_local: int,
                      dummy: int) -> List[torch.Tensor]:
-    """(p_u, p_i, bias): masked local gathers psum'd over ``model``."""
+    """This model position's (p_u, p_i, bias): masked local gathers, before
+    their psum over ``model``."""
     u_idx, u_val = batch["u_idx"], batch["u_val"]
     i_idx, i_val = batch["i_idx"], batch["i_val"]
     p_u = _local_gather_sum(w, u_idx, u_val, lo, n_local, dummy)
@@ -155,16 +156,23 @@ def _sharded_forward(w, b, batch, hp: HyperParams, mesh: Mesh, lo: int, n_local:
     bias = _local_gather_sum(b, i_idx, i_val, lo, n_local, dummy)
     if not hp.no_user_bias:
         bias = bias + _local_gather_sum(b, u_idx, u_val, lo, n_local, dummy)
-    return psum(mesh, "model", p_u, p_i, bias)
+    return [p_u, p_i, bias]
 
 
-def batch_counts(batch, mesh: Mesh, n_g: int, lo: int = 0, n_local: int = 0):
+def _sharded_forward(w, b, batch, hp: HyperParams, mesh: Mesh, lo: int, n_local: int,
+                     dummy: int) -> List[torch.Tensor]:
+    """(p_u, p_i, bias): masked local gathers psum'd over ``model``."""
+    return psum(mesh, "model", *forward_partials(w, b, batch, hp, lo, n_local, dummy))
+
+
+def batch_counts(batch, mesh: Mesh, n_g: int, lo: int = 0, n_local: int = 0, extra=()):
     """What a step needs of the whole batch before its forward, psum'd over
     ``data`` in one call: the touch counts of the local rows ``cu`` / ``ci``
     ([n_local] each; every occurrence of an owned id counts, value 0
     included, as ``_touch_counts_sharded`` at mesh.py:277-291; none with
     ``n_local`` 0), the global slots' counts ``cg`` and the number of
-    examples of positive weight."""
+    examples of positive weight, then the sums of the ``extra`` tensors,
+    which ride the same call (the user-group steps' feedback aggregates)."""
     parts = []
     for seg in ("u", "i") if n_local else ():
         loc, own = _owned(batch[f"{seg}_idx"], lo, n_local)
@@ -173,21 +181,37 @@ def batch_counts(batch, mesh: Mesh, n_g: int, lo: int = 0, n_local: int = 0):
         parts.append(_slot_sums(n_local, torch.where(own, loc, n_local - 1), own.to(F32)))
     parts.append(_touch_counts(n_g, batch["g_idx"]))
     parts.append((batch["weight"] > 0).sum().to(F32).reshape(1))
-    *parts, present = psum(mesh, "data", *parts)
-    return (*parts, present[0].round().to(I32))
+    n = len(parts)
+    summed = psum(mesh, "data", *parts, *extra)
+    *counts, present = summed[:n]
+    return (*counts, present[0].round().to(I32), *summed[n:])
+
+
+def global_sums(g, batch, err) -> List[torch.Tensor]:
+    """This rank's batch statistics of the global bias's damped update
+    (S: sum err*v, C2: sum v^2 per slot), none with no global feature: the
+    one slot is then the dummy, set to 0 after the step."""
+    n_g = g.shape[0]
+    if n_g == 1:
+        return []
+    return [_slot_sums(n_g, batch["g_idx"], err[:, None] * batch["g_val"]),
+            _slot_sums(n_g, batch["g_idx"], batch["g_val"] * batch["g_val"])]
+
+
+def global_apply(g, sums: List[torch.Tensor], lr) -> torch.Tensor:
+    """The damped update from the statistics psum'd over ``data``."""
+    if not sums:
+        return g
+    gS, gC2 = sums
+    return g + lr * gS / (1.0 + lr * gC2)
 
 
 def global_update_psum(g, batch, err, lr, mesh: Mesh) -> torch.Tensor:
     """The replicated global bias's damped update with the batch statistics
-    psum'd over ``data`` (mesh.py:226-235).  With no global feature the one
-    slot is the dummy, set to 0 after the step: no collective."""
-    n_g = g.shape[0]
-    if n_g == 1:
-        return g
-    gS = _slot_sums(n_g, batch["g_idx"], err[:, None] * batch["g_val"])
-    gC2 = _slot_sums(n_g, batch["g_idx"], batch["g_val"] * batch["g_val"])
-    gS, gC2 = psum(mesh, "data", gS, gC2)
-    return g + lr * gS / (1.0 + lr * gC2)
+    psum'd over ``data`` (mesh.py:226-235); no collective with no global
+    feature."""
+    sums = global_sums(g, batch, err)
+    return global_apply(g, psum(mesh, "data", *sums) if sums else [], lr)
 
 
 def global_decay(g, cg, lr, consts: TrainConsts, hp: HyperParams) -> torch.Tensor:
@@ -236,9 +260,9 @@ def _apply_row_updates(w, b, batch, lr_err, p_u, p_i, hp: HyperParams, mesh: Mes
     batch's ids and O(B k) floats over ``data``, never table rows."""
     lu, lu_val = _local_ids(batch["u_idx"], batch["u_val"], lo, n_local, dummy)
     li, li_val = _local_ids(batch["i_idx"], batch["i_val"], lo, n_local, dummy)
-    g_lu, g_li = all_gather(mesh, "data", lu.to(I32), li.to(I32))
-    g_cu, g_ci, g_pu, g_pi = all_gather(mesh, "data", lr_err[:, None] * lu_val,
-                                        lr_err[:, None] * li_val, p_u, p_i)
+    g_lu, g_li, g_cu, g_ci, g_pu, g_pi = all_gather(
+        mesh, "data", lu.to(I32), li.to(I32), lr_err[:, None] * lu_val, lr_err[:, None] * li_val,
+        p_u, p_i)
     D, B, Su = g_lu.shape
     Si, k = g_li.shape[2], p_u.shape[1]
     _scatter_rows(w, g_lu.reshape(D * B, Su), g_cu.reshape(D * B, Su), g_pi.reshape(D * B, k))

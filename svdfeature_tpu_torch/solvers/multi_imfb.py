@@ -41,8 +41,16 @@ chunk is packed to the stream's stable caps and trains as staged data does
 trainer's streaming path.  Its evaluation packs and scores a chunk at a
 time.
 
-Not ported yet, raising NotImplementedError naming its ROADMAP item:
-``mesh_*`` > 1 (item 12c).
+On a ``(data, model)`` mesh every round of stacked data goes through the
+stacked mesh step (svdfeature_tpu/solvers/multi_imfb.py:179-216, 243,
+308-330, 374-400, 448-480): the pack pads the slots of a step to a
+multiple of ``n_data * rows_per_user`` and the pool to the data axis
+(``pad_imfb_for_mesh``) and keeps this rank's slots, the pool and the
+gates replicated, no overlap; each round is parallel/imfb_mesh's rounds on
+small slabs or parallel/imfb_mesh_big's on big ones (``mesh_big``, K5
+writes), before K3's gate, the big and the shared-space routes; the
+predictions are scored sharded and gathered over ``data``.  All-DEFAULT
+data takes the SVD++ trainer's mesh path.
 """
 
 from __future__ import annotations
@@ -61,6 +69,8 @@ from ..data.batching_plus import compute_fb_overlap
 from ..data.csr import TAG_DEFAULT, PlusDataset
 from ..ops.cuda_imfb import gate_failure, train_rounds_imfb_kernel, train_rounds_imfb_reference
 from ..ops.imfb import predict_batches_imfb, train_epoch_imfb, train_epoch_imfb_big
+from ..parallel import imfb_mesh, imfb_mesh_big
+from ..parallel import mesh as pmesh
 from .base import SVDFeatureTrainer
 from .svdpp import CPU, PlusEntry, SVDPPFeatureTrainer
 
@@ -71,15 +81,15 @@ class ImfbEntry:
 
     stacked: Dict[str, torch.Tensor]  # [T, G*RM(, S)] planes, ctx_slots [T, G*RM, D]
     chunk_id: np.ndarray  # [T] on the host: the launch loop reads it
-    fb: Dict[str, torch.Tensor]  # fb_idx / fb_val / fb_ctx [C, F], ctx_depth [C, nseg-1]
-    # [C, nseg, nseg]; None on big tables and under a shared feedback space
+    # fb_idx / fb_val / fb_ctx [C, F], ctx_depth [C, nseg-1] (not on a mesh)
+    fb: Dict[str, torch.Tensor]
+    # [C, nseg, nseg]; None on big tables, under a shared feedback space and on a mesh
     fb_overlap: Optional[torch.Tensor]
     enabled: torch.Tensor  # [C, nseg] update gate
-    perm: np.ndarray  # dataset row -> packed slot
+    perm: np.ndarray  # dataset row -> packed slot (on a mesh, of the padded layout)
 
 
 class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
-    MESH_ITEM = "12c (imfb_mesh, imfb_mesh_big)"
 
     def __init__(self, mtype):
         super().__init__(mtype)
@@ -151,18 +161,31 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
     def _imfb_entry(self, packed, dev: torch.device) -> ImfbEntry:
         """A stacked packing's entry on ``dev``, with the per-chunk context
         overlaps of the closed-form carried aggregates (the big-table and
-        refresh epochs gather every step instead)."""
+        refresh epochs gather every step instead); on a mesh, the slots and
+        the pool padded to the data axis and this rank's columns, the pool
+        and the gates replicated (JAX multi_imfb.py:179-193, 301-330)."""
         arrays = packed.device_arrays()
         chunk_id = arrays.pop("chunk_id")
+        enabled = gate_from_numpy(self._imfb_enabled(packed.ctx_depth), dev)
+        if self.mesh is not None:
+            m = self.model
+            G = packed.label.shape[1]
+            fbd = {k: getattr(packed, k) for k in ("fb_idx", "fb_val", "fb_ctx")}
+            arrays, fbd, Gp, _ = imfb_mesh.pad_imfb_for_mesh(
+                arrays, fbd, G, self.mesh_data, m.num_rows, m.param.num_global,
+                packed.ctx_depth.shape[1] + 1, M=packed.rows_per_user)
+            fb, _ = pool_from_numpy(fbd, None, dev)
+            return ImfbEntry(
+                stacked=stacked_from_numpy(pmesh.put_process_sharded(arrays, self.mesh), dev),
+                chunk_id=chunk_id, fb=fb, fb_overlap=None, enabled=enabled,
+                perm=(packed.perm // G) * Gp + packed.perm % G)
         refresh = self.hp.big_table or self.model.param.common_feedback_space
         overlap = None if refresh else compute_fb_overlap(
             packed.fb_idx, packed.fb_val, packed.fb_ctx, packed.ctx_depth.shape[1]
         )
         fb, overlap_t = pool_from_numpy(packed.fb_arrays(), overlap, dev)
         return ImfbEntry(stacked=stacked_from_numpy(arrays, dev), chunk_id=chunk_id, fb=fb,
-                         fb_overlap=overlap_t,
-                         enabled=gate_from_numpy(self._imfb_enabled(packed.ctx_depth), dev),
-                         perm=packed.perm)
+                         fb_overlap=overlap_t, enabled=enabled, perm=packed.perm)
 
     def _pack_plus(self, ds: PlusDataset) -> Union[PlusEntry, ImfbEntry]:
         if self._plain_svdpp(ds):
@@ -185,7 +208,7 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         return self._imfb_entry(self._pack_imfb(chunk, initial_stack=carry,
                                                 **self._stream_caps(caps)), CPU)
 
-    stage_chunk_imfb = SVDFeatureTrainer.stage_chunk
+    stage_chunk_imfb = SVDPPFeatureTrainer.stage_chunk_plus
     train_chunk_imfb = SVDFeatureTrainer.train_chunk
 
     def _stream_round_plus(self, ds) -> None:
@@ -203,7 +226,14 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
     def _predict_entry(self, state, entry) -> np.ndarray:
         if isinstance(entry, PlusEntry):  # all-DEFAULT data: the SVD++ forward
             return super()._predict_entry(state, entry)
-        preds = predict_batches_imfb(state, entry.stacked, entry.chunk_id, entry.fb, self.hp)
+        if self.mesh is not None:
+            fn = (imfb_mesh_big.sharded_imfb_predict_big if self._mesh_big
+                  else imfb_mesh.sharded_imfb_predict)
+            preds = pmesh.gather_predictions(
+                fn(state, entry.stacked, entry.chunk_id, entry.fb, entry.enabled.shape[1],
+                   self.hp, self.mesh, self._mesh_rows), self.mesh)
+        else:
+            preds = predict_batches_imfb(state, entry.stacked, entry.chunk_id, entry.fb, self.hp)
         # perm maps dataset row -> packed slot (t*G*RM + g*RM + m)
         return preds.reshape(-1).cpu().numpy()[entry.perm]
 
@@ -211,6 +241,15 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         if not isinstance(entry, ImfbEntry):  # all-DEFAULT (SVD++) or random order (base)
             return super()._train(entry, lrs)
         ph = self._plus_hyper()
+        if self.mesh is not None:
+            # the stacked mesh step on every rank, before every other route
+            # (JAX multi_imfb.py:374-400); big slabs write through K5
+            fn = (imfb_mesh_big.sharded_imfb_rounds_big if self._mesh_big
+                  else imfb_mesh.sharded_imfb_rounds)
+            self.state = fn(self.state, entry.stacked, entry.chunk_id, entry.fb, entry.enabled,
+                            self._staged_lrs(lrs), self.consts, self.hp, ph, self.mesh,
+                            self._mesh_rows)
+            return
         if self.model.param.common_feedback_space or self.hp.big_table:
             # the refresh epochs: the shared space's (pool rows alias user
             # rows) at any table size, else the big table's
@@ -235,11 +274,11 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
             # planned for the chunks' own order
             caps = ds.plan_caps_imfb(self.users_per_batch, self.rows_per_user,
                                      sort_local=bool(self.sort_blocks))
-            state = self.state_or_model()
+            state = self._scoring_state()
             out = [self._predict_entry(state, self._imfb_entry(
                 self._pack_imfb(chunk, initial_stack=carry, **self._stream_caps(caps)),
                 state.w.device)) for chunk, carry in ds.chunks_imfb()]
             return np.concatenate(out) if out else np.zeros(0, np.float32)
         if not isinstance(ds, PlusDataset):  # random order, all-DEFAULT streams, pair sources
             return super().predict_all(ds)
-        return self._predict_entry(self.state_or_model(), self._pack_plus(ds))
+        return self._predict_entry(self._scoring_state(), self._pack_plus(ds))

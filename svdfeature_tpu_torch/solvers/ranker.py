@@ -11,6 +11,12 @@ mask, the rank positions and the top-k run as torch ops on the ranker's
 device (config key ``device``, default ``cuda``).  The JAX package
 computes that product outside any Pallas kernel, so it is a plain
 ``torch.matmul`` here.
+
+The ranker reads no mesh key: ``mesh_data`` / ``mesh_model`` are accepted
+and ignored, as by the JAX ranker (svdfeature_tpu/solvers/ranker.py:39-46),
+and it ranks with the whole model on its rank's device whatever they say.
+Inside a torchrun world (``distributed=1``) every rank ranks and rank 0
+alone writes the pred file (infer/task.task_pred_rank).
 """
 
 from __future__ import annotations
@@ -41,8 +47,6 @@ class SVDFeatureRanker:
         self.top_k = 0
         self.num_item_set = 0
         self.device_name = "cuda"
-        self.mesh_data = 1  # read only to refuse a mesh (ROADMAP item 12b)
-        self.mesh_model = 1
         self.name_feat_user: Optional[str] = None
         self.name_feat_item: Optional[str] = None
         self.feat_user: Optional[SparseFeatureArray] = None
@@ -58,19 +62,11 @@ class SVDFeatureRanker:
             self.top_k = int(val)
         if name == "device":
             self.device_name = val
-        if name == "mesh_data":
-            self.mesh_data = int(val)
-        if name == "mesh_model":
-            self.mesh_model = int(val)
 
     def load_model(self, f: BinaryIO) -> None:
         self.model = SVDModel.load(f, self.mtype, device=resolve_device(self.device_name))
 
     def init_ranker(self, num_item_set: int) -> None:
-        if self.mesh_data * self.mesh_model > 1:
-            raise NotImplementedError(
-                "mesh_data/mesh_model > 1: the ranker's mesh is ROADMAP Queue 1 item 12b "
-                "(with svdpp_mesh and the pair rounds)")
         self.num_item_set = num_item_set
         if self.name_feat_user and self.name_feat_user != "NULL":
             self.feat_user = SparseFeatureArray.load(self.name_feat_user)

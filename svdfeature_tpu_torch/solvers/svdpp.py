@@ -61,9 +61,19 @@ on a big table with the chunk's carry plan and dedup layout) and stages it
 the big epoch through K5, or the refresh epoch under a shared space).
 Its evaluation packs and scores one chunk at a time.
 
-Not ported yet, raising NotImplementedError naming its ROADMAP item:
-``mesh_*`` > 1, the SVD++ mesh with the ranker's mesh rounds (item 12b);
-the base mesh (parallel/mesh.py) does not take user-group data.
+On a ``(data, model)`` mesh (``mesh_data`` x ``mesh_model`` > 1, one rank a
+position, solvers/base.py) every round goes through the SVD++ mesh step
+(svdfeature_tpu/solvers/svdpp.py:354-410, 538-596, 653-737, 1242-1330):
+the pack pads the users of a step and the pool to the data axis
+(``pad_plus_for_mesh``) and keeps this rank's user slots, the pool
+replicated and no overlap; each round is parallel/svdpp_mesh's rounds on
+small slabs, or parallel/svdpp_mesh_big's on big ones (``mesh_big``, K5
+writes), a shared feedback space included (the mesh step gathers its
+aggregates every step); the predictions score this rank's columns on its
+slab and are gathered over ``data``.  K2, the pair skeleton and both
+multi-round pair samplers refuse a mesh, as in the JAX package, so a
+PairSource trains a freshly packed pair epoch a round through the mesh
+step; a streamed chunk is padded and sliced the same way before staging.
 """
 
 from __future__ import annotations
@@ -85,7 +95,10 @@ from ..ops.cuda_svdpp import (gate_failure, round_planes, train_rounds_svdpp_ker
 from ..ops.embed import HyperParams
 from ..ops.svdpp import PlusHyper, predict_batches_plus, train_epoch_plus_refresh
 from ..ops.svdpp_big import LAYOUT_PLANES, train_epoch_plus_big
+from ..parallel import mesh as pmesh
+from ..parallel import svdpp_mesh, svdpp_mesh_big
 from .base import SVDFeatureTrainer
+from .streamed import Staged
 
 CPU = torch.device("cpu")
 
@@ -100,7 +113,7 @@ class PlusEntry:
     fb: Dict[str, torch.Tensor]
     # [C, G+1, G+1], or {"diag", "dup"} factored on big tables
     fb_overlap: Union[torch.Tensor, Dict[str, torch.Tensor]]
-    perm: np.ndarray  # dataset row -> packed slot
+    perm: np.ndarray  # dataset row -> packed slot (on a mesh, of the padded layout)
 
 
 def _chunk_users_from_slots(uid_slots: np.ndarray, cid: np.ndarray, dummy: int):
@@ -135,8 +148,6 @@ def _chunk_users_from_slots(uid_slots: np.ndarray, cid: np.ndarray, dummy: int):
 
 
 class SVDPPFeatureTrainer(SVDFeatureTrainer):
-
-    MESH_ITEM = "12b (svdpp_mesh, svdpp_mesh_big, the ranker's mesh rounds)"
 
     def __init__(self, mtype):
         super().__init__(mtype)
@@ -250,16 +261,39 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             sort_blocks=bool(self.sort_blocks) if sort_blocks is None else sort_blocks,
             rows_per_user=self.rows_per_user,
             # the dense O is O(G^2) per chunk: big tables take the
-            # exact factored form (ops/svdpp_big._ov_mul)
-            factored_overlap=self.hp.big_table,
+            # exact factored form (ops/svdpp_big._ov_mul); the mesh reads
+            # no overlap, so it takes the cheaper one too
+            factored_overlap=self.hp.big_table or self.mesh is not None,
             **(caps or {}),
         )
+
+    def _mesh_entry(self, packed, dev: torch.device) -> PlusEntry:
+        """A packed dataset's entry on a mesh (svdfeature_tpu/solvers/
+        svdpp.py:377-406): the users of a step and the pool padded to the
+        data axis, this rank's columns of the planes, the pool replicated,
+        no overlap (the mesh step gathers its aggregates every step), and
+        the row permutation remapped to the padded layout."""
+        m = self.model
+        arrays = packed.device_arrays()
+        chunk_id = arrays.pop("chunk_id")
+        M = packed.rows_per_user
+        G = packed.num_blocks_local
+        arrays, fbd, Gp, _ = svdpp_mesh.pad_plus_for_mesh(
+            arrays, packed.fb_arrays(), G, self.mesh_data, m.num_rows, m.param.num_global, M=M)
+        perm = (packed.perm // (G * M)) * (Gp * M) + packed.perm % (G * M)
+        fb, _ = pool_from_numpy(fbd, None, dev)
+        return PlusEntry(stacked=stacked_from_numpy(pmesh.put_process_sharded(arrays, self.mesh),
+                                                    dev),
+                         chunk_id=chunk_id, fb=fb, fb_overlap=None, perm=perm)
 
     def _entry(self, packed, dev: torch.device, plan: bool = True) -> PlusEntry:
         """A packed dataset's entry on ``dev``; for training (``plan``),
         with the carry plan, padded to the pool's chunk rows (a streamed
         chunk's reserved all-padding chunk: JAX svdpp.py:687-700), and the
-        items' static dedup layout where the big route takes them."""
+        items' static dedup layout where the big route takes them; on a
+        mesh, ``_mesh_entry``."""
+        if self.mesh is not None:
+            return self._mesh_entry(packed, dev)
         arrays = packed.device_arrays()
         chunk_id = arrays.pop("chunk_id")
         fbd = packed.fb_arrays()
@@ -309,7 +343,11 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         packed = self._pack_numpy(chunk, self._stream_caps(caps), sort_blocks=bool(self.sort_blocks))
         return self._entry(packed, CPU)
 
-    stage_chunk_plus = SVDFeatureTrainer.stage_chunk
+    def stage_chunk_plus(self, entry: PlusEntry) -> Staged:
+        """A packed chunk on the training device (producer thread; on a
+        mesh ``_entry`` has kept this rank's columns already)."""
+        return self.chunk_stream.stage(entry, self.state.w.device)
+
     train_chunk_plus = SVDFeatureTrainer.train_chunk
 
     def _round_blocks_per_chunk(self, ds) -> None:
@@ -333,34 +371,59 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         self._round_blocks_per_chunk(ds)
         self._stream_round(stream_train_round_plus, ds)
 
+    def _scoring_state(self):
+        """The state predictions read: on a mesh this rank's slab (the
+        scores are computed sharded), else the whole table in the standard
+        layout."""
+        return self.state if self.mesh is not None else self.state_or_model()
+
     def _predict_entry(self, state, entry: PlusEntry) -> np.ndarray:
         """Scores of a staged entry in dataset-row order (perm maps a
-        dataset row to its packed slot t*G*M + g*M + m)."""
-        preds = predict_batches_plus(
-            state, entry.stacked, entry.chunk_id, entry.fb, self.hp, self.rows_per_user
-        )
+        dataset row to its packed slot t*G*M + g*M + m); on a mesh each
+        rank scores its columns on its slab and the scores are gathered
+        over ``data``, so every rank returns all of them."""
+        if self.mesh is not None:
+            fn = (svdpp_mesh_big.sharded_svdpp_predict_big if self._mesh_big
+                  else svdpp_mesh.sharded_svdpp_predict)
+            preds = pmesh.gather_predictions(
+                fn(state, entry.stacked, entry.chunk_id, entry.fb, self.hp, self.mesh,
+                   self._mesh_rows, self.rows_per_user), self.mesh)
+        else:
+            preds = predict_batches_plus(state, entry.stacked, entry.chunk_id, entry.fb, self.hp,
+                                         self.rows_per_user)
         return preds.reshape(-1).cpu().numpy()[entry.perm]
 
     def _predict_stream(self, ds) -> np.ndarray:
         """Bounded-memory scores of a streaming source, one chunk at a time
         in file order."""
         caps = self._stream_caps(ds.plan_caps(self.users_per_batch, self.rows_per_user))
-        state = self.state_or_model()
+        state = self._scoring_state()
         out = [self._predict_entry(state, self._entry(
             self._pack_numpy(chunk, caps, sort_blocks=False), state.w.device, plan=False))
             for chunk in ds.chunks()]
         return np.concatenate(out) if out else np.zeros(0, np.float32)
 
     def _kernel_ok(self, stacked: Dict[str, torch.Tensor], fb: Dict[str, torch.Tensor]) -> bool:
-        """Whether a round goes through K2: use_pallas is set and K2's gate
-        takes the configuration (the JAX solver's ``_pallas_plus_ok``)."""
-        return bool(self.use_pallas
+        """Whether a round goes through K2: use_pallas is set, no mesh, and
+        K2's gate takes the configuration (the JAX solver's
+        ``_pallas_plus_ok``, svdpp.py:441-455)."""
+        return bool(self.use_pallas and self.mesh is None
                     and gate_failure(self.hp, self.state, stacked, fb, self._plus_hyper()) is None)
 
     def _train(self, entry: Union[PlusEntry, Dict[str, torch.Tensor]], lrs: List[float]) -> None:
         if not isinstance(entry, PlusEntry):  # a random-order pack: the base solver
             return super()._train(entry, lrs)
         ph = self._plus_hyper()
+        if self.mesh is not None:
+            # every rank runs the same per-shard steps on its slab and user
+            # slots, before the shared-space route (JAX svdpp.py:562-597);
+            # the big slabs write through K5 (hp.row_dma)
+            fn = (svdpp_mesh_big.sharded_svdpp_rounds_big if self._mesh_big
+                  else svdpp_mesh.sharded_svdpp_rounds)
+            self.state = fn(self.state, entry.stacked, entry.chunk_id, entry.fb,
+                            self._staged_lrs(lrs), self.consts, self.hp, ph, self.mesh,
+                            self._mesh_rows)
+            return
         if self.model.param.common_feedback_space:
             # pool rows alias user rows: the per-batch refresh epoch
             for lr in self._staged_lrs(lrs):
@@ -396,8 +459,13 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
     # sampled (pos_row, neg_row) ids; its u/i planes are gathered on the
     # device from per-row tables (svdfeature_tpu/solvers/svdpp.py:742-895).
     def _pair_skeleton_ok(self, ds) -> bool:
+        """Whether a PairSource takes the skeleton: not on a mesh (JAX
+        svdpp.py:754-768), nor under a shared feedback space, feature
+        hierarchies, rank-difference labels or pointwise rows, and only
+        where every source row is one (user, item) pair."""
         if (
-            self.model.param.common_feedback_space
+            self.mesh is not None
+            or self.model.param.common_feedback_space
             or self.feat_user is not None
             or self.feat_item is not None
             or getattr(ds, "cfg", None) is None
@@ -796,4 +864,4 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             entry = self._pack_plus(ds)
         else:  # random order: the base solver's forward
             return super().predict_all(ds)
-        return self._predict_entry(self.state_or_model(), entry)
+        return self._predict_entry(self._scoring_state(), entry)

@@ -686,11 +686,13 @@ def _cli_slice(tmp_path, extra=""):
     pytest.param("num_ufeedback", "8100", None, id="num_ufeedback-8100-item 9"),
     # a streamed buffer (out-of-core): the stacked stream, which trains now
     pytest.param("streaming", "1", None, id="streaming-1-item 11"),
-    ("mesh_data", "2", "item 12"),
+    # a mesh, which trains in a torchrun world: alone, the trainer asks for one
+    pytest.param("mesh_data", "2", "torchrun", id="mesh_data-2-item 12"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
-    """Stacked configurations the port does not run yet raise
-    NotImplementedError naming their ROADMAP item; a table over 8192 rows,
+    """A stacked mesh (ROADMAP item 12c) trains in a torchrun world
+    (tests/test_torch_mesh_plus.py); without one the trainer raises
+    ValueError naming torchrun before its first tensor.  A table over 8192 rows,
     a shared feedback space and a streamed buffer (``item`` None) train, on
     the big-table stacked epoch, on the stacked refresh epoch (which
     matches the JAX CLI's checkpoints, eval RMSE and pred output) and a
@@ -703,7 +705,7 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
         f'model_out_folder = "{tmp_path}/models"\n')
     args = ["num_round=1", "device=cpu", f"{key}={val}"]
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             SVDTrainTask().run(str(tmp_path / "t.conf"), args)
         return
     task = SVDTrainTask()

@@ -539,36 +539,27 @@ def test_debug_checks_raise_on_every_rank(world):
         assert str(world["ranks"][r]["nan/raised"]) == "non-finite values in model.w after round 7"
 
 
-@pytest.mark.parametrize("solver", ["svdpp", "multi_imfb", "bilinear", "ranker", "gbrt"])
+@pytest.mark.parametrize("solver", ["bilinear", "gbrt"])
 def test_other_solvers_refuse_a_mesh(solver):
-    """The SVD++, multi-IMFB, bilinear, ranker and GBRT solvers refuse a
-    mesh, naming their ROADMAP items, and never run the base mesh step."""
+    """The bilinear and GBRT solvers refuse a mesh, naming their ROADMAP
+    items, and never run the base mesh step (the SVD++ and multi-IMFB
+    meshes and the ranker: tests/test_torch_mesh_plus.py and
+    tests/test_torch_rank.py)."""
     from svdfeature_tpu_torch.params import SVDTypeParam
     from svdfeature_tpu_torch.solvers.bilinear import SVDBiLinearTrainer
     from svdfeature_tpu_torch.solvers.gbrt import create_gbrt_trainer
-    from svdfeature_tpu_torch.solvers.multi_imfb import SVDPPMultiIMFBTrainer
-    from svdfeature_tpu_torch.solvers.ranker import SVDFeatureRanker
-    from svdfeature_tpu_torch.solvers.svdpp import SVDPPFeatureTrainer
 
-    item = {"svdpp": "12b", "multi_imfb": "12c", "bilinear": "12d", "ranker": "12b",
-            "gbrt": "item 12"}[solver]
+    item = {"bilinear": "12d", "gbrt": "item 12"}[solver]
     keys = {**CLI_PARAMS, "num_ufeedback": 5, "mesh_data": 2, "mesh_model": 2, "device": "cpu"}
     if solver == "gbrt":
         tr = create_gbrt_trainer(SVDTypeParam(extend_type=31))
-    elif solver == "ranker":
-        tr = SVDFeatureRanker(SVDTypeParam())
     else:
-        cls = {"svdpp": SVDPPFeatureTrainer, "multi_imfb": SVDPPMultiIMFBTrainer,
-               "bilinear": SVDBiLinearTrainer}[solver]
-        tr = cls(SVDTypeParam(format_type=1))
+        tr = SVDBiLinearTrainer(SVDTypeParam(format_type=1))
     for k, v in keys.items():
         tr.set_param(k, str(v))
     with pytest.raises(NotImplementedError, match=item):
-        if solver == "ranker":
-            tr.init_ranker(0)
-        else:
-            tr.init_model()
-            tr.init_trainer()
+        tr.init_model()
+        tr.init_trainer()
 
 
 if __name__ == "__main__":

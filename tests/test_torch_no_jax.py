@@ -35,7 +35,9 @@ SCRIPT = textwrap.dedent(
                 "ops.gbrt_forward", "data.combinators", "cli.line_shuffle",
                 "cli.line_reorder", "cli.svdpp_randorder", "cli.combine_ugroup",
                 "utils.csr_builder", "data.streaming", "data.pages", "solvers.streamed",
-                "parallel.comm", "parallel.mesh", "parallel.mesh_big", "solvers.example"):
+                "parallel.comm", "parallel.mesh", "parallel.mesh_big", "solvers.example",
+                "parallel.svdpp_mesh", "parallel.svdpp_mesh_big", "parallel.imfb_mesh",
+                "parallel.imfb_mesh_big"):
         assert "svdfeature_tpu_torch." + new in names
 
     from svdfeature_tpu_torch import convert

@@ -628,3 +628,108 @@ def test_cli_slice_matches_jax(tmp_path):
     lines = preds["torch"].split()
     assert len(lines) == sum(1 + u % 4 for u in range(16))
     assert preds["torch"] == preds["jax"]
+
+
+# ---- the ranker under mesh keys and in a torchrun world ---------------------------------
+RANK_WORLD = 4
+MESH_KEYS = ["mesh_data=2", "mesh_model=2"]
+
+
+def _rank_infer_args(d, name, *extra):
+    return [str(d / "t.conf"), "pred=1", f"name_pred={d / name}", "device=cpu", *extra]
+
+
+@pytest.fixture(scope="module")
+def rank_checkpoint(tmp_path_factory):
+    """A user-group model with random factors and biases saved as the
+    conf's round-1 checkpoint, and the ranker protocol of 16 users (with
+    feedback) as its test buffer."""
+    import io
+
+    from svdfeature_tpu_torch.cli import make_ugroup_buffer
+    from svdfeature_tpu_torch.params import SVDTypeParam
+    from svdfeature_tpu_torch.solvers.svdpp import SVDPPFeatureTrainer
+
+    d = tmp_path_factory.mktemp("rank_mesh")
+    rows, fbs = ranker_protocol(n_users=16)
+    (d / "test.feature").write_text(rows)
+    (d / "test.feedback").write_text(fbs)
+    make_ugroup_buffer.main([str(d / "test.feature"), str(d / "test.buffer"), "-fd",
+                             str(d / "test.feedback"), "-scale_score", "1", "-max_block", "400"])
+    (d / "t.conf").write_text(CLI_CONF + f'test:buffer_feature = "{d}/test.buffer"\n'
+                              f'model_out_folder = "{d}/models"\n')
+    tr = SVDPPFeatureTrainer(SVDTypeParam(format_type=1, active_type=3))
+    for line in CLI_CONF.strip().splitlines():
+        tr.set_param(*(s.strip() for s in line.split("=")))
+    tr.set_param("device", "cpu")
+    tr.init_model()
+    rng = np.random.RandomState(11)
+    tr.model.w = torch.from_numpy(rng.normal(0, 0.3, tuple(tr.model.w.shape)).astype(np.float32))
+    tr.model.b = torch.from_numpy(rng.normal(0, 0.3, tuple(tr.model.b.shape)).astype(np.float32))
+    buf = io.BytesIO()
+    buf.write(tr.mtype.to_bytes())
+    tr.model.save(buf)
+    (d / "models").mkdir()
+    (d / "models" / "0001.model").write_bytes(buf.getvalue())
+    return d
+
+
+def test_ranker_takes_mesh_keys_as_jax_does(rank_checkpoint):
+    """svd_feature_infer use_ranker=1 with mesh_data=2 mesh_model=2 and no
+    world: the JAX ranker reads no mesh key (svdfeature_tpu/solvers/
+    ranker.py:39-46) and ranks with the whole model, so the port's pred
+    file is byte for byte the one without the mesh keys and the JAX
+    package's task_pred_rank on the same checkpoint."""
+    pytest.importorskip("jax")
+    from svdfeature_tpu.infer.task import SVDInferTask as JInfer
+    from svdfeature_tpu_torch.infer.task import SVDInferTask as TInfer
+
+    d = rank_checkpoint
+    for name, keys in (("pred_plain.txt", []), ("pred_mesh.txt", MESH_KEYS)):
+        args = _rank_infer_args(d, name, *keys)
+        TInfer().run(args[0], args[1:])
+    args = _rank_infer_args(d, "pred_jax.txt")
+    JInfer().run(args[0], [a for a in args[1:] if a != "device=cpu"])
+    plain = (d / "pred_plain.txt").read_bytes()
+    assert len(plain.split()) == sum(1 + u % 4 for u in range(16))
+    assert (d / "pred_mesh.txt").read_bytes() == plain
+    assert (d / "pred_jax.txt").read_bytes() == plain
+
+
+def test_ranker_in_a_world_writes_on_rank_zero(rank_checkpoint):
+    """The same infer under torchrun (distributed=1, the mesh keys, 4 gloo
+    ranks on the CPU; this file is the rank program): every rank ranks with
+    the whole model and rank 0 alone writes its pred file, the bytes of the
+    run without a world."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    d = rank_checkpoint
+    if not (d / "pred_plain.txt").exists():
+        from svdfeature_tpu_torch.infer.task import SVDInferTask as TInfer
+
+        args = _rank_infer_args(d, "pred_plain.txt")
+        TInfer().run(args[0], args[1:])
+    root = pathlib.Path(__file__).resolve().parent.parent
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={RANK_WORLD}", str(pathlib.Path(__file__).resolve()), str(d)]
+    proc = subprocess.run(cmd, env={**os.environ, "PYTHONPATH": str(root)}, cwd=root,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    assert sorted(p.name for p in d.glob("pred_world_r*.txt")) == ["pred_world_r0.txt"]
+    assert (d / "pred_world_r0.txt").read_bytes() == (d / "pred_plain.txt").read_bytes()
+
+
+if __name__ == "__main__":  # a rank of test_ranker_in_a_world_writes_on_rank_zero's world
+    import os
+    import pathlib
+    import sys
+
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+
+    world_dir = pathlib.Path(sys.argv[1])
+    args = _rank_infer_args(world_dir, f"pred_world_r{os.environ['RANK']}.txt", "distributed=1",
+                            *MESH_KEYS)
+    SVDInferTask().run(args[0], args[1:])

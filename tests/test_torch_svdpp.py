@@ -587,13 +587,15 @@ def test_update_rounds_equals_update_all():
     pytest.param("num_ufeedback", "8100", None, id="num_ufeedback-8100-item 9"),
     # a streamed buffer (out-of-core), which trains now
     pytest.param("streaming", "1", None, id="streaming-1-item 11"),
-    ("mesh_data", "2", "item 12"),
+    # a mesh, which trains in a torchrun world: alone, the trainer asks for one
+    pytest.param("mesh_data", "2", "torchrun", id="mesh_data-2-item 12"),
     # the attach combinator (input_type 101: the buffer, the text attached), which trains now
     pytest.param("input_type", "101", None, id="input_type-101-item 13"),
 ])
 def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
-    """User-group configurations the port does not run yet raise
-    NotImplementedError naming their ROADMAP item; a table over 8192 rows,
+    """A user-group mesh (ROADMAP items 12b, 12c) trains in a torchrun
+    world (tests/test_torch_mesh_plus.py); without one the trainer raises
+    ValueError naming torchrun before its first tensor.  A table over 8192 rows,
     a pairwise-rank source, a shared feedback space, an attached text
     source and a streamed buffer (``item`` None) train, on the big-table
     epoch, on the pair skeleton, on the refresh epoch, on the primary
@@ -615,7 +617,7 @@ def test_outside_the_slice_raises_with_roadmap_item(key, val, item, tmp_path):
         args += [f"attach:data_in={tmp_path}/train.feature",
                  f"attach:feedback_in={tmp_path}/train.feedback"]
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             SVDTrainTask().run(str(tmp_path / "t.conf"), args)
         return
     task = SVDTrainTask()
