@@ -27,10 +27,11 @@ result line):
   4. the SVD++ kernel (csrc/fused_svdpp.cu) against its plain version on
      numpy-seeded inputs packed by the port's pack_plus from the ML-100K
      user-group fixtures, R=2: the RMSE-band setting (128 users x 8 rows,
-     T=159, 8 chunks) and one row per user (T=4088), active_type 0/2,
-     no_user_bias 0/1, a synthetic pairwise (item width 2) case and a case
-     with more users per step (256) than the kernel's resident grid has
-     blocks, each one cooperative launch, with both times (three R=2 runs
+     T=159, 8 chunks) and one row per user (its first two user chunks,
+     T=1016), active_type 0/2, no_user_bias 0/1, a synthetic pairwise
+     (item width 2) case and a case with more users per step (256, its
+     first two chunks) than the kernel's resident grid has blocks, each
+     one cooperative launch, with both times (three R=2 runs
      each, the kernel's on the same device tensors call after call, as the
      trainer calls it) and a profile;
   5. the implicitFeedback slice: make_ugroup_buffer -fd, SVDTrainTask (40
@@ -39,7 +40,8 @@ result line):
      must have gone through the kernel (launch count 40: one cooperative
      launch a round); over ten more rounds, a synchronise after each, the
      kernel must be running for at least 0.7 of the time, and one more round
-     is profiled; once more with use_pallas=0;
+     is profiled; once more with use_pallas=0 for 10 rounds, held to
+     within 1e-4 of the kernel run's checkpoint of round 10;
   6. the big-table kernels against their plain versions at bigTable
      shapes (2,048,577 rows, k=64): K5 and K6 on 2^21 rows (~20% on the
      dummy row) bit for bit, with the library call's time, and K5 once more
@@ -69,13 +71,14 @@ result line):
   9. the stacked slice: the depth-2 transform of the implicitFeedback train
      set (write_plus_buffer) and the stock test buffer (make_ugroup_buffer
      -fd), SVDTrainTask (extend_type=2 rows_per_user=8, 8 rounds,
-     device=cuda) and SVDInferTask, once through K3 and once with
-     use_pallas=0; the round-8 test RMSE must lie within 1e-4 of the JAX
-     package's CPU figure (scripts/imfb_jax_reference.py) and within 0.008
-     of the reference binary's (golden/multi_imfb_stacked.rmse.tsv), the
-     two runs within 1e-5 of each other, with exact launch counts (8: one a
-     round); over ten more rounds, a synchronise after each, the kernel
-     must be running for at least 0.7 of the time by its own clock;
+     device=cuda) and SVDInferTask through K3, the round-8 test RMSE
+     within 1e-4 of the JAX package's CPU figure
+     (scripts/imfb_jax_reference.py) and within 0.008 of the reference
+     binary's (golden/multi_imfb_stacked.rmse.tsv), with exact launch
+     counts (8: one a round); once more with use_pallas=0 for 2 rounds,
+     within 1e-5 of the kernel run's checkpoint of round 2; over ten more
+     rounds, a synchronise after each, the kernel must be running for at
+     least 0.7 of the time by its own clock;
  10. the general route: basicMF at reg_method=1, binaryClassification at
      active_type=5 and implicitFeedback at reg_method=4, 5 rounds each
      through SVDTrainTask / SVDInferTask on the card; no kernel takes them,
@@ -109,13 +112,14 @@ result line):
  13. pairwiseRank (demo/pairwiseRank: make_ugroup_buffer on the ML-100K
      rank fixtures, k=64, active_type=3, 40 rounds) through SVDTrainTask
      and SVDInferTask pred=40 with the ranker: (kernel) one K2 launch a
-     round (40), (plain) use_pallas=0, (multi) the trainer's
-     update_rounds(src, 40) on the multi-round host sampler (5 launches),
-     (device) rank_device_sample=1 (1 launch); P@20 as
+     round (40), (plain) use_pallas=0 for 10 rounds, (multi) the
+     trainer's update_rounds(src, 40) on the multi-round host sampler (5
+     launches), (device) rank_device_sample=1 (1 launch); P@20 as
      demo/pairwiseRank/eval.py computes it within 0.003 of the golden
      0.1651, the kernel run within 0.001 of the JAX package's CPU figure
-     (scripts/rank_jax_reference.py), the count of differing rank positions
-     of the kernel and plain runs, pairs/s beside the reference binary's;
+     (scripts/rank_jax_reference.py), the plain run within 0.001 of the
+     kernel run at round 10, with the count of their differing rank
+     positions, pairs/s beside the reference binary's;
  14. bigRank (bench.py's KDD-Cup-geometry rank data, numpy only:
      1,000,000 users, 624,000 items, 624,000 feedback ids, k=64, 25,000
      users x 80 rows, 1.5M pairs a round) on the trainer: (a) the
@@ -138,10 +142,10 @@ result line):
      (scripts/refresh_jax_reference.py), examples/s beside phase 5's;
  16. the bilinear solver (extend_type=15) through the tasks, use_pallas
      set, K2 and K3 never launched: (a) num_bi_feedback=0 on the
-     implicitFeedback band setting, 8 rounds, every round equal to the
+     implicitFeedback band setting, 3 rounds, every round equal to the
      port's plain SVD++ run on the same file-order pack to 1e-6 and within
      0.01 of golden/bilinear.rmse.tsv; (b) num_bi_feedback=1682 (the
-     item-item W_bi of the integrated neighbourhood model), 8 rounds; (c)
+     item-item W_bi of the integrated neighbourhood model), 2 rounds; (c)
      phase 15's follow data on the refresh route, 3 rounds; (d) bigSvdpp's
      geometry cut to its first 20,000 users with two property ids each
      (num_bi_feedback=64, W_bi 624,000 x 64; start_ufeedback=64 keeps the
@@ -152,11 +156,12 @@ result line):
      fitted on the host, the model walked on the card in the evals by
      ops/gbrt_forward.py, plain PyTorch; no kernel launches): (a) RegGBRT
      (extend_type=31) on the implicitFeedback buffers at the reference
-     binary's recorded tree parameters, 6 rounds, every round's test RMSE
+     binary's recorded tree parameters, the first 2 of the golden's 6
+     rounds, each round's test RMSE
      within 5e-6 of golden/gbrt_reg.rmse.tsv, every eval of a model of more
      than one tree on the card's walk (counted in
      gbrt_forward.forward_trees.walks), the last model's card walk within
-     1e-5 of its host walk; (b) the 6-tree model walked over the training
+     1e-5 of its host walk; (b) the 2-tree model walked over the training
      set (90,570 rows, 18.4M entries) on the card and on the host, within
      1e-5, both timed (CUDA events, median of 5); (c) APLambda
      (extend_type=30, active_type=3, lambda_ap_alpha=0.5,
@@ -184,7 +189,7 @@ result line):
      hooks), peak device memory; (f) in (a) the device memory held beyond a
      round's start at a chunk's entry within (prefetch + 1) staged chunks;
  19. the base solver on a 2x2 mesh, in one torchrun call of 4 ranks with
-     phase 20's runs (``python -m torch.distributed.run --nproc_per_node=4
+     phase 20's and 21's runs (``python -m torch.distributed.run --nproc_per_node=4
      chip_smoke.py --mesh-rank ...``, with a timeout; each rank runs the
      train CLI, then the infer CLI, of every run with mesh_data=2
      mesh_model=2: (c) first, joining the world through the mesh keys
@@ -200,15 +205,27 @@ result line):
      [1,024,290 x 68]) bit for bit against its plain version, timed in turns
      with it and with index_copy_;
  20. the SVD++ and multi-IMFB trainers on the same 2x2 mesh, in that call:
-     (a) implicitFeedback at the band setting 5 rounds, (c) pairwiseRank 3
+     (a) implicitFeedback at the band setting 2 rounds, (c) pairwiseRank 2
      rounds (a fresh packed pair epoch a round) then the ranker with the
-     same mesh keys, (d) the depth-2 stacked set 2 rounds, no kernel; (b)
+     same mesh keys, (d) the depth-2 stacked set 1 round, no kernel; (b)
      bigSvdpp 2 rounds, (e) big multi-IMFB 1 round and (f) bigSvdpp
      streamed 1 round on mesh_big slabs, K5 twice a mesh step on every rank
      (exact counts); every figure within 1e-4 of the JAX package's 2x2 CPU
      mesh (scripts/mesh_plus_jax_reference.py; (c) P@20 within 0.001 and
      its checkpoint's w within 1e-4), (b) within 1e-4 of phase 11 (a) at
-     round 2; then K5 at the mesh pool writeback's shape bit for bit.
+     round 2; then K5 at the mesh pool writeback's shape bit for bit;
+ 21. the bilinear trainer on the same 2x2 mesh, in that call: (a) the
+     item-item W_bi of phase 16 (b) (1682 x 1682, sharded over model) on
+     small slabs, 2 rounds, no kernel, its test RMSE within 1e-4 of the JAX
+     package's 2x2 CPU mesh (scripts/mesh_bi_jax_reference.py) and of
+     phase 16 (b) at round 2, its round-2 checkpoint's w and pinned W_bi
+     rows within 1e-4 of the JAX mesh's (scripts/mesh_bi_jax_a.npz), its
+     w and whole W_bi within 1e-4 of phase 16 (b)'s round-2 checkpoint;
+     (b) big bilinear on phase 16 (d)'s data on mesh_big slabs (W_bi
+     624,000 x 64 in scratch-interleaved slabs), 2 rounds, the probe within
+     1e-4 of the JAX 2x2 CPU mesh and of phase 16 (d), K5 three times a
+     mesh step on every rank (exact counts); then K5 bit for bit at the W_bi
+     slab write of model position 0, timed in turns with index_copy_.
 Each phase prints its time, and the script its total.  Then one JSON
 line describing the kernels, all six, K5 once more at big bilinear's
 W_bi write and once more for each mesh's writes (with each one's
@@ -235,6 +252,8 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 ROUNDS = 40
+SLICE_PLAIN_ROUNDS = 10  # phase 5's plain rounds, held to the kernel run at that round
+SLICE_PLAIN_TOL = 1e-4  # SVD++ kernel against plain, as phase 10's SVD++ figure
 BATCH = 4096
 ATOL, RTOL = 1e-5, 1e-4  # kernel vs plain: atomics sum in a varying order
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -380,6 +399,8 @@ def write_big_plus(d, csr, write_plus_buffer, a, dims):
 RANK_ROUNDS = 40
 RANK_USERS, RANK_K = 943, 20  # eval.py: hits of rank < 20 over 943 users x 20
 RANK_P20_TOL = 0.003  # against golden/GOLDEN.json pairwiseRank precision_at_20
+# phase 13's plain run: its rounds, held to the kernel run's P@20 at that round
+RANK_PLAIN_ROUNDS = 10
 # P@20 of the JAX package on the CPU, same data and conf, the per-round path
 # (scripts/rank_jax_reference.py)
 JAX_RANK_P20 = 0.165058
@@ -487,6 +508,7 @@ def write_rank(d, make_ugroup_main):
 # phases 8 and 9: the stacked multi-IMFB slice (bench.py:626-659): the
 # implicitFeedback conf with extend_type=2, file order, rows_per_user=8
 IMFB_ROUNDS = 8
+IMFB_PLAIN_ROUNDS = 2  # phase 9's plain rounds, held to the kernel run at that round
 # test RMSE after IMFB_ROUNDS rounds, the JAX package on the CPU, same data
 # and conf (scripts/imfb_jax_reference.py --rows-per-user 8)
 JAX_IMFB_RMSE = 0.952257
@@ -583,9 +605,9 @@ BIG_BI_NBF = 64
 BIG_BI_PROPS = 2
 BI_RUNS = {  # tag: its data directory, conf keys beside its conf's, rounds
     "a": dict(data="implicitFeedback", keys=[*BAND_KEYS, "extend_type=15", "num_bi_feedback=0"],
-              rounds=8),
+              rounds=3),  # of the golden's 8, each against the plain SVD++ rounds too
     "b": dict(data="implicitFeedback", keys=[*BAND_KEYS, "extend_type=15",
-                                             "num_bi_feedback=1682", "start_ufeedback=0"], rounds=8),
+                                             "num_bi_feedback=1682", "start_ufeedback=0"], rounds=2),
     "c": dict(data="follow", keys=[*BAND_KEYS, *FOLLOW_KEYS, "extend_type=15",
                                    f"num_bi_feedback={FOLLOW_USERS}", "start_ufeedback=0"], rounds=3),
     # the property ids leave the factor sum (start_ufeedback): with them in
@@ -880,17 +902,22 @@ def device_profile(torch, run, steps, top=4):
     """Where one R-round run, ``run()``, spends its time on the card
     (torch.profiler): device busy time per step, its share of the run's
     elapsed time, and the device time of each of the run's ``top`` busiest
-    kernels.  A plain PyTorch op opens the session, before the clock starts
-    (a session that opens with a ctypes launch records no device events);
-    a session that records none all the same is run once more."""
+    kernels, and the host seconds the session took.  The session records
+    the card's activity only: recording every host op as well, and
+    building the profiler's event tree from them, took far longer than the
+    runs themselves on runs of many small ops.  A plain PyTorch op opens
+    the session, before the clock starts (a session that opens with a
+    ctypes launch records no device events); a session that records none
+    all the same is run once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     for _ in range(2):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.zeros(1, device="cuda")
             torch.cuda.synchronize()
             start.record()
@@ -898,21 +925,22 @@ def device_profile(torch, run, steps, top=4):
             end.record()
             torch.cuda.synchronize()
         elapsed_us = start.elapsed_time(end) * 1e3
-        per_kernel = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                n, us = per_kernel.get(e.name, (0, 0.0))
-                per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        per_kernel = {}  # from the raw records: prof.events() would build the event tree
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                n, us = per_kernel.get(e.name(), (0, 0.0))
+                per_kernel[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
         if per_kernel:
             break
     busy = sum(us for _, us in per_kernel.values())
+    session = f"the session {time.perf_counter() - t0:.1f} s on the host"
     if not per_kernel:
-        return "device time not measured (the profiler recorded no device events)"
+        return f"device time not measured (the profiler recorded no device events; {session})"
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
     tops = "; ".join(f"{_short(name)} {n} x {us / n:.2f} us" for name, (n, us) in top)
     return (f"device busy {busy / steps:.2f} us/step of {elapsed_us / steps:.2f} us/step "
-            f"elapsed under the profiler (busy share {busy / elapsed_us:.3f}); {tops}; on "
-            f"{card_line()}")
+            f"elapsed under the profiler (busy share {busy / elapsed_us:.3f}); {tops}; "
+            f"{session}; on {card_line()}")
 
 
 # ---- phases 3, 5 and 9: the slices ---------------------------------------------
@@ -980,10 +1008,11 @@ def kernel_wrappers():
             "K6": row_reader}
 
 
-def run_demo(name, d, tag, extra):
+def run_demo(name, d, tag, extra, rounds=ROUNDS):
     """Train and evaluate one demo through SVDTrainTask / SVDInferTask,
-    with every kernel's launch count set to 0 just before training and
-    read just after.  ``d`` holds its train.buffer and test.buffer."""
+    ``rounds`` rounds, with every kernel's launch count set to 0 just
+    before training and read just after.  ``d`` holds its train.buffer
+    and test.buffer; the checkpoints stay in ``d``/models_``tag``."""
     from svdfeature_tpu_torch.infer.task import SVDInferTask
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
@@ -995,13 +1024,10 @@ def run_demo(name, d, tag, extra):
     for fn in wrappers.values():
         fn.launches = 0
     task = SVDTrainTask()
-    task.run(conf, common + [f"num_round={ROUNDS}", *extra])
+    task.run(conf, common + [f"num_round={rounds}", *extra])
     launches = {kid: fn.launches for kid, fn in wrappers.items()}
     rows = task.dataset_rows()
-    log = d / f"rmse_{tag}.tsv"
-    SVDInferTask().run(conf, common + [f"start={ROUNDS}", f"end={ROUNDS + 1}",
-                                       f"log_eval={log}"])
-    rmse = float(log.read_text().split()[-1])
+    rmse = demo_rmse_at(name, d, tag, rounds)
     secs = task.round_seconds
     eps_steady = rows * (len(secs) - 1) / sum(secs[1:])
     eps_all = rows * len(secs) / sum(secs)
@@ -1010,6 +1036,19 @@ def run_demo(name, d, tag, extra):
     return dict(rmse=rmse, band_ok=band_ok, launches=launches, rows=rows, task=task,
                 eps_steady=eps_steady, eps_all=eps_all, golden=golden["final_rmse"],
                 band=golden["rmse_band"], d_seed10=rmse - seed10)
+
+
+def demo_rmse_at(name, d, tag, rnd):
+    """The test RMSE of run ``tag``'s kept checkpoint of round ``rnd``
+    (run_demo), through SVDInferTask."""
+    from svdfeature_tpu_torch.infer.task import SVDInferTask
+
+    log = d / f"rmse_{tag}_{rnd}.tsv"
+    SVDInferTask().run(str(ROOT / "demo" / name / f"{name}.conf"), [
+        f"buffer_feature={d}/train.buffer", f"test:buffer_feature={d}/test.buffer",
+        f"model_out_folder={d}/models_{tag}",
+        "device=cuda", "silent=1", f"start={rnd}", f"end={rnd + 1}", f"log_eval={log}"])
+    return float(log.read_text().split()[-1])
 
 
 def report_demo(phase, name, path, r, kid, want, how, card, failures):
@@ -1072,17 +1111,30 @@ def phase_svdpp_slice(work, card, failures):
     import torch
 
     launches = 0
-    for path, extra in (("kernel", []), ("plain", ["use_pallas=0"])):
-        r = run_demo(name, d, path, ["sort_blocks=1", "rows_per_user=8", *extra])
+    for path, extra, rounds in (("kernel", [], ROUNDS),
+                                ("plain", ["use_pallas=0"], SLICE_PLAIN_ROUNDS)):
+        r = run_demo(name, d, path, ["sort_blocks=1", "rows_per_user=8", *extra], rounds)
         task = r["task"]
         cid = task.trainer._pack_plus(task.dataset).chunk_id
         want = ROUNDS * launches_per_call(cid, 1) if path == "kernel" else 0
+        starts = int(np.count_nonzero(np.concatenate([[True], cid[1:] != cid[:-1]])))
         if path == "kernel":
             launches, eps = r["launches"]["K2"], r["eps_steady"]
-        starts = int(np.count_nonzero(np.concatenate([[True], cid[1:] != cid[:-1]])))
-        report_demo(5, name, path, r, "K2", want,
-                    f"{ROUNDS} rounds, one cooperative launch each; T={len(cid)}, "
-                    f"chunk starts={starts}", card, failures)
+            report_demo(5, name, path, r, "K2", want,
+                        f"{ROUNDS} rounds, one cooperative launch each; T={len(cid)}, "
+                        f"chunk starts={starts}", card, failures)
+        else:
+            # the plain rounds held to the kernel run's checkpoint of the same round
+            ref = demo_rmse_at(name, d, "kernel", rounds)
+            ok = (r["launches"] == {kid: 0 for kid in r["launches"]} and math.isfinite(r["rmse"])
+                  and abs(r["rmse"] - ref) < SLICE_PLAIN_TOL)
+            if not ok:
+                failures.append(f"slice {name} ({path})")
+            print(f"phase 5 {'ok' if ok else 'FAIL'}: {name} path=plain test RMSE "
+                  f"{r['rmse']:.6f} after {rounds} rounds (minus the kernel run's at that round "
+                  f"{r['rmse'] - ref:+.6f}, tol {SLICE_PLAIN_TOL:g}) launches {r['launches']} "
+                  f"(want all 0; T={len(cid)}, chunk starts={starts}) training "
+                  f"{r['eps_steady']:,.0f} examples/s rounds 2-{rounds} on {card}", flush=True)
         # where a round's time goes: one more round under the profiler, after
         # the counts are read and the checkpoints written
         line = device_profile(torch, lambda: task.trainer.update_all(task.dataset), len(cid))
@@ -1111,12 +1163,14 @@ def ugroup_packed(sort_blocks, M, users=128):
                      num_ufeedback=1682, sort_blocks=sort_blocks, rows_per_user=M)
 
 
-def svdpp_inputs(sort_blocks, M, active_type, pairwise, seed, users=128):
+def svdpp_inputs(sort_blocks, M, active_type, pairwise, seed, users=128, chunks=None):
     """numpy inputs at the implicitFeedback layout (feedback rows [0, 1682),
     users [1682, 2625), items [2625, 4307), dummy 4307; k=64).  active_type
     2 takes the ratings >= 4 as its 0/1 labels; ``pairwise`` adds a second,
     random item entry of value -1 to every live slot (the item-width-2
-    difference rows of pairwise ranking) with label 1."""
+    difference rows of pairwise ranking) with label 1.  ``chunks`` keeps
+    the steps and pools of the first ``chunks`` user chunks only (the
+    one-row layouts run 400-700 steps a chunk)."""
     packed = ugroup_packed(sort_blocks, M, users)
     rng = np.random.RandomState(seed)
     N, k = 4308, 64
@@ -1130,6 +1184,14 @@ def svdpp_inputs(sort_blocks, M, active_type, pairwise, seed, users=128):
     wd_i[2625:N - 1] = 0.004
     stacked = packed.device_arrays()
     chunk_id = stacked.pop("chunk_id")
+    fb, overlap = packed.fb_arrays(), packed.fb_overlap
+    if chunks is not None and chunk_id.max() >= chunks:
+        T = int(np.argmax(chunk_id >= chunks))
+        assert (chunk_id[:T] < chunks).all() and T > 0
+        chunk_id = chunk_id[:T]
+        stacked = {key: v[:T] for key, v in stacked.items()}
+        fb = {key: v[:chunks] for key, v in fb.items()}
+        overlap = overlap[:chunks]
     live = stacked["weight"] > 0
     if active_type != 0:
         stacked["label"] = (live & (stacked["label"] >= 4)).astype(np.float32)
@@ -1143,7 +1205,7 @@ def svdpp_inputs(sort_blocks, M, active_type, pairwise, seed, users=128):
                 ref_ui=np.zeros(N, np.int32), ref_g=np.zeros(1, np.int32)),
         cs=dict(wd_u_row=wd_u, wd_i_row=wd_i, wd_g_row=np.zeros(1, np.float32),
                 wd_user_bias=np.float32(0.002), wd_item_bias=np.float32(0.002)),
-        stacked=stacked, chunk_id=chunk_id, fb=packed.fb_arrays(), overlap=packed.fb_overlap,
+        stacked=stacked, chunk_id=chunk_id, fb=fb, overlap=overlap,
         lrs=np.array([0.005, 0.0045], np.float32), M=M)
 
 
@@ -1201,16 +1263,19 @@ def phase_svdpp_kernel(torch, dev, card, failures):
                           wd_ufeedback_bias=0.002))
 
     max_err = 0.0
-    cases = (  # (setting, sort_blocks, M, users, active_type, no_user_bias, pairwise)
-        ("band", True, 8, 128, 0, 0, False), ("band", True, 8, 128, 2, 1, False),
-        ("one-row", False, 1, 128, 0, 1, False), ("one-row", False, 1, 128, 2, 0, False),
-        ("band-pairwise", True, 8, 128, 3, 1, True),
+    cases = (  # (setting, sort_blocks, M, users, active_type, no_user_bias, pairwise, chunks)
+        ("band", True, 8, 128, 0, 0, False, None), ("band", True, 8, 128, 2, 1, False, None),
+        # the one-row layouts on their first two user chunks (a chunk exit
+        # and a chunk entry): the plain version's 2,000-8,000 steps of the
+        # whole set are what this phase's time went to
+        ("one-row", False, 1, 128, 0, 1, False, 2), ("one-row", False, 1, 128, 2, 0, False, 2),
+        ("band-pairwise", True, 8, 128, 3, 1, True, None),
         # more users per step than the resident grid has blocks: each block
         # strides over the users of a step
-        ("wide", False, 1, 256, 0, 0, False),
+        ("wide", False, 1, 256, 0, 0, False, 2),
     )
-    for setting, sort_blocks, M, users, at, nub, pairwise in cases:
-        x = svdpp_inputs(sort_blocks, M, at, pairwise, seed=20 + at, users=users)
+    for setting, sort_blocks, M, users, at, nub, pairwise, chunks in cases:
+        x = svdpp_inputs(sort_blocks, M, at, pairwise, seed=20 + at, users=users, chunks=chunks)
         hp, ph = hyper(x, at, nub)
         before = train_rounds_svdpp_kernel.launches
         got = train_rounds_svdpp_kernel(*device_inputs(x), hp, ph)
@@ -1844,7 +1909,8 @@ def phase_imfb_kernel(torch, dev, card, failures):
 # ---- phase 9: the stacked slice ------------------------------------------------
 def phase_imfb_slice(work, card, failures):
     """The stacked multi-IMFB slice through SVDTrainTask / SVDInferTask,
-    once through K3 and once with use_pallas=0 (the plain version)."""
+    IMFB_ROUNDS rounds through K3, then IMFB_PLAIN_ROUNDS with use_pallas=0
+    (the plain version), held to the kernel run at that round."""
     import torch
 
     from svdfeature_tpu_torch.cli import make_ugroup_buffer
@@ -1864,7 +1930,8 @@ def phase_imfb_slice(work, card, failures):
     golden = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["multiIMFBStacked"]
     ref_rmse = float((ROOT / "golden" / "multi_imfb_stacked.rmse.tsv").read_text().split()[-1])
     results = {}
-    for path, extra in (("kernel", []), ("plain", ["use_pallas=0"])):
+    for path, extra, R in (("kernel", [], IMFB_ROUNDS),
+                           ("plain", ["use_pallas=0"], IMFB_PLAIN_ROUNDS)):
         common = [f"buffer_feature={d}/train.buffer", f"test:buffer_feature={d}/test.buffer",
                   f"model_out_folder={d}/models_{path}", "device=cuda", "silent=1",
                   "extend_type=2", "rows_per_user=8", *extra]
@@ -1872,7 +1939,7 @@ def phase_imfb_slice(work, card, failures):
         for fn in wrappers.values():
             fn.launches = 0
         task = SVDTrainTask()
-        task.run(conf, common + [f"num_round={IMFB_ROUNDS}"])
+        task.run(conf, common + [f"num_round={R}"])
         launches = {kid: fn.launches for kid, fn in wrappers.items()}
         tr = task.trainer
         entry = tr._pack_plus(task.dataset)
@@ -1881,27 +1948,35 @@ def phase_imfb_slice(work, card, failures):
         # after the counts are read and the checkpoints written
         profile_line = device_profile(torch, lambda: tr.update_all(task.dataset), len(cid), top=5)
         log = d / f"rmse_{path}.tsv"
-        SVDInferTask().run(conf, common + [f"start={IMFB_ROUNDS}", f"end={IMFB_ROUNDS + 1}",
-                                           f"log_eval={log}"])
-        rmse = float(log.read_text().split()[-1])
+        # the kernel run's checkpoint of the plain run's last round as well
+        evals = ([f"start={R}", f"end={R + 1}"] if path == "plain" else
+                 [f"start={IMFB_PLAIN_ROUNDS}", f"end={R + 1}", f"step={R - IMFB_PLAIN_ROUNDS}"])
+        SVDInferTask().run(conf, common + [*evals, f"log_eval={log}"])
+        at = {int(r): float(x) for r, x in (line.split() for line in log.read_text().splitlines())}
+        rmse = at[R]
         rows = task.dataset_rows()
         secs = task.round_seconds
         eps = rows * (len(secs) - 1) / sum(secs[1:])
         want = {kid: 0 for kid in launches}
+        starts = int(np.count_nonzero(np.concatenate([[True], cid[1:] != cid[:-1]])))
         if path == "kernel":
             want["K3"] = IMFB_ROUNDS * launches_per_call(cid, 1)
-        ok = (launches == want and math.isfinite(rmse) and abs(rmse - JAX_IMFB_RMSE) < IMFB_JAX_TOL
-              and abs(rmse - ref_rmse) < IMFB_GOLDEN_TOL and type(tr).__name__ == "SVDPPMultiIMFBTrainer")
+            agree = abs(rmse - JAX_IMFB_RMSE) < IMFB_JAX_TOL and abs(rmse - ref_rmse) < IMFB_GOLDEN_TOL
+            vs = (f"minus JAX CPU {rmse - JAX_IMFB_RMSE:+.6f}, tol {IMFB_JAX_TOL:g}; minus "
+                  f"reference binary {rmse - ref_rmse:+.6f}, tol {IMFB_GOLDEN_TOL:g}")
+        else:  # held to the kernel run below, at round IMFB_PLAIN_ROUNDS
+            agree = True
+            vs = f"minus the kernel run's at that round {rmse - results['kernel']['at'][R]:+.2e}"
+        ok = (agree and launches == want and math.isfinite(rmse)
+              and type(tr).__name__ == "SVDPPMultiIMFBTrainer")
         if not ok:
             failures.append(f"stacked slice ({path})")
-        results[path] = dict(rmse=rmse, launches=launches, eps=eps)
-        starts = int(np.count_nonzero(np.concatenate([[True], cid[1:] != cid[:-1]])))
+        results[path] = dict(rmse=rmse, at=at, launches=launches, eps=eps)
         print(f"phase 9 {'ok' if ok else 'FAIL'}: multiIMFBStacked path={path} test RMSE after "
-              f"{IMFB_ROUNDS} rounds {rmse:.6f} (minus JAX CPU {rmse - JAX_IMFB_RMSE:+.6f}, tol "
-              f"{IMFB_JAX_TOL:g}; minus reference binary {rmse - ref_rmse:+.6f}, tol "
-              f"{IMFB_GOLDEN_TOL:g}) launches {launches} (want {want}: "
-              f"{IMFB_ROUNDS} rounds, one cooperative launch each; T={len(cid)}, chunk starts={starts}) "
-              f"training {eps:,.0f} examples/s rounds 2-{IMFB_ROUNDS} (reference C++ "
+              f"{R} rounds {rmse:.6f} ({vs}) launches {launches} (want {want}: "
+              f"{R} rounds{', one cooperative launch each' if path == 'kernel' else ''}; "
+              f"T={len(cid)}, chunk starts={starts}) "
+              f"training {eps:,.0f} examples/s rounds 2-{R} (reference C++ "
               f"{golden['examples_per_sec_cpu']:,}/s), round seconds "
               f"{[round(x, 3) for x in secs]} on {card}", flush=True)
         print(f"phase 9 profile: multiIMFBStacked path={path} one more round: {profile_line}",
@@ -1912,11 +1987,12 @@ def phase_imfb_slice(work, card, failures):
             report_share(9, "multiIMFBStacked", "K3", *share, card, failures)
         shutil.rmtree(d / f"models_{path}")
         del task, tr, entry
-    diff = abs(results["kernel"]["rmse"] - results["plain"]["rmse"])
+    diff = abs(results["kernel"]["at"][IMFB_PLAIN_ROUNDS] - results["plain"]["rmse"])
     if diff >= IMFB_AB_TOL:
         failures.append("stacked slice kernel vs plain")
     print(f"phase 9 {'ok' if diff < IMFB_AB_TOL else 'FAIL'}: K3 against its plain version end "
-          f"to end: |d RMSE| {diff:.2e} (tol {IMFB_AB_TOL:g})", flush=True)
+          f"to end at round {IMFB_PLAIN_ROUNDS}: |d RMSE| {diff:.2e} (tol {IMFB_AB_TOL:g})",
+          flush=True)
     return results["kernel"]["launches"]["K3"], results["kernel"]["eps"]
 
 
@@ -2044,7 +2120,9 @@ def big_plus_run(conf, d, tag):
     secs = task.round_seconds
     rows = task.dataset_rows()
     log = d / f"rmse_{tag}.tsv"
-    SVDInferTask().run(str(conf), args + ["start=0", f"end={R + 1}", f"log_eval={log}"])
+    step = 1 if tag == "a" else R  # phase 20 holds its mesh run to (a)'s every round
+    SVDInferTask().run(str(conf), args + ["start=0", f"end={R + 1}", f"step={step}",
+                                          f"log_eval={log}"])
     rmse = {int(r): float(x) for r, x in (line.split() for line in log.read_text().splitlines())}
     shutil.rmtree(d / f"models_{tag}")
     train = secs[1:] if R > 1 else [secs[0] - tr.pack_seconds]
@@ -2352,7 +2430,7 @@ def phase_pair_kernel(torch, d, keys, card, failures):
     samples = {"plain": [], "kernel": []}
     held = {"plain": clone_state(st0), "kernel": clone_state(st0)}
     calls = {"plain": (ref, head, rest2, 2), "kernel": (kern, stacked, rest, PAIR_R)}
-    for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain") * 2:
+    for name in ("plain", "kernel", "plain", "kernel", "kernel", "plain"):
         fn, stk, args, R = calls[name]
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2378,7 +2456,7 @@ def phase_pair_kernel(torch, d, keys, card, failures):
                          tr.consts, sk["M"])
         checks.append(time.perf_counter() - t0)
     timing["check_ms"] = float(np.median(checks)) * 1e3
-    print(f"phase 12 time: pair planes ms per step (median of 5 calls in turns, the kernel's of "
+    print(f"phase 12 time: pair planes ms per step (median of 2 calls in turns, the kernel's of "
           f"R={PAIR_R} rounds, the plain version's of 2): "
           f"kernel {timing['kernel']:.4f} plain {timing['plain']:.4f} bound {timing['bound']:.6f} "
           f"({timing['bound_by']}); the check of one round's fresh planes {timing['check_ms']:.3f} "
@@ -2390,14 +2468,15 @@ def phase_pair_kernel(torch, d, keys, card, failures):
     return max(errs.values()), timing
 
 
-def rank_run(d, keys, tag, extra, rounds_call):
+def rank_run(d, keys, tag, extra, rounds_call, rounds=RANK_ROUNDS, also=None):
     """One pairwiseRank run: the tasks' trainer on the card, every kernel's
     launch count set to 0 just before training and read just after, the
-    model of round RANK_ROUNDS saved, SVDInferTask pred with the ranker,
+    model of round ``rounds`` saved, SVDInferTask pred with the ranker,
     and P@20.  ``rounds_call`` None trains through SVDTrainTask.run (one
-    update_all a round, a save after each); else the trainer's
-    update_rounds(src, RANK_ROUNDS) in one call (timed, synchronised), then
-    one more call timed on the trained trainer (steady: no set-up)."""
+    update_all a round, a save after each; ``also``: one more round whose
+    pred and P@20 are kept); else the trainer's update_rounds(src, rounds)
+    in one call (timed, synchronised), then one more call timed on the
+    trained trainer (steady: no set-up)."""
     from svdfeature_tpu_torch.infer.task import SVDInferTask
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
@@ -2410,7 +2489,7 @@ def rank_run(d, keys, tag, extra, rounds_call):
     if rounds_call is None:
         task = SVDTrainTask()
         t0 = time.perf_counter()
-        task.run(conf, args + [f"num_round={RANK_ROUNDS}"])
+        task.run(conf, args + [f"num_round={rounds}"])
         launches = {kid: fn.launches for kid, fn in wrappers.items()}
         secs = task.round_seconds
         train_s = sum(secs[1:])
@@ -2419,37 +2498,44 @@ def rank_run(d, keys, tag, extra, rounds_call):
         task = rank_task(d, args)
         tr = task.trainer
         t0 = time.perf_counter()
-        tr.update_rounds(task.dataset, RANK_ROUNDS)
+        tr.update_rounds(task.dataset, rounds)
         tr.synchronize()
         train_s = time.perf_counter() - t0
         launches = {kid: fn.launches for kid, fn in wrappers.items()}
-        rounds_timed = RANK_ROUNDS
-        task.start_counter = RANK_ROUNDS
+        rounds_timed = rounds
+        task.start_counter = rounds
         task.save_model()
     pred = d / f"pred_{tag}.txt"
-    SVDInferTask().run(conf, args + [f"pred={RANK_ROUNDS}", f"name_pred={pred}"])
+    SVDInferTask().run(conf, args + [f"pred={rounds}", f"name_pred={pred}"])
+    at = {}
+    if also is not None:
+        at["pred"] = d / f"pred_{tag}_{also}.txt"
+        SVDInferTask().run(conf, args + [f"pred={also}", f"name_pred={at['pred']}"])
+        at["p20"] = rank_p20(at["pred"])
     if rounds_call is not None:
         t1 = time.perf_counter()
-        task.trainer.update_rounds(task.dataset, RANK_ROUNDS)
+        task.trainer.update_rounds(task.dataset, rounds)
         task.trainer.synchronize()
         steady = time.perf_counter() - t1
     pairs = int(task.dataset.pair_geometry()["jp"].shape[0])
     shutil.rmtree(d / f"models_{tag}")
-    return dict(p20=rank_p20(pred), pred=pred, launches=launches, pairs=pairs,
+    return dict(p20=rank_p20(pred), pred=pred, at=at, launches=launches, pairs=pairs,
                 pps=pairs * rounds_timed / train_s, rounds_timed=rounds_timed,
-                pps_steady=None if steady is None else pairs * RANK_ROUNDS / steady,
+                pps_steady=None if steady is None else pairs * rounds / steady,
                 T=task.trainer._pair_sk["T"], seconds=time.perf_counter() - t0)
 
 
 def phase_rank_slice(d, keys, card, failures):
     """pairwiseRank through the port's entry points: (kernel) SVDTrainTask
     40 rounds, one K2 launch a round on the round's fresh pairs, then
-    SVDInferTask pred=40 with the ranker; (plain) the same with
-    use_pallas=0; (multi) update_rounds(src, 40) on the multi-round host
-    sampler, 5 K2 launches (blocks of 8 rounds); (device)
-    rank_device_sample=1, one K2 launch for the 40 rounds.  Gates: P@20
-    within RANK_P20_TOL of the golden, the kernel run within RANK_JAX_TOL
-    of the JAX package's CPU figure, exact launch counts."""
+    SVDInferTask pred=40 with the ranker (and pred=RANK_PLAIN_ROUNDS);
+    (plain) the same with use_pallas=0 for RANK_PLAIN_ROUNDS rounds;
+    (multi) update_rounds(src, 40) on the multi-round host sampler, 5 K2
+    launches (blocks of 8 rounds); (device) rank_device_sample=1, one K2
+    launch for the 40 rounds.  Gates: P@20 after 40 rounds within
+    RANK_P20_TOL of the golden, the kernel run within RANK_JAX_TOL of the
+    JAX package's CPU figure, the plain run within RANK_JAX_TOL of the
+    kernel run at round RANK_PLAIN_ROUNDS, exact launch counts."""
     from svdfeature_tpu_torch.solvers.svdpp import SVDPPFeatureTrainer
 
     golden = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["pairwiseRank"]
@@ -2464,13 +2550,23 @@ def phase_rank_slice(d, keys, card, failures):
     }
     out, launches = {}, 0
     for tag, (extra, multi, want, how) in runs.items():
-        r = rank_run(d, keys, tag, extra, multi)
+        plain = tag == "plain"
+        r = rank_run(d, keys, tag, extra, multi, RANK_PLAIN_ROUNDS if plain else RANK_ROUNDS,
+                     RANK_PLAIN_ROUNDS if tag == "kernel" else None)
         out[tag] = r
         launches += r["launches"]["K2"]
         want_all = {kid: 0 for kid in r["launches"]}
         want_all["K2"] = want
-        ok = (r["launches"] == want_all and abs(r["p20"] - golden["precision_at_20"]) < RANK_P20_TOL)
+        ok = r["launches"] == want_all
         jax_line = ""
+        if plain:
+            ref = out["kernel"]["at"]["p20"]
+            ok &= abs(r["p20"] - ref) < RANK_JAX_TOL
+            vs = (f"P@20 {r['p20']:.4f} after {RANK_PLAIN_ROUNDS} rounds (minus the kernel run's "
+                  f"at that round {r['p20'] - ref:+.6f}, tol {RANK_JAX_TOL:g})")
+        else:
+            ok &= abs(r["p20"] - golden["precision_at_20"]) < RANK_P20_TOL
+            vs = f"P@20 {r['p20']:.4f} (golden {golden['precision_at_20']}, tol {RANK_P20_TOL:g}"
         if tag == "kernel":
             ok &= JAX_RANK_P20 is not None and abs(r["p20"] - JAX_RANK_P20) < RANK_JAX_TOL
             jax_line = (f"; minus JAX CPU {r['p20'] - JAX_RANK_P20:+.6f} (tol {RANK_JAX_TOL:g})"
@@ -2478,11 +2574,11 @@ def phase_rank_slice(d, keys, card, failures):
         if not ok:
             failures.append(f"pairwiseRank ({tag})")
         ref_pps = r["pairs"] * 40 / ref_s
-        timed_how = (f"rounds 2-{RANK_ROUNDS}, saves excluded" if multi is None else
+        timed_how = (f"rounds 2-{r['rounds_timed'] + 1}, saves excluded" if multi is None else
                      f"the {RANK_ROUNDS}-round call with its set-up; {r['pps_steady']:,.0f} pairs/s "
                      f"for {RANK_ROUNDS} more rounds in one call")
-        print(f"phase 13 {'ok' if ok else 'FAIL'}: pairwiseRank ({tag}) P@20 {r['p20']:.4f} "
-              f"(golden {golden['precision_at_20']}, tol {RANK_P20_TOL:g}{jax_line}); launches "
+        vs += "" if plain else f"{jax_line})"
+        print(f"phase 13 {'ok' if ok else 'FAIL'}: pairwiseRank ({tag}) {vs}; launches "
               f"{r['launches']} (want K2 {want}: {how}; T={r['T']} steps a round); "
               f"{r['pairs']:,} pairs a round (examples/s of SVDTrainTask count the "
               f"{RANK_USERS}-user set's rows); {r['pps']:,.0f} pairs/s ({timed_how}; reference "
@@ -2502,12 +2598,12 @@ def phase_rank_slice(d, keys, card, failures):
           f"placement, the per-round path's producer thread): {np.median(samp) * 1e3:.1f} ms "
           f"(median of 5, host clock); K2's round is {sk['T']} steps; on {card}", flush=True)
     del task, sk
-    a = out["kernel"]["pred"].read_text().split()
+    a = out["kernel"]["at"]["pred"].read_text().split()
     b = out["plain"]["pred"].read_text().split()
     differ = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
-    print(f"phase 13: pairwiseRank pred.txt of the kernel run against the plain run: {differ} of "
-          f"{len(a)} rank positions differ (P@20 {out['kernel']['p20']:.4f} against "
-          f"{out['plain']['p20']:.4f})", flush=True)
+    print(f"phase 13: pairwiseRank pred.txt of the kernel run against the plain run at round "
+          f"{RANK_PLAIN_ROUNDS}: {differ} of {len(a)} rank positions differ (P@20 "
+          f"{out['kernel']['at']['p20']:.4f} against {out['plain']['p20']:.4f})", flush=True)
     return launches
 
 
@@ -2618,7 +2714,7 @@ def phase_big_rank(torch, card, failures):
 # the CPU, same data and conf: scripts/refresh_jax_reference.py --run a|b and
 # scripts/bilinear_jax_reference.py --run b|c|d.
 JAX_REFRESH_RMSE = {"a": 1.001765, "b": 1.010718}
-JAX_BILINEAR_RMSE = {"b": 0.954964, "c": 0.997885, "d": 0.167179}
+JAX_BILINEAR_RMSE = {"b": 0.999921, "c": 0.997885, "d": 0.167179}
 REFRESH_JAX_TOL = 1e-4
 BI_JAX_TOL = 1e-4
 BI_GOLDEN_TOL = 0.01  # tests/test_golden_full.py:173-181, against golden/bilinear.rmse.tsv
@@ -2684,8 +2780,9 @@ def stream_evals(tag):
 # phase 17: GBRT.  (a) RegGBRT (extend_type=31) on the implicitFeedback
 # workload at the reference binary's recorded tree parameters (the keys of
 # tests/test_golden_full.py:191-220 beside implicitFeedback.conf, which holds
-# its BASIC keys), 6 rounds, every round's test RMSE against
-# golden/gbrt_reg.rmse.tsv; (b) the walk of that 6-tree model over the
+# its BASIC keys), GBRT_ROUNDS rounds (the golden's first: each host fit
+# takes seconds), every round's test RMSE against
+# golden/gbrt_reg.rmse.tsv; (b) the walk of that 2-tree model over the
 # training set on the card and on the host; (c) APLambda (extend_type=30,
 # the settings of tests/test_gbrt.py:193-205) on the pairwiseRank training
 # set read as plain user-group data (input_type=0), 2 rounds, its scores of
@@ -2697,6 +2794,7 @@ GBRT_TREE_KEYS = ["num_spec_sparse=943", "learning_rate=0.3", "min_split_loss=1"
                   "min_split_weight=10", "max_depth=5", "rt_loss_type=1"]
 GBRT_REG_KEYS = ["extend_type=31", *GBRT_TREE_KEYS]
 GBRT_GOLDEN_TOL = 5e-6  # tests/test_golden_full.py:220
+GBRT_ROUNDS = 2  # of the golden's 6
 GBRT_WALK_TOL = 1e-5  # the card's f32 sum over trees against the host's f64 one
 GBRT_WALK_TURNS = 5
 APLAMBDA_ROUNDS = 2
@@ -2738,12 +2836,13 @@ def summary_diff(got, want) -> float:
     return max(d + [abs(a - b) for a, b in zip(got["sample"], want["sample"])])
 
 
-def task_run(conf, d, tag, keys, rounds, evals):
+def task_run(conf, d, tag, keys, rounds, evals, keep=None):
     """Train ``rounds`` rounds through SVDTrainTask on the card, every
     kernel's launch count set to 0 just before and read just after, then
     evaluate the checkpoints ``evals`` (SVDInferTask keys) -> (the trained
     task, {round: RMSE}, launches, examples/s of rounds 2.. (round 1 less
-    its packing for a run of one round), round seconds)."""
+    its packing for a run of one round), round seconds).  ``keep``: the
+    round whose checkpoint stays, as ``d / f"{tag}_{keep:04d}.model"``."""
     from svdfeature_tpu_torch.infer.task import SVDInferTask
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
@@ -2757,6 +2856,8 @@ def task_run(conf, d, tag, keys, rounds, evals):
     log = d / f"rmse_{tag}.tsv"
     SVDInferTask().run(str(conf), common + [*evals, f"log_eval={log}"])
     rmse = {int(r): float(v) for r, v in (line.split() for line in log.read_text().splitlines())}
+    if keep is not None:
+        shutil.copy(d / f"models_{tag}" / f"{keep:04d}.model", d / f"{tag}_{keep:04d}.model")
     shutil.rmtree(d / f"models_{tag}")
     secs = task.round_seconds
     train = secs[1:] if rounds > 1 else [secs[0] - task.trainer.pack_seconds]
@@ -2807,15 +2908,18 @@ def phase_refresh(work, card, failures, k2_eps):
 def phase_bilinear(torch, work, card, failures):
     """The bilinear solver (extend_type=15) through SVDTrainTask /
     SVDInferTask, use_pallas set: (a) no user properties at the
-    implicitFeedback band setting, 8 rounds, every round against the port's
+    implicitFeedback band setting, 3 rounds, every round against the port's
     plain SVD++ run on the same pack (file order) to BI_AB_TOL and against
     golden/bilinear.rmse.tsv to BI_GOLDEN_TOL; (b) the integrated
-    neighbourhood model (W_bi 1682 x 1682), 8 rounds; (c) the follow data
+    neighbourhood model (W_bi 1682 x 1682), 2 rounds; (c) the follow data
     on the refresh route, 3 rounds; (d) big bilinear on bigSvdpp's geometry
     (BIG_BI_USERS users, W_bi 624,000 x 64), 2 rounds, K5 launches the
     plan's.  (b)-(d) within BI_JAX_TOL of the JAX package's CPU figure; K2
     and K3 never launch.  Then K5 bit for bit at (d)'s W_bi write, timed
-    against index_copy_.  Returns (K5 launches, K5 timing)."""
+    against index_copy_.  Returns (K5 launches, K5 timing, what phase 21
+    is held to: (b)'s and (d)'s RMSE at round MESH_BI_RUNS' rounds, their
+    steps a round, (b)'s checkpoint of that round, (d)'s first W_bi
+    write)."""
     from svdfeature_tpu_torch.data import csr
     from svdfeature_tpu_torch.data.buffer import write_plus_buffer
     from svdfeature_tpu_torch.ops.svdpp_bilinear import k5_launches_bi
@@ -2833,6 +2937,7 @@ def phase_bilinear(torch, work, card, failures):
           f"property ids each, table {dims['NU'] + dims['NI'] + dims['NF'] + 1:,} rows, W_bi "
           f"{dims['NI']:,} x {BIG_BI_NBF}) written in {time.perf_counter() - t0:.1f} s", flush=True)
     k5, timing = 0, {}
+    prior = dict(rmse={}, T={}, ckpt=None, wbi_call=None)
     for tag, run in BI_RUNS.items():
         R = run["rounds"]
         dd = work / run["data"]
@@ -2843,11 +2948,18 @@ def phase_bilinear(torch, work, card, failures):
             conf, evals = implicit, ["start=1", f"end={R + 1}"]
             data.append(f"test:buffer_feature={dd}/test.buffer")
         torch.cuda.reset_peak_memory_stats()
+        keep = MESH_BI_RUNS["a"]["rounds"] if tag == "b" else None
         task, rmse, launches, eps, secs = task_run(conf, dd, f"bi_{tag}", data + run["keys"], R,
-                                                   evals)
+                                                   evals, keep)
         tr = task.trainer
         entry = tr._pack_plus(task.dataset)
         cid = entry.chunk_id
+        if tag in "bd":  # phase 21 (a) trains (b)'s data on a mesh, 21 (b) (d)'s
+            mesh_tag = "a" if tag == "b" else "b"
+            prior["rmse"][mesh_tag] = rmse[MESH_BI_RUNS[mesh_tag]["rounds"]]
+            prior["T"][mesh_tag] = len(cid)
+        if keep is not None:
+            prior["ckpt"] = dd / f"bi_{tag}_{keep:04d}.model"
         want = {kid: 0 for kid in launches}
         want["K5"] = R * k5_launches_bi(cid, BIG_BI_NBF) if tag == "d" else 0
         k5 += launches["K5"]
@@ -2883,18 +2995,21 @@ def phase_bilinear(torch, work, card, failures):
             what = "probe" if tag == "d" else "test"
             start = f"{rmse[0]:.6f} -> " if tag == "d" else ""
             jax_txt = f"minus JAX CPU {rmse[R] - jax:+.6f}" if jax is not None else "no JAX CPU figure"
+            at = (f"; at round {MESH_BI_RUNS[mesh_tag]['rounds']} {prior['rmse'][mesh_tag]:.6f}"
+                  if tag in "bd" else "")
             print(f"phase 16 {'ok' if ok else 'FAIL'}: {run['data']} ({tag}) "
                   f"{' '.join(run['keys'])}: {what} RMSE {start}{rmse[R]:.6f} after {R} rounds "
-                  f"({jax_txt}, tol {BI_JAX_TOL:g}); {line} on {card}", flush=True)
+                  f"({jax_txt}, tol {BI_JAX_TOL:g}){at}; {line} on {card}", flush=True)
         if not ok:
             failures.append(f"bilinear run ({tag})")
         if tag == "d":
             shapes = k5_first_calls(torch, lambda: tr.update_all(task.dataset), {1: "W_bi write"})
             timing = time_k5_shapes(torch, 16, "big bilinear (d)", tr.W_bi, shapes, card, failures)
+            prior["wbi_call"] = tuple(x.cpu() for x in shapes["W_bi write"])
             del shapes
         del task, tr, entry
         torch.cuda.empty_cache()
-    return k5, timing
+    return k5, timing, prior
 
 
 def walk_pair(tr, ds):
@@ -2915,7 +3030,7 @@ def phase_gbrt(torch, work, rank_dir, rank_keys, card, failures):
     parameters, every round's test RMSE within GBRT_GOLDEN_TOL of
     golden/gbrt_reg.rmse.tsv, every eval of a model of more than one tree
     on the card's walk, the last model's card walk within GBRT_WALK_TOL of
-    its host walk (device_forward=0); (b) the 6-tree model walked over the
+    its host walk (device_forward=0); (b) the 2-tree model walked over the
     training set on the card and on the host, within GBRT_WALK_TOL, both
     timed; (c) APLambda on the pairwiseRank training set, its scores of
     (a)'s test set within APLAMBDA_JAX_TOL of the JAX package's CPU run."""
@@ -2924,7 +3039,7 @@ def phase_gbrt(torch, work, rank_dir, rank_keys, card, failures):
     from svdfeature_tpu_torch.ops import gbrt_forward
 
     golden = [float(line.split()[1]) for line in
-              (ROOT / "golden" / "gbrt_reg.rmse.tsv").read_text().splitlines()]
+              (ROOT / "golden" / "gbrt_reg.rmse.tsv").read_text().splitlines()][:GBRT_ROUNDS]
     R = len(golden)
     d = work / "gbrt"
     d.mkdir()
@@ -2956,7 +3071,7 @@ def phase_gbrt(torch, work, rank_dir, rank_keys, card, failures):
           f"{[round(x, 2) for x in secs]} ({ds.rows.num_row:,} rows, host fit; {eps:,.0f} "
           f"examples/s rounds 2-{R}) on {card}", flush=True)
 
-    # (b) the walk at its real size: the 6-tree model over the training set
+    # (b) the walk at its real size: the 2-tree model over the training set
     entry = tr._assemble(ds)
     smat, n = entry["smat"], len(tr.trees)
     args = ([t.tree for t in tr.trees], smat, [tr._tree_gids(entry, ti) for ti in range(n)],
@@ -3236,9 +3351,10 @@ MESH_STREAM_CHUNK = 4 * BATCH
 
 def count_mesh_steps():
     """A counter of the steps the user-group mesh bodies run on this rank:
-    the rounds loop of parallel/svdpp_mesh.py, which the four mesh modules
+    the rounds loop of parallel/svdpp_mesh.py, which the six mesh modules
     share, wrapped where each of them calls it."""
-    from svdfeature_tpu_torch.parallel import imfb_mesh, imfb_mesh_big, svdpp_mesh, svdpp_mesh_big
+    from svdfeature_tpu_torch.parallel import (bilinear_mesh, bilinear_mesh_big, imfb_mesh,
+                                               imfb_mesh_big, svdpp_mesh, svdpp_mesh_big)
 
     count, real = [0], svdpp_mesh._rounds
 
@@ -3246,13 +3362,14 @@ def count_mesh_steps():
         count[0] += len(chunk_id) * lrs.shape[0]
         return real(step_fn, state, stacked, chunk_id, fb, lrs, ph, extra)
 
-    for mod in (svdpp_mesh, svdpp_mesh_big, imfb_mesh, imfb_mesh_big):
+    for mod in (svdpp_mesh, svdpp_mesh_big, imfb_mesh, imfb_mesh_big, bilinear_mesh,
+                bilinear_mesh_big):
         mod._rounds = rounds
     return count
 
 
 def mesh_rank(argv):
-    """A rank of phase 19's and phase 20's worlds: ``chip_smoke.py --mesh-rank
+    """A rank of the torchrun world of phases 19-21: ``chip_smoke.py --mesh-rank
     OUT TRAIN ARGS -- INFER ARGS [--next TRAIN ARGS -- INFER ARGS ...]``
     under torchrun.  For each run, runs the train CLI with every kernel's
     launch count set to 0 just before and read just after, then the infer
@@ -3379,6 +3496,20 @@ def mesh_k5(torch, dev, big, card, failures):
           f"{t['kernel']:.4f} plain {t['plain']:.4f} library (index_copy_) {t['library']:.4f} "
           f"bound {t['bound']:.6f} ({t['bound_by']}) on {card}", flush=True)
     return dict(t, err=0.0)
+
+
+def mesh_call_all(torch, work):
+    """The one torchrun call of phases 19-21: their runs (phase 19's first:
+    its (c) joins the world by the mesh keys alone), their records, output
+    and seconds (mesh_call)."""
+    runs = {f"{ph}{tag}": run for ph, make in ((19, phase_mesh_runs), (20, phase_mesh_plus_runs),
+                                               (21, phase_mesh_bi_runs))
+            for tag, run in make(work).items()}
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    call = mesh_call(work, runs)
+    print(f"phases 19-21: one torchrun call of {MESH_RANKS} ranks, runs {list(runs)}: "
+          f"{'ok' if call[0] is not None else 'FAIL'} in {call[2]:.1f} s", flush=True)
+    return call
 
 
 def phase_mesh_runs(work):
@@ -3515,9 +3646,9 @@ def phase_mesh(torch, work, big, staged, card, failures, call=None):
 # rule (phase 11's, K5 twice a step on every rank); (e) big multi-IMFB (phase
 # 11 (d)'s data); (f) (b) streamed in phase 18 (d)'s chunks.
 MESH_PLUS_RUNS = {  # tag: its data (a phase's directory), keys beside its conf, rounds, slabs
-    "a": dict(data="implicitFeedback", keys=BAND_KEYS, rounds=5, big=False),
-    "c": dict(data="pairwiseRank", keys=[], rounds=3, big=False),
-    "d": dict(data="multiIMFBStacked", keys=["extend_type=2", "rows_per_user=8"], rounds=2,
+    "a": dict(data="implicitFeedback", keys=BAND_KEYS, rounds=2, big=False),
+    "c": dict(data="pairwiseRank", keys=[], rounds=2, big=False),
+    "d": dict(data="multiIMFBStacked", keys=["extend_type=2", "rows_per_user=8"], rounds=1,
               big=False),
     "b": dict(data="bigSvdpp", keys=[], rounds=2, big=True),
     "e": dict(data="bigSvdpp", keys=["extend_type=2"], buffer="imfb.buffer", rounds=1, big=True),
@@ -3548,9 +3679,9 @@ def mesh_plus_args(tag, d, out):
 
 # the JAX package's 2x2 mesh on 4 CPU devices, same data, conf and rounds
 # (scripts/mesh_plus_jax_reference.py --run a|b|c|d|e|f): the test RMSE after
-# the last round (a, d), the probe's (b, e, f), P@20 (c); (c)'s round-3 w is
+# the last round (a, d), the probe's (b, e, f), P@20 (c); (c)'s last-round w is
 # scripts/mesh_plus_jax_rank_w.npy
-JAX_MESH_PLUS = {"a": 0.991498, "b": 0.170734, "c": 0.085684, "d": 0.997761, "e": 0.172171,
+JAX_MESH_PLUS = {"a": 1.059404, "b": 0.170734, "c": 0.085843, "d": 1.030643, "e": 0.172171,
                  "f": 0.172368}
 MESH_PLUS_TOL = 1e-4  # every figure against JAX's; (b) against phase 11 (a) at round 2 too
 MESH_PLUS_P20_TOL = RANK_JAX_TOL
@@ -3571,18 +3702,13 @@ def mesh_plus_expected_steps(work, prior):
             "f": MESH_PLUS_RUNS["f"]["rounds"] * t_cap * chunks}
 
 
-def round5_single(work):
-    """Phase 5's single-card test RMSE at round 5, from its kept checkpoint
-    (None where it was not kept)."""
-    from svdfeature_tpu_torch.infer.task import SVDInferTask
-
+def phase5_single(work, rnd):
+    """Phase 5's single-card test RMSE at round ``rnd``, from its kept
+    checkpoint (None where it was not kept)."""
     d = work / "implicitFeedback"
-    if not (d / "models_kernel" / "0005.model").exists():
+    if not (d / "models_kernel" / f"{rnd:04d}.model").exists():
         return None
-    SVDInferTask().run(str(ROOT / "demo" / "implicitFeedback" / "implicitFeedback.conf"), [
-        f"test:buffer_feature={d}/test.buffer", f"model_out_folder={d}/models_kernel",
-        "device=cuda", "silent=1", "start=5", "end=6", f"log_eval={d}/rmse_round5.tsv"])
-    return float((d / "rmse_round5.tsv").read_text().split()[-1])
+    return demo_rmse_at("implicitFeedback", d, "kernel", rnd)
 
 
 def mesh_plus_k5(torch, dev, pool, card, failures):
@@ -3639,13 +3765,13 @@ def phase_mesh_plus(torch, work, prior, card, failures, call):
     on every rank on big ones (exact counts), the same steps on every rank
     and none on another card; then K5 at the mesh pool writeback's shape.
     ``prior``: phase 11's figures (mesh_plus_expected_steps, its round-2
-    probe RMSE, its chunk-0 pool).  Returns the K5 launches of every rank,
-    with the K5 timing."""
+    probe RMSE, its chunk-0 pool, or None: no K5 timing).  Returns the K5
+    launches of every rank, with the K5 timing."""
     from svdfeature_tpu_torch.model import SVDModel
     from svdfeature_tpu_torch.params import SVDTypeParam
 
     expected = mesh_plus_expected_steps(work, prior)
-    single5 = round5_single(work)
+    single = phase5_single(work, MESH_PLUS_RUNS["a"]["rounds"])
     k5 = 0
     records, _, secs, _ = call
     if records is None:
@@ -3693,8 +3819,8 @@ def phase_mesh_plus(torch, work, prior, card, failures, call):
                 vs = (f"{what} RMSE {final:.6f} after {R} rounds (minus JAX CPU mesh "
                       f"{final - jax:+.2e}, tol {MESH_PLUS_TOL:g})")
                 if tag == "a":
-                    vs += (f"; phase 5's single card at round 5 "
-                           f"{'not kept' if single5 is None else f'{single5:.6f}'}")
+                    vs += (f"; phase 5's single card at round {R} "
+                           f"{'not kept' if single is None else f'{single:.6f}'}")
                 if tag == "b":
                     ref = prior["rmse"][R]
                     checks.append(abs(final - ref) < MESH_PLUS_TOL)
@@ -3717,7 +3843,192 @@ def phase_mesh_plus(torch, work, prior, card, failures, call):
                   f"{max(x['infer_s'] for x in recs):.1f} s, peak device memory a rank "
                   f"{max(x['peak'] for x in recs) / 2**30:.2f} GiB; on {card}", flush=True)
             shutil.rmtree(out / "models", ignore_errors=True)
-    timing = mesh_plus_k5(torch, torch.device("cuda", 0), prior["pool"], card, failures)
+    timing = (None if prior["pool"] is None else  # scripts/mesh_check.py keeps no pool
+              mesh_plus_k5(torch, torch.device("cuda", 0), prior["pool"], card, failures))
+    return k5, timing
+
+
+# ---- phase 21: the bilinear trainer on a 2x2 mesh -----------------------------------
+# Two runs of phase 16's data through the train and infer CLIs, in the torchrun
+# call of phases 19 and 20: (a) the item-item W_bi of phase 16 (b) on small
+# slabs (W_bi 1682 x 1682 sharded over model), no kernel; (b) big bilinear on
+# phase 16 (d)'s data on mesh_big slabs by the auto rule, K5 three times a
+# mesh step on every rank (the table's merge, the pool writeback, the W_bi
+# slab write).
+MESH_BI_RUNS = {  # tag: its data (phase 16's directory), keys beside its conf, rounds, slabs
+    "a": dict(data="implicitFeedback", keys=BI_RUNS["b"]["keys"], rounds=2, big=False),
+    "b": dict(data="bigBilinear", keys=BI_RUNS["d"]["keys"], rounds=2, big=True),
+}
+# the JAX package's 2x2 mesh on 4 CPU devices, same data, conf and rounds
+# (scripts/mesh_bi_jax_reference.py --run a|b): the test RMSE after the last
+# round (a), the probe's (b); (a)'s last-round checkpoint's w and the rows
+# MESH_BI_WBI_ROWS of its W_bi are scripts/mesh_bi_jax_a.npz
+JAX_MESH_BI = {"a": 0.999921, "b": 0.167179}
+MESH_BI_TOL = 1e-4  # the figures against JAX's and phase 16's, the checkpoint against JAX's
+
+
+def mesh_bi_wbi_rows(num_item=1682, n_model=2, seed=21):
+    """The rows of (a)'s W_bi pinned in the repo (the whole 1682 x 1682 is
+    11 MB): 16 at each end of each model slab and 96 drawn by
+    default_rng(seed)."""
+    nb = -(-(num_item + 1) // n_model)  # parallel/bilinear_mesh.pad_bi_rows / n_model
+    ends = [r for m in range(n_model) for r in (*range(m * nb, m * nb + 16),
+                                                 *range((m + 1) * nb - 16, (m + 1) * nb))]
+    drawn = np.random.default_rng(seed).choice(num_item, 96, replace=False)
+    return np.unique(np.clip(np.concatenate([ends, drawn]), 0, num_item - 1))
+
+
+def mesh_bi_args(tag, d, out):
+    """(train, infer) CLI arguments, the conf first, of phase 21's run
+    ``tag`` on the data in ``d`` (phase 16's directory of it), its models
+    and eval log under ``out``; the mesh keys are the caller's."""
+    run = MESH_BI_RUNS[tag]
+    R = run["rounds"]
+    data = [f"buffer_feature={d}/train.buffer"]
+    if run["big"]:
+        conf = d / "bigSvdpp.conf"  # tested on the probe (write_big_bilinear)
+    else:
+        conf = ROOT / "demo" / "implicitFeedback" / "implicitFeedback.conf"
+        data.append(f"test:buffer_feature={d}/test.buffer")
+    common = [*data, *run["keys"], f"model_out_folder={out}/models", "silent=1"]
+    return ([conf, *common, f"num_round={R}"],
+            [conf, *common, f"start={R}", f"end={R + 1}", f"log_eval={out}/eval.tsv"])
+
+
+def read_bi_checkpoint(path):
+    """(w, W_bi) of a bilinear checkpoint the train CLI wrote, read with the
+    port on the CPU."""
+    import torch
+
+    from svdfeature_tpu_torch.model import SVDModel, _read_t2d
+    from svdfeature_tpu_torch.params import SVDTypeParam
+    from svdfeature_tpu_torch.solvers.bilinear import BParam
+
+    with open(path, "rb") as f:
+        m = SVDModel.load(f, SVDTypeParam.from_bytes(f.read(4)), device=torch.device("cpu"))
+        BParam().load(f)
+        return m.w.numpy(), _read_t2d(f)
+
+
+def mesh_bi_k5(torch, dev, call, card, failures):
+    """K5 at the W_bi slab write of the 2x2 bilinear mesh_big: the W_bi slab
+    of model position 0 ([nb_real + 1, nbf], the scratch row last) and the
+    write of one step's gathered entries, which are phase 16 (d)'s first
+    single-card W_bi write (``call``: the same batch, the same targets)
+    with the rows model position 0 does not own sent to the scratch row as
+    zeros (parallel/bilinear_mesh_big._bi_update_big).  Bit for bit against
+    the plain version, timed in turns with it and with index_copy_."""
+    from svdfeature_tpu_torch.parallel import bilinear_mesh_big
+
+    nb_real, nb_phys = bilinear_mesh_big.bi_big_layout(BIG_PLUS["NI"], 2)
+    idx, vals = (x.to(dev) for x in call)
+    own = idx < nb_real
+    idx = torch.where(own, idx, nb_real).to(torch.int32)
+    vals = torch.where(own[:, None], vals, 0.0)
+    rng = np.random.default_rng(21)
+    slab = torch.from_numpy(rng.standard_normal((nb_phys, BIG_BI_NBF), dtype=np.float32)).to(dev)
+    slab[-1] = 0.0
+    name = "W_bi slab write (model position 0)"
+    timing = time_k5_shapes(torch, 21, "the 2x2 bilinear mesh_big", slab, {name: (idx, vals)}, card,
+                            failures)
+    return timing[f"the 2x2 bilinear mesh_big {name}"]
+
+
+def phase_mesh_bi_runs(work):
+    """Phase 21's runs: tag -> (train, infer) CLI arguments, the conf
+    first, the mesh keys and logs included (its output directories made)."""
+    runs = {}
+    for tag, run in MESH_BI_RUNS.items():
+        out = work / f"mesh21_{tag}"
+        out.mkdir()
+        train, infer = mesh_bi_args(tag, work / run["data"], out)
+        keys = ["distributed=1", *MESH_KEYS]
+        runs[tag] = ([*train, *keys, f"log_jsonl={out}/train.jsonl"], [*infer, *keys])
+    return runs
+
+
+def phase_mesh_bi(torch, work, prior, card, failures, call):
+    """The bilinear trainer on a 2x2 mesh through the train and infer CLIs
+    under torchrun (MESH_BI_RUNS, in ``call``: the records, output, seconds
+    and runs of the torchrun call that ran phase_mesh_bi_runs, mesh_call):
+    (a) W_bi 1682 x 1682 on small slabs, its test RMSE within MESH_BI_TOL of
+    the JAX package's 2x2 CPU mesh and of phase 16 (b) at the same round,
+    its checkpoint's w and pinned W_bi rows within MESH_BI_TOL of the JAX
+    mesh's (scripts/mesh_bi_jax_a.npz) and its whole W_bi and w of phase
+    16 (b)'s checkpoint of the round, no kernel; (b) big bilinear on
+    mesh_big slabs, its probe within MESH_BI_TOL of the JAX mesh's and of
+    phase 16 (d)'s, K5 three times a mesh step on every rank (the table's
+    merge, the pool writeback, the W_bi slab write); the same steps on
+    every rank, phase 16's steps a round, nothing on another card; then K5
+    at (b)'s W_bi slab write.  ``prior``: phase 16's (phase_bilinear; a
+    figure, the checkpoint or the W_bi write None where not measured: not
+    compared, no K5 timing).  Returns the K5 launches of every rank, with
+    the K5 timing."""
+    k5 = 0
+    records, _, secs, _ = call
+    if records is None:
+        failures.append("mesh call (phase 21)")
+        print(f"phase 21 FAIL: the torchrun call failed after {secs:.1f} s", flush=True)
+    else:
+        for tag, run in MESH_BI_RUNS.items():
+            recs = records[f"21{tag}"]
+            out, R = work / f"mesh21_{tag}", run["rounds"]
+            jax, single = JAX_MESH_BI[tag], prior["rmse"].get(tag)
+            lines = [json.loads(x) for x in (out / "train.jsonl").read_text().splitlines()]
+            round_s = [x["round_s"] for x in lines]
+            steps = recs[0]["steps"]
+            want_steps = R * prior["T"][tag] if tag in prior["T"] else steps
+            launches = [x["launches"] for x in recs]
+            want = {kid: 0 for kid in launches[0]}
+            if run["big"]:
+                want["K5"] = 3 * steps
+                k5 += sum(x["K5"] for x in launches)
+            final = float((out / "eval.tsv").read_text().split()[-1])
+            checks = [all(x == want for x in launches), steps == want_steps > 0,
+                      all(x["steps"] == steps for x in recs), not any(x["stray"] for x in recs),
+                      math.isfinite(final), abs(final - jax) < MESH_BI_TOL]
+            what = "probe" if run["big"] else "test"
+            vs = (f"{what} RMSE {final:.6f} after {R} rounds (minus JAX CPU mesh "
+                  f"{final - jax:+.2e}, tol {MESH_BI_TOL:g}); ")
+            if single is None:
+                vs += "phase 16 not run"
+            else:
+                checks.append(abs(final - single) < MESH_BI_TOL)
+                vs += f"minus phase 16 ({'d' if run['big'] else 'b'}) at round {R} {final - single:+.2e}"
+            if tag == "a":
+                w, W = read_bi_checkpoint(out / "models" / f"{R:04d}.model")
+                ref = np.load(ROOT / "scripts" / "mesh_bi_jax_a.npz")
+                dw = float(np.abs(w - ref["w"]).max()) if w.shape == ref["w"].shape else math.inf
+                dW = float(np.abs(W[ref["rows"]] - ref["W_bi"]).max())
+                checks += [dw < MESH_BI_TOL, dW < MESH_BI_TOL]
+                vs += (f"; round-{R} checkpoint max |port - JAX CPU mesh| w {dw:.2e}, W_bi's "
+                       f"{len(ref['rows'])} pinned rows {dW:.2e} (tol {MESH_BI_TOL:g})")
+                if prior["ckpt"] is not None:
+                    sw, sW = read_bi_checkpoint(prior["ckpt"])
+                    ds_w, ds_W = float(np.abs(w - sw).max()), float(np.abs(W - sW).max())
+                    checks += [ds_w < MESH_BI_TOL, ds_W < MESH_BI_TOL]
+                    vs += (f"; against phase 16 (b)'s round-{R} checkpoint w {ds_w:.2e}, the "
+                           f"whole W_bi {W.shape[0]} x {W.shape[1]} {ds_W:.2e}")
+            ok = all(checks)
+            if not ok:
+                failures.append(f"mesh run 21 ({tag})")
+            rows = lines[0]["examples"]
+            train_s = round_s[1:] if R > 1 else round_s
+            ms = 1e3 * sum(train_s) / (steps // R * len(train_s))
+            print(f"phase 21 {'ok' if ok else 'FAIL'}: mesh ({tag}) {' '.join(run['keys'])} "
+                  f"{run['data']}: {vs}; {steps} mesh steps on each rank (want {want_steps}); "
+                  f"launches on each rank {launches} (want {want}); ranks "
+                  f"{[x['backend'] for x in recs]} on cuda:{[x['device'] for x in recs]}, bytes on "
+                  f"the other cards {[x['stray'] for x in recs]} (want 0); training "
+                  f"{rows * len(train_s) / sum(train_s):,.0f} examples/s, {ms:.2f} ms a mesh step, "
+                  f"{f'rounds 2-{R}' if R > 1 else 'round 1, its packing included'} (round "
+                  f"seconds {round_s}); train CLI "
+                  f"{max(x['train_s'] for x in recs):.1f} s, infer CLI "
+                  f"{max(x['infer_s'] for x in recs):.1f} s, peak device memory a rank "
+                  f"{max(x['peak'] for x in recs) / 2**30:.2f} GiB; on {card}", flush=True)
+            shutil.rmtree(out / "models", ignore_errors=True)
+    timing = (None if prior["wbi_call"] is None else
+              mesh_bi_k5(torch, torch.device("cuda", 0), prior["wbi_call"], card, failures))
     return k5, timing
 
 
@@ -3801,7 +4112,8 @@ def main() -> int:
         phase_time("phase 14")
         phase_refresh(pathlib.Path(work), card, failures, k2_eps)
         phase_time("phase 15")
-        k5_bi_launches, k5_bi_timing = phase_bilinear(torch, pathlib.Path(work), card, failures)
+        k5_bi_launches, k5_bi_timing, bi_prior = phase_bilinear(torch, pathlib.Path(work), card,
+                                                                failures)
         phase_time("phase 16")
         phase_gbrt(torch, pathlib.Path(work), rank_dir, rank_keys, card, failures)
         phase_time("phase 17")
@@ -3809,15 +4121,9 @@ def main() -> int:
             big_staged, g=dict(eps=k1_eps), b=dict(eps=k2_eps), d=dict(eps=big_plus_eps),
             e=dict(eps=k3_eps)), card, failures)
         phase_time("phase 18")
-        # phases 19 and 20 share one torchrun call of MESH_RANKS ranks
-        mesh_runs = {f"19{tag}": run for tag, run in phase_mesh_runs(pathlib.Path(work)).items()}
-        mesh_runs.update({f"20{tag}": run
-                          for tag, run in phase_mesh_plus_runs(pathlib.Path(work)).items()})
-        torch.cuda.empty_cache()  # the ranks share the card with this process
-        call = mesh_call(pathlib.Path(work), mesh_runs)
-        print(f"phases 19-20: one torchrun call of {MESH_RANKS} ranks, runs {list(mesh_runs)}: "
-              f"{'ok' if call[0] is not None else 'FAIL'} in {call[2]:.1f} s", flush=True)
-        phase_time("phases 19-20's torchrun call")
+        # phases 19-21 share one torchrun call of MESH_RANKS ranks
+        call = mesh_call_all(torch, pathlib.Path(work))
+        phase_time("phases 19-21's torchrun call")
         k5_mesh_launches, k5_mesh_timing = phase_mesh(
             torch, pathlib.Path(work), big, dict(big_staged, phase3=k1_rmse), card, failures,
             call)
@@ -3825,6 +4131,9 @@ def main() -> int:
         k5_plus_mesh_launches, k5_plus_mesh_timing = phase_mesh_plus(
             torch, pathlib.Path(work), big_plus, card, failures, call)
         phase_time("phase 20's checks")
+        k5_bi_mesh_launches, k5_bi_mesh_timing = phase_mesh_bi(
+            torch, pathlib.Path(work), bi_prior, card, failures, call)
+        phase_time("phase 21's checks")
     print(f"chip_smoke.py took {time.perf_counter() - start:.1f} s on {card}", flush=True)
 
     if failures:
@@ -3851,7 +4160,8 @@ def main() -> int:
         kernel_line("row_writer (row_write)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:43",
                     big_launches["K5"] + k5_plus_launches + k5_rank_launches
-                    + stream_launches["K5"] + k5_mesh_launches + k5_plus_mesh_launches,
+                    + stream_launches["K5"] + k5_mesh_launches + k5_plus_mesh_launches
+                    + k5_bi_mesh_launches,
                     big_timing["K5"]["err"], big_timing["K5"]),
         # K5 on the 2x2 mesh_big path (phase 19 (b)): each rank's slab writes
         kernel_line("row_writer (row_write), slab writes of the 2x2 mesh_big, every rank",
@@ -3865,6 +4175,13 @@ def main() -> int:
                     "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:43", k5_plus_mesh_launches,
                     k5_plus_mesh_timing["err"], k5_plus_mesh_timing),
+        # K5 on the 2x2 bilinear mesh_big path (phase 21 (b)): each rank's
+        # row writes, pool writebacks and W_bi slab writes
+        kernel_line("row_writer (row_write), row writes, pool writebacks and W_bi slab writes of "
+                    "the 2x2 bilinear mesh_big, every rank",
+                    "svdfeature_tpu_torch/csrc/row_scatter.cu",
+                    "svdfeature_tpu/ops/pallas_scatter.py:43", k5_bi_mesh_launches,
+                    k5_bi_mesh_timing["err"], k5_bi_mesh_timing),
         # K5 on big bilinear's path (phase 16 (d)): its W_bi write
         kernel_line("row_writer (row_write), W_bi rows of big bilinear",
                     "svdfeature_tpu_torch/csrc/row_scatter.cu",

@@ -13,8 +13,8 @@ chip_smoke.py holds the port's runs on the card to the last round's
 figure (its JAX_BILINEAR_RMSE constants); run a prints the trajectory that
 phase 16 (a) holds to golden/bilinear.rmse.tsv.
 
-    JAX_PLATFORMS=cpu python scripts/bilinear_jax_reference.py --run a   # num_bi_feedback=0, 8 rounds
-    JAX_PLATFORMS=cpu python scripts/bilinear_jax_reference.py --run b   # item-item W_bi, 8 rounds
+    JAX_PLATFORMS=cpu python scripts/bilinear_jax_reference.py --run a   # num_bi_feedback=0, 3 rounds
+    JAX_PLATFORMS=cpu python scripts/bilinear_jax_reference.py --run b   # item-item W_bi, 2 rounds
     JAX_PLATFORMS=cpu python scripts/bilinear_jax_reference.py --run c   # follow data, 3 rounds
     JAX_PLATFORMS=cpu python scripts/bilinear_jax_reference.py --run d   # big table, 2 rounds
 """

@@ -6,14 +6,14 @@ buffers of the phase that chip_smoke.MESH_PLUS_RUNS names), trains it with
 mesh_data=2 mesh_model=2 on 4 of the 8 CPU devices through the JAX CLI's
 SVDTrainTask and evaluates it with its SVDInferTask on the same mesh keys:
 the test RMSE after the last round (a, d), the probe's (b, e, f; big slabs,
-mesh_big=1), or P@20 of the ranker's pred file (c), whose round-3
+mesh_big=1), or P@20 of the ranker's pred file (c), whose last-round
 checkpoint's ``w`` it also writes to scripts/mesh_plus_jax_rank_w.npy
 (what the port's checkpoint is held to on the card).  chip_smoke.py holds
 the port's runs to the figures this prints (JAX_MESH_PLUS).
 
-    python scripts/mesh_plus_jax_reference.py --run a   # implicitFeedback, 5 rounds
-    python scripts/mesh_plus_jax_reference.py --run c   # pairwiseRank, 3 rounds
-    python scripts/mesh_plus_jax_reference.py --run d   # depth-2 stacked, 2 rounds
+    python scripts/mesh_plus_jax_reference.py --run a   # implicitFeedback, 2 rounds
+    python scripts/mesh_plus_jax_reference.py --run c   # pairwiseRank, 2 rounds
+    python scripts/mesh_plus_jax_reference.py --run d   # depth-2 stacked, 1 round
     python scripts/mesh_plus_jax_reference.py --run b   # bigSvdpp, 2 rounds (GBs, minutes)
     python scripts/mesh_plus_jax_reference.py --run e   # big multi-IMFB, 1 round
     python scripts/mesh_plus_jax_reference.py --run f   # bigSvdpp streamed, 1 round

@@ -40,7 +40,7 @@ from .comm import Mesh, psum
 from .mesh import (_apply_row_updates, _decay_clamp_scrub, _lazy_catchup_sharded,
                    _sharded_forward, activated_score, forward_partials, global_apply,
                    global_catchup, global_decay, global_sums)
-from .svdpp_mesh import (_ctx, _rounds, local_pool, model_then_data, pool_partials,
+from .svdpp_mesh import (_rounds, chunk_pool, local_pool, model_then_data, pool_partials,
                          reduce_pool_predict, seg_sum)
 
 
@@ -96,7 +96,7 @@ def sharded_imfb_step(state: TrainState, batch: Dict[str, torch.Tensor],
     ctx = batch["ctx_slots"].long()
 
     agg = pool_partials(lambda i: (w[i], b[i]), cfb, "fb_ctx", nseg, lo, n_local, dummy, mesh)
-    fwd, (cu, ci, cg, present, fb_sum, fb_bias, norm) = model_then_data(
+    fwd, (cu, ci, cg, present, fb_sum, fb_bias, norm), _ = model_then_data(
         agg, w, b, batch, hp, mesh, state.g.shape[0], lo, n_local, dummy)
     w, ref_ui = _lazy_catchup_sharded(w, state.ref_ui, cu, ci, step0, lr, consts, hp)
     g, ref_g = global_catchup(state.g, state.ref_g, cg, step0, lr, consts, hp)
@@ -151,7 +151,7 @@ def sharded_imfb_predict(state: TrainState, stacked: Dict[str, torch.Tensor],
         batch = {name: x[t] for name, x in stacked.items()}
         ctx = batch["ctx_slots"].long()
         fb_sum, fb_bias, p_u, p_i, bias = reduce_pool_predict(
-            pool_partials(lambda i: (w[i], b[i]), _ctx(fb, c), "fb_ctx", nseg, lo, n_local,
+            pool_partials(lambda i: (w[i], b[i]), chunk_pool(fb, c), "fb_ctx", nseg, lo, n_local,
                           dummy, mesh, with_norm=False), mesh,
             forward_partials(w, b, batch, hp, lo, n_local, dummy))
         p_u = p_u + fb_sum[ctx].sum(dim=1)

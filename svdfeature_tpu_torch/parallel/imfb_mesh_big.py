@@ -27,7 +27,7 @@ from .comm import Mesh, psum
 from .imfb_mesh import context_deltas, context_partials
 from .mesh import activated_score, global_apply, global_catchup, global_decay, global_sums
 from .mesh_big import fwd_big_partials, merge_gathered, predict_partials_big
-from .svdpp_mesh import (_ctx, _rounds, local_pool, pool_partials, reduce_pool_predict,
+from .svdpp_mesh import (_rounds, chunk_pool, local_pool, pool_partials, reduce_pool_predict,
                          reduce_pool_train)
 from .svdpp_mesh_big import slab_rows
 
@@ -64,7 +64,8 @@ def sharded_imfb_step_big(state: TrainState, batch: Dict[str, torch.Tensor],
     *gs, red = psum(mesh, "data", *global_sums(g, batch, err),
                     context_partials(err, p_i, batch["weight"], ctx, nseg, M))
     g = global_decay(global_apply(g, gs, lr), cg, lr, consts, hp)
-    w = merge_gathered(w, step0, u_ent, i_ent, lr * err, p_u, p_i, lr, consts, hp, mesh, n_real)
+    w, _ = merge_gathered(w, step0, u_ent, i_ent, lr * err, p_u, p_i, lr, consts, hp, mesh,
+                          n_real)
     delta, delta_b = context_deltas(red, fb_sum, fb_bias, norm, enabled, lr_fb, d, db, M,
                                     with_bias)
     w = _fb_writeback_big(w, local_pool(cfb, "fb_ctx", lo, n_real, scratch), delta, delta_b, k,
@@ -102,7 +103,7 @@ def sharded_imfb_predict_big(state: TrainState, stacked: Dict[str, torch.Tensor]
         batch = {name: x[t] for name, x in stacked.items()}
         ctx = batch["ctx_slots"].long()
         fb_sum, fb_bias, p_u, p_i, bias = reduce_pool_predict(
-            pool_partials(slab_rows(state.w, k), _ctx(fb, c), "fb_ctx", nseg, lo, n_real,
+            pool_partials(slab_rows(state.w, k), chunk_pool(fb, c), "fb_ctx", nseg, lo, n_real,
                           n_real, mesh, with_norm=False), mesh,
             predict_partials_big(state, batch, hp, mesh, n_real))
         if not hp.no_user_bias:

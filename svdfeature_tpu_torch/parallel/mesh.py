@@ -254,15 +254,17 @@ def _lazy_catchup_sharded(w, ref_ui, cu, ci, step0, lr, consts: TrainConsts, hp:
 
 
 def _apply_row_updates(w, b, batch, lr_err, p_u, p_i, hp: HyperParams, mesh: Mesh, lo: int,
-                       n_local: int, dummy: int) -> None:
+                       n_local: int, dummy: int, extra=()) -> List[torch.Tensor]:
     """The all-gathered sparse updates, applied in place and alike by every
     data replica of the shard (mesh.py:238-274): the communication is the
-    batch's ids and O(B k) floats over ``data``, never table rows."""
+    batch's ids and O(B k) floats over ``data``, never table rows.  The
+    ``extra`` tensors (4-byte dtypes: the bilinear step's W_bi entries)
+    ride the same gather; returns their ``[n_data, *shape]`` stacks."""
     lu, lu_val = _local_ids(batch["u_idx"], batch["u_val"], lo, n_local, dummy)
     li, li_val = _local_ids(batch["i_idx"], batch["i_val"], lo, n_local, dummy)
-    g_lu, g_li, g_cu, g_ci, g_pu, g_pi = all_gather(
+    g_lu, g_li, g_cu, g_ci, g_pu, g_pi, *more = all_gather(
         mesh, "data", lu.to(I32), li.to(I32), lr_err[:, None] * lu_val, lr_err[:, None] * li_val,
-        p_u, p_i)
+        p_u, p_i, *extra)
     D, B, Su = g_lu.shape
     Si, k = g_li.shape[2], p_u.shape[1]
     _scatter_rows(w, g_lu.reshape(D * B, Su), g_cu.reshape(D * B, Su), g_pi.reshape(D * B, k))
@@ -270,6 +272,7 @@ def _apply_row_updates(w, b, batch, lr_err, p_u, p_i, hp: HyperParams, mesh: Mes
     _scatter_vals(b, g_li.reshape(D * B, Si), g_ci.reshape(D * B, Si))
     if not hp.no_user_bias:
         _scatter_vals(b, g_lu.reshape(D * B, Su), g_cu.reshape(D * B, Su))
+    return more
 
 
 def _decay_clamp_scrub(w, b, cu, ci, lr, consts: TrainConsts, hp: HyperParams, lo: int,
@@ -294,10 +297,14 @@ def _decay_clamp_scrub(w, b, cu, ci, lr, consts: TrainConsts, hp: HyperParams, l
     return w, b
 
 
-def activated_score(p_u, p_i, bias, g, batch, hp: HyperParams) -> torch.Tensor:
+def activated_score(p_u, p_i, bias, g, batch, hp: HyperParams, plug=None) -> torch.Tensor:
     """The activated prediction from the psum'd partial sums and the
-    replicated global bias (mesh.py:367-371)."""
-    score = hp.base_score + bias + (p_u * p_i).sum(dim=1)
+    replicated global bias (mesh.py:367-371), with the bilinear plugin
+    bias ``plug`` where given (added after ``bias``, as the JAX bodies do)."""
+    score = hp.base_score + bias
+    if plug is not None:
+        score = score + plug
+    score = score + (p_u * p_i).sum(dim=1)
     score = score + _gather_sum(g, batch["g_idx"], batch["g_val"])
     return losses.map_active(score, hp.active_type)
 

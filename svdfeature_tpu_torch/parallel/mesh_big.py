@@ -167,24 +167,28 @@ def sharded_train_step_big(state: TrainState, batch: Dict[str, torch.Tensor], lr
     pred = activated_score(p_u, p_i, bias, g, batch, hp)
     err = losses.cal_grad(batch["label"], pred, hp.active_type) * batch["weight"]
     g = global_decay(global_update_psum(g, batch, err, lr, mesh), cg, lr, consts, hp)
-    w = merge_gathered(w, step0, u_ent, i_ent, lr * err, p_u, p_i, lr, consts, hp, mesh, n_real)
+    w, _ = merge_gathered(w, step0, u_ent, i_ent, lr * err, p_u, p_i, lr, consts, hp, mesh,
+                          n_real)
     return TrainState(w=w, b=state.b, g=g, step=step0 + present, ref_ui=state.ref_ui,
                       ref_g=ref_g)
 
 
 def merge_gathered(w, step0, u_ent, i_ent, lr_err, p_u, p_i, lr, consts: TrainConsts,
-                   hp: HyperParams, mesh: Mesh, n_real: int) -> torch.Tensor:
+                   hp: HyperParams, mesh: Mesh, n_real: int, extra=()):
     """The row update of a big-slab step (mesh_big.py:262-300): this data
     rank's entries (``(local ids, values)`` of each segment) with their
     coefficients and p-vectors, all-gathered over ``data`` in one call,
     merged into the slab by ``apply_entries`` (one K5 write with
-    ``hp.row_dma`` on a CUDA slab); the slab, written in place."""
+    ``hp.row_dma`` on a CUDA slab).  The ``extra`` tensors (4-byte dtypes:
+    the bilinear step's W_bi entries) ride the same gather.  Returns the
+    slab, written in place, and the extras' ``[n_data, *shape]`` stacks."""
     k = hp.num_factor
     (lu, uv), (li, iv) = u_ent, i_ent
     # the entry stream of the whole batch, gathered over data (activations,
     # not rows); an entry's own flag is its id not being the scratch row
-    g_lu, g_li, g_cu, g_ci, g_pu, g_pi = all_gather(
-        mesh, "data", lu.to(I32), li.to(I32), lr_err[:, None] * uv, lr_err[:, None] * iv, p_u, p_i)
+    g_lu, g_li, g_cu, g_ci, g_pu, g_pi, *more = all_gather(
+        mesh, "data", lu.to(I32), li.to(I32), lr_err[:, None] * uv, lr_err[:, None] * iv, p_u, p_i,
+        *extra)
     Eu, Ei = g_lu.numel(), g_li.numel()
     ent_idx = torch.cat([g_lu.reshape(-1), g_li.reshape(-1)])
     dw = torch.cat([(g_cu[..., None] * g_pi[:, :, None, :]).reshape(-1, k),
@@ -202,7 +206,7 @@ def merge_gathered(w, step0, u_ent, i_ent, lr_err, p_u, p_i, lr, consts: TrainCo
     # catch it up from its ref bits inside apply_entries
     raw_u, raw_i = gather_rows(w, g_lu.reshape(-1)), gather_rows(w, g_li.reshape(-1))
     return apply_entries(w, step0, ent_idx, payload, raw_u, raw_i, raw_u[:, :k], raw_i[:, :k],
-                         lr, consts, hp)
+                         lr, consts, hp), more
 
 
 @torch.no_grad()

@@ -158,17 +158,20 @@ def local_pool(cfb: Dict[str, torch.Tensor], seg_key: str, lo: int, n_own: int,
 
 
 def model_then_data(agg, w, b, batch, hp: HyperParams, mesh: Mesh, n_g: int, lo: int,
-                    n_local: int, dummy: int):
+                    n_local: int, dummy: int, extra=()):
     """The small step's first two collectives: the aggregates over
     ``model`` and ``data`` with the batch counts (reduce_pool_train), the
     forward's partials riding the model call where no lazy catch-up comes
-    between (reg_method < 4: the catch-up leaves the rows as they are) ->
-    ((p_u, p_i, bias), or None in the lazy modes; (cu, ci, cg, present,
-    fb_sum, fb_bias, norm))."""
+    between (reg_method < 4: the catch-up leaves the rows as they are),
+    and the ``extra`` model partials (the bilinear plug, which reads no
+    row the catch-up moves) in every mode -> ((p_u, p_i, bias), or None in
+    the lazy modes; (cu, ci, cg, present, fb_sum, fb_bias, norm); the
+    extras summed)."""
     eager = hp.reg_method < 4
     parts = forward_partials(w, b, batch, hp, lo, n_local, dummy) if eager else []
-    sums = reduce_pool_train(agg, batch, mesh, n_g, lo, n_local, parts)
-    return (sums[7:] if eager else None), sums[:7]
+    sums = reduce_pool_train(agg, batch, mesh, n_g, lo, n_local, [*parts, *extra])
+    more = sums[7:]
+    return (more[:3] if eager else None), sums[:7], more[3 if eager else 0:]
 
 
 @torch.no_grad()
@@ -188,7 +191,7 @@ def sharded_svdpp_step(state: TrainState, batch: Dict[str, torch.Tensor],
     slot = user_slots(G, M, mesh, w.device)
 
     agg = pool_partials(lambda i: (w[i], b[i]), cfb, "fb_block", nseg, lo, n_local, dummy, mesh)
-    fwd, (cu, ci, cg, present, fb_sum, fb_bias, norm) = model_then_data(
+    fwd, (cu, ci, cg, present, fb_sum, fb_bias, norm), _ = model_then_data(
         agg, w, b, batch, hp, mesh, state.g.shape[0], lo, n_local, dummy)
     # the lazy catch-up after the block aggregates (the reference order)
     w, ref_ui = _lazy_catchup_sharded(w, state.ref_ui, cu, ci, step0, lr, consts, hp)
@@ -217,7 +220,7 @@ def _rounds(step_fn, state: TrainState, stacked: Dict[str, torch.Tensor], chunk_
             fb: Dict[str, torch.Tensor], lrs, ph: PlusHyper, extra=None) -> TrainState:
     """R rounds over the T steps of this rank's columns, round r at
     ``lrs[r]``, step t on chunk ``chunk_id[t]``'s pool (and ``extra[c]``
-    where given: the stacked solver's gates)."""
+    where given: the stacked solver's gates, the bilinear properties)."""
     T = stacked["label"].shape[0]
     cids = np.asarray(chunk_id).tolist()
     batches = [{name: x[t] for name, x in stacked.items()} for t in range(T)]
@@ -225,14 +228,15 @@ def _rounds(step_fn, state: TrainState, stacked: Dict[str, torch.Tensor], chunk_
         lr = lrs[r]
         fbh = _fb_hyper(lr, ph)
         for batch, c in zip(batches, cids):
-            args = (_pool(fb, c),) if extra is None else (_ctx(fb, c), extra[c])
+            args = (_pool(fb, c),) if extra is None else (chunk_pool(fb, c), extra[c])
             state = step_fn(state, batch, *args, lr, fbh)
     return state
 
 
-def _ctx(fb: Dict[str, torch.Tensor], c: int) -> Dict[str, torch.Tensor]:
-    """Chunk c's stacked pool (the context slot ``fb_ctx``)."""
-    return {name: fb[name][c] for name in ("fb_idx", "fb_val", "fb_ctx")}
+def chunk_pool(fb: Dict[str, torch.Tensor], c: int) -> Dict[str, torch.Tensor]:
+    """Chunk c's pool, whatever its segment plane (``fb_block`` of the
+    users, ``fb_ctx`` of the stacked contexts)."""
+    return {name: x[c] for name, x in fb.items()}
 
 
 def users_of(stacked: Dict[str, torch.Tensor], mesh: Mesh, M: int) -> int:

@@ -85,7 +85,8 @@ def sharded_svdpp_step_big(state: TrainState, batch: Dict[str, torch.Tensor],
     *gs, red = psum(mesh, "data", *global_sums(g, batch, err),
                     user_partials(err, p_i, batch["weight"], slot, nseg))
     g = global_decay(global_apply(g, gs, lr), cg, lr, consts, hp)
-    w = merge_gathered(w, step0, u_ent, i_ent, lr * err, p_u, p_i, lr, consts, hp, mesh, n_real)
+    w, _ = merge_gathered(w, step0, u_ent, i_ent, lr * err, p_u, p_i, lr, consts, hp, mesh,
+                          n_real)
     delta, delta_b = user_deltas(red, fb_sum, fb_bias, norm, lr_fb, d, db, M, with_bias)
     w = _fb_writeback_big(w, local_pool(cfb, "fb_block", lo, n_real, scratch), delta, delta_b, k,
                           hp.row_dma)

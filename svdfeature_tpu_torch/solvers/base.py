@@ -36,8 +36,8 @@ card in the augmented layout with the sorted-dedup step through K5
 (parallel/mesh_big.py; config key ``mesh_big``: -1 auto, 0 off, 1 on).
 The ranks of data row 0 unshard the table for a checkpoint and rank 0
 writes it; every rank ends a prediction with all of them.  The derived
-solvers name the ROADMAP item of their own mesh (``MESH_ITEM``) and
-refuse one.
+solvers train their own mesh steps (parallel/svdpp_mesh*, imfb_mesh*,
+bilinear_mesh*); GBRT refuses a mesh, as in the JAX package.
 
 The device is explicit: config key ``device`` (default ``cuda``).  With
 ``device=cuda`` and no card the trainer raises instead of running on the
@@ -91,9 +91,6 @@ class SVDFeatureTrainer:
     # large tables take the augmented-row big-table route; a derived solver
     # whose epoch drives the state itself opts out until its route is ported
     SUPPORTS_BIG_TABLE = True
-    # a solver whose mesh step is not ported names its ROADMAP Queue 1 item
-    # here and refuses mesh_data * mesh_model > 1 (None: the base mesh)
-    MESH_ITEM: Optional[str] = None
 
     def __init__(self, mtype: SVDTypeParam):
         self.mtype = mtype
@@ -235,22 +232,13 @@ class SVDFeatureTrainer:
             self.model.g = st.g[:-1].clone(**copy)
 
     # ---- trainer lifecycle ---------------------------------------------------
-    def _check_mesh_supported(self) -> None:
-        """Refuse a mesh where this solver's mesh step is not ported."""
-        if self.MESH_ITEM:
-            raise NotImplementedError(
-                f"mesh_data/mesh_model > 1: the {type(self).__name__} mesh is ROADMAP "
-                f"Queue 1 item {self.MESH_ITEM}"
-            )
-
     def _join_mesh(self) -> None:
         """On a mesh of more than one position, before the first tensor:
-        refuse an unported mesh, check the world's size and join it, so that
-        each rank's card is the current device when the model is made (a
-        no-op once joined, as after ``distributed=1``)."""
+        check the world's size and join it, so that each rank's card is the
+        current device when the model is made (a no-op once joined, as
+        after ``distributed=1``)."""
         if self.mesh_data * self.mesh_model == 1:
             return
-        self._check_mesh_supported()
         comm.check_world(self.mesh_data * self.mesh_model)
         comm.init_distributed(self.device_name)
 

@@ -35,8 +35,21 @@ hooks, each chunk packed with these extras (JAX :260-318): at the stream's
 caps, sorted within the chunk with ``sort_blocks`` (the JAX chunk pack
 passes it), and evaluated a chunk at a time in file order (:476-548).
 
-Not ported yet: ``mesh_*`` > 1 (ROADMAP item 12d), refused by
-``init_trainer``.
+On a ``(data, model)`` mesh (``mesh_data`` x ``mesh_model`` > 1, one rank a
+position, solvers/base.py) W_bi is row-sharded over ``model`` beside the
+table (JAX :76-108): on small slabs in the JAX layout of
+parallel/bilinear_mesh.pad_bi_rows (the dummy row last in the last slab),
+on big ones (``mesh_big``, the base solver's rule) in
+parallel/bilinear_mesh_big's scratch-interleaved slabs.  The pack pads the
+users of a step and the pool to the data axis (``pad_plus_for_mesh``),
+widens ``up`` to the padded users and keeps this rank's columns, with no
+overlap (JAX :212-240, 286-316; a streamed chunk the same way); every
+round is parallel/bilinear_mesh's rounds or, on big slabs,
+bilinear_mesh_big's (K5 writes), before the shared-space route (JAX :322-362);
+the predictions, staged or streamed, score this rank's columns on its
+slabs and are gathered over ``data`` (JAX :417-548).  A checkpoint
+gathers W_bi over ``model`` on the ranks of data row 0 (JAX :97-108,
+149-154); a resumed model loads W_bi, then shards it.
 """
 
 from __future__ import annotations
@@ -54,6 +67,9 @@ from ..data.csr import PlusDataset
 from ..model import _read_t2d, _write_t2d
 from ..ops.svdpp_bilinear import (BiHyper, predict_batches_bi, train_epoch_bi,
                                   train_epoch_bi_big, train_epoch_bi_refresh)
+from ..parallel import bilinear_mesh, bilinear_mesh_big
+from ..parallel import mesh as pmesh
+from ..parallel.svdpp_mesh import pad_plus_for_mesh
 from .svdpp import PlusEntry, SVDPPFeatureTrainer
 
 
@@ -88,7 +104,6 @@ class BiEntry(PlusEntry):
 
 
 class SVDBiLinearTrainer(SVDPPFeatureTrainer):
-    MESH_ITEM = "12d (bilinear_mesh, bilinear_mesh_big)"
 
     def __init__(self, mtype):
         super().__init__(mtype)
@@ -96,8 +111,11 @@ class SVDBiLinearTrainer(SVDPPFeatureTrainer):
         self.reg_bi_feedback = 0
         self.wd_bi_feedback = 0.0
         self.slr_bi_feedback = 1.0
-        self.W_bi = None  # [num_item + 1, nbf] on the device, dummy row last
+        # [num_item + 1, nbf] on the device, dummy row last; on a mesh this
+        # rank's slab
+        self.W_bi = None
         self._bi_allocated = False
+        self._bi_rows = 0  # on a mesh: the padded rows (small slabs) or nb_real (big)
 
     def set_param(self, name: str, val: str) -> None:
         super().set_param(name, val)
@@ -124,10 +142,36 @@ class SVDBiLinearTrainer(SVDPPFeatureTrainer):
         self.W_bi = bilinear_from_numpy(_read_t2d(f), None, self.device)[0]
         self._bi_allocated = True
 
-    def save_model(self, f: BinaryIO) -> None:
+    def save_model(self, f: Optional[BinaryIO]) -> None:
+        """The base checkpoint, then BParam and W_bi; on a mesh every rank
+        calls it and the ranks of data row 0 gather W_bi over ``model``
+        (rank 0, given the file, writes)."""
+        if self.mesh is not None and self.mesh.d:
+            return
         super().save_model(f)
-        f.write(self.bparam.to_bytes())
-        _write_t2d(f, self.W_bi[:-1].cpu().numpy())
+        W = self._wbi_host()
+        if f is not None:
+            f.write(self.bparam.to_bytes())
+            _write_t2d(f, W[:-1].cpu().numpy())
+
+    def _init_mesh(self) -> None:
+        """The base solver's sharding, then W_bi's slab beside the table's:
+        small slabs in pad_bi_rows' layout, big ones scratch-interleaved
+        (JAX :76-95)."""
+        super()._init_mesh()
+        shard = bilinear_mesh_big.shard_bi_big if self._mesh_big else bilinear_mesh.shard_bi
+        self.W_bi, self._bi_rows = shard(self.W_bi, self.mesh)
+
+    def _wbi_host(self) -> torch.Tensor:
+        """W_bi ``[num_item + 1, nbf]`` in the single-device layout whatever
+        the device layout; on a mesh gathered over ``model`` (a collective
+        of this rank's model group)."""
+        if self.mesh is None:
+            return self.W_bi
+        ni = self.mparam.num_item
+        if self._mesh_big:
+            return bilinear_mesh_big.unshard_bi_big(self.W_bi, self.mesh, self._bi_rows, ni)
+        return bilinear_mesh.unshard_bi(self.W_bi, self.mesh, ni)
 
     # ---- routes -------------------------------------------------------------
     def _kernel_ok(self, stacked, fb) -> bool:
@@ -150,22 +194,26 @@ class SVDBiLinearTrainer(SVDPPFeatureTrainer):
             m.off_ufeedback, feat_user=self.feat_user, feat_item=self.feat_item,
             num_user=m.param.num_user, num_item=m.param.num_item,
             num_ufeedback=m.param.num_ufeedback, rows_per_user=self.rows_per_user,
-            sort_blocks=bool(sort_blocks), factored_overlap=self.hp.big_table, **(caps or {}))
+            sort_blocks=bool(sort_blocks),
+            # the mesh reads no overlap: it takes the cheaper factored form
+            factored_overlap=self.hp.big_table or self.mesh is not None, **(caps or {}))
 
-    def _bi_extras(self, packed):
+    def _bi_extras(self, packed, with_overlap: bool = True):
         """(filtered pool, up, overlap) of a packing (JAX :156-189): the
         entries below start_ufeedback keep their place with value 0 (they
         neither add to the factor sum nor receive a writeback), the overlap
-        recomputed from the filtered values in the packing's form; ``up``
-        from the raw values."""
+        recomputed from the filtered values in the packing's form (none
+        without ``with_overlap``: a mesh reads none); ``up`` from the raw
+        values."""
         m = self.model
         fb = packed.fb_arrays()
         start = self.bparam.start_ufeedback
-        overlap = packed.fb_overlap
+        overlap = packed.fb_overlap if with_overlap else None
         G = packed.num_blocks_local
         if start > 0:
             keep = fb["fb_idx"] - m.off_ufeedback >= start
             fb = dict(fb, fb_val=np.where(keep, fb["fb_val"], 0.0).astype(np.float32))
+        if start > 0 and with_overlap:
             args = (fb["fb_idx"], fb["fb_val"], fb["fb_block"], G)
             fac = compute_fb_overlap_factored(*args) if isinstance(overlap, dict) else None
             overlap = (dict(diag=fac[0], dup=fac[1]) if fac is not None
@@ -183,20 +231,46 @@ class SVDBiLinearTrainer(SVDPPFeatureTrainer):
 
     def _entry(self, packed, dev: torch.device, plan: bool = True) -> BiEntry:
         """A packed dataset's entry with the bilinear extras on ``dev``
-        (no carry plan: the big bilinear epoch is the entry-stream one)."""
+        (no carry plan: the big bilinear epoch is the entry-stream one).  On
+        a mesh (JAX :212-240): the users of a step and the pool padded to
+        the data axis, ``up`` widened to the padded users, this rank's
+        columns, no overlap, the row permutation remapped."""
         arrays = packed.device_arrays()
         chunk_id = arrays.pop("chunk_id")
-        fbd, up, overlap = self._bi_extras(packed)
+        fbd, up, overlap = self._bi_extras(packed, with_overlap=self.mesh is None)
+        perm = packed.perm
+        if self.mesh is not None:
+            m = self.model
+            G, M = packed.num_blocks_local, packed.rows_per_user
+            arrays, fbd, Gp, _ = pad_plus_for_mesh(arrays, fbd, G, self.mesh_data, m.num_rows,
+                                                   m.param.num_global, M=M)
+            if Gp != G:  # [C, G+1, nbf] -> [C, Gp+1, nbf], the empty segment last
+                pad = np.zeros((up.shape[0], Gp - G, up.shape[2]), np.float32)
+                up = np.concatenate([up[:, :G], pad, up[:, G:]], axis=1)
+            arrays = pmesh.put_process_sharded(arrays, self.mesh)
+            perm = (perm // (G * M)) * (Gp * M) + perm % (G * M)
         fb, overlap = pool_from_numpy(fbd, overlap, dev)
         return BiEntry(stacked=stacked_from_numpy(arrays, dev), chunk_id=chunk_id, fb=fb,
-                       fb_overlap=overlap, perm=packed.perm,
-                       up=bilinear_from_numpy(None, up, dev)[1])
+                       fb_overlap=overlap, perm=perm, up=bilinear_from_numpy(None, up, dev)[1])
 
     # ---- training / prediction ----------------------------------------------------
     def _train(self, entry, lrs: List[float]) -> None:
         if not isinstance(entry, BiEntry):  # random order (base), pair skeleton (SVD++)
             return super()._train(entry, lrs)
         ph, bh = self._plus_hyper(), self._bi_hyper()
+        if self.mesh is not None:
+            # every rank runs the same per-shard steps on its slabs and user
+            # slots, before the shared-space route (JAX :322-362); big slabs
+            # write through K5 (hp.row_dma)
+            common = (self.state, self.W_bi, entry.stacked, entry.chunk_id, entry.fb, entry.up,
+                      self._staged_lrs(lrs), self.consts, self.hp, ph, bh, self.mesh,
+                      self._mesh_rows, self._bi_rows)
+            if self._mesh_big:
+                self.state = bilinear_mesh_big.sharded_bilinear_rounds_big(
+                    *common, self.mparam.num_item)
+            else:
+                self.state = bilinear_mesh.sharded_bilinear_rounds(*common)
+            return
         for lr in self._staged_lrs(lrs):
             common = (entry.stacked, entry.chunk_id, entry.fb)
             if self.model.param.common_feedback_space:
@@ -209,6 +283,18 @@ class SVDBiLinearTrainer(SVDPPFeatureTrainer):
                                    self.consts, self.hp, ph, bh)
 
     def _predict_entry(self, state, entry: BiEntry) -> np.ndarray:
-        preds = predict_batches_bi(state, self.W_bi, entry.stacked, entry.chunk_id, entry.fb,
-                                   entry.up, self.hp, self.model.off_item, self.rows_per_user)
+        """Scores of a staged entry in dataset-row order; on a mesh each rank
+        scores its columns on its slabs and the scores are gathered over
+        ``data``, so every rank returns all of them (JAX :417-548)."""
+        args = (state, self.W_bi, entry.stacked, entry.chunk_id, entry.fb, entry.up, self.hp)
+        off, M = self.model.off_item, self.rows_per_user
+        if self.mesh is None:
+            preds = predict_batches_bi(*args, off, M)
+        elif self._mesh_big:
+            preds = pmesh.gather_predictions(bilinear_mesh_big.sharded_bilinear_predict_big(
+                *args, self.mesh, self._mesh_rows, self._bi_rows, off, self.mparam.num_item, M),
+                self.mesh)
+        else:
+            preds = pmesh.gather_predictions(bilinear_mesh.sharded_bilinear_predict(
+                *args, self.mesh, self._mesh_rows, self._bi_rows, off, M), self.mesh)
         return preds.reshape(-1).cpu().numpy()[entry.perm]

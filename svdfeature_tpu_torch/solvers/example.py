@@ -29,8 +29,9 @@ class SVDFeatureLiteTrainer(SVDFeatureTrainer):
     """Same model and checkpoints as the base solver; the simplified update
     below, on one device."""
 
-    def _check_mesh_supported(self) -> None:
-        raise NotImplementedError("the lite example solver trains on one device")
+    def _join_mesh(self) -> None:
+        if self.mesh_data * self.mesh_model > 1:
+            raise NotImplementedError("the lite example solver trains on one device")
 
     def update_all(self, ds) -> None:
         stacked, _ = self._pack(ds)

@@ -186,8 +186,7 @@ class GBRTTrainer:
         if self.mesh_data * self.mesh_model > 1:
             raise NotImplementedError(
                 "mesh_data/mesh_model > 1: GBRT fits its trees on the host and has no mesh in "
-                "either package (ROADMAP Queue 1 item 12 ports the factorization solvers' meshes, "
-                "12a-12d)")
+                "either package (ROADMAP Queue 1 item 12 ported the factorization solvers' meshes)")
         self.device = resolve_device(self.device_name)
         if self.tax_name and self.tax_name != "NULL":
             if self.mparam.use_tax_root:

@@ -540,26 +540,31 @@ def test_debug_checks_raise_on_every_rank(world):
 
 
 @pytest.mark.parametrize("solver", ["bilinear", "gbrt"])
-def test_other_solvers_refuse_a_mesh(solver):
-    """The bilinear and GBRT solvers refuse a mesh, naming their ROADMAP
-    items, and never run the base mesh step (the SVD++ and multi-IMFB
-    meshes and the ranker: tests/test_torch_mesh_plus.py and
-    tests/test_torch_rank.py)."""
+def test_other_solvers_refuse_a_mesh(solver, monkeypatch):
+    """GBRT refuses a mesh, naming its ROADMAP item, as in the JAX package;
+    the bilinear solver trains one (tests/test_torch_mesh_bi.py), and given
+    the mesh keys outside a world of as many ranks it raises ValueError
+    naming torchrun, before any tensor is made."""
     from svdfeature_tpu_torch.params import SVDTypeParam
     from svdfeature_tpu_torch.solvers.bilinear import SVDBiLinearTrainer
     from svdfeature_tpu_torch.solvers.gbrt import create_gbrt_trainer
 
-    item = {"bilinear": "12d", "gbrt": "item 12"}[solver]
     keys = {**CLI_PARAMS, "num_ufeedback": 5, "mesh_data": 2, "mesh_model": 2, "device": "cpu"}
     if solver == "gbrt":
         tr = create_gbrt_trainer(SVDTypeParam(extend_type=31))
+        error, match = NotImplementedError, "item 12"
     else:
-        tr = SVDBiLinearTrainer(SVDTypeParam(format_type=1))
+        tr = SVDBiLinearTrainer(SVDTypeParam(format_type=1, extend_type=15))
+        error, match = ValueError, "torchrun"
+        for name in ("WORLD_SIZE", "RANK"):
+            monkeypatch.delenv(name, raising=False)
     for k, v in keys.items():
         tr.set_param(k, str(v))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         tr.init_model()
         tr.init_trainer()
+    if solver == "bilinear":
+        assert tr.model is None and tr.W_bi is None
 
 
 if __name__ == "__main__":

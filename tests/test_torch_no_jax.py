@@ -37,7 +37,8 @@ SCRIPT = textwrap.dedent(
                 "utils.csr_builder", "data.streaming", "data.pages", "solvers.streamed",
                 "parallel.comm", "parallel.mesh", "parallel.mesh_big", "solvers.example",
                 "parallel.svdpp_mesh", "parallel.svdpp_mesh_big", "parallel.imfb_mesh",
-                "parallel.imfb_mesh_big"):
+                "parallel.imfb_mesh_big", "parallel.bilinear_mesh", "parallel.bilinear_mesh_big",
+                "multichip"):
         assert "svdfeature_tpu_torch." + new in names
 
     from svdfeature_tpu_torch import convert
