@@ -53,6 +53,11 @@ result line):
      Zipf law, exponent 1.1: runs of thousands of entries), reg_method 0
      and 4, and on a 40,960-row table (reg_method 0-5, no_user_bias with
      the nonnegative clamps), with times against the bound and a profile;
+     then K4 on rows wider than 256 factors (the wide kernel's passes of
+     256 columns) on a 65,536-row table at batch 2^14: k=300 and 512
+     (float4 loads) and 301 (scalar loads), uniform items and a skewed
+     batch (Zipf, every long run cut into pieces), reg_method 0, 2, 4, 5,
+     each with kernel / plain / bound ms;
   7. bigTable (bench.py's synthetic KDD-Cup-scale workload, numpy only)
      through the port's entry points, 3 rounds each: (a) batch 2^20, the
      tile sweep (K4), (b) the same with use_pallas=0, (c) batch 4096,
@@ -60,6 +65,10 @@ result line):
      counts, the probe RMSE falls and lies within 1e-4 of the JAX
      package's CPU figure (scripts/bigtable_jax_reference.py), (a) and (b)
      agree, examples/s beside the reference C++ baseline, peak memory;
+     then (e) rows of 300 factors: bigTable's recipe on a 32,769-row table
+     (16,384 users and items, 2^15 examples), batch 8192, big_sweep=1, 2
+     rounds through the tasks, one K4 launch a step, the probe within 1e-4
+     of the JAX CPU figure (scripts/wide_sweep_jax_reference.py);
   8. the stacked multi-IMFB kernel K3 (csrc/fused_imfb.cu, one cooperative
      launch a call, with K2's flush, gather and apply bodies) against its
      plain version, R=2: at the slice's shapes (the depth-2 ML-100K set,
@@ -203,7 +212,13 @@ result line):
      chunks of whole batches, 5 rounds, within 1e-5 of (a) at round 5;
      then K5 at the mesh slab's shape (one step's gathered stream into
      [1,024,290 x 68]) bit for bit against its plain version, timed in turns
-     with it and with index_copy_;
+     with it and with index_copy_; (d) the lite example solver
+     (extend_type=99) on (a)'s buffers, 2 rounds at batch_size=4095 (the
+     mesh rounds it up to 4096), no kernel, each rank naming its own files:
+     rank 0's alone appear (3 checkpoints, 2 JSON lines, 1 eval line), its
+     last checkpoint within 1e-6 of the single card's run at batch 4096,
+     its test RMSE and mean |w| within 1e-5 of the JAX lite trainer's 2x2
+     CPU mesh (scripts/lite_mesh_jax_reference.py);
  20. the SVD++ and multi-IMFB trainers on the same 2x2 mesh, in that call:
      (a) implicitFeedback at the band setting 2 rounds, (c) pairwiseRank 2
      rounds (a fresh packed pair epoch a round) then the ranker with the
@@ -227,7 +242,8 @@ result line):
      mesh step on every rank (exact counts); then K5 bit for bit at the W_bi
      slab write of model position 0, timed in turns with index_copy_.
 Each phase prints its time, and the script its total.  Then one JSON
-line describing the kernels, all six, K5 once more at big bilinear's
+line describing the kernels, all six, K4 once more on rows of 300
+factors (its k=512 time beside), K5 once more at big bilinear's
 W_bi write and once more for each mesh's writes (with each one's
 bound: the larger of its bytes over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s, the H100 SXM's published rates at 700 W) and, last, one
@@ -299,16 +315,17 @@ def bigtable_arrays(nu=BIG_NU, ni=BIG_NI, ex=BIG_EX):
                 value=np.ones(2 * ex, np.float32))
 
 
-def write_bigtable(csr_dataset, write_csr_buffer, d, arrays):
+def write_bigtable(csr_dataset, write_csr_buffer, d, arrays, keys=BIG_CONF):
     """Write bigTable's train buffer (``arrays`` of bigtable_arrays) in file
     blocks of BIG_FILE_BATCH rows, its probe (the first BIG_PROBE rows) as
-    the test buffer and its conf into directory ``d`` with a package's own
-    CSRDataset and buffer writer; returns (conf path, dataset)."""
+    the test buffer and its conf (``keys``) into directory ``d`` with a
+    package's own CSRDataset and buffer writer; returns (conf path,
+    dataset)."""
     ds = csr_dataset(**arrays)
     write_csr_buffer(str(d / "train.buffer"), ds, BIG_FILE_BATCH)
     write_csr_buffer(str(d / "test.buffer"), ds.slice_rows(0, BIG_PROBE))
     conf = d / "bigTable.conf"
-    conf.write_text("".join(f"{k} = {v}\n" for k, v in BIG_CONF.items())
+    conf.write_text("".join(f"{k} = {v}\n" for k, v in keys.items())
                     + f'buffer_feature = "{d}/train.buffer"\n'
                     + f'test:buffer_feature = "{d}/test.buffer"\nsilent = 1\n')
     return conf, ds
@@ -1366,15 +1383,15 @@ def timed(torch, fns, inner=5, turns=3, spread=None):
     return {name: float(np.median(v)) for name, v in samples.items()}
 
 
-def big_sweep_case(torch, dev, n, u, i, seed):
-    """K4's arguments for one batch on an n-row table (rows < n-1 random
-    factors and bias with lazy refs, the dummy and pad rows 0): the
-    pack-time plan and runs of the batch's (u, i) rows, and the step's
+def big_sweep_case(torch, dev, n, u, i, seed, k=BIG_K):
+    """K4's arguments for one batch on an n-row table of k factors (rows <
+    n-1 random factors and bias with lazy refs, the dummy and pad rows 0):
+    the pack-time plan and runs of the batch's (u, i) rows, and the step's
     factors p_u / p_i [B, k] and coefficients coef_u / coef_i [B, 1] of the
     size the bigTable step makes."""
     from svdfeature_tpu_torch.ops import big_embed, tile_sweep
 
-    tile, e_cap, k = tile_sweep.SWEEP_TILE, tile_sweep.SWEEP_ECAP, BIG_K
+    tile, e_cap = tile_sweep.SWEEP_TILE, tile_sweep.SWEEP_ECAP
     rng = np.random.default_rng(seed)
     n_pad = -(-n // tile) * tile
     tbl = np.zeros((n_pad, big_embed.aug_width(k)), np.float32)
@@ -1401,7 +1418,7 @@ def big_sweep_case(torch, dev, n, u, i, seed):
               torch.tensor(wd_u, **f32), torch.tensor(wd_i, **f32),
               torch.tensor([0.005, 0.001, 0.002, 0.0], **f32),
               torch.tensor([3 * BIG_EX], dtype=torch.int32, device=dev)),
-        touched=len(rows), longest=int(counts.max()), E=2 * B, n=n)
+        touched=len(rows), longest=int(counts.max()), E=2 * B, n=n, k=k)
 
 
 def zipf_items(n_items, size, exponent, seed):
@@ -1421,11 +1438,11 @@ def sweep_bound(case):
     two decay rates; operations: 2k per entry (its product and sum) and
     about 4k + 20 per touched row (decay, clamps, bias)."""
     plan, p_u, p_i, coef_u, coef_i = case["args"][:5]
-    U, W = case["touched"], case["w"].shape[1]
+    U, W, k = case["touched"], case["w"].shape[1], case["k"]
     plan_ints = sum(plan[key].numel() for key in ("sw_src", "sw_runs", "sw_pieces"))
     moved = 4 * (p_u.numel() + p_i.numel() + coef_u.numel() + coef_i.numel() + plan_ints
                  + U * (2 * W + 2) + 5)
-    return bound(moved, case["E"] * 2 * BIG_K + U * (4 * BIG_K + 20), 1)
+    return bound(moved, case["E"] * 2 * k + U * (4 * k + 20), 1)
 
 
 def phase_big_kernels(torch, dev, big, card, failures):
@@ -1584,6 +1601,71 @@ def phase_big_kernels(torch, dev, big, card, failures):
             del work
         del got, want
     out["K4"] = dict(t4["bigTable"], err=max_err)
+    out["K4 wide"] = wide_sweep_cases(torch, dev, card, failures)
+    return out
+
+
+# phase 6, wide rows: K4 on rows of more than the 256 factors that its
+# first kernels hold (csrc/tile_sweep.cu sweeps them in passes of 256
+# columns), on a WIDE_N-row table at batch WIDE_B
+WIDE_N = 1 << 16
+WIDE_B = 1 << 14
+WIDE_CASES = (  # (k, items, reg_method): 300 and 512 take float4 loads, 301 scalar ones
+    (300, "uniform", 0), (300, "skewed", 2), (512, "uniform", 4), (512, "skewed", 0),
+    (301, "skewed", 5))
+
+
+def wide_sweep_cases(torch, dev, card, failures):
+    """K4 at k=300, 301 and 512 against its plain version (BIG_ATOL +
+    BIG_RTOL, ref bits, dummy and pad rows exact) on a WIDE_N-row table at
+    batch WIDE_B: uniform items, and skewed ones (a Zipf law, SKEW_EXPONENT:
+    runs cut into pieces); reg_method 0, 2 (the whole row's scale across
+    the passes), 4 and 5; kernel / plain / bound ms of each.  Returns k ->
+    the timing of its first case, with the largest error of all."""
+    from svdfeature_tpu_torch.ops import big_embed, cuda_sweep
+    from svdfeature_tpu_torch.ops.embed import HyperParams
+
+    rng = np.random.default_rng(15)
+    half = (WIDE_N - 1) // 2
+    u = rng.integers(0, half, WIDE_B).astype(np.int32)
+    items = {"uniform": (half + rng.integers(0, half, WIDE_B)).astype(np.int32),
+             "skewed": (half + zipf_items(half, WIDE_B, SKEW_EXPONENT, seed=16)).astype(np.int32)}
+    out, max_err = {}, 0.0
+    for k, kind, m in WIDE_CASES:
+        torch.cuda.empty_cache()
+        case = big_sweep_case(torch, dev, WIDE_N, u, items[kind], seed=17, k=k)
+        hp = HyperParams(big_table=True, num_factor=k, sweep_table=True, reg_method=m)
+        got = cuda_sweep.sweep_update(case["w"].clone(), *case["args"], hp)
+        want = cuda_sweep.sweep_update_reference(case["w"].clone(), *case["args"], hp)
+        torch.cuda.synchronize()
+        diff = (got[:, :k + 1] - want[:, :k + 1]).abs()
+        err = float(diff.max())
+        pieces = int((case["args"][0]["sw_runs"][:, 3] >= 0).sum())
+        ok = (bool((diff <= BIG_ATOL + BIG_RTOL * want[:, :k + 1].abs()).all())
+              and torch.equal(big_embed.ref_column(got, k), big_embed.ref_column(want, k))
+              and bool((got[WIDE_N - 1, :k + 1] == 0).all()) and bool((got[WIDE_N:] == 0).all())
+              and bool(torch.isfinite(got).all()) and not torch.equal(got, case["w"])
+              and (kind == "uniform" or pieces > 0))
+        del got, want, diff
+        work = case["w"].clone()
+        t = timed(torch, {
+            "plain": lambda: cuda_sweep.sweep_update_reference(work, *case["args"], hp),
+            "kernel": lambda: cuda_sweep.sweep_update(work, *case["args"], hp)})
+        t["bound"], t["bound_by"] = sweep_bound(case)
+        max_err = max(max_err, err)
+        out.setdefault(k, t)
+        if not ok:
+            failures.append(f"K4 vs plain k={k} {kind} reg_method={m}")
+        print(f"phase 6 {'ok' if ok else 'FAIL'}: K4 k={k} ({'float4' if k % 4 == 0 else 'scalar'} "
+              f"loads, {-(-k // 256)} passes of 256 columns) {kind} items, table n={WIDE_N} "
+              f"B={WIDE_B} (E={case['E']}, {case['touched']} touched rows, longest run "
+              f"{case['longest']} entries, {pieces} pieces) reg_method={m}: max|d|={err:.3e} "
+              f"(atol {BIG_ATOL:g} + rtol {BIG_RTOL:g}; ref bits, dummy and pad rows exact); "
+              f"ms per call kernel {t['kernel']:.4f} plain {t['plain']:.4f} bound "
+              f"{t['bound']:.4f} ({t['bound_by']}) on {card}", flush=True)
+        del work, case
+    for t in out.values():
+        t["err"] = max_err
     return out
 
 
@@ -1596,15 +1678,28 @@ JAX_BIG_RMSE = {1 << 20: 0.170827, 4096: 0.170851}
 JAX_BIG_RMSE0 = 0.176042  # round 0 (the seeded init), both runs
 BIG_JAX_TOL = 1e-4
 BIG_AB_TOL = 1e-5  # K4 against its plain version end to end
+# (e): rows of WIDE_K factors on the base solver's tile sweep (K4 in
+# passes): bigTable's recipe on WIDE_NU users, WIDE_NI items and WIDE_EX
+# examples a round, batch WIDE_BATCH, big_sweep=1, WIDE_ROUNDS rounds; its
+# probe RMSE after them, the JAX package on the CPU
+# (scripts/wide_sweep_jax_reference.py)
+WIDE_K = 300
+WIDE_NU = WIDE_NI = 16_384
+WIDE_EX = 1 << 15
+WIDE_BATCH = 8192
+WIDE_ROUNDS = 2
+WIDE_CONF = dict(BIG_CONF, num_user=str(WIDE_NU), num_item=str(WIDE_NI), num_factor=str(WIDE_K))
+JAX_WIDE_RMSE = 0.175345  # round 0 (the seeded init): 0.178875
 
 
-def big_run(conf, d, tag, extra, through_tasks):
-    """One bigTable training run of BIG_ROUNDS rounds, every kernel's
+def big_run(conf, d, tag, extra, through_tasks, rounds=BIG_ROUNDS, profile=True):
+    """One bigTable training run of ``rounds`` rounds, every kernel's
     launch count set to 0 just before it and read just after.  Through
     SVDTrainTask + SVDInferTask (the probe's RMSE at rounds 0 and
-    BIG_ROUNDS from the checkpoints), or, sparing the 532 MB saves, the
-    task's trainer driven directly as bench.py drives it (predict_all on
-    the probe before and after)."""
+    ``rounds`` from the checkpoints; with ``profile``, one more round
+    under the profiler), or, sparing the 532 MB saves, the task's trainer
+    driven directly as bench.py drives it (predict_all on the probe before
+    and after)."""
     import torch
 
     from svdfeature_tpu_torch.data.buffer import read_csr_buffer
@@ -1613,7 +1708,7 @@ def big_run(conf, d, tag, extra, through_tasks):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    args = [f"model_out_folder={d}/models_{tag}", "device=cuda", f"num_round={BIG_ROUNDS}", *extra]
+    args = [f"model_out_folder={d}/models_{tag}", "device=cuda", f"num_round={rounds}", *extra]
     wrappers = kernel_wrappers()
     task = SVDTrainTask()
     t0 = time.perf_counter()
@@ -1627,12 +1722,12 @@ def big_run(conf, d, tag, extra, through_tasks):
         # after the counts are read and the checkpoints written
         steps = -(-task.dataset_rows() // task.trainer.batch_size)
         profile_line = device_profile(
-            torch, lambda: task.trainer.update_all(task.dataset), steps, top=8)
+            torch, lambda: task.trainer.update_all(task.dataset), steps, top=8) if profile else None
         log = d / f"rmse_{tag}.tsv"
-        SVDInferTask().run(str(conf), args + ["start=0", f"end={BIG_ROUNDS + 1}",
-                                              f"step={BIG_ROUNDS}", f"log_eval={log}"])
+        SVDInferTask().run(str(conf), args + ["start=0", f"end={rounds + 1}",
+                                              f"step={rounds}", f"log_eval={log}"])
         rmse = dict(line.split() for line in log.read_text().splitlines())
-        rmse0, rmse1 = float(rmse["0"]), float(rmse[str(BIG_ROUNDS)])
+        rmse0, rmse1 = float(rmse["0"]), float(rmse[str(rounds)])
         shutil.rmtree(d / f"models_{tag}")
     else:
         task.configure(str(conf), args)
@@ -1647,7 +1742,7 @@ def big_run(conf, d, tag, extra, through_tasks):
         for fn in wrappers.values():
             fn.launches = 0
         secs = []
-        for r in range(BIG_ROUNDS):
+        for r in range(rounds):
             tr.set_round(r)
             t1 = time.perf_counter()
             tr.update_all(task.dataset)
@@ -1661,7 +1756,7 @@ def big_run(conf, d, tag, extra, through_tasks):
     rows = task.dataset_rows()
     res = dict(rmse0=rmse0, rmse1=rmse1, launches=launches, secs=secs,
                eps=rows * (len(secs) - 1) / sum(secs[1:]),
-               steps=BIG_ROUNDS * -(-rows // task.trainer.batch_size),
+               steps=rounds * -(-rows // task.trainer.batch_size),
                route="sweep" if hp.sweep_table else "dedup", kernels=bool(hp.row_dma),
                batch=task.trainer.batch_size, peak=torch.cuda.max_memory_allocated(),
                seconds=time.perf_counter() - t0, profile=profile_line)
@@ -1715,7 +1810,28 @@ def phase_bigtable(work, big, card, failures):
         failures.append("bigTable (a) vs (b)")
     print(f"phase 7 {'ok' if diff < BIG_AB_TOL else 'FAIL'}: bigTable K4 (a) against its plain "
           f"version (b) end to end: |d RMSE| {diff:.2e} (tol {BIG_AB_TOL:g})", flush=True)
-    launches = {"K4": results["a"]["launches"]["K4"],
+    # (e): rows of WIDE_K factors, K4 in passes
+    wd = work / "wideTable"
+    wd.mkdir()
+    wconf, _ = write_bigtable(CSRDataset, write_csr_buffer, wd,
+                              bigtable_arrays(WIDE_NU, WIDE_NI, WIDE_EX), WIDE_CONF)
+    wide = big_run(wconf, wd, "e", [f"batch_size={WIDE_BATCH}", "big_sweep=1"], True,
+                   rounds=WIDE_ROUNDS, profile=False)
+    want = {key: 0 for key in wide["launches"]}
+    want["K4"] = wide["steps"]
+    ok = (wide["launches"] == want and wide["route"] == "sweep" and wide["kernels"]
+          and wide["rmse1"] < wide["rmse0"] and abs(wide["rmse1"] - JAX_WIDE_RMSE) < BIG_JAX_TOL)
+    if not ok:
+        failures.append("bigTable run (e), k=300")
+    print(f"phase 7 {'ok' if ok else 'FAIL'}: wide rows (e) k={WIDE_K}, {WIDE_NU + WIDE_NI + 1} "
+          f"rows, batch {wide['batch']} big_sweep=1 route {wide['route']} through "
+          f"SVDTrainTask/SVDInferTask: probe RMSE {wide['rmse0']:.6f} -> {wide['rmse1']:.6f} "
+          f"after {WIDE_ROUNDS} rounds (minus JAX CPU {wide['rmse1'] - JAX_WIDE_RMSE:+.6f}, tol "
+          f"{BIG_JAX_TOL:g}); launches {wide['launches']} (want {want}: one K4 a step, "
+          f"{wide['steps']} steps); round seconds {[round(x, 3) for x in wide['secs']]}; run "
+          f"{wide['seconds']:.1f} s; on {card}", flush=True)
+    shutil.rmtree(wd, ignore_errors=True)
+    launches = {"K4": results["a"]["launches"]["K4"], "K4 wide": wide["launches"]["K4"],
                 "K5": results["c"]["launches"]["K5"] + results["d"]["launches"]["K5"],
                 "K6": sum(r["launches"]["K6"] for r in results.values())}
     # what phase 18 holds its streamed runs of the same settings to
@@ -3339,14 +3455,38 @@ def phase_stream(work, staged, card, failures):
 # batches (so they follow (a)), MESH_STREAM_ROUNDS rounds.
 MESH_RANKS = 4
 MESH_KEYS = ["mesh_data=2", "mesh_model=2", "device=cuda", "silent=1"]
-# (a) and (b) join the world by distributed=1, (c) by the mesh keys alone
-MESH_JOIN = {"a": ["distributed=1"], "b": ["distributed=1"], "c": []}
+# (a) and (b) join the world by distributed=1, (c) and (d) by the mesh keys alone
+MESH_JOIN = {"a": ["distributed=1"], "b": ["distributed=1"], "c": [], "d": []}
 # each torchrun call of phases 19 and 20, the build excluded
 MESH_TIMEOUT_S = 900  # the torchrun call of phases 19 and 20, the build excluded
 MESH_TOL = 1e-4  # (a) against phase 3's test RMSE, (b) against phase 7 (c)'s probe
 MESH_STREAM_ROUNDS = 5
 MESH_STREAM_TOL = 1e-5  # (c) against (a) at the same round: the same batches
 MESH_STREAM_CHUNK = 4 * BATCH
+# (d): the lite example solver (extend_type 99, solvers/example.py) on (a)'s
+# buffers, LITE_ROUNDS rounds at batch LITE_BATCH, which mesh_data=2 rounds
+# up to LITE_BATCH + 1 as the JAX mesh does; every rank holds the whole
+# table, and each names its own model folder and logs ("{rank}"): rank 0's
+# alone may appear
+LITE_BATCH = 4095
+LITE_ROUNDS = 2
+LITE_KEYS = ["extend_type=99", "format_type=0", f"batch_size={LITE_BATCH}"]
+# the JAX lite trainer on its 2x2 CPU mesh, same data, keys and rounds
+# (scripts/lite_mesh_jax_reference.py): the test RMSE after LITE_ROUNDS
+# rounds and the mean |w| of that round's checkpoint
+JAX_LITE_MESH = {"rmse": 1.010470, "mean_abs_w": 0.007983895}
+LITE_JAX_TOL = 1e-5
+LITE_SINGLE_TOL = 1e-6  # rank 0's checkpoint against the single card's, max abs
+
+
+def lite_args(mf):
+    """(train, infer) CLI arguments of phase 19 (d) on basicMF's buffers in
+    ``mf``, the conf first; the mesh keys, model folder and logs are the
+    caller's."""
+    conf = ROOT / "demo" / "basicMF" / "basicMF.conf"
+    return ([conf, f"buffer_feature={mf}/train.buffer", f"num_round={LITE_ROUNDS}", *LITE_KEYS],
+            [conf, f"test:buffer_feature={mf}/test.buffer", f"start={LITE_ROUNDS}",
+             f"end={LITE_ROUNDS + 1}"])
 
 
 def count_mesh_steps():
@@ -3380,9 +3520,10 @@ def mesh_rank(argv):
     import torch
     import torch.distributed as dist
 
+    import svdfeature_tpu_torch.solvers.example  # noqa: F401  (registers extend_type 99)
     from svdfeature_tpu_torch.cli import svd_feature, svd_feature_infer
 
-    out, rest = argv[0], argv[1:]
+    out, rest = argv[0], [arg.replace("{rank}", os.environ["RANK"]) for arg in argv[1:]]
     local = os.environ["LOCAL_RANK"]
     pathlib.Path(f"{out}.pid{local}").write_text(str(os.getpid()))  # for the parent's cleanup
     wrappers = kernel_wrappers()
@@ -3537,11 +3678,16 @@ def phase_mesh_runs(work):
         "b": ([bt / "bigTable.conf", f"num_round={BIG_ROUNDS}", "batch_size=4096"],
               [f"start={BIG_ROUNDS}", f"end={BIG_ROUNDS + 1}"]),
     }
+    train, infer = lite_args(mf)
+    runs["d"] = (train, infer[1:])
     out = {}
     for tag, (train, infer) in runs.items():
-        keys = [*MESH_JOIN[tag], *MESH_KEYS, f"model_out_folder={work}/mesh_models_{tag}"]
-        out[tag] = ([*train, *keys, f"log_jsonl={work}/mesh_{tag}.jsonl"],
-                    [train[0], *keys, *infer, f"log_eval={work}/mesh_{tag}.tsv"])
+        own = "_r{rank}" if tag == "d" else ""  # (d): each rank its own files
+        keys = [*MESH_JOIN[tag], *MESH_KEYS]
+        models = f"model_out_folder={work}/mesh_models_{tag}"
+        out[tag] = ([*train, *keys, f"{models}{own}", f"log_jsonl={work}/mesh_{tag}{own}.jsonl"],
+                    [train[0], *keys, f"{models}{'_r0' if own else ''}", *infer,
+                     f"log_eval={work}/mesh_{tag}{own}.tsv"])
     return out
 
 
@@ -3563,8 +3709,9 @@ def phase_mesh(torch, work, big, staged, card, failures, call=None):
     MESH_TOL of phase 3's RMSE; (b) bigTable at batch 4096 on mesh_big
     slabs, its probe within MESH_TOL of phase 7 (c)'s, K5 launched once a
     step on every rank and nothing else; (c) basicMF streamed in chunks of
-    whole batches, within MESH_STREAM_TOL of (a) at the same round; then
-    K5 at the slab's shape.  ``call``: the records, output and seconds of
+    whole batches, within MESH_STREAM_TOL of (a) at the same round; (d) the
+    lite example solver (mesh_lite); then K5 at the slab's shape.
+    ``call``: the records, output and seconds of
     the torchrun call that ran phase_mesh_runs (mesh_call; None: make one).
     Returns the K5 launches of every rank, with the K5 timing."""
     golden = json.loads((ROOT / "golden" / "GOLDEN.json").read_text())["basicMF"]
@@ -3632,8 +3779,77 @@ def phase_mesh(torch, work, big, staged, card, failures, call=None):
               f"{max(x['train_s'] for x in ranks):.1f} s, infer CLI "
               f"{max(x['infer_s'] for x in ranks):.1f} s, peak device memory a rank "
               f"{max(x['peak'] for x in ranks) / 2**30:.2f} GiB; on {card}", flush=True)
+    mesh_lite(work, call, card, failures)
     timing = mesh_k5(torch, torch.device("cuda", 0), big, card, failures)
     return k5, timing
+
+
+def lite_model(path):
+    """w, b, g of a checkpoint, as numpy."""
+    import torch
+
+    from svdfeature_tpu_torch.model import SVDModel
+    from svdfeature_tpu_torch.params import SVDTypeParam
+
+    with open(path, "rb") as f:
+        m = SVDModel.load(f, SVDTypeParam.from_bytes(f.read(4)), device=torch.device("cpu"))
+    return {key: getattr(m, key).numpy() for key in ("w", "b", "g")}
+
+
+def mesh_lite(work, call, card, failures):
+    """Phase 19 (d), the lite example solver on the 2x2 world: no kernel
+    (its step is plain torch), the batch rounded up to LITE_BATCH + 1, one
+    file of each kind (rank 0's checkpoints, JSON lines and eval log; no
+    other rank's), rank 0's last checkpoint within LITE_SINGLE_TOL of the
+    single card's run at LITE_BATCH + 1 (trained here), its test RMSE and
+    mean |w| within LITE_JAX_TOL of the JAX 2x2 CPU mesh's."""
+    import svdfeature_tpu_torch.solvers.example  # noqa: F401  (registers extend_type 99)
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    records, out, secs, runs = call
+    if records is None:
+        failures.append("mesh run (d)")
+        print(f"phase 19 FAIL: mesh (d): the torchrun call failed after {secs:.1f} s", flush=True)
+        return
+    ranks = records["19d"]
+    train, _ = lite_args(work / "basicMF")
+    single = work / "lite_single"
+    t0 = time.perf_counter()
+    task = SVDTrainTask()
+    task.run(str(train[0]), [*map(str, train[1:]), "device=cuda", "silent=1",
+                             f"batch_size={LITE_BATCH + 1}", f"model_out_folder={single}"])
+    t_single = time.perf_counter() - t0
+    last = f"{LITE_ROUNDS:04d}.model"
+    got, want = lite_model(work / "mesh_models_d_r0" / last), lite_model(single / last)
+    d_single = max(float(np.abs(got[key] - want[key]).max(initial=0.0)) for key in got)
+    files = {kind: sorted(p.name for p in work.glob(pattern)) for kind, pattern in (
+        ("models", "mesh_models_d_r*"), ("log_jsonl", "mesh_d_r*.jsonl"),
+        ("log_eval", "mesh_d_r*.tsv"))}
+    want_files = {"models": ["mesh_models_d_r0"], "log_jsonl": ["mesh_d_r0.jsonl"],
+                  "log_eval": ["mesh_d_r0.tsv"]}
+    checkpoints = sorted(p.name for p in (work / "mesh_models_d_r0").glob("*.model"))
+    n_json = len((work / "mesh_d_r0.jsonl").read_text().splitlines())
+    evals = (work / "mesh_d_r0.tsv").read_text().split()
+    rmse, mean_w = float(evals[1]), float(np.abs(got["w"]).astype(np.float64).mean())
+    launches = [r["launches"] for r in ranks]
+    ok = (files == want_files and n_json == LITE_ROUNDS and len(evals) == 2
+          and checkpoints == [f"{r:04d}.model" for r in range(LITE_ROUNDS + 1)]
+          and d_single < LITE_SINGLE_TOL and abs(rmse - JAX_LITE_MESH["rmse"]) < LITE_JAX_TOL
+          and abs(mean_w - JAX_LITE_MESH["mean_abs_w"]) < LITE_JAX_TOL
+          and all(not any(x.values()) for x in launches) and not any(x["stray"] for x in ranks))
+    if not ok:
+        failures.append("mesh run (d), the lite solver")
+    shutil.rmtree(single, ignore_errors=True)
+    print(f"phase 19 {'ok' if ok else 'FAIL'}: mesh (d) the lite solver {' '.join(LITE_KEYS)} "
+          f"{MESH_RANKS} ranks, {LITE_ROUNDS} rounds: test RMSE {rmse:.6f} (minus JAX 2x2 CPU "
+          f"mesh {rmse - JAX_LITE_MESH['rmse']:+.2e}), mean |w| {mean_w:.9f} (minus JAX "
+          f"{mean_w - JAX_LITE_MESH['mean_abs_w']:+.2e}; tol {LITE_JAX_TOL:g}); rank 0's "
+          f"checkpoint minus the single card's at batch {LITE_BATCH + 1}: max |d| "
+          f"{d_single:.2e} (tol {LITE_SINGLE_TOL:g}; single card {t_single:.1f} s); files "
+          f"{files}, checkpoints {checkpoints}, {n_json} JSON lines, eval {evals}; launches on "
+          f"each rank {launches} (want none); train CLI "
+          f"{max(x['train_s'] for x in ranks):.1f} s, infer CLI "
+          f"{max(x['infer_s'] for x in ranks):.1f} s; on {card}", flush=True)
 
 
 # ---- phase 20: the user-group solvers on a 2x2 mesh --------------------------------
@@ -4157,6 +4373,15 @@ def main() -> int:
         kernel_line("tile_sweep (sweep_apply)", "svdfeature_tpu_torch/csrc/tile_sweep.cu",
                     "svdfeature_tpu/ops/tile_sweep.py:143", big_launches["K4"] + stream_launches["K4"],
                     big_timing["K4"]["err"], big_timing["K4"]),
+        # K4 on rows of more than 256 factors (phase 6's wide cases, phase 7
+        # (e)'s launches); its time at k=512 beside
+        dict(kernel_line("tile_sweep (sweep_apply), rows of 300 factors in passes of 256 columns",
+                         "svdfeature_tpu_torch/csrc/tile_sweep.cu",
+                         "svdfeature_tpu/ops/tile_sweep.py:143", big_launches["K4 wide"],
+                         big_timing["K4 wide"][300]["err"], big_timing["K4 wide"][300]),
+             k512={name: big_timing["K4 wide"][512][key] for name, key in (
+                 ("ms", "kernel"), ("plain_ms", "plain"), ("bound_ms", "bound"),
+                 ("bound_by", "bound_by"))}),
         kernel_line("row_writer (row_write)", "svdfeature_tpu_torch/csrc/row_scatter.cu",
                     "svdfeature_tpu/ops/pallas_scatter.py:43",
                     big_launches["K5"] + k5_plus_launches + k5_rank_launches

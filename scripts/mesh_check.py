@@ -11,7 +11,8 @@ demo, the depth-2 stacked set and bigSvdpp for phase 20; implicitFeedback
 and big bilinear for phase 21), then runs them in one torchrun call of 4
 ranks (chip_smoke.mesh_call_all) and checks them with
 ``chip_smoke.phase_mesh``, ``phase_mesh_plus`` and ``phase_mesh_bi``: the
-base solver, the SVD++ and multi-IMFB trainers and the bilinear trainer,
+base solver (and the lite example solver, which keeps the whole table on
+every rank), the SVD++ and multi-IMFB trainers and the bilinear trainer,
 small and big slabs, K5 on the big ones.  With one card the ranks share it
 through gloo; with four (one a rank) they take NCCL.  Unlike chip_smoke.py,
 which holds the mesh runs to the single-card phases measured in the same

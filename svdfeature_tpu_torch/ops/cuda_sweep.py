@@ -13,7 +13,9 @@ table row: ops/tile_sweep.attach_sweep_runs), forms each entry from the
 step's factors ``p_u`` / ``p_i`` and coefficients (no ``[E, k+3]``
 payload is built), sums them in plan order (deterministic, no atomics on
 the row; a long run's pieces leave partial sums that the last-arriving
-piece adds in slot order), and writes the touched row in place.
+piece adds in slot order), and writes the touched row in place.  A row
+of more than 256 factors is swept in passes of 256 columns, so every k
+the augmented layout holds is taken.
 Untouched rows are left alone, which is what the TPU kernel's rewrite of
 them amounts to.  It is bound by bytes (the factors read once per entry,
 the plan, the touched rows read and written once).
@@ -47,9 +49,6 @@ from .big_embed import entry_payload
 from .cuda_embed import _log1m
 from .cuda_scatter import _device, _raw_stream, check_tensors
 from .embed import _soft_threshold
-
-# the kernel holds a row's k factor sums as float4s of 64-column chunks
-MAX_FACTORS = 4 * 64 - 3
 
 
 @torch.no_grad()
@@ -163,8 +162,6 @@ def _check(w, plan, p_u, p_i, coef_u, coef_i, wdu, wdi, scal, stepi, hp) -> None
         raise ValueError(f"unknown reg_method {hp.reg_method}")
     if not 0 < k <= W - 2 or W % 4:
         raise ValueError("the augmented layout requires 0 < hp.num_factor <= W - 2, W % 4 == 0")
-    if k > MAX_FACTORS:
-        raise ValueError(f"num_factor above {MAX_FACTORS} (the kernel's factor sums)")
     if n_pad % hp.sweep_tile or n_pad >= 2**31 or B * (coef_u.shape[1] + coef_i.shape[1]) >= 2**31:
         raise ValueError(f"the table must hold whole tiles of {hp.sweep_tile} rows, under 2^31")
 

@@ -16,8 +16,10 @@ moves to the augmented row layout (ops/big_embed.augment_state) and each
 round runs a host loop of steps, ``train_step_sweep`` (kernel K4) for
 batches dense enough that most table tiles are touched, else
 ``train_step_big`` (sorted dedup, kernel K5).  Config key ``big_sweep``
-overrides the auto rule: -1 auto, 0 off, 1 on.  Checkpoints and
-prediction read the de-augmented state.
+overrides the auto rule: -1 auto, 0 off, 1 on; the route does not look
+at ``num_factor``, since K4 takes every k the augmented layout holds (a
+row of more than 256 factors in passes).  Checkpoints and prediction
+read the de-augmented state.
 
 A streaming source (``streaming=1``, data/streaming.StreamingCSRBuffer)
 trains a round a chunk at a time, as the JAX solver does
@@ -37,7 +39,9 @@ card in the augmented layout with the sorted-dedup step through K5
 The ranks of data row 0 unshard the table for a checkpoint and rank 0
 writes it; every rank ends a prediction with all of them.  The derived
 solvers train their own mesh steps (parallel/svdpp_mesh*, imfb_mesh*,
-bilinear_mesh*); GBRT refuses a mesh, as in the JAX package.
+bilinear_mesh*).  The lite example solver (solvers/example.py) keeps
+the whole table on every rank, and GBRT reads no mesh key, as in the JAX
+package.
 
 The device is explicit: config key ``device`` (default ``cuda``).  With
 ``device=cuda`` and no card the trainer raises instead of running on the

@@ -13,6 +13,18 @@ under an extend_type, no relinking.
 slower than the base solver's route but easy to read, and a template for
 experiments.  Importing this module registers it under extend_type=99,
 as the JAX module does.
+
+The mesh keys are taken as the JAX lite trainer takes them: its step runs
+on the global arrays of its mesh, so a mesh trains what one device trains
+at the batch rounded up to a multiple of ``mesh_data``
+(svdfeature_tpu/solvers/base.py:243-244).  Here each rank of the torchrun
+world (joined before the first tensor, as the base solver joins it) holds
+the whole table and trains the whole batch; rank 0 alone writes
+checkpoints, logs and predictions (train/loop.py, infer/task.py), and every
+rank ends a prediction with every row.  ``mesh_big=1`` raises: the JAX
+lite step cannot read the augmented slabs (its gather fails); under
+``mesh_big=-1`` the whole table is trained, as on JAX's CPU mesh, which
+never takes slabs.
 """
 
 from __future__ import annotations
@@ -27,11 +39,19 @@ from .registry import register_trainer
 
 class SVDFeatureLiteTrainer(SVDFeatureTrainer):
     """Same model and checkpoints as the base solver; the simplified update
-    below, on one device."""
+    below, on the whole table on every rank of a mesh."""
 
     def _join_mesh(self) -> None:
-        if self.mesh_data * self.mesh_model > 1:
-            raise NotImplementedError("the lite example solver trains on one device")
+        if self.mesh_data * self.mesh_model > 1 and self.mesh_big == 1:
+            raise ValueError("mesh_big=1: the lite example solver trains the whole table on "
+                             "every rank and has no augmented slabs (use mesh_big=-1 or 0)")
+        super()._join_mesh()
+
+    def _init_mesh(self) -> None:
+        """No shards: the batch grows to a multiple of mesh_data, as on the
+        JAX mesh, and the table stays whole on this rank."""
+        if self.batch_size % self.mesh_data:
+            self.batch_size += self.mesh_data - self.batch_size % self.mesh_data
 
     def update_all(self, ds) -> None:
         stacked, _ = self._pack(ds)

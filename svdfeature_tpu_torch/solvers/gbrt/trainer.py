@@ -24,10 +24,16 @@ package's.  Three places differ:
 (c) config key ``device`` (default ``cuda``; ``device=cuda`` without a card
     raises), a dataset's lookup keys staged on it once, and
     ``synchronize()`` for the train task's round clock.
+
+``mesh_data`` / ``mesh_model`` are read and ignored, as by the JAX trainer:
+without a world the run is the one without them, byte for byte; inside a
+torchrun world (``distributed=1``, or the mesh keys) every rank fits the
+same trees and rank 0 alone writes.
 """
 
 from __future__ import annotations
 
+import os
 from typing import BinaryIO, List, Optional
 
 import numpy as np
@@ -37,6 +43,7 @@ from ...config import ConfigSaver
 from ...data.batching_plus import merge_split_blocks
 from ...data.csr import PlusDataset
 from ...ops import gbrt_forward
+from ...parallel import comm
 from ...params import SVDTypeParam
 from ..base import resolve_device
 from . import np_losses as losses
@@ -115,8 +122,8 @@ class GBRTTrainer:
         self.device_forward = -1
         self.device_name = "cuda"
         self.device: Optional[torch.device] = None
-        # read only to refuse a mesh: the trees are fitted on the host, and
-        # neither package trains GBRT on one
+        # read and ignored, as by the JAX trainer: the trees are fitted on
+        # the host, and no mesh shards them (``_join_world``)
         self.mesh_data = 1
         self.mesh_model = 1
         # GBRTTrainParam (lr schedule with min clamp, apex_gbrt.h:36-81)
@@ -178,15 +185,21 @@ class GBRTTrainer:
         self.cfg.push_back(name, val)
 
     # ---- model lifecycle ----------------------------------------------------
+    def _join_world(self) -> None:
+        """Before the first tensor: given the mesh keys inside a torchrun
+        world, join it (as ``distributed=1`` does), so that every rank fits
+        the same trees and rank 0 alone writes; outside a world the keys
+        change nothing."""
+        if self.mesh_data * self.mesh_model > 1 and "WORLD_SIZE" in os.environ:
+            comm.init_distributed(self.device_name)
+
     def init_model(self) -> None:
         assert not self.trees, "bug: GBRT model inconsistent"
+        self._join_world()
         self.device = resolve_device(self.device_name)
 
     def init_trainer(self) -> None:
-        if self.mesh_data * self.mesh_model > 1:
-            raise NotImplementedError(
-                "mesh_data/mesh_model > 1: GBRT fits its trees on the host and has no mesh in "
-                "either package (ROADMAP Queue 1 item 12 ported the factorization solvers' meshes)")
+        self._join_world()
         self.device = resolve_device(self.device_name)
         if self.tax_name and self.tax_name != "NULL":
             if self.mparam.use_tax_root:
@@ -197,6 +210,7 @@ class GBRTTrainer:
             )
 
     def load_model(self, f: BinaryIO) -> None:
+        self._join_world()
         self.mparam.from_bytes(f.read(_GBRT_PARAM_DT.itemsize))
         if self.chg_baseline_mode >= 0:
             self.mparam.baseline_mode = self.chg_baseline_mode

@@ -20,6 +20,7 @@ jax, still collects it.
 """
 
 import dataclasses
+import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -130,7 +131,7 @@ def test_sweep_wrapper_is_plain_version_on_cpu():
     assert torch.equal(a, b) and not torch.equal(a, x["w"])
 
 
-@pytest.mark.parametrize("case", ["r0", "r4-nub", "r5-seg2"])
+@pytest.mark.parametrize("case", ["r0", "r4-nub", "r5-seg2", "r0-k300", "r2-k300", "r4-k512"])
 def test_sweep_plain_forms_the_payload_entries(jx, case):
     """K4's plain version given the step's pieces (p_u, p_i, coef_u,
     coef_i) computes what the payload form computed: the payload
@@ -138,11 +139,14 @@ def test_sweep_plain_forms_the_payload_entries(jx, case):
     (one row per entry, users then items) through the same sweep math bit
     for bit, and through the JAX package's TPU kernel (``sweep_update``,
     interpret mode, the payload gathered in plan order) within atol 1e-6,
-    ref bits exact."""
-    x = sweep_inputs(n=200, k=8, B=64, tile=16, e_cap=8, seed=8, Su=2 if "seg2" in case else 1)
+    ref bits exact.  Rows of 300 and 512 factors (past the 256 columns that
+    the kernel holds in one pass) are cases too, and the kernel's checks
+    take their arguments."""
+    k = int(case.split("-k")[1]) if "-k" in case else 8
+    x = sweep_inputs(n=200, k=k, B=64, tile=16, e_cap=8, seed=8, Su=2 if "seg2" in case else 1)
     hp = x["hp"](reg_method=int(case[1]), no_user_bias=int("nub" in case))
     plan, p_u, p_i, coef_u, coef_i, wdu, wdi, scal, stepi = x["args"]
-    k = hp.num_factor
+    cuda_sweep._check(x["w"], *x["args"], hp)
     B, Su = coef_u.shape
     pay_w = torch.cat([(coef_u[..., None] * p_i[:, None, :]).reshape(-1, k),
                        (coef_i[..., None] * p_u[:, None, :]).reshape(-1, k)])
@@ -169,13 +173,28 @@ def test_sweep_plain_forms_the_payload_entries(jx, case):
     assert not torch.equal(got, x["w"])
 
 
-def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU, hot=0.0):
+@pytest.mark.parametrize("k", [254, 300, 512])
+def test_sweep_check_takes_every_factor_count(k):
+    """K4's checks take every k the augmented layout holds: no limit on
+    the factors (a row of more than 256 is swept in passes), and they still
+    refuse a layout whose width does not hold k + 2 columns."""
+    x = sweep_inputs(n=200, k=k, B=64, tile=16, e_cap=8, seed=3)
+    hp = x["hp"](reg_method=0)
+    assert x["w"].shape[1] == big_embed.aug_width(k)
+    cuda_sweep._check(x["w"], *x["args"], hp)
+    narrow = x["w"][:, :-4].contiguous()  # fewer than k + 2 columns
+    with pytest.raises(ValueError, match="augmented layout"):
+        cuda_sweep._check(narrow, *x["args"], hp)
+
+
+def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU, hot=0.0, skew=0.0):
     """K4's arguments for one batch on an n-row table (users [0, n/2),
     items above, dummy n-1), padded to whole tiles: a random augmented
     table with lazy refs, the step's factors p_u / p_i and coefficients
     coef_u / coef_i of realistic size (0 on the padding examples), the
     pack-time plan and runs.  ``hot``: the share of item entries on one
-    popular item, whose run K4 cuts into pieces."""
+    popular item, whose run K4 cuts into pieces; ``skew``: items drawn
+    from a Zipf law of that exponent instead (many runs cut into pieces)."""
     rng = np.random.RandomState(seed)
     half = (n - 1) // 2
     n_pad = -(-n // tile) * tile
@@ -186,6 +205,10 @@ def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU, hot=0.0):
                                   pad_rows_to=tile).w
     u = rng.randint(0, half, (B, Su))
     i = half + rng.randint(0, half, (B, Si))
+    if skew:
+        law = np.cumsum(np.arange(1, half + 1, dtype=np.float64) ** -skew)
+        ranks = np.minimum(np.searchsorted(law, rng.rand(B, Si) * law[-1]), half - 1)
+        i = half + rng.permutation(half)[ranks]
     i[rng.rand(B, Si) < hot] = half + 7
     u[-3:] = i[-3:] = n - 1  # padding examples
     p_u = rng.normal(0, 0.1, (B, k)).astype(np.float32)
@@ -262,21 +285,32 @@ def test_row_writer_one_batch_step_on_card(dummy_row):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["r0", "r1", "r2", "r3", "r4", "r5", "nub-nonneg", "seg2",
-                                  "hot-r4", "hot-k100-r2"])
+                                  "hot-r4", "hot-k100-r2", "k300-r0", "k300-r2", "hot-k300-r5",
+                                  "k512-r4", "hot-k512-r2", "k512-nub-nonneg", "skew-r4",
+                                  "skew-k300-r2", "skew-k301-r0", "skew-k512-r5"])
 def test_sweep_kernel_matches_plain_on_card(case):
     """K4 against its plain version on a 40,960-row table (20 tiles of
     2048, k=64), every reg mode, no_user_bias with the nonnegative clamps,
     2-entry user segments, and a popular item holding a fifth of the item
     entries (its run cut into pieces; with k=100 too, whose rows take the
-    kernel's scalar loads)."""
+    kernel's scalar loads); rows of 300 factors (scalar loads) and 512
+    (float4 loads), swept in passes of 256 columns, with and without
+    pieces, reg_method 2's whole-row scale among them; and items from a
+    Zipf law (exponent 1.1), whose many long runs are all cut into pieces,
+    at k=64, 300, 301 (scalar loads) and 512."""
     dev = _card()
-    k = 100 if "k100" in case else 64
+    found = re.search(r"k(\d+)", case)
+    k = int(found.group(1)) if found else 64
     x = sweep_inputs(n=40_960, k=k, B=16_384, tile=2048, e_cap=1024, seed=5,
                      Su=2 if case == "seg2" else 1, device=dev,
-                     hot=0.2 if case.startswith("hot") else 0.0)
+                     hot=0.2 if case.startswith("hot") else 0.0,
+                     skew=1.1 if case.startswith("skew") else 0.0)
     if case.startswith("hot"):
         assert int(x["args"][0]["sw_runs"][:, 3].max()) > 10  # pieces of the popular run
-    if case == "nub-nonneg":
+    if case.startswith("skew"):  # pieces of several runs
+        runs = x["args"][0]["sw_runs"]
+        assert len(set(runs[runs[:, 3] >= 0, 2].tolist())) > 3
+    if case.endswith("nub-nonneg"):
         hp = x["hp"](reg_method=0, no_user_bias=1, user_nonnegative=1, item_nonnegative=1)
     else:
         hp = x["hp"](reg_method=int(case[-1]) if case[-2] == "r" else 4)

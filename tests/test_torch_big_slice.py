@@ -139,3 +139,56 @@ def test_big_update_rounds_matches_jax(big_sweep, tmp_path):
     np.testing.assert_array_equal(out["torch"]["ref"], out["jax"]["ref"])
     for k in ("w", "b", "pred"):
         np.testing.assert_allclose(out["torch"][k], out["jax"][k], atol=1e-6, rtol=0, err_msg=k)
+
+
+def test_wide_rows_sweep_trainer_matches_jax(monkeypatch, tmp_path):
+    """A base trainer on the 10,001-row table at k=300 with big_sweep=1:
+    rows wider than the 256 columns K4 holds in one pass.  Two rounds of
+    update_all and predict_all equal the JAX trainer's (its sweep kernel
+    in interpret mode) within 1e-5, the ref bits exactly, and K4's checks
+    take every call the route makes (the wrapper checks them on the card
+    only, so each call is checked here as it would be there)."""
+    from svdfeature_tpu.data.text import load_feature_text as jload
+    from svdfeature_tpu.params import SVDTypeParam as JType
+    from svdfeature_tpu.solvers.base import SVDFeatureTrainer as JTrainer
+    from svdfeature_tpu_torch.data.text import load_feature_text as tload
+    from svdfeature_tpu_torch.params import SVDTypeParam as TType
+    from svdfeature_tpu_torch.solvers.base import SVDFeatureTrainer as TTrainer
+
+    calls = []
+    wrapper = cuda_sweep.sweep_update
+
+    def checked(w, *args):
+        cuda_sweep._check(w, *args)
+        calls.append(args[-1].num_factor)
+        return wrapper(w, *args)
+
+    monkeypatch.setattr(cuda_sweep, "sweep_update", checked)
+    _write_feature(tmp_path / "train.feature", 300, 3)
+    text = (tmp_path / "train.feature").read_text()
+    k = 300
+    params = [("num_user", str(NU)), ("num_item", str(NI)), ("num_factor", str(k)),
+              ("base_score", "3"), ("learning_rate", "0.05"), ("wd_user", "0.004"),
+              ("wd_item", "0.004"), ("batch_size", "100"), ("big_sweep", "1"),
+              ("device", "cpu")]
+    out = {}
+    for tag, trainer_cls, mtype, load in (("jax", JTrainer, JType(), jload),
+                                          ("torch", TTrainer, TType(), tload)):
+        tr = trainer_cls(mtype)
+        for name, v in params:
+            tr.set_param(name, v)
+        tr.init_model()
+        tr.init_trainer()
+        assert tr.hp.big_table and tr.hp.sweep_table
+        ds = load("x", text=text)
+        for _ in range(2):
+            tr.update_all(ds)
+        st = tr._std_state()
+        out[tag] = dict(pred=np.asarray(tr.predict_all(ds)), ref=np.asarray(st.ref_ui)[: NU + NI],
+                        **{name: np.asarray(getattr(st, name))[: NU + NI] for name in ("w", "b")})
+    assert calls == [k] * 6  # 3 steps a round, every one through K4's wrapper
+    assert out["torch"]["w"].shape == (NU + NI, k)
+    np.testing.assert_array_equal(out["torch"]["ref"], out["jax"]["ref"])
+    for name in ("w", "b", "pred"):
+        np.testing.assert_allclose(out["torch"][name], out["jax"][name], atol=1e-5, rtol=0,
+                                   err_msg=name)

@@ -17,7 +17,10 @@ several steps against the single-device trajectory (tests/test_sharding.py:
 94-96), 1e-5 for checkpoints after rounds.  The data copies of each model
 shard must be equal bit for bit: every replica applies the same gathered
 updates.  The world also drives the CLI (train, resume, pred, eval; small
-and big slabs) and a streamed mesh run.
+and big slabs), a streamed mesh run, and the two solvers that keep no
+shards under the mesh keys: the lite example solver (extend_type 99, the
+whole table on every rank) and RegGBRT (which reads no mesh key), each
+writing its checkpoints from rank 0 alone.
 """
 
 import dataclasses
@@ -111,6 +114,23 @@ def cli_args(d, tag, *extra):
 
 
 MESH = ("distributed=1", "mesh_data=2", "mesh_model=2", "device=cpu")
+# the lite example solver (extend_type 99) on tests/test_torch_loop.py::
+# test_lite_solver_matches_jax's data with 3 global features; batch 7,
+# which a 2-position data axis rounds up to 8
+LITE_PARAMS = dict(num_user=10, num_item=20, num_global=3, num_factor=8, base_score=3,
+                   learning_rate=0.01, wd_user=0.004, wd_item=0.004, extend_type=99,
+                   format_type=0)
+LITE_TOL = dict(rtol=1e-5, atol=1e-7)  # test_lite_solver_matches_jax's
+LITE_ROUNDS = 2
+GBRT_ROUNDS = 3
+OWN_KEYS = ("mesh_data=2", "mesh_model=2", "device=cpu", "silent=1")  # no distributed=1
+
+
+def lite_text(seed=0):
+    """test_lite_solver_matches_jax's 200 rows with num_global=3."""
+    rng = np.random.RandomState(seed)
+    return "\n".join(f"{rng.randint(1, 6)} 1 1 1 {rng.randint(0, 3)}:0.5 "
+                     f"{rng.randint(0, 10)}:1 {rng.randint(0, 20)}:1" for _ in range(200)) + "\n"
 
 
 # ---- the rank's program -------------------------------------------------------
@@ -226,6 +246,30 @@ def _nan_on_one_rank(tr, out):
         out["nan/raised"] = np.array(str(e))
 
 
+def _run_whole_table_solvers(d, out):
+    """The lite solver (batch 7) and RegGBRT through SVDTrainTask with the
+    mesh keys and no distributed=1, each rank naming its own model folder
+    (rank 0's alone may appear); each rank keeps its final model."""
+    import io
+
+    import svdfeature_tpu_torch.solvers.example  # noqa: F401  (registers 99)
+    from svdfeature_tpu_torch.parallel import comm
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask
+
+    r = comm.rank()
+    for name, extra in (("lite", ["batch_size=7", f"num_round={LITE_ROUNDS}"]),
+                        ("gbrt", [f"num_round={GBRT_ROUNDS}"])):
+        task = SVDTrainTask()
+        task.run(str(d / f"{name}.conf"), [f"model_out_folder={d}/models_{name}_r{r}", *OWN_KEYS,
+                                           *extra])
+        if name == "lite":
+            lite_batch = task.trainer.batch_size
+        buf = io.BytesIO()
+        task.trainer.save_model(buf)
+        out[f"{name}/model"] = np.frombuffer(buf.getvalue(), np.uint8)
+    out["lite/batch_size"] = np.array(lite_batch)
+
+
 def worker(d: pathlib.Path) -> None:
     from svdfeature_tpu_torch.parallel import comm
 
@@ -234,6 +278,7 @@ def worker(d: pathlib.Path) -> None:
     for name, spec in cases().items():
         _run_case(name, spec, out)
     _run_cli(d, out)
+    _run_whole_table_solvers(d, out)
     _nan_on_one_rank(joined, out)
     np.savez(d / f"out_rank{comm.rank()}.npz", **out)
 
@@ -253,6 +298,17 @@ def world(tmp_path_factory):
     conf = "".join(f"{k} = {v}\n" for k, v in CLI_PARAMS.items())
     (d / "mesh.conf").write_text(conf + f'buffer_feature = "{d}/train.buffer"\n'
                                  f'test:buffer_feature = "{d}/test.buffer"\n')
+    write_csr_buffer(str(d / "lite.buffer"), load_feature_text("x", text=lite_text()), batch_size=64)
+    (d / "lite.conf").write_text("".join(f"{k} = {v}\n" for k, v in LITE_PARAMS.items())
+                                 + f'buffer_feature = "{d}/lite.buffer"\n')
+    from test_torch_gbrt import CLI_CONF as GBRT_CONF
+    from test_torch_gbrt import gbrt_text
+
+    rows, fb = gbrt_text()
+    (d / "gbrt.txt").write_text(rows)
+    (d / "gbrt.fb").write_text(fb)
+    (d / "gbrt.conf").write_text(GBRT_CONF + f'extend_type = 31\ndata_in = "{d}/gbrt.txt"\n'
+                                 f'feedback_in = "{d}/gbrt.fb"\n')
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={WORLD}", str(pathlib.Path(__file__).resolve()), str(d)]
@@ -539,32 +595,110 @@ def test_debug_checks_raise_on_every_rank(world):
         assert str(world["ranks"][r]["nan/raised"]) == "non-finite values in model.w after round 7"
 
 
-@pytest.mark.parametrize("solver", ["bilinear", "gbrt"])
+@pytest.mark.parametrize("solver", ["bilinear", "lite-mesh_big"])
 def test_other_solvers_refuse_a_mesh(solver, monkeypatch):
-    """GBRT refuses a mesh, naming its ROADMAP item, as in the JAX package;
+    """What the other solvers refuse of a mesh, before any tensor is made:
     the bilinear solver trains one (tests/test_torch_mesh_bi.py), and given
     the mesh keys outside a world of as many ranks it raises ValueError
-    naming torchrun, before any tensor is made."""
+    naming torchrun; the lite example solver trains the whole table on
+    every rank and raises ValueError naming ``mesh_big`` for mesh_big=1
+    (the JAX lite step fails in its gather on the augmented slabs), inside
+    a world of the right size too.  RegGBRT refuses nothing: it reads no
+    mesh key (test_reg_gbrt_takes_the_mesh_keys)."""
     from svdfeature_tpu_torch.params import SVDTypeParam
     from svdfeature_tpu_torch.solvers.bilinear import SVDBiLinearTrainer
-    from svdfeature_tpu_torch.solvers.gbrt import create_gbrt_trainer
+    from svdfeature_tpu_torch.solvers.example import SVDFeatureLiteTrainer
 
     keys = {**CLI_PARAMS, "num_ufeedback": 5, "mesh_data": 2, "mesh_model": 2, "device": "cpu"}
-    if solver == "gbrt":
-        tr = create_gbrt_trainer(SVDTypeParam(extend_type=31))
-        error, match = NotImplementedError, "item 12"
+    if solver == "lite-mesh_big":
+        tr = SVDFeatureLiteTrainer(SVDTypeParam(extend_type=99))
+        keys["mesh_big"] = 1
+        match = "mesh_big=1"
+        monkeypatch.setenv("WORLD_SIZE", str(WORLD))
     else:
         tr = SVDBiLinearTrainer(SVDTypeParam(format_type=1, extend_type=15))
-        error, match = ValueError, "torchrun"
+        match = "torchrun"
         for name in ("WORLD_SIZE", "RANK"):
             monkeypatch.delenv(name, raising=False)
     for k, v in keys.items():
         tr.set_param(k, str(v))
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match=match):
         tr.init_model()
         tr.init_trainer()
+    assert tr.model is None
     if solver == "bilinear":
-        assert tr.model is None and tr.W_bi is None
+        assert tr.W_bi is None
+
+
+@pytest.fixture(scope="module")
+def whole_table_refs(world, jx):
+    """Outside any world: the lite solver on the port's single device at
+    batch 8 and the JAX lite trainer on its 2x2 CPU mesh at batch 7 (the
+    train CLI, LITE_ROUNDS rounds); RegGBRT in the port without the mesh
+    keys and with them, and in the JAX package with them (GBRT_ROUNDS)."""
+    import svdfeature_tpu.solvers.example  # noqa: F401  (registers 99 in JAX)
+    import svdfeature_tpu_torch.solvers.example  # noqa: F401
+    from svdfeature_tpu.train.loop import SVDTrainTask as JTrain
+    from svdfeature_tpu_torch.train.loop import SVDTrainTask as TTrain
+
+    d = world["dir"]
+    mesh = ["mesh_data=2", "mesh_model=2"]
+    lite, gbrt = f"num_round={LITE_ROUNDS}", f"num_round={GBRT_ROUNDS}"
+    for task, conf, tag, extra in (
+            (TTrain, "lite", "single", ["device=cpu", "batch_size=8", lite]),
+            (JTrain, "lite", "jaxmesh", [*mesh, "batch_size=7", lite]),
+            (TTrain, "gbrt", "single", ["device=cpu", gbrt]),
+            (TTrain, "gbrt", "keys", ["device=cpu", *mesh, gbrt]),
+            (JTrain, "gbrt", "jaxmesh", [*mesh, gbrt])):
+        task().run(str(d / f"{conf}.conf"), [f"model_out_folder={d}/models_{conf}_{tag}",
+                                             "silent=1", *extra])
+    return d
+
+
+def test_lite_solver_on_the_mesh_matches_jax_mesh_and_single(world, whole_table_refs):
+    """The lite example solver (extend_type 99) with mesh_data=2
+    mesh_model=2 and batch_size=7 in the 4-rank world: the batch grew to
+    8, as on the JAX mesh (svdfeature_tpu/solvers/base.py:243-244); every
+    rank ends with the same whole table; rank 0 alone wrote checkpoints,
+    each round's equal to the JAX lite trainer's on its 2x2 CPU mesh and to
+    the port's single device at batch 8, within
+    tests/test_torch_loop.py::test_lite_solver_matches_jax's tolerances."""
+    d = whole_table_refs
+    ranks = world["ranks"]
+    assert sorted(p.name for p in d.glob("models_lite_r*")) == ["models_lite_r0"]
+    for r in range(WORLD):
+        assert int(ranks[r]["lite/batch_size"]) == 8, r
+        np.testing.assert_array_equal(ranks[r]["lite/model"], ranks[0]["lite/model"])
+    final = (d / "models_lite_r0" / f"{LITE_ROUNDS:04d}.model").read_bytes()
+    assert final[4:] == ranks[0]["lite/model"].tobytes()
+    for rnd in range(LITE_ROUNDS + 1):
+        got = _read_model(d / "models_lite_r0" / f"{rnd:04d}.model")
+        for ref in ("jaxmesh", "single"):
+            want = _read_model(d / f"models_lite_{ref}" / f"{rnd:04d}.model")
+            for key in ("w", "b", "g"):
+                np.testing.assert_allclose(got[key], want[key], **LITE_TOL,
+                                           err_msg=f"round {rnd} {ref}/{key}")
+    first = _read_model(d / "models_lite_r0" / "0000.model")
+    assert got["g"].shape == (3,) and not np.array_equal(got["w"], first["w"])
+
+
+def test_reg_gbrt_takes_the_mesh_keys(world, whole_table_refs):
+    """RegGBRT reads no mesh key, as the JAX trainer, where they reach only
+    its ConfigSaver (svdfeature_tpu/solvers/gbrt/trainer.py:126-167): with
+    mesh_data=2 mesh_model=2 outside a world every checkpoint is byte for
+    byte the run without them and the JAX package's with them; in the
+    4-rank world (joined without distributed=1) every rank fits the same
+    trees and rank 0 alone wrote, the same bytes."""
+    d = whole_table_refs
+    ranks = world["ranks"]
+    assert sorted(p.name for p in d.glob("models_gbrt_r*")) == ["models_gbrt_r0"]
+    for rnd in range(GBRT_ROUNDS + 1):
+        want = (d / "models_gbrt_single" / f"{rnd:04d}.model").read_bytes()
+        for tag in ("keys", "jaxmesh", "r0"):
+            assert (d / f"models_gbrt_{tag}" / f"{rnd:04d}.model").read_bytes() == want, (tag, rnd)
+    assert want[4:] == ranks[0]["gbrt/model"].tobytes() and len(want) > 200
+    for r in range(WORLD):
+        np.testing.assert_array_equal(ranks[r]["gbrt/model"], ranks[0]["gbrt/model"])
 
 
 if __name__ == "__main__":
