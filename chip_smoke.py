@@ -53,11 +53,13 @@ result line):
      Zipf law, exponent 1.1: runs of thousands of entries), reg_method 0
      and 4, and on a 40,960-row table (reg_method 0-5, no_user_bias with
      the nonnegative clamps), with times against the bound and a profile;
-     then K4 on rows wider than 256 factors (the wide kernel's passes of
-     256 columns) on a 65,536-row table at batch 2^14: k=300 and 512
-     (float4 loads) and 301 (scalar loads), uniform items and a skewed
-     batch (Zipf, every long run cut into pieces), reg_method 0, 2, 4, 5,
-     each with kernel / plain / bound ms;
+     then K4 on rows wider than 256 factors (the wide kernel: a warp a
+     run, sweeps of up to 512 columns) on a 65,536-row table at batch
+     2^14: k=300, 512 and 1024 (16-byte copies) and 257 and 301 (4-byte
+     copies), uniform items and a skewed batch (Zipf, every long run cut
+     into pieces), reg_method 0-5 across the cases, each with kernel /
+     plain / bound ms and the kernel's share of the bound (phase 1 fails
+     if ptxas reports spills for either form of the wide kernel);
   7. bigTable (bench.py's synthetic KDD-Cup-scale workload, numpy only)
      through the port's entry points, 3 rounds each: (a) batch 2^20, the
      tile sweep (K4), (b) the same with use_pallas=0, (c) batch 4096,
@@ -1404,7 +1406,7 @@ def big_sweep_case(torch, dev, n, u, i, seed, k=BIG_K):
     coef_i = rng.standard_normal((B, 1), dtype=np.float32) * 2e-3
     plan = tile_sweep.attach_sweep_plans({"u_idx": u[None, :, None], "i_idx": i[None, :, None]},
                                          n_pad, tile, e_cap)
-    plan = tile_sweep.attach_sweep_runs(plan, tile, e_cap)
+    plan = tile_sweep.attach_sweep_runs(plan, tile, e_cap, num_factor=k)
     wd_u = np.zeros(n_pad, np.float32)
     wd_i = np.zeros(n_pad, np.float32)
     wd_u[: int(u.max()) + 1] = 0.004
@@ -1606,30 +1608,39 @@ def phase_big_kernels(torch, dev, big, card, failures):
 
 
 # phase 6, wide rows: K4 on rows of more than the 256 factors that its
-# first kernels hold (csrc/tile_sweep.cu sweeps them in passes of 256
-# columns), on a WIDE_N-row table at batch WIDE_B
+# first kernels hold (csrc/tile_sweep.cu's sweep_wide_kernel: a warp a run,
+# sweeps of up to 512 columns), on a WIDE_N-row table at batch WIDE_B
 WIDE_N = 1 << 16
 WIDE_B = 1 << 14
-WIDE_CASES = (  # (k, items, reg_method): 300 and 512 take float4 loads, 301 scalar ones
-    (300, "uniform", 0), (300, "skewed", 2), (512, "uniform", 4), (512, "skewed", 0),
-    (301, "skewed", 5))
+WIDE_INNER = 20  # calls a timed turn (kernel and plain version in turns)
+WIDE_CASES = (  # (k, items, reg_method): 257 and 301 take 4-byte copies, the rest float4
+    (257, "uniform", 1), (300, "uniform", 0), (300, "skewed", 2), (512, "uniform", 4),
+    (512, "skewed", 0), (301, "skewed", 5), (1024, "uniform", 3))
 
 
-def wide_sweep_cases(torch, dev, card, failures):
-    """K4 at k=300, 301 and 512 against its plain version (BIG_ATOL +
-    BIG_RTOL, ref bits, dummy and pad rows exact) on a WIDE_N-row table at
-    batch WIDE_B: uniform items, and skewed ones (a Zipf law, SKEW_EXPONENT:
-    runs cut into pieces); reg_method 0, 2 (the whole row's scale across
-    the passes), 4 and 5; kernel / plain / bound ms of each.  Returns k ->
-    the timing of its first case, with the largest error of all."""
-    from svdfeature_tpu_torch.ops import big_embed, cuda_sweep
-    from svdfeature_tpu_torch.ops.embed import HyperParams
-
+def wide_inputs():
+    """Phase 6's wide batch: WIDE_B user rows in [0, half) and item rows
+    above, uniform or skewed (a Zipf law, SKEW_EXPONENT), of a WIDE_N-row
+    table."""
     rng = np.random.default_rng(15)
     half = (WIDE_N - 1) // 2
     u = rng.integers(0, half, WIDE_B).astype(np.int32)
-    items = {"uniform": (half + rng.integers(0, half, WIDE_B)).astype(np.int32),
-             "skewed": (half + zipf_items(half, WIDE_B, SKEW_EXPONENT, seed=16)).astype(np.int32)}
+    return u, {"uniform": (half + rng.integers(0, half, WIDE_B)).astype(np.int32),
+               "skewed": (half + zipf_items(half, WIDE_B, SKEW_EXPONENT, seed=16)).astype(np.int32)}
+
+
+def wide_sweep_cases(torch, dev, card, failures):
+    """K4 at k=257, 300, 301, 512 and 1024 against its plain version
+    (BIG_ATOL + BIG_RTOL, ref bits, dummy and pad rows exact) on a
+    WIDE_N-row table at batch WIDE_B: uniform items, and skewed ones (runs
+    cut into pieces); reg_method 0-5 across the cases (2: the whole row's
+    scale); kernel / plain / bound ms of each and the kernel's share of
+    the bound.  Returns k -> the timing of its first case, with the largest
+    error of all."""
+    from svdfeature_tpu_torch.ops import big_embed, cuda_sweep
+    from svdfeature_tpu_torch.ops.embed import HyperParams
+
+    u, items = wide_inputs()
     out, max_err = {}, 0.0
     for k, kind, m in WIDE_CASES:
         torch.cuda.empty_cache()
@@ -1648,21 +1659,26 @@ def wide_sweep_cases(torch, dev, card, failures):
               and (kind == "uniform" or pieces > 0))
         del got, want, diff
         work = case["w"].clone()
+        # WIDE_INNER calls a turn: the host's time to a turn's first launch
+        # (the wrapper's checks, 26-58 us on the H100's host) counts once a
+        # turn, as much as a tenth of a 50 us launch in a turn of 5
         t = timed(torch, {
             "plain": lambda: cuda_sweep.sweep_update_reference(work, *case["args"], hp),
-            "kernel": lambda: cuda_sweep.sweep_update(work, *case["args"], hp)})
+            "kernel": lambda: cuda_sweep.sweep_update(work, *case["args"], hp)},
+            inner=WIDE_INNER)
         t["bound"], t["bound_by"] = sweep_bound(case)
         max_err = max(max_err, err)
         out.setdefault(k, t)
         if not ok:
             failures.append(f"K4 vs plain k={k} {kind} reg_method={m}")
-        print(f"phase 6 {'ok' if ok else 'FAIL'}: K4 k={k} ({'float4' if k % 4 == 0 else 'scalar'} "
-              f"loads, {-(-k // 256)} passes of 256 columns) {kind} items, table n={WIDE_N} "
-              f"B={WIDE_B} (E={case['E']}, {case['touched']} touched rows, longest run "
+        print(f"phase 6 {'ok' if ok else 'FAIL'}: K4 k={k} ({'16' if k % 4 == 0 else '4'}-byte "
+              f"copies, {-(-k // 512)} sweep(s) of up to 512 columns) {kind} items, table "
+              f"n={WIDE_N} B={WIDE_B} (E={case['E']}, {case['touched']} touched rows, longest run "
               f"{case['longest']} entries, {pieces} pieces) reg_method={m}: max|d|={err:.3e} "
               f"(atol {BIG_ATOL:g} + rtol {BIG_RTOL:g}; ref bits, dummy and pad rows exact); "
               f"ms per call kernel {t['kernel']:.4f} plain {t['plain']:.4f} bound "
-              f"{t['bound']:.4f} ({t['bound_by']}) on {card}", flush=True)
+              f"{t['bound']:.4f} ({t['bound_by']}; kernel at {t['bound'] / t['kernel']:.0%} of "
+              f"it) on {card}", flush=True)
         del work, case
     for t in out.values():
         t["err"] = max_err
@@ -4279,11 +4295,19 @@ def main() -> int:
     _build.load_library()
     print(f"phase 1 ok: built {_build.BUILD_DIR / _build.LIB_NAME} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    failures = []
+    kernel = None
     for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"phase 1 ptxas: {line.strip()}")
+        if "Compiling entry" in line:
+            kernel = line.split("'")[1]
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and "sweep_wide_kernel" in (kernel or "") and spills.groups() != ("0", "0"):
+            failures.append(f"phase 1: sweep_wide_kernel spills ({line.strip()})")
+    if failures:
+        print(f"phase 1 FAIL: {failures}", flush=True)
 
-    failures = []
     clock = {"t": time.perf_counter()}
 
     def phase_time(name):
@@ -4375,7 +4399,7 @@ def main() -> int:
                     big_timing["K4"]["err"], big_timing["K4"]),
         # K4 on rows of more than 256 factors (phase 6's wide cases, phase 7
         # (e)'s launches); its time at k=512 beside
-        dict(kernel_line("tile_sweep (sweep_apply), rows of 300 factors in passes of 256 columns",
+        dict(kernel_line("tile_sweep (sweep_apply), rows of 300 factors (sweep_wide_kernel)",
                          "svdfeature_tpu_torch/csrc/tile_sweep.cu",
                          "svdfeature_tpu/ops/tile_sweep.py:143", big_launches["K4 wide"],
                          big_timing["K4 wide"][300]["err"], big_timing["K4 wide"][300]),

@@ -55,6 +55,13 @@ What it measures, with the card's name and power limit:
   entry-stream bodies (trees that have it): host against card per step.
 
     python3 scripts/kernel_split.py --cases bigsvdpp --parent build/parent --out docs/kernel_split_pr8.json
+
+  K4 on rows of more than 256 factors (``--cases k4wide``): phase 6's wide
+  cases (K4_WIDE), ms per call of the wrapper beside the bound, the same
+  in turns with the plain version as phase 6 times it (5 and 20 calls a
+  turn), the kernel's microseconds under torch.profiler, the host's
+  microseconds a wrapper call, and the largest difference from the plain
+  version, in each tree.
 """
 
 from __future__ import annotations
@@ -339,6 +346,69 @@ def bigsvdpp_split(torch, dev):
     return res
 
 
+# phase 6's wide cases (the change's chip_smoke.WIDE_CASES; a parent tree's
+# chip_smoke may list fewer), on the inputs of chip_smoke.wide_inputs
+K4_WIDE = ((257, "uniform", 1), (300, "uniform", 0), (300, "skewed", 2), (512, "uniform", 4),
+           (512, "skewed", 0), (301, "skewed", 5), (1024, "uniform", 3))
+
+
+def k4wide_split(torch, dev, chip_smoke):
+    """K4 on rows of more than 256 factors: each of K4_WIDE on phase 6's
+    WIDE_N-row table at batch WIDE_B, through the tree's own plan
+    functions and wrapper: the largest difference from the plain version,
+    ms per call from CUDA events (chip_smoke.timed: 20 calls a turn, 5
+    turns, the median and the spread between turns) beside the bound, the
+    same in turns with the plain version as phase 6 takes it (5 calls a
+    turn, as it first did, and 20), the kernel's microseconds a launch under
+    torch.profiler and the host's microseconds a wrapper call."""
+    import numpy as np
+
+    from svdfeature_tpu_torch.ops import cuda_sweep
+    from svdfeature_tpu_torch.ops.embed import HyperParams
+
+    rng = np.random.default_rng(15)
+    half = (chip_smoke.WIDE_N - 1) // 2
+    u = rng.integers(0, half, chip_smoke.WIDE_B).astype(np.int32)
+    items = {"uniform": (half + rng.integers(0, half, chip_smoke.WIDE_B)).astype(np.int32),
+             "skewed": (half + chip_smoke.zipf_items(half, chip_smoke.WIDE_B,
+                                                     chip_smoke.SKEW_EXPONENT, seed=16)
+                        ).astype(np.int32)}
+    res = {}
+    for k, kind, m in K4_WIDE:
+        case = chip_smoke.big_sweep_case(torch, dev, chip_smoke.WIDE_N, u, items[kind], seed=17,
+                                         k=k)
+        hp = HyperParams(big_table=True, num_factor=k, sweep_table=True, reg_method=m)
+        got = cuda_sweep.sweep_update(case["w"].clone(), *case["args"], hp)
+        want = cuda_sweep.sweep_update_reference(case["w"].clone(), *case["args"], hp)
+        err = float((got[:, :k + 1] - want[:, :k + 1]).abs().max())
+        del got, want
+        work = case["w"].clone()
+
+        def kernel():
+            cuda_sweep.sweep_update(work, *case["args"], hp)
+
+        spread = {}
+        t = chip_smoke.timed(torch, {"kernel": kernel}, inner=20, turns=5, spread=spread)
+        # in turns with the plain version, 5 calls a turn (as phase 6 first
+        # timed them) and 20 (as it does now)
+        turns6 = {}
+        for inner in (5, 20):
+            turns6[inner] = chip_smoke.timed(torch, {
+                "plain": lambda: cuda_sweep.sweep_update_reference(work, *case["args"], hp),
+                "kernel": kernel}, inner=inner)["kernel"]
+        per_kernel, _ = device_times(torch, lambda: [kernel() for _ in range(5)])
+        bound_ms = chip_smoke.sweep_bound(case)[0]
+        res[f"k{k}_{kind}_r{m}"] = {"ms": t["kernel"], "spread_ms": spread["kernel"],
+                                    "turns5_ms": turns6[5], "turns20_ms": turns6[20],
+                                    "device_us": kernel_us(per_kernel, "sweep_")[1],
+                                    "host_us": host_us(torch, kernel, 50),
+                                    "bound_ms": bound_ms, "share": bound_ms / t["kernel"],
+                                    "max_abs_err": err}
+        del case, work
+        torch.cuda.empty_cache()
+    return res
+
+
 def worker(tree: str, cases) -> None:
     sys.path.insert(0, tree)
     import numpy as np
@@ -360,6 +430,9 @@ def worker(tree: str, cases) -> None:
         torch.cuda.empty_cache()
     if "bigsvdpp" in cases:
         out["bigsvdpp"] = bigsvdpp_split(torch, dev)
+        torch.cuda.empty_cache()
+    if "k4wide" in cases:
+        out["k4wide"] = k4wide_split(torch, dev, chip_smoke)
         torch.cuda.empty_cache()
     if not cases & {"k5", "k2", "k1", "k3"}:
         print("RESULT " + json.dumps(out), flush=True)
@@ -561,7 +634,8 @@ def main() -> int:
     ap.add_argument("--parent", help="a second tree (the parent commit, unpacked) to run in turns")
     ap.add_argument("--out", help="write the summary JSON here too")
     ap.add_argument("--cases", default="k5,k2,k1,k3,k4",
-                    help="comma-separated subset of k5,k2,k1,k3 (together), k4 and bigsvdpp")
+                    help="comma-separated subset of k5,k2,k1,k3 (together), k4, k4wide and "
+                         "bigsvdpp")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:

@@ -32,13 +32,26 @@
 //     keeps.  A warp holds two runs; entries are read up to 8 at a time
 //     ahead of their adds, which stay in plan order (deterministic, no
 //     atomics).
-//   * a wider row (k > 256) is swept in passes of 256 columns by a kernel
-//     of its own, so the registers of the k <= 256 kernels stay as they
-//     are: each pass sums the run's entries over its columns and writes
-//     them (a piece's partials go to their columns of the slot), the bias
-//     and the ref bits once at the end.  reg_method 2 scales the whole row
-//     onto its ball: its passes write the unscaled row and sum its
-//     squares, and a last walk over the lane's own columns scales them.
+//   * a wider row (k > 256) goes to a kernel of its own, sweep_wide_kernel, so
+//     the k <= 256 kernels keep their code: a warp a run, each lane summing
+//     float4 columns 4g + 128q of the whole row up to 512 factors in registers
+//     (3 float4 up to 384 factors, 4 above; 72-128 registers a thread by form,
+//     no spills).  The row (cp.async into shared memory), bias, ref bits and
+//     decay rates are loaded with the run's record while the run's plan sources
+//     and coefficients are staged in shared memory; the entries' p_u / p_i rows
+//     then come in through a ring of 4 cp.async stages a warp (16-byte copies,
+//     or coalesced 4-byte ones where k % 4 != 0 or p_u / p_i are not 16-byte
+//     aligned; the adds read float4 from shared memory either way), so 3 entries
+//     are in flight beside the one being added.  Rows of more than 512 factors
+//     take passes of 512 columns, each walking the staged plan again (the port's
+//     plans cut their runs into pieces that the stage holds).  A piece writes
+//     its partials for the whole width once; the last piece brings every piece's
+//     partials in through the same ring, and the plans list the pieces first, so
+//     that these chains start with the launch.  reg_method 2 over more than one
+//     pass writes the unscaled row, sums its squares, and a last walk over the
+//     lane's own columns scales them.  Bound: bytes, as above; a long run's
+//     pieces and its last piece's adds are chains of ring waits, which bound a
+//     skewed batch.
 //   * long runs are cut at pack time into pieces (runs of a popular item:
 //     thousands of entries in skewed data; pieces of about sqrt(n) of a
 //     run's n entries, so that a piece and the run's finish take about
@@ -75,10 +88,6 @@ constexpr int kAhead = NC == 1 ? 4 : 2;
 // SM's threads in flight (the kernel waits on memory, not on arithmetic)
 constexpr int kMinBlocks = 4;
 constexpr int kPartialsAhead = 8;  // partial sums read before their adds
-constexpr int kPassChunks = 4;     // 64-column chunks a pass of a wide row holds
-// partial sums the wide kernel reads before their adds: its registers go to
-// a pass's chunks (8 ahead spilled 640 bytes a thread there)
-constexpr int kWidePartialsAhead = 2;
 
 struct SweepArgs {
   float* w;              // [n_pad, W] augmented table, updated in place
@@ -382,39 +391,288 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_apply_kernel(const
   finish_row<NC, VEC>(a, A, row, x, xb, ref, wu, wi, g, gmask);
 }
 
-// ---- rows of more than 64 * kPassChunks factors: sweep_wide_kernel ----
-// Its own helpers: the kernels above keep the code they had, whose machine
-// code (and time) routing them through these would change.
 
-// this lane's columns of the NC chunks from column c0 of the row at xr (0
-// past k); plain loads: the wide kernel reads back what it wrote
-template <int NC, bool VEC>
-__device__ __forceinline__ void load_cols(float4 (&x)[NC], const float* xr, int c0, int k, int g) {
+// ---- rows of more than 256 factors: sweep_wide_kernel ----
+// Its own constants and helpers: the kernels above keep the code they had,
+// whose machine code (and time) routing them through these would change.
+
+constexpr int kWideWarps = 4;  // runs a block, one warp each
+constexpr int kWideThreads = 32 * kWideWarps;
+// blocks an SM the registers must allow (the rows in flight and the table
+// row sit in shared memory, not in registers), by the float4 columns NV a
+// lane holds (3: k <= 384, 4: wider) and the copies' form: the most with
+// which ptxas spills nothing on sm_90a (NV=3: 7, i.e. 72 registers, for
+// 16-byte copies and 5, i.e. 96, for 4-byte ones; NV=4: 4, 107 and 128
+// registers).  ptxas is not monotone here: a bound between two that fit
+// can spill.
+template <int NV, bool VEC>
+constexpr int kWideMinBlocks = NV == 3 ? (VEC ? 7 : 5) : 4;
+constexpr int kWideNV = 4;                  // float4 columns a lane holds, at most
+constexpr int kWideSweep = 128 * kWideNV;   // columns one sweep holds
+constexpr int kWideStages = 4;              // rows in flight a warp (cp.async ring)
+// plan entries a warp stages at once (tile_sweep.SWEEP_WIDE_PLAN: the
+// port's plans cut rows of more than kWideSweep factors into pieces of at
+// most this many entries, so that each pass walks the staged plan again)
+constexpr int kWidePlan = 64;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, around L1 (each source row is read once)
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// 4 bytes global -> shared, of which the first ``bytes`` read (the rest 0)
+__device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A warp's shared memory: a ring of kWideStages rows of ss floats (a
+// sweep's columns, then 4 for a piece's scalars), the table row's sweep
+// (xs), and the staged plan: each entry's factor row (r >= 0: p_i row r of
+// a user entry; r <= -2: p_u row -2 - r of an item entry; -1: padding)
+// and its coefficient.
+// (Offsets in floats from the start of the block's dynamic shared memory,
+// so that every access stays a 32-bit shared one.)
+struct Wide {
+  int ring, xs, pl_row, pl_coef, ss, g;
+};
+
+// the block's dynamic shared memory (kWideWarps warps' worth)
+__device__ __forceinline__ float* wsm() {
+  extern __shared__ float4 wide_smem[];
+  return reinterpret_cast<float*>(wide_smem);
+}
+
+// the floats of one warp's shared memory at k factors
+__host__ __device__ __forceinline__ int wide_ss(int k) {
+  return 128 * (k < kWideSweep ? (k + 127) / 128 : kWideNV) + 4;
+}
+__host__ __device__ __forceinline__ int wide_warp_floats(int k) {
+  return (kWideStages + 1) * wide_ss(k) + 2 * kWidePlan;
+}
+
+__device__ __forceinline__ Wide wide_warp(int warp, int k, int g) {
+  const int ss = wide_ss(k);
+  const int mine = warp * wide_warp_floats(k);
+  const int plan = mine + (kWideStages + 1) * ss;
+  return Wide{mine, mine + kWideStages * ss, plan, plan + kWidePlan, ss, g};
+}
+
+// starts the copy of this lane's columns c = 4g + 128q < kp of the table
+// row at xr (16 bytes each: the row is 16-byte aligned) into xs
+template <int NV>
+__device__ __forceinline__ void stage_row(const Wide& W, const float* xr, int kp) {
 #pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    const int c = c0 + 64 * q + 4 * g;
+  for (int q = 0; q < NV; ++q) {
+    const int c = 4 * W.g + 128 * q;
+    if (c < kp) cp16(wsm() + W.xs + c, xr + c);
+  }
+  cp_commit();
+}
+
+// this lane's staged columns of the row (0 past kp), once they have landed
+template <int NV>
+__device__ __forceinline__ void row_cols(float4 (&x)[NV], const Wide& W, int kp) {
+#pragma unroll
+  for (int q = 0; q < NV; ++q) {
+    const int c = 4 * W.g + 128 * q;
+    x[q] = c < kp ? *reinterpret_cast<const float4*>(wsm() + W.xs + c) : make_float4(0, 0, 0, 0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j >= kp) comp(x[q], j) = 0.0f;
+  }
+}
+
+// Stages the plan positions [p, p + m), m <= kWidePlan: their sources
+// (4-byte copies), with the first kp columns of the table row at xr behind
+// them where xr is given (the sources' wait leaves the row in flight; the
+// ring's first wait lands it), then each source's factor row, and starts
+// the copies of their coefficients, which land before the first row that
+// the ring brings in after them (their group is older).
+template <int NV>
+__device__ __forceinline__ void stage_plan(const SweepArgs& A, const Wide& W, int p, int m,
+                                           const float* xr, int kp) {
+  int* pl_row = reinterpret_cast<int*>(wsm()) + W.pl_row;
+  for (int j = W.g; j < m; j += 32) cp4(pl_row + j, A.src + p + j, 4);
+  cp_commit();
+  if (xr) {
+    stage_row<NV>(W, xr, kp);
+    cp_wait<1>();
+  } else {
+    cp_wait<0>();
+  }
+  __syncwarp();
+  const int BSu = A.B * A.Su;
+  const int E = BSu + A.B * A.Si;
+  for (int j = W.g; j < m; j += 32) {
+    const int s = pl_row[j];
+    if (s < 0 || s > E) __trap();
+    const bool user = s < BSu;
+    const float* c = user ? A.coef_u + s : A.coef_i + (s - BSu);
+    cp4(wsm() + W.pl_coef + j, s == E ? A.coef_u : c, s == E ? 0 : 4);  // padding: 0
+    pl_row[j] = s == E ? -1 : (user ? s / A.Su : -2 - (s - BSu) / A.Si);
+  }
+  cp_commit();
+  __syncwarp();  // the rows, for every lane's copies
+}
+
+// Rows [0, n) through the warp's ring, kWideStages - 1 ahead of the one
+// added: issue(j, stage) starts row j's copies, add(j, stage) adds it once
+// it has arrived, in order.
+template <class Issue, class Add>
+__device__ __forceinline__ void ring_walk(const Wide& W, int n, Issue issue, Add add) {
+#pragma unroll
+  for (int j = 0; j < kWideStages - 1; ++j) {
+    if (j < n) issue(j, wsm() + W.ring + j * W.ss);
+    cp_commit();
+  }
+  for (int j = 0; j < n; ++j) {
+    const int next = j + kWideStages - 1;
+    if (next < n) issue(next, wsm() + W.ring + (next % kWideStages) * W.ss);
+    cp_commit();
+    cp_wait<kWideStages - 1>();  // row j's group has landed
+    __syncwarp();                // for every lane of the warp
+    add(j, wsm() + W.ring + (j % kWideStages) * W.ss);
+    __syncwarp();                // its stage is free again
+  }
+}
+
+// The staged entries [0, m) over the sweep's columns [0, kp) of row
+// pointer offset pc0; counts and bias sums too when ``counts``.
+template <int NV, bool VEC>
+__device__ __forceinline__ void walk_entries(Sums<NV>& a, const SweepArgs& A, const Wide& W,
+                                             int m, int pc0, int kp, bool counts) {
+  const int g = W.g;
+  const int kp4 = (kp + 3) & ~3;
+  auto issue = [&](int j, float* st) {
+    const int r = reinterpret_cast<const int*>(wsm())[W.pl_row + j];
+    if (r == -1) return;
+    const float* row = (r >= 0 ? A.p_i + (int64_t)r * A.k : A.p_u + (int64_t)(-2 - r) * A.k) + pc0;
     if (VEC) {
-      x[q] = c < k ? *reinterpret_cast<const float4*>(xr + c) : make_float4(0, 0, 0, 0);
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        const int c = 4 * g + 128 * q;
+        if (c < kp) cp16(st + c, row + c);
+      }
+    } else {
+      // coalesced 4-byte copies (lane g: columns g + 32 jj); the columns
+      // past kp of the last float4 read as 0
+#pragma unroll
+      for (int jj = 0; jj < 4 * NV; ++jj) {
+        const int c = g + 32 * jj;
+        if (c < kp4) cp4(st + c, c < kp ? row + c : row, c < kp ? 4 : 0);
+      }
+    }
+  };
+  auto add = [&](int j, const float* st) {
+    const int r = reinterpret_cast<const int*>(wsm())[W.pl_row + j];
+    if (r == -1) return;  // padding adds nothing, not even a count
+    const float c = wsm()[W.pl_coef + j];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int col = 4 * g + 128 * q;
+      if (col < kp) {
+        const float4 v = *reinterpret_cast<const float4*>(st + col);
+        a.dw[q].x += c * v.x;
+        a.dw[q].y += c * v.y;
+        a.dw[q].z += c * v.z;
+        a.dw[q].w += c * v.w;
+      }
+    }
+    if (counts) {
+      if (r >= 0) {
+        a.cu += 1.0f;
+        a.db += A.with_user_bias ? c : 0.0f;
+      } else {
+        a.ci += 1.0f;
+        a.db += c;
+      }
+    }
+  };
+  ring_walk(W, m, issue, add);
+}
+
+// A run's pieces' partials (slots span.x.., PC floats each, the scalars
+// last) over the sweep's columns [pc0, pc0 + kp), added in slot order;
+// their scalars too when ``counts``.
+template <int NV>
+__device__ __forceinline__ void walk_partials(Sums<NV>& a, const SweepArgs& A, const Wide& W,
+                                              int2 span, int PC, int pc0, int kp, bool counts) {
+  const int g = W.g;
+  auto issue = [&](int j, float* st) {
+    const float* pp = A.part + (int64_t)(span.x + j) * PC;
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int c = 4 * g + 128 * q;
+      if (c < kp) cp16(st + c, pp + pc0 + c);
+    }
+    if (counts && g == 0) cp16(st + W.ss - 4, pp + PC - 4);
+  };
+  auto add = [&](int, const float* st) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      const int col = 4 * g + 128 * q;
+      if (col < kp) {
+        const float4 v = *reinterpret_cast<const float4*>(st + col);
+        a.dw[q].x += v.x;
+        a.dw[q].y += v.y;
+        a.dw[q].z += v.z;
+        a.dw[q].w += v.w;
+      }
+    }
+    if (counts) {
+      const float4 sc = *reinterpret_cast<const float4*>(st + W.ss - 4);
+      a.db += sc.x;
+      a.cu += sc.y;
+      a.ci += sc.z;
+    }
+  };
+  ring_walk(W, span.y, issue, add);
+}
+
+// this lane's float4 columns c = 4g + 128q < kp of the row at xr (0 past
+// kp); plain loads: the ball's last walk reads back what the lane wrote
+template <int NV>
+__device__ __forceinline__ void load_cols(float4 (&x)[NV], const float* xr, int kp, int g) {
+#pragma unroll
+  for (int q = 0; q < NV; ++q) {
+    const int c = 4 * g + 128 * q;
+    if (c + 4 <= kp) {
+      x[q] = *reinterpret_cast<const float4*>(xr + c);
     } else {
       x[q] = make_float4(0, 0, 0, 0);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (c + j < k) comp(x[q], j) = xr[c + j];
+        if (c + j < kp) comp(x[q], j) = xr[c + j];
     }
   }
 }
 
-template <int NC, bool VEC>
-__device__ __forceinline__ void store_cols(float* xr, int c0, int k, const float4 (&nw)[NC], int g) {
+template <int NV>
+__device__ __forceinline__ void store_cols(float* xr, int kp, const float4 (&nw)[NV], int g) {
 #pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    const int c = c0 + 64 * q + 4 * g;
-    if (VEC) {
-      if (c < k) *reinterpret_cast<float4*>(xr + c) = nw[q];
+  for (int q = 0; q < NV; ++q) {
+    const int c = 4 * g + 128 * q;
+    if (c + 4 <= kp) {
+      *reinterpret_cast<float4*>(xr + c) = nw[q];
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (c + j < k) xr[c + j] = comp(nw[q], j);
+        if (c + j < kp) xr[c + j] = comp(nw[q], j);
     }
   }
 }
@@ -475,11 +733,10 @@ __device__ __forceinline__ float sq_cols(const float4 (&nw)[NC]) {
 }
 
 // reg_method 2: the factor that puts the row (its lanes' shares of the
-// squared norm summed over the group) onto the ball |w|^2 <= wd
-__device__ __forceinline__ float ball_scale(float sq, float cu, float wu, float wi,
-                                            unsigned gmask) {
+// squared norm summed over the warp) onto the ball |w|^2 <= wd
+__device__ __forceinline__ float ball_scale(float sq, float cu, float wu, float wi) {
 #pragma unroll
-  for (int o = kGroup / 2; o > 0; o >>= 1) sq += __shfl_xor_sync(gmask, sq, o);
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
   const float wd_row = cu > 0.0f ? wu : wi;
   return sq > wd_row ? sqrtf(wd_row / fmaxf(sq, 1e-30f)) : 1.0f;
 }
@@ -507,167 +764,126 @@ __device__ __forceinline__ float new_bias(const SweepArgs& A, float cu, float ci
   return b * expf(logb);
 }
 
-// the bias and (lazy modes) the ref stamp, by the group's lane 0 after
-// every lane of the group has read them
-__device__ __forceinline__ void write_bias_ref(const SweepArgs& A, float* xr, float nb) {
-  xr[A.k] = nb;
-  if (A.reg_method >= 4) reinterpret_cast<int*>(xr)[A.k + 1] = A.stepi[0];
-}
-
-// A run's record: plan positions [p0, p1), table row, piece slot (-1: the
-// whole run), and this lane's first plan source src[p0 + g].
-struct Run {
-  int p0, p1, slot, first;
-  int64_t row;
-};
-
-// the record of run t, checked; false for an empty run (padding)
-__device__ __forceinline__ bool load_run(Run& r, const SweepArgs& A, int t, int g) {
-  const int4 rec = __ldg(A.runs + t);
-  r.p0 = rec.x;
-  r.p1 = rec.y;
-  r.slot = rec.w;
-  if (r.p0 >= r.p1) return false;  // an empty run pads the batch's run list
-  r.row = rec.z;
-  if (r.p0 < 0 || r.p1 > A.n_plan || r.row < 0 || r.row >= A.n_pad || r.slot < -1 ||
-      r.slot >= A.n_slots)
-    __trap();
-  const int E = A.B * A.Su + A.B * A.Si;
-  r.first = g < r.p1 - r.p0 ? __ldg(A.src + r.p0 + g) : E;
-  return true;
-}
-
-// a piece's partial sums of the chunks [q0, q0 + NC) into its slot's
-// floats pp (chunks from nc on are past the row)
-template <int NC>
-__device__ __forceinline__ void put_partials(float* pp, const Sums<NC>& a, int q0, int nc, int g) {
-#pragma unroll
-  for (int q = 0; q < NC; ++q)
-    if (q0 + q < nc) reinterpret_cast<float4*>(pp)[16 * (q0 + q) + g] = a.dw[q];
-}
-
-// A piece's arrival, its partials in its slot: true for the piece that
-// arrives last, which then finishes the run (span: the run's slots).
-__device__ __forceinline__ bool last_piece(const SweepArgs& A, int slot, int2& span, int g,
-                                           unsigned gmask, int lane0) {
-  span = __ldg(A.pieces + slot);
-  if (span.x < 0 || span.y < 1 || span.x + span.y > A.n_slots || slot < span.x ||
-      slot >= span.x + span.y)
-    __trap();
-  __threadfence();  // the partials are visible before the arrival counts
-  __syncwarp(gmask);
-  int arrived = 0;
-  if (g == 0) arrived = atomicAdd(A.count + span.x, 1);
-  arrived = __shfl_sync(gmask, arrived, lane0);
-  if (arrived != span.y - 1) return false;
-  __threadfence();
-  return true;
-}
-
-// the run's sums over the chunks [q0, q0 + NC), its pieces' partials
-// (slots of PC floats, the scalars last) added in slot order
-template <int NC>
-__device__ __forceinline__ void add_partials(Sums<NC>& a, const SweepArgs& A, int2 span, int PC,
-                                             int q0, int nc, int g) {
-  clear(a);
-  const int s_end = span.x + span.y;
-  for (int s0 = span.x; s0 < s_end; s0 += kWidePartialsAhead) {
-    float4 v[kWidePartialsAhead][NC];
-    float4 sc[kWidePartialsAhead];
-#pragma unroll
-    for (int u = 0; u < kWidePartialsAhead; ++u) {
-      const float* pp = A.part + (int64_t)min(s0 + u, s_end - 1) * PC;
-#pragma unroll
-      for (int q = 0; q < NC; ++q)
-        v[u][q] = q0 + q < nc ? __ldcg(reinterpret_cast<const float4*>(pp) + 16 * (q0 + q) + g)
-                              : make_float4(0, 0, 0, 0);
-      sc[u] = __ldcg(reinterpret_cast<const float4*>(pp + PC - 4));
-    }
-#pragma unroll
-    for (int u = 0; u < kWidePartialsAhead; ++u) {
-      if (s0 + u >= s_end) break;
-#pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        a.dw[q].x += v[u][q].x;
-        a.dw[q].y += v[u][q].y;
-        a.dw[q].z += v[u][q].z;
-        a.dw[q].w += v[u][q].w;
-      }
-      a.db += sc[u].x;
-      a.cu += sc[u].y;
-      a.ci += sc[u].z;
-    }
-  }
-}
-
-// k > 64 * kPassChunks: the row in passes of kPassChunks chunks, each
-// summed (a piece: all its passes into its slot first), stepped and
-// written before the next; reg_method 2 writes the unscaled row, then
-// scales the lane's own columns once the group has the whole norm.
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_wide_kernel(const SweepArgs A) {
-  constexpr int NC = kPassChunks;
-  const int lane = threadIdx.x & 31;
-  const int g = lane & (kGroup - 1);
-  const int lane0 = lane & kGroup;
-  const unsigned gmask = 0xffffu << lane0;
-  const int t = blockIdx.x * kGroupsPerBlock + (threadIdx.x / kGroup);
+// k > 256: a warp a run (or piece), lane g holding the float4 columns
+// 4g + 128q of a sweep of up to 512; rows wider than that in passes of 512
+// columns.  The run's record, then its row's first sweep, bias, ref and
+// decay rates with the staging of its plan; the entries' factor rows
+// through the warp's ring of cp.async stages, added in plan order.  A
+// piece writes its partials for the whole width once; the last to arrive
+// adds every piece's partials in slot order through the same ring.
+// reg_method 2 over more than one pass writes the unscaled row, then
+// scales the lane's own columns once the warp has the whole norm.
+template <int NV, bool VEC>
+__global__ void __launch_bounds__(kWideThreads, (kWideMinBlocks<NV, VEC>)) sweep_wide_kernel(const SweepArgs A) {
+  const int g = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * kWideWarps + warp;
   if (t >= A.n_runs) return;
+  const int4 rec = __ldg(A.runs + t);
+  const int p0 = rec.x, p1 = rec.y, slot = rec.w;
+  if (p0 >= p1) return;  // an empty run pads the batch's run list
+  const int64_t row = rec.z;
+  if (p0 < 0 || p1 > A.n_plan || row < 0 || row >= A.n_pad || slot < -1 || slot >= A.n_slots)
+    __trap();
+  const int k = A.k;
+  const Wide W = wide_warp(warp, k, g);
+  float* xr = A.w + row * A.W;
+  const float xb = xr[k];
+  const int ref = reinterpret_cast<const int*>(xr)[k + 1];
+  const float wu = __ldg(A.wdu + row);
+  const float wi = __ldg(A.wdi + row);
+  const int n = p1 - p0;
+  const int npass = (k + kWideSweep - 1) / kWideSweep;
+  const int PC = 64 * ((k + 63) / 64) + 4;
+  Sums<NV> a;
+  clear(a);
 
-  Run r;
-  if (!load_run(r, A, t, g)) return;
-  float* xr = A.w + r.row * A.W;
-  const float xb = xr[A.k];
-  const int ref = reinterpret_cast<const int*>(xr)[A.k + 1];
-  const float wu = __ldg(A.wdu + r.row);
-  const float wi = __ldg(A.wdi + r.row);
-  const int nc = (A.k + 63) / 64;
-  const int PC = 64 * nc + 4;
-
-  Sums<NC> a;
-  int2 span = make_int2(0, 0);
-  if (r.slot >= 0) {
-    float* pp = A.part + (int64_t)r.slot * PC;
-    for (int q0 = 0; q0 < nc; q0 += NC) {
-      clear(a);
-      sum_entries<NC, VEC>(a, A, r.p0, r.p1, r.first, g, gmask, lane0, 64 * q0);
-      put_partials<NC>(pp, a, q0, nc, g);
+  // the entries' sums of one pass (its columns from pc0), the plan staged
+  // again only where it did not fit the stage (a piece of a plan made
+  // without the row's k)
+  auto sum_pass = [&](int pc0, int kp) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) a.dw[q] = make_float4(0, 0, 0, 0);
+    for (int b = 0; b < n; b += kWidePlan) {
+      const int m = min(kWidePlan, n - b);
+      if (pc0 == 0 || n > kWidePlan)
+        stage_plan<NV>(A, W, p0 + b, m, pc0 == 0 && b == 0 ? xr : nullptr, kp);
+      walk_entries<NV, VEC>(a, A, W, m, pc0, kp, pc0 == 0);
     }
-    if (g == 0) reinterpret_cast<float4*>(pp + 64 * nc)[0] = make_float4(a.db, a.cu, a.ci, 0.0f);
-    if (!last_piece(A, r.slot, span, g, gmask, lane0)) return;
+  };
+
+  int2 span = make_int2(0, 0);
+  if (slot >= 0) {
+    // a piece of a long run: leave the partial sums in the slot; the piece
+    // that arrives last adds the run's partials in slot order and finishes
+    float* pp = A.part + (int64_t)slot * PC;
+    for (int pc0 = 0; pc0 < k; pc0 += kWideSweep) {
+      const int kp = min(k - pc0, kWideSweep);
+      sum_pass(pc0, kp);
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        const int c = 4 * g + 128 * q;
+        if (c < kp) *reinterpret_cast<float4*>(pp + pc0 + c) = a.dw[q];
+      }
+    }
+    if (g == 0) *reinterpret_cast<float4*>(pp + PC - 4) = make_float4(a.db, a.cu, a.ci, 0.0f);
+    span = __ldg(A.pieces + slot);
+    if (span.x < 0 || span.y < 1 || span.x + span.y > A.n_slots || slot < span.x ||
+        slot >= span.x + span.y)
+      __trap();
+    __threadfence();  // the partials are visible before the arrival counts
+    __syncwarp();
+    int arrived = 0;
+    if (g == 0) arrived = atomicAdd(A.count + span.x, 1);
+    arrived = __shfl_sync(0xffffffffu, arrived, 0);
+    if (arrived != span.y - 1) return;
+    __threadfence();
     if (g == 0) A.count[span.x] = 0;  // every piece has arrived; as the next call expects it
   }
+
   const bool ball = A.reg_method == 2;
   float sq = 0.0f;
-  for (int q0 = 0; q0 < nc; q0 += NC) {
-    if (r.slot < 0) {
-      clear(a);
-      sum_entries<NC, VEC>(a, A, r.p0, r.p1, r.first, g, gmask, lane0, 64 * q0);
+  for (int pc0 = 0; pc0 < k; pc0 += kWideSweep) {
+    const int kp = min(k - pc0, kWideSweep);
+    if (pc0 > 0) stage_row<NV>(W, xr + pc0, kp);  // lands before the pass's first row
+    if (slot < 0) {
+      sum_pass(pc0, kp);
     } else {
-      add_partials<NC>(a, A, span, PC, q0, nc, g);
+      if (pc0 == 0) clear(a);
+#pragma unroll
+      for (int q = 0; q < NV; ++q) a.dw[q] = make_float4(0, 0, 0, 0);
+      walk_partials<NV>(a, A, W, span, PC, pc0, kp, pc0 == 0);
     }
-    // the counts are the same in every pass: an untouched row is left at
-    // the first, before anything is written
+    // the counts come with the first pass: an untouched row is left there,
+    // before anything is written
     if (!((a.cu + a.ci) > 0.0f)) return;
-    float4 x[NC], nw[NC];
-    load_cols<NC, VEC>(x, xr, 64 * q0, A.k, g);
-    step_cols<NC>(nw, a, A, x, ref, wu, wi);
-    if (ball) sq += sq_cols<NC>(nw);
-    else scale_clamp<NC>(nw, 1.0f, A, a.cu, a.ci);
-    store_cols<NC, VEC>(xr, 64 * q0, A.k, nw, g);
+    float4 x[NV], nw[NV];
+    row_cols<NV>(x, W, kp);
+    step_cols<NV>(nw, a, A, x, ref, wu, wi);
+    if (ball && npass > 1) {
+      sq += sq_cols<NV>(nw);  // the unscaled row now, its scale below
+    } else {
+      scale_clamp<NV>(nw, ball ? ball_scale(sq_cols<NV>(nw), a.cu, wu, wi) : 1.0f, A,
+                           a.cu, a.ci);
+    }
+    store_cols<NV>(xr + pc0, kp, nw, g);
   }
-  if (ball) {
-    const float scale = ball_scale(sq, a.cu, wu, wi, gmask);
-    for (int q0 = 0; q0 < nc; q0 += NC) {
-      float4 nw[NC];
-      load_cols<NC, VEC>(nw, xr, 64 * q0, A.k, g);
-      scale_clamp<NC>(nw, scale, A, a.cu, a.ci);
-      store_cols<NC, VEC>(xr, 64 * q0, A.k, nw, g);
+  if (ball && npass > 1) {
+    const float scale = ball_scale(sq, a.cu, wu, wi);
+    for (int pc0 = 0; pc0 < k; pc0 += kWideSweep) {
+      const int kp = min(k - pc0, kWideSweep);
+      float4 nw[NV];
+      load_cols<NV>(nw, xr + pc0, kp, g);
+      scale_clamp<NV>(nw, scale, A, a.cu, a.ci);
+      store_cols<NV>(xr + pc0, kp, nw, g);
     }
   }
   const float nb = new_bias(A, a.cu, a.ci, xb + a.db);
-  __syncwarp(gmask);  // every lane of the group has read the bias and ref
-  if (g == 0) write_bias_ref(A, xr, nb);
+  __syncwarp();  // every lane has read the bias and ref
+  if (g == 0) {
+    xr[k] = nb;
+    if (A.reg_method >= 4) reinterpret_cast<int*>(xr)[k + 1] = A.stepi[0];
+  }
 }
 
 template <int NC>
@@ -677,9 +893,16 @@ cudaError_t launch(const SweepArgs& A, bool vec, int blocks, cudaStream_t stream
   return cudaGetLastError();
 }
 
-cudaError_t launch_wide(const SweepArgs& A, bool vec, int blocks, cudaStream_t stream) {
-  if (vec) sweep_wide_kernel<true><<<blocks, kThreads, 0, stream>>>(A);
-  else sweep_wide_kernel<false><<<blocks, kThreads, 0, stream>>>(A);
+template <int NV, bool VEC>
+cudaError_t launch_wide(const SweepArgs& A, cudaStream_t stream) {
+  const int blocks = (A.n_runs + kWideWarps - 1) / kWideWarps;
+  const int bytes = sizeof(float) * kWideWarps * wide_warp_floats(A.k);
+  if (bytes > 48 * 1024) {  // above what a launch gets without opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        sweep_wide_kernel<NV, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  sweep_wide_kernel<NV, VEC><<<blocks, kWideThreads, bytes, stream>>>(A);
   return cudaGetLastError();
 }
 
@@ -727,6 +950,7 @@ extern "C" int sweep_apply(void** ptrs, const int* ints, void* stream) {
   else if (nc == 2) err = launch<2>(A, vec, blocks, s);
   else if (nc == 3) err = launch<3>(A, vec, blocks, s);
   else if (nc == 4) err = launch<4>(A, vec, blocks, s);
-  else if (nc > 4) err = launch_wide(A, vec, blocks, s);
+  else if (nc <= 6) err = vec ? launch_wide<3, true>(A, s) : launch_wide<3, false>(A, s);
+  else err = vec ? launch_wide<4, true>(A, s) : launch_wide<4, false>(A, s);
   return (int)err;
 }

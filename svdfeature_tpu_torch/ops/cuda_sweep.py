@@ -14,11 +14,16 @@ step's factors ``p_u`` / ``p_i`` and coefficients (no ``[E, k+3]``
 payload is built), sums them in plan order (deterministic, no atomics on
 the row; a long run's pieces leave partial sums that the last-arriving
 piece adds in slot order), and writes the touched row in place.  A row
-of more than 256 factors is swept in passes of 256 columns, so every k
-the augmented layout holds is taken.
+of more than 256 factors goes to a kernel of its own: a warp a run, each
+lane holding float4 columns across the whole row up to 512 factors, the
+run's plan staged in shared memory and its entries' rows brought in by a
+ring of cp.async stages (float4 adds from shared memory in both the
+16-byte and the 4-byte copy forms); wider rows take passes of 512 columns
+over the staged plan, so every k the augmented layout holds is taken.
 Untouched rows are left alone, which is what the TPU kernel's rewrite of
 them amounts to.  It is bound by bytes (the factors read once per entry,
-the plan, the touched rows read and written once).
+the plan, the touched rows read and written once); a skewed batch's long
+runs add chains of dependent waits (pieces, then their last piece's adds).
 
 Entries (``cat(u_idx.ravel(), i_idx.ravel())`` order, big_embed.entry_payload):
 a user entry e < B*Su of example e // Su adds dw = coef_u[e] * p_i[e // Su],
@@ -141,6 +146,8 @@ def _check(w, plan, p_u, p_i, coef_u, coef_i, wdu, wdi, scal, stepi, hp) -> None
     n_pad, W = w.shape
     k = hp.num_factor
     B = p_u.shape[0]
+    if coef_u.dim() != 2 or coef_i.dim() != 2:
+        raise ValueError("coef_u / coef_i must be [B, Su] / [B, Si]")
     want = {
         "w": (w, torch.float32, (n_pad, W)),
         "sw_src": (plan["sw_src"], torch.int32, (plan["sw_src"].shape[0],)),
@@ -156,14 +163,14 @@ def _check(w, plan, p_u, p_i, coef_u, coef_i, wdu, wdi, scal, stepi, hp) -> None
         "stepi": (stepi, torch.int32, (1,)),
     }
     check_tensors(want, w.device)
-    if coef_u.dim() != 2 or coef_i.dim() != 2:
-        raise ValueError("coef_u / coef_i must be [B, Su] / [B, Si]")
     if hp.reg_method not in range(6):
         raise ValueError(f"unknown reg_method {hp.reg_method}")
     if not 0 < k <= W - 2 or W % 4:
         raise ValueError("the augmented layout requires 0 < hp.num_factor <= W - 2, W % 4 == 0")
     if n_pad % hp.sweep_tile or n_pad >= 2**31 or B * (coef_u.shape[1] + coef_i.shape[1]) >= 2**31:
         raise ValueError(f"the table must hold whole tiles of {hp.sweep_tile} rows, under 2^31")
+    if w.data_ptr() % 16:
+        raise ValueError("w must start on a 16-byte boundary (the kernel reads its rows as float4)")
 
 
 def sweep_update(w: torch.Tensor, plan: Dict[str, torch.Tensor], p_u: torch.Tensor,

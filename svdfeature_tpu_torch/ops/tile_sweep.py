@@ -39,6 +39,14 @@ SWEEP_ECAP = 1024
 SWEEP_TILE = 2048
 # K4 cuts runs of more entries than this into pieces (make_sweep_runs)
 SWEEP_PIECE = 64
+# K4's first kernels hold rows of up to SWEEP_NARROW factors; its wide
+# kernel holds rows of up to SWEEP_WIDE in one sweep and stages
+# SWEEP_WIDE_PLAN plan entries a run at once (csrc/tile_sweep.cu
+# kWideSweep, kWidePlan): a wider row is swept in passes that walk the
+# staged plan again, so its pieces hold at most that many entries
+SWEEP_NARROW = 256
+SWEEP_WIDE = 512
+SWEEP_WIDE_PLAN = 64
 # the batch-dict keys of a sweep plan, with the runs of the port: K4 reads
 # sw_src, sw_runs and sw_pieces; the plain version sw_tids, sw_lids, sw_src
 SWEEP_KEYS = ("sw_tids", "sw_lids", "sw_src", "sw_runs", "sw_pieces")
@@ -122,20 +130,25 @@ def attach_sweep_plans(batches, n_pad_rows: int, tile: int, e_cap: int):
     return out
 
 
-def make_sweep_runs(tids, lids, tile: int, e_cap: int, piece: int = SWEEP_PIECE):
+def make_sweep_runs(tids, lids, tile: int, e_cap: int, piece: int = SWEEP_PIECE,
+                    num_factor: int = 0):
     """The runs of one batch's plan for K4 -> (runs [R, 4], pieces [S, 2])
     int32.
 
     The plan sorts entries stably by row and groups them by tile, so each
     touched row's entries are one contiguous run of plan positions with no
-    padding inside (padding only ends a tile's last cell).  ``runs`` holds
-    a record per run, (first position, end position, table row, slot): the
-    end is the run's last entry + 1, so a tile's trailing padding belongs
-    to no run.  Runs of more than ``piece`` entries (a popular row) are cut
-    into pieces of max(piece, ceil(sqrt(n))) entries, each a record of its
-    own with a partial-sum slot (-1 for a whole run); the pieces of one run
-    take consecutive slots, and ``pieces[s]`` = (the run's first slot, its
-    number of pieces)."""
+    padding inside (padding only ends a tile's last cell).  ``runs`` holds a
+    record per run, (first position, end position, table row, slot): the end is
+    the run's last entry + 1, so a tile's trailing padding belongs to no run.
+    Runs of more than ``piece`` entries (a popular row) are cut into pieces of
+    max(piece, ceil(sqrt(n))) entries (at most max(piece, SWEEP_WIDE_PLAN) for
+    rows of ``num_factor`` > SWEEP_WIDE, which K4 sweeps in passes), each a
+    record of its own with a partial-sum slot (-1 for a whole run); the pieces
+    of one run take consecutive slots, and ``pieces[s]`` = (the run's first
+    slot, its number of pieces).  For rows of more than SWEEP_NARROW factors
+    (K4's wide kernel) the pieces' records come first, in slot order, so that
+    the longest chains of the launch (a long run's pieces, then its last piece's
+    adds) start with it."""
     lids = np.asarray(lids).reshape(-1)
     rows = np.repeat(np.asarray(tids, np.int64).reshape(-1), e_cap) * tile + lids
     real = np.flatnonzero(lids >= 0)
@@ -147,6 +160,8 @@ def make_sweep_runs(tids, lids, tile: int, e_cap: int, piece: int = SWEEP_PIECE)
     n = p1 - p0
     long = n > piece
     plen = np.where(long, np.maximum(piece, np.ceil(np.sqrt(n))), n).astype(np.int64)
+    if num_factor > SWEEP_WIDE:
+        plen = np.minimum(plen, max(piece, SWEEP_WIDE_PLAN))
     cnt = np.where(long, -(-n // np.maximum(plen, 1)), 1)
     run_of = np.repeat(np.arange(n.size), cnt)
     q = np.arange(run_of.size) - np.repeat(np.cumsum(cnt) - cnt, cnt)
@@ -156,17 +171,21 @@ def make_sweep_runs(tids, lids, tile: int, e_cap: int, piece: int = SWEEP_PIECE)
     slot = np.full(run_of.size, -1, np.int64)
     slot[is_piece] = np.arange(int(is_piece.sum()))
     runs = np.stack([t0, t1, row[run_of], slot], axis=1).astype(np.int32)
+    if num_factor > SWEEP_NARROW:
+        runs = runs[np.argsort(slot < 0, kind="stable")]
     pieces = np.stack([slot[is_piece] - q[is_piece], cnt[run_of[is_piece]]], axis=1)
     return runs, pieces.astype(np.int32).reshape(-1, 2)
 
 
-def attach_sweep_runs(batches, tile: int, e_cap: int, piece: int = SWEEP_PIECE):
+def attach_sweep_runs(batches, tile: int, e_cap: int, piece: int = SWEEP_PIECE,
+                      num_factor: int = 0):
     """Add ``sw_runs`` [T, R, 4] and ``sw_pieces`` [T, S, 2]
-    (``make_sweep_runs`` of each batch; R and S their largest counts, at
-    least 1; empty runs (0, 0, 0, -1) and zero pieces pad them) to a batch
-    dict that holds stacked sweep plans."""
+    (``make_sweep_runs`` of each batch for rows of ``num_factor`` factors;
+    R and S their largest counts, at least 1; empty runs (0, 0, 0, -1) and
+    zero pieces pad them) to a batch dict that holds stacked sweep plans."""
     tids, lids = np.asarray(batches["sw_tids"]), np.asarray(batches["sw_lids"])
-    made = [make_sweep_runs(tids[t], lids[t], tile, e_cap, piece) for t in range(tids.shape[0])]
+    made = [make_sweep_runs(tids[t], lids[t], tile, e_cap, piece, num_factor)
+            for t in range(tids.shape[0])]
     runs = np.zeros((len(made), max(1, *(r.shape[0] for r, _ in made)), 4), np.int32)
     runs[..., 3] = -1
     pieces = np.zeros((len(made), max(1, *(p.shape[0] for _, p in made)), 2), np.int32)

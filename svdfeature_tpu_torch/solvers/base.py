@@ -405,7 +405,9 @@ class SVDFeatureTrainer:
                 arrays = tile_sweep.attach_sweep_plans(
                     arrays, int(self.state.w.shape[0]), hp.sweep_tile, hp.sweep_ecap
                 )
-                arrays = tile_sweep.attach_sweep_runs(arrays, hp.sweep_tile, hp.sweep_ecap)
+                arrays = tile_sweep.attach_sweep_runs(
+                    arrays, hp.sweep_tile, hp.sweep_ecap, num_factor=hp.num_factor
+                )
             if self.mesh is not None:
                 arrays = pmesh.put_process_sharded(arrays, self.mesh)
             arrays = stacked_from_numpy(arrays, self.state.w.device)
@@ -451,7 +453,9 @@ class SVDFeatureTrainer:
             arrays = tile_sweep.attach_sweep_plans(
                 arrays, int(self.state.w.shape[0]), hp.sweep_tile, hp.sweep_ecap
             )
-            arrays = tile_sweep.attach_sweep_runs(arrays, hp.sweep_tile, hp.sweep_ecap)
+            arrays = tile_sweep.attach_sweep_runs(
+                arrays, hp.sweep_tile, hp.sweep_ecap, num_factor=hp.num_factor
+            )
         return stacked_from_numpy(arrays, torch.device("cpu")), chunk.num_row
 
     def stage_chunk(self, entry) -> Staged:

@@ -131,7 +131,8 @@ def test_sweep_wrapper_is_plain_version_on_cpu():
     assert torch.equal(a, b) and not torch.equal(a, x["w"])
 
 
-@pytest.mark.parametrize("case", ["r0", "r4-nub", "r5-seg2", "r0-k300", "r2-k300", "r4-k512"])
+@pytest.mark.parametrize("case", ["r0", "r4-nub", "r5-seg2", "r1-k257", "r0-k300", "r2-k300",
+                                  "r4-k512", "r3-k513", "r5-k1024", "r2-k1024"])
 def test_sweep_plain_forms_the_payload_entries(jx, case):
     """K4's plain version given the step's pieces (p_u, p_i, coef_u,
     coef_i) computes what the payload form computed: the payload
@@ -139,9 +140,9 @@ def test_sweep_plain_forms_the_payload_entries(jx, case):
     (one row per entry, users then items) through the same sweep math bit
     for bit, and through the JAX package's TPU kernel (``sweep_update``,
     interpret mode, the payload gathered in plan order) within atol 1e-6,
-    ref bits exact.  Rows of 300 and 512 factors (past the 256 columns that
-    the kernel holds in one pass) are cases too, and the kernel's checks
-    take their arguments."""
+    ref bits exact.  Rows of 257 to 1024 factors (the wide kernel's: one
+    sweep up to 512, passes of 512 columns above) are cases too, and the
+    kernel's checks take their arguments."""
     k = int(case.split("-k")[1]) if "-k" in case else 8
     x = sweep_inputs(n=200, k=k, B=64, tile=16, e_cap=8, seed=8, Su=2 if "seg2" in case else 1)
     hp = x["hp"](reg_method=int(case[1]), no_user_bias=int("nub" in case))
@@ -173,11 +174,12 @@ def test_sweep_plain_forms_the_payload_entries(jx, case):
     assert not torch.equal(got, x["w"])
 
 
-@pytest.mark.parametrize("k", [254, 300, 512])
+@pytest.mark.parametrize("k", [254, 257, 300, 512, 513, 1024])
 def test_sweep_check_takes_every_factor_count(k):
     """K4's checks take every k the augmented layout holds: no limit on
-    the factors (a row of more than 256 is swept in passes), and they still
-    refuse a layout whose width does not hold k + 2 columns."""
+    the factors (a row of more than 256 goes to the wide kernel), and they
+    still refuse a layout whose width does not hold k + 2 columns, or a
+    table that does not start on a 16-byte boundary."""
     x = sweep_inputs(n=200, k=k, B=64, tile=16, e_cap=8, seed=3)
     hp = x["hp"](reg_method=0)
     assert x["w"].shape[1] == big_embed.aug_width(k)
@@ -185,16 +187,60 @@ def test_sweep_check_takes_every_factor_count(k):
     narrow = x["w"][:, :-4].contiguous()  # fewer than k + 2 columns
     with pytest.raises(ValueError, match="augmented layout"):
         cuda_sweep._check(narrow, *x["args"], hp)
+    flat = torch.zeros(x["w"].numel() + 1)
+    shifted = flat[1:].view(x["w"].shape)  # 4 bytes past an aligned start
+    shifted.copy_(x["w"])
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        cuda_sweep._check(shifted, *x["args"], hp)
 
 
-def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU, hot=0.0, skew=0.0):
+SWEEP_FAULTS = {
+    # name: (edit of K4's arguments, a word of the message)
+    "w-dtype": (lambda a: a.update(w=a["w"].double()), "w has dtype"),
+    "w-stride": (lambda a: a.update(w=a["w"].t().contiguous().t()), "w is not contiguous"),
+    "src-dtype": (lambda a: a["plan"].update(sw_src=a["plan"]["sw_src"].long()),
+                  "sw_src has dtype"),
+    "runs-shape": (lambda a: a["plan"].update(sw_runs=a["plan"]["sw_runs"][:, :3].contiguous()),
+                   "sw_runs has shape"),
+    "pieces-device": (lambda a: a["plan"].update(sw_pieces=a["plan"]["sw_pieces"].to("meta")),
+                      "sw_pieces is on meta"),
+    "p_u-shape": (lambda a: a.update(p_u=a["p_u"][:, :-1].contiguous()), "p_u has shape"),
+    "p_i-stride": (lambda a: a.update(p_i=a["p_i"].t().contiguous().t()), "p_i is not contiguous"),
+    "coef_u-1d": (lambda a: a.update(coef_u=a["coef_u"][:, 0]), "coef_u / coef_i must be"),
+    "coef_i-rows": (lambda a: a.update(coef_i=a["coef_i"][:-1]), "coef_i has shape"),
+    "wdu-dtype": (lambda a: a.update(wdu=a["wdu"].double()), "wdu has dtype"),
+    "scal-shape": (lambda a: a.update(scal=a["scal"][:3]), "scal has shape"),
+    "stepi-dtype": (lambda a: a.update(stepi=a["stepi"].long()), "stepi has dtype"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(SWEEP_FAULTS))
+def test_sweep_check_names_each_fault(fault):
+    """K4's per-call check raises on each wrong dtype, shape, device,
+    stride or rank of the tensors the kernel dereferences, naming the
+    tensor."""
+    x = sweep_inputs(n=200, k=300, B=64, tile=16, e_cap=8, seed=3)
+    hp = x["hp"](reg_method=0)
+    names = ("plan", "p_u", "p_i", "coef_u", "coef_i", "wdu", "wdi", "scal", "stepi")
+    args = dict(zip(names, x["args"]), w=x["w"])
+    args["plan"] = dict(args["plan"])
+    cuda_sweep._check(args["w"], *(args[n] for n in names), hp)
+    edit, word = SWEEP_FAULTS[fault]
+    edit(args)
+    with pytest.raises(ValueError, match=word):
+        cuda_sweep._check(args["w"], *(args[n] for n in names), hp)
+
+
+def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU, hot=0.0, skew=0.0,
+                 piece=tile_sweep.SWEEP_PIECE):
     """K4's arguments for one batch on an n-row table (users [0, n/2),
     items above, dummy n-1), padded to whole tiles: a random augmented
     table with lazy refs, the step's factors p_u / p_i and coefficients
     coef_u / coef_i of realistic size (0 on the padding examples), the
-    pack-time plan and runs.  ``hot``: the share of item entries on one
-    popular item, whose run K4 cuts into pieces; ``skew``: items drawn
-    from a Zipf law of that exponent instead (many runs cut into pieces)."""
+    pack-time plan and runs (``piece``: the runs' cut).  ``hot``: the share
+    of item entries on one popular item, whose run K4 cuts into pieces;
+    ``skew``: items drawn from a Zipf law of that exponent instead (many
+    runs cut into pieces)."""
     rng = np.random.RandomState(seed)
     half = (n - 1) // 2
     n_pad = -(-n // tile) * tile
@@ -217,7 +263,7 @@ def sweep_inputs(n, k, B, tile, e_cap, seed, Su=1, Si=1, device=CPU, hot=0.0, sk
     coef_i = rng.normal(0, 1e-2, (B, Si)).astype(np.float32)
     coef_u[-3:] = coef_i[-3:] = 0.0
     plan = tile_sweep.attach_sweep_plans({"u_idx": u[None], "i_idx": i[None]}, n_pad, tile, e_cap)
-    plan = tile_sweep.attach_sweep_runs(plan, tile, e_cap)
+    plan = tile_sweep.attach_sweep_runs(plan, tile, e_cap, piece=piece, num_factor=k)
     plan = {key: torch.from_numpy(plan[key][0]).to(device) for key in tile_sweep.SWEEP_KEYS}
     wd_u = np.zeros(n_pad, np.float32)
     wd_i = np.zeros(n_pad, np.float32)
@@ -287,24 +333,32 @@ def test_row_writer_one_batch_step_on_card(dummy_row):
 @pytest.mark.parametrize("case", ["r0", "r1", "r2", "r3", "r4", "r5", "nub-nonneg", "seg2",
                                   "hot-r4", "hot-k100-r2", "k300-r0", "k300-r2", "hot-k300-r5",
                                   "k512-r4", "hot-k512-r2", "k512-nub-nonneg", "skew-r4",
-                                  "skew-k300-r2", "skew-k301-r0", "skew-k512-r5"])
+                                  "skew-k300-r2", "skew-k301-r0", "skew-k512-r5", "k257-r1",
+                                  "skew-k257-r3", "k513-r4", "skew-k513-r0", "k1024-r5",
+                                  "skew-k1024-r2", "hot-k1024-nub-nonneg", "hot-k1024-p200-r3"])
 def test_sweep_kernel_matches_plain_on_card(case):
     """K4 against its plain version on a 40,960-row table (20 tiles of
     2048, k=64), every reg mode, no_user_bias with the nonnegative clamps,
     2-entry user segments, and a popular item holding a fifth of the item
     entries (its run cut into pieces; with k=100 too, whose rows take the
-    kernel's scalar loads); rows of 300 factors (scalar loads) and 512
-    (float4 loads), swept in passes of 256 columns, with and without
-    pieces, reg_method 2's whole-row scale among them; and items from a
-    Zipf law (exponent 1.1), whose many long runs are all cut into pieces,
-    at k=64, 300, 301 (scalar loads) and 512."""
+    kernel's scalar loads); rows of 257 to 1024 factors (the wide kernel:
+    4-byte copies at 257 and 301, 16-byte ones at 300, 512, 513 and 1024;
+    one sweep up to 512, passes of 512 columns above), with and without
+    pieces, reg_method 2's whole-row scale among them; items from a Zipf
+    law (exponent 1.1), whose many long runs are all cut into pieces, at
+    k=64, 257, 300, 301, 512, 513 and 1024; and pieces of 200 entries (p200),
+    more than the wide kernel stages at once, at k=1024."""
     dev = _card()
     found = re.search(r"k(\d+)", case)
     k = int(found.group(1)) if found else 64
     x = sweep_inputs(n=40_960, k=k, B=16_384, tile=2048, e_cap=1024, seed=5,
                      Su=2 if case == "seg2" else 1, device=dev,
                      hot=0.2 if case.startswith("hot") else 0.0,
-                     skew=1.1 if case.startswith("skew") else 0.0)
+                     skew=1.1 if case.startswith("skew") else 0.0,
+                     piece=200 if "-p200" in case else tile_sweep.SWEEP_PIECE)
+    if "-p200" in case:  # pieces longer than the wide kernel's staged plan
+        runs = x["args"][0]["sw_runs"]
+        assert int((runs[:, 1] - runs[:, 0]).max()) > tile_sweep.SWEEP_WIDE_PLAN
     if case.startswith("hot"):
         assert int(x["args"][0]["sw_runs"][:, 3].max()) > 10  # pieces of the popular run
     if case.startswith("skew"):  # pieces of several runs

@@ -151,10 +151,46 @@ def test_sweep_runs_cut_long_runs_into_pieces():
     _check_runs(piece=2)
 
 
-def _check_runs(piece):
-    batches = _plan_inputs(2)
+@pytest.mark.parametrize("num_factor", [64, 256, 257, 512, 513, 1024])
+def test_sweep_runs_of_wide_rows_fit_the_stage(num_factor):
+    """Rows of up to SWEEP_NARROW factors keep the runs made without a
+    factor count, byte for byte; wider rows (K4's wide kernel) have the
+    same records with the pieces' first, and above SWEEP_WIDE (passes over
+    a staged plan) a run of ~17,000 entries is cut into pieces of at most
+    SWEEP_WIDE_PLAN entries (131 without); the records still partition
+    the plan."""
+    rng = np.random.RandomState(4)
+    B, n = 20_000, 90
+    i = np.full((2, B, 1), 50, np.int32)  # one row holds most item entries
+    i[:, ::7] = rng.randint(12, n - 1, (2, -(-B // 7), 1))
+    batches = {"u_idx": rng.randint(0, 12, (2, B, 1)).astype(np.int32), "i_idx": i,
+               "label": np.ones((2, B), np.float32)}
+    planned = _check_runs(64, batches, num_factor)
+    plain = tsw.attach_sweep_runs(tsw.attach_sweep_plans(batches, 96, TILE, ECAP), TILE, ECAP)
+    longest = int((plain["sw_runs"][..., 1] - plain["sw_runs"][..., 0]).max())
+    assert longest > tsw.SWEEP_WIDE_PLAN
+    runs = planned["sw_runs"]
+    if num_factor <= tsw.SWEEP_NARROW:
+        for key in ("sw_runs", "sw_pieces"):
+            assert planned[key].dtype == plain[key].dtype
+            np.testing.assert_array_equal(planned[key], plain[key])
+    elif num_factor <= tsw.SWEEP_WIDE:
+        np.testing.assert_array_equal(planned["sw_pieces"], plain["sw_pieces"])
+        for t in range(runs.shape[0]):
+            piece = runs[t, :, 3] >= 0
+            n = int(piece.sum())
+            assert piece[:n].all() and not piece[n:].any()  # the pieces first
+            want = plain["sw_runs"][t]
+            np.testing.assert_array_equal(runs[t, :n], want[want[:, 3] >= 0])
+            np.testing.assert_array_equal(runs[t, n:], want[want[:, 3] < 0])
+    else:
+        assert int((runs[..., 1] - runs[..., 0]).max()) == tsw.SWEEP_WIDE_PLAN
+
+
+def _check_runs(piece, batches=None, num_factor=0):
+    batches = _plan_inputs(2) if batches is None else batches
     planned = tsw.attach_sweep_runs(tsw.attach_sweep_plans(batches, 96, TILE, ECAP), TILE, ECAP,
-                                    piece=piece)
+                                    piece=piece, num_factor=num_factor)
     T, L = planned["sw_lids"].shape
     for t in range(T):
         tids, lids = planned["sw_tids"][t], planned["sw_lids"][t]
@@ -169,6 +205,8 @@ def _check_runs(piece):
             covered[p0:p1] += 1
             assert (lids[p0:p1] >= 0).all() and (rows[p0:p1] == row).all()
             assert p1 - p0 <= max(piece, int(np.ceil(np.sqrt(L))))
+            if num_factor > tsw.SWEEP_WIDE:
+                assert p1 - p0 <= max(piece, tsw.SWEEP_WIDE_PLAN)
             if slot < 0:
                 seen.append(row)
             else:
@@ -182,3 +220,4 @@ def _check_runs(piece):
         ent = np.concatenate([batches["u_idx"][t].ravel(), batches["i_idx"][t].ravel()])
         assert sorted(seen) == sorted(set(ent.tolist()))
     assert piece == 64 or (planned["sw_runs"][..., 3] >= 0).any()
+    return planned
