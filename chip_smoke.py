@@ -196,9 +196,10 @@ result line):
      streamed runs (scripts/streaming_jax_reference.py).  Launch counts the
      chunks' plans', no chunk tensor left in a kernel plan after a round,
      examples/s beside the staged run of the same phase, the seconds a round
-     waits for chunks against those it trains them (measured in the trainer
-     hooks), peak device memory; (f) in (a) the device memory held beyond a
-     round's start at a chunk's entry within (prefetch + 1) staged chunks;
+     waits for chunks against those it trains them (the tracer's
+     ``stream.wait`` and ``stream.chunk`` spans), peak device memory; (f) in
+     (a) the device memory held beyond a round's start at a chunk's entry
+     within (prefetch + 1) staged chunks;
  19. the base solver on a 2x2 mesh, in one torchrun call of 4 ranks with
      phase 20's and 21's runs (``python -m torch.distributed.run --nproc_per_node=4
      chip_smoke.py --mesh-rank ...``, with a timeout; each rank runs the
@@ -2228,6 +2229,7 @@ def big_plus_run(conf, d, tag):
     R = run["rounds"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    trace_log = d / f"trace_{tag}.jsonl"
     args = [f"buffer_feature={d}/{run['buffer']}", f"model_out_folder={d}/models_{tag}",
             "device=cuda", *run["keys"]]
     wrappers = kernel_wrappers()
@@ -2235,8 +2237,9 @@ def big_plus_run(conf, d, tag):
         fn.launches = 0
     task = SVDTrainTask()
     t0 = time.perf_counter()
-    task.run(str(conf), args + [f"num_round={R}"])
+    task.run(str(conf), args + [f"num_round={R}", "trace=1", f"log_jsonl={trace_log}"])
     launches = {kid: fn.launches for kid, fn in wrappers.items()}
+    pack = first_round_pack_s(trace_log)
     tr = task.trainer
     entry = tr._pack_plus(task.dataset)
     cid = entry.chunk_id
@@ -2257,11 +2260,11 @@ def big_plus_run(conf, d, tag):
                                           f"log_eval={log}"])
     rmse = {int(r): float(x) for r, x in (line.split() for line in log.read_text().splitlines())}
     shutil.rmtree(d / f"models_{tag}")
-    train = secs[1:] if R > 1 else [secs[0] - tr.pack_seconds]
+    train = secs[1:] if R > 1 else [secs[0] - pack]
     return dict(task=task, entry=entry, rmse=rmse, rmse0=rmse[0], rmse1=rmse[R],
                 launches=launches, want_k5=R * per_round, T=len(cid), starts=starts, carry=carry,
                 trainer=type(tr).__name__, big=bool(tr.hp.big_table), secs=secs,
-                pack=tr.pack_seconds, eps=rows * len(train) / sum(train), peak=peak,
+                pack=pack, eps=rows * len(train) / sum(train), peak=peak,
                 seconds=time.perf_counter() - t0, R=R)
 
 
@@ -2968,22 +2971,32 @@ def summary_diff(got, want) -> float:
     return max(d + [abs(a - b) for a, b in zip(got["sample"], want["sample"])])
 
 
+def first_round_pack_s(log) -> float:
+    """Seconds of the ``pack`` spans in the first line of a train task's
+    ``log_jsonl`` written with ``trace=1`` (the port's tracer)."""
+    line = json.loads(pathlib.Path(log).read_text().splitlines()[0])
+    return line["span_self_ms"].get("pack", 0.0) / 1e3
+
+
 def task_run(conf, d, tag, keys, rounds, evals, keep=None):
     """Train ``rounds`` rounds through SVDTrainTask on the card, every
     kernel's launch count set to 0 just before and read just after, then
     evaluate the checkpoints ``evals`` (SVDInferTask keys) -> (the trained
     task, {round: RMSE}, launches, examples/s of rounds 2.. (round 1 less
-    its packing for a run of one round), round seconds).  ``keep``: the
-    round whose checkpoint stays, as ``d / f"{tag}_{keep:04d}.model"``."""
+    its packing, by the tracer's ``pack`` spans, for a run of one round),
+    round seconds).  ``keep``: the round whose checkpoint stays, as
+    ``d / f"{tag}_{keep:04d}.model"``."""
     from svdfeature_tpu_torch.infer.task import SVDInferTask
     from svdfeature_tpu_torch.train.loop import SVDTrainTask
 
     common = [f"model_out_folder={d}/models_{tag}", "device=cuda", "silent=1", *keys]
+    trace_log = d / f"trace_{tag}.jsonl"
+    traced = ["trace=1", f"log_jsonl={trace_log}"] if rounds == 1 else []
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     task = SVDTrainTask()
-    task.run(str(conf), common + [f"num_round={rounds}"])
+    task.run(str(conf), common + traced + [f"num_round={rounds}"])
     launches = {kid: fn.launches for kid, fn in wrappers.items()}
     log = d / f"rmse_{tag}.tsv"
     SVDInferTask().run(str(conf), common + [*evals, f"log_eval={log}"])
@@ -2992,7 +3005,7 @@ def task_run(conf, d, tag, keys, rounds, evals, keep=None):
         shutil.copy(d / f"models_{tag}" / f"{keep:04d}.model", d / f"{tag}_{keep:04d}.model")
     shutil.rmtree(d / f"models_{tag}")
     secs = task.round_seconds
-    train = secs[1:] if rounds > 1 else [secs[0] - task.trainer.pack_seconds]
+    train = secs[1:] if rounds > 1 else [secs[0] - first_round_pack_s(trace_log)]
     return task, rmse, launches, task.dataset_rows() * len(train) / sum(train), secs
 
 
@@ -3277,16 +3290,18 @@ def stream_run(work, tag):
     """One phase-18 run through SVDTrainTask + SVDInferTask, every kernel's
     launch count set to 0 just before training and read just after.  After
     each streamed round (at its checkpoint's save) it reads the trainer's
-    stream hooks (the seconds the round waited for chunks and trained them,
-    the device memory held beyond the round's start at a chunk's entry, the
-    largest chunk) and how many of the round's chunk tensors a kernel
-    wrapper's plan list still holds; it counts the launches each chunk's
-    plan implies."""
+    stream hooks (the device memory held beyond the round's start at a
+    chunk's entry, the largest chunk), the seconds the round waited for
+    chunks and trained them (the tracer's ``stream.wait`` and
+    ``stream.chunk`` spans) and how many of the round's chunk tensors a
+    kernel wrapper's plan list still holds; it counts the launches each
+    chunk's plan implies."""
     import dataclasses
     import weakref
 
     import torch
 
+    from svdfeature_tpu_torch import tracing
     from svdfeature_tpu_torch.infer.task import SVDInferTask
     from svdfeature_tpu_torch.ops import _plans
     from svdfeature_tpu_torch.ops.svdpp_big import k5_launches
@@ -3323,10 +3338,13 @@ def stream_run(work, tag):
 
         def save_model(self):
             stats = self.trainer.chunk_stream.stats
+            spans, _ = tracing.drain()
             if stats.chunks:  # after a streamed round
                 held = {id(t) for plans in _plans._LISTS for plan in plans for t in plan.tensors}
                 rounds.append(dict(stats=dataclasses.replace(stats), held=sum(
-                    1 for r in refs if r() is not None and id(r()) in held)))
+                    1 for r in refs if r() is not None and id(r()) in held),
+                    wait_s=tracing.total_s(spans, "stream.wait"),
+                    train_s=tracing.total_s(spans, "stream.chunk")))
                 refs.clear()
             super().save_model()
 
@@ -3337,7 +3355,11 @@ def stream_run(work, tag):
         fn.launches = 0
     task = Task()
     t0 = time.perf_counter()
-    task.run(str(conf), args + [f"num_round={R}"])
+    tracing.enable()
+    try:
+        task.run(str(conf), args + [f"num_round={R}"])
+    finally:
+        tracing.disable()
     launches = {kid: fn.launches for kid, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     tr = task.trainer
@@ -3422,8 +3444,8 @@ def phase_stream(work, staged, card, failures):
         if not ok:
             failures.append(f"streamed run ({tag})")
         totals[kid] = totals.get(kid, 0) + r["launches"][kid]
-        wait = [x["stats"].wait_s for x in r["rounds"]]
-        train = [x["stats"].train_s for x in r["rounds"]]
+        wait = [x["wait_s"] for x in r["rounds"]]
+        train = [x["train_s"] for x in r["rounds"]]
         what = "probe" if tag in "acd" else "test"
         when = f"rounds 2-{r['R']}" if r["R"] > 1 else "round 1"
         print(f"phase 18 {'ok' if ok else 'FAIL'}: streamed ({tag}) {run['data']} "
@@ -3435,7 +3457,7 @@ def phase_stream(work, staged, card, failures):
               f"{when} (phase {run['phase']}'s staged run {staged[tag]['eps']:,.0f}); "
               f"round seconds {[round(x, 3) for x in r['secs']]}; a round waited "
               f"{min(wait):.3f}-{max(wait):.3f} s for its chunks and spent {min(train):.3f}-"
-              f"{max(train):.3f} s training them (the hooks' clocks); peak device memory "
+              f"{max(train):.3f} s training them (the tracer's spans); peak device memory "
               f"{r['peak'] / 2**20:.1f} MiB; run {r['seconds']:.1f} s; on {card}", flush=True)
         if tag == "a":
             # (f) memory and overlap: the device memory held beyond a
@@ -3454,8 +3476,8 @@ def phase_stream(work, staged, card, failures):
                       f"largest staged chunk's {st.max_chunk_bytes / 2**20:.1f} MiB = "
                       f"{bound / 2**20:.1f} MiB); allocated at the round's start "
                       f"{st.base_bytes / 2**20:.1f} MiB, the trainer's state "
-                      f"{r['state_bytes'] / 2**20:.1f} MiB; waited {st.wait_s:.3f} s for "
-                      f"{st.chunks} chunks, trained {st.train_s:.3f} s", flush=True)
+                      f"{r['state_bytes'] / 2**20:.1f} MiB; waited {x['wait_s']:.3f} s for "
+                      f"{st.chunks} chunks, trained {x['train_s']:.3f} s", flush=True)
     return totals
 
 

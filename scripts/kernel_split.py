@@ -134,6 +134,22 @@ def host_us(torch, fn, calls):
     return dt * 1e6 / calls
 
 
+def timed_pack(trainer, ds):
+    """(the trainer's staged pack of ``ds``, its seconds): the tracer's
+    ``pack`` spans, or on a tree before the tracer its ``pack_seconds``."""
+    try:
+        from svdfeature_tpu_torch import tracing
+    except ImportError:  # a tree before the tracer
+        entry = trainer._pack_plus(ds)
+        return entry, getattr(trainer, "pack_seconds", None)
+    tracing.enable()
+    try:
+        entry = trainer._pack_plus(ds)
+    finally:
+        tracing.disable()
+    return entry, tracing.total_s(tracing.drain()[0], "pack")
+
+
 def kernel_us(per_kernel, needle):
     """(launches, us per launch) of the kernels whose name holds ``needle``."""
     hits = [(n, us) for name, (n, us) in per_kernel.items() if needle in name]
@@ -333,11 +349,11 @@ def bigsvdpp_split(torch, dev):
             tr.set_param(key, val)
         tr.init_model()
         tr.init_trainer()
-        entry = tr._pack_plus(ds)
+        entry, pack_s = timed_pack(tr, ds)
         steps = len(entry.chunk_id)
         r = wrapper_split(torch, lambda: tr.update_all(ds), cuda_scatter.row_writer, steps, [],
                           calls=2)
-        r.update(steps_per_round=steps, pack_s=tr.pack_seconds,
+        r.update(steps_per_round=steps, pack_s=pack_s,
                  carry="chunk_users" in entry.fb,
                  k5_us=kernel_us(device_times(torch, lambda: tr.update_all(ds))[0], "row_write")[1])
         res[name] = r

@@ -23,6 +23,8 @@ import pathlib
 import shutil
 import subprocess
 
+from .. import tracing
+
 CSRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libsvdfeature_kernels.so"
@@ -121,10 +123,15 @@ def _compile(sources, lib: pathlib.Path, stamp: pathlib.Path, digest: str) -> No
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
-    point's argtypes and restype declared."""
+    point's argtypes and restype declared; traced as the span ``build``
+    (the first call only: later calls return the cached library)."""
+    if tracing.on:
+        tracing.begin("build")
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    if tracing.on:
+        tracing.end()
     return lib

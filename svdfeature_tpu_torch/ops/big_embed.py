@@ -46,7 +46,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from .. import losses
+from .. import losses, tracing
 from .cuda_scatter import row_writer, row_writer_reference
 from .embed import (TrainConsts, TrainState, _apply_factor_reg, _gather_sum, _soft_threshold,
                     _touch_counts, _update_global)
@@ -333,6 +333,8 @@ def apply_entries(w, step0, ent_idx, payload, rows_u, rows_i, wu, wi, lr, consts
     dummy = n_tbl - 1
     lazy = hp.reg_method >= 4
 
+    if tracing.on:
+        tracing.begin("merge")
     order, si, acc, _first, last = sorted_dedup(ent_idx, payload, layout)
     dw = acc[:, :k]
     db = acc[:, k]
@@ -383,17 +385,30 @@ def apply_entries(w, step0, ent_idx, payload, rows_u, rows_i, wu, wi, lr, consts
     out_rows[:, :k] = torch.where(is_real[:, None], new_w, 0.0)
     out_rows[:, k] = torch.where(is_real, new_b, 0.0)
     ref_column(out_rows, k)[:] = torch.where(is_real, new_ref, 0)
-    return write_rows_unique(w, tgt.to(I32), out_rows, row_dma=hp.row_dma)
+    if tracing.on:
+        tracing.then("write")
+    w = write_rows_unique(w, tgt.to(I32), out_rows, row_dma=hp.row_dma)
+    if tracing.on:
+        tracing.end()
+    return w
 
 
 def dedup_step(state: TrainState, batch: Dict[str, torch.Tensor], lr, consts: TrainConsts, hp,
                p_u_extra=None, bias_extra=None, bias_plugin=None) -> Tuple[TrainState, Forward]:
     """One sorted-dedup step, with the optional SVD++ feedback term and
     plugin bias of ``_forward_entries``; returns the new TrainState and the
-    forward's outputs (the SVD++ recurrence reads ``err`` and ``p_i``)."""
+    forward's outputs (the SVD++ recurrence reads ``err`` and ``p_i``).
+    Traced as the spans ``forward``, ``payload``, then ``apply_entries``'s
+    ``merge`` and ``write``."""
+    if tracing.on:
+        tracing.begin("forward")
     f = _forward_entries(state, batch, lr, consts, hp, p_u_extra, bias_extra, bias_plugin)
+    if tracing.on:
+        tracing.then("payload")
     ent_idx = torch.cat([batch["u_idx"].reshape(-1), batch["i_idx"].reshape(-1)])
     payload = entry_payload(f.p_u, f.p_i, f.coef_u, f.coef_i, hp.no_user_bias)
+    if tracing.on:
+        tracing.end()
     w = apply_entries(state.w, state.step, ent_idx, payload, f.rows_u, f.rows_i, f.wu, f.wi,
                       lr, consts, hp)
     return TrainState(w=w, b=state.b, g=f.g, step=f.nstep, ref_ui=state.ref_ui, ref_g=f.ref_g), f

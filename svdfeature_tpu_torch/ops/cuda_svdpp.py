@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ._plans import MAX_PLANS, Plan, find_plan, keep_plan, kept_scratch, launch_args, plan_list
 from .cuda_embed import KERNEL_ACTIVE_TYPES, MAX_TABLE_ROWS
 from .cuda_scatter import _raw_stream, check_tensors
@@ -332,12 +333,18 @@ def train_rounds_svdpp_kernel(
     On CUDA tensors this makes one cooperative launch (counted in
     ``train_rounds_svdpp_kernel.launches``; its grid is left in ``.grid``)
     and raises on anything it cannot run; there is no fallback.  Tensors
-    on the CPU take the plain version, ``train_rounds_svdpp_reference``."""
+    on the CPU take the plain version, ``train_rounds_svdpp_reference``.
+    The card's path is traced as the span ``k2``: ``k2.prepare`` (the gate,
+    the plan, the checks, the scratch and the arguments) then ``k2.launch``
+    (the launch and the step counter's add)."""
     if state.w.device.type == "cpu":
         return train_rounds_svdpp_reference(
             state, stacked, chunk_id, fb, fb_overlap, lrs, consts, hp, ph)
     if state.w.device.type != "cuda":
         raise ValueError(f"no kernel for device {state.w.device}")
+    if tracing.on:
+        tracing.begin("k2")
+        tracing.begin("k2.prepare")
     reason = gate_failure(hp, state, stacked, fb, ph)
     if reason is not None:
         raise ValueError(f"kernel cannot run this configuration: {reason}")
@@ -379,12 +386,18 @@ def train_rounds_svdpp_kernel(
                hp.active_type, 0 if hp.no_user_bias else 1, plane_rounds(stacked, R),
                hp.base_score, ph.scale_lr_ufeedback, ph.wd_ufeedback, ph.wd_ufeedback_bias)
     ints, floats, grid = launch_args(plan, scalars, 11)
+    if tracing.on:
+        tracing.then("k2.launch")
     err = lib.svdpp_rounds(ptrs, ints, floats, ctypes.byref(grid), stream)
     if err:
         raise RuntimeError(f"svdpp_rounds launch failed: CUDA error {err}")
     train_rounds_svdpp_kernel.launches += 1
     train_rounds_svdpp_kernel.grid = grid.value
-    return dataclasses.replace(state, step=torch.add(state.step, plan.n_live, alpha=R))
+    state = dataclasses.replace(state, step=torch.add(state.step, plan.n_live, alpha=R))
+    if tracing.on:
+        tracing.end()
+        tracing.end()
+    return state
 
 
 train_rounds_svdpp_kernel.launches = 0

@@ -30,6 +30,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import tracing
 from .embed import TrainConsts, TrainState
 
 # Entries per grid cell.  1-D int32 blocks narrower than ~1024 lanes
@@ -209,7 +210,8 @@ def train_step_sweep(state: TrainState, batch: Dict[str, torch.Tensor], lr,
     to match (solvers/base.py arranges all three).  The forward half hands
     the step's factors and coefficients, not a payload: the sweep forms each
     entry itself.  ``hp.row_dma`` routes the write to the kernel wrapper K4,
-    else to its plain version.  Updates ``state.w`` in place.
+    else to its plain version.  Updates ``state.w`` in place.  Traced as
+    the spans ``forward`` and ``sweep``.
     """
     from .big_embed import _forward_entries
     from .cuda_sweep import sweep_update, sweep_update_reference
@@ -217,7 +219,11 @@ def train_step_sweep(state: TrainState, batch: Dict[str, torch.Tensor], lr,
     w = state.w
     if w.shape[0] % hp.sweep_tile:
         raise ValueError(f"the sweep needs whole tiles of {hp.sweep_tile} rows")
+    if tracing.on:
+        tracing.begin("forward")
     f = _forward_entries(state, batch, lr, consts, hp)
+    if tracing.on:
+        tracing.then("sweep")
     scal = torch.stack([
         torch.as_tensor(lr, dtype=torch.float32, device=w.device),
         consts.wd_user_bias, consts.wd_item_bias,
@@ -228,4 +234,6 @@ def train_step_sweep(state: TrainState, batch: Dict[str, torch.Tensor], lr,
     fn = sweep_update if hp.row_dma else sweep_update_reference
     fn(w, plan, f.p_u, f.p_i, f.coef_u, f.coef_i, consts.wd_u_row, consts.wd_i_row, scal, stepi,
        hp)
+    if tracing.on:
+        tracing.end()
     return TrainState(w=w, b=state.b, g=f.g, step=f.nstep, ref_ui=state.ref_ui, ref_g=f.ref_g)

@@ -59,6 +59,7 @@ from typing import BinaryIO, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..convert import consts_from_numpy, stacked_from_numpy
 from ..data.batching import pack_csr
 from ..data.csr import CSRDataset
@@ -365,7 +366,10 @@ class SVDFeatureTrainer:
         )
 
     def set_round(self, nround: int) -> None:
-        """Learning-rate decay schedule (apex_svd_base.h:470-478)."""
+        """Learning-rate decay schedule (apex_svd_base.h:470-478); the
+        tracer's spans from here on belong to round ``nround``."""
+        if tracing.on:
+            tracing.set_round(nround)
         if self.tparam.decay_learning_rate:
             if self.round_counter > nround:
                 raise ValueError("round counter restriction")
@@ -380,12 +384,18 @@ class SVDFeatureTrainer:
         """Wait for the training device: a host clock read after this
         call covers the work enqueued before it."""
         if self.state is not None and self.state.w.is_cuda:
+            if tracing.on:
+                tracing.begin("sync.wait")
             torch.cuda.synchronize(self.state.w.device)
+            if tracing.on:
+                tracing.end()
 
     # ---- data packing ---------------------------------------------------------
     def _pack(self, ds: CSRDataset) -> Tuple[Dict[str, torch.Tensor], int]:
         key = id(ds)
         if key not in self._pack_cache:
+            if tracing.on:
+                tracing.begin("pack")
             m = self.model
             packed = pack_csr(
                 ds,
@@ -413,6 +423,8 @@ class SVDFeatureTrainer:
             arrays = stacked_from_numpy(arrays, self.state.w.device)
             self._plan_ids.add(id(arrays["label"]))
             self._pack_cache[key] = (arrays, ds.num_row)
+            if tracing.on:
+                tracing.end()
         return self._pack_cache[key]
 
     # ---- streaming (out-of-core) ------------------------------------------------
@@ -517,10 +529,19 @@ class SVDFeatureTrainer:
             # their writes through the kernels K4 / K5
             step = tile_sweep.train_step_sweep if self.hp.sweep_table else big_embed.train_step_big
             T = stacked["label"].shape[0]
+            if tracing.on:
+                tracing.begin("batches")
             batches = [{name: x[t] for name, x in stacked.items()} for t in range(T)]
+            if tracing.on:
+                tracing.end()
             for lr in lr_t:
                 for batch in batches:
+                    if tracing.on:
+                        tracing.count("steps")
+                        tracing.begin("step")
                     self.state = step(self.state, batch, lr, self.consts, self.hp)
+                    if tracing.on:
+                        tracing.end()
             return
         # the route is chosen from the configuration, as the JAX solver
         # chooses its Pallas kernel or its jnp path (solvers/base.py:546-555):

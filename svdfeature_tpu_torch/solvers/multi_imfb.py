@@ -56,13 +56,13 @@ data takes the SVD++ trainer's mesh path.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..convert import gate_from_numpy, pool_from_numpy, stacked_from_numpy
 from ..data.batching_imfb import pack_imfb
 from ..data.batching_plus import compute_fb_overlap
@@ -193,11 +193,13 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         self._warn_sorted_stacked()
         key = id(ds)
         if key not in self._imfb_cache:
-            t0 = time.perf_counter()
+            if tracing.on:
+                tracing.begin("pack")
             entry = self._imfb_entry(self._pack_imfb(ds), self.state.w.device)
             self._imfb_cache[key] = entry
             self._plan_ids.add(id(entry.stacked["label"]))
-            self.pack_seconds += time.perf_counter() - t0
+            if tracing.on:
+                tracing.end()
         return self._imfb_cache[key]
 
     # ---- streaming (out-of-core stacked sources) -----------------------------

@@ -33,22 +33,24 @@ Nothing falls back: a failed copy or launch raises, and an exception on the
 producer thread reaches the caller through the copy's queue.  On a CPU
 training device a chunk's tensors stay where they are.
 
-``ChunkStream.stats`` is what the hooks measure of the last streamed round:
-the seconds the caller's thread waited for chunks (between one
-``train_chunk*`` and the next, from the round's start) against the seconds
-it spent in them, and on a CUDA device the device memory held beyond the
+``ChunkStream.stats`` is what the hooks count of the last streamed round:
+its chunks, and on a CUDA device the device memory held beyond the
 round's start at each chunk's entry against the largest chunk's bytes.
+With the tracer on (``tracing.py``), the caller's thread's wait for each
+chunk (from the round's start or the last ``train_chunk*`` to the next) is
+the span ``stream.wait``, and its time in a chunk the span
+``stream.chunk``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Callable, Dict, List, Optional
 
 import torch
 
+from .. import tracing
 from ..ops._plans import release_plans
 
 
@@ -79,12 +81,10 @@ class Staged:
 
 @dataclasses.dataclass
 class StreamStats:
-    """What the hooks measured of the last streamed round (see the module
+    """What the hooks counted of the last streamed round (see the module
     docstring); the byte counts stay 0 off the card."""
 
     chunks: int = 0
-    wait_s: float = 0.0
-    train_s: float = 0.0
     max_chunk_bytes: int = 0
     base_bytes: int = 0  # device memory allocated at the round's start
     max_excess_bytes: int = 0  # the most allocated beyond it at a chunk's entry
@@ -96,13 +96,13 @@ class ChunkStream:
     def __init__(self) -> None:
         self.stats = StreamStats()
         self._side: Dict[torch.device, torch.cuda.Stream] = {}
-        self._mark = 0.0
+        self._mark = 0  # where the caller's wait for the next chunk began (tracer's clock)
 
     def begin_round(self, device: torch.device) -> None:
         """Start a streamed round's measurements."""
         base = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
         self.stats = StreamStats(base_bytes=base)
-        self._mark = time.perf_counter()
+        self._mark = tracing.now() if tracing.on else 0
 
     def stage(self, entry, device: torch.device) -> Staged:
         """``entry`` (its tensors on the CPU) staged on ``device``; on a
@@ -129,9 +129,11 @@ class ChunkStream:
     def training(self, staged: Staged):
         """Claim a staged chunk for the training stream, yield its entry,
         and release its kernel plans when the launches are enqueued."""
-        t0 = time.perf_counter()
+        if tracing.on:
+            if self._mark:
+                tracing.add("stream.wait", self._mark, tracing.now())
+            tracing.begin("stream.chunk")
         st = self.stats
-        st.wait_s += t0 - self._mark
         if staged.event is not None:
             current = torch.cuda.current_stream(staged.device)
             current.wait_event(staged.event)
@@ -144,6 +146,7 @@ class ChunkStream:
             yield staged.entry
         finally:
             release_plans(map(id, staged.tensors))
-            self._mark = time.perf_counter()
-            st.train_s += self._mark - t0
             st.chunks += 1
+            if tracing.on:
+                tracing.end()
+                self._mark = tracing.now()

@@ -79,13 +79,13 @@ step; a streamed chunk is padded and sliced the same way before staging.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..convert import pool_from_numpy, stacked_from_numpy
 from ..data.batching_plus import pack_plus
 from ..data.csr import PlusDataset
@@ -155,8 +155,6 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         self.sort_blocks = 0
         self.rows_per_user = 1
         self._plus_cache: Dict[int, PlusEntry] = {}
-        # host seconds spent packing and staging datasets (paid once each)
-        self.pack_seconds = 0.0
         # pairwise rank (a PairSource): the dense pair-epoch layout, which
         # fills in sort_blocks / rows_per_user / users_per_batch where the
         # conf left them unset (_apply_pair_layout): pair counts per user
@@ -324,9 +322,11 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         through ``_stage_packed`` uncached."""
         key = id(ds)
         if key not in self._plus_cache:
-            t0 = time.perf_counter()
+            if tracing.on:
+                tracing.begin("pack")
             self._plus_cache[key] = self._stage_packed(self._pack_numpy(ds))
-            self.pack_seconds += time.perf_counter() - t0
+            if tracing.on:
+                tracing.end()
         return self._plus_cache[key]
 
     # ---- streaming (out-of-core user-group buffers) -----------------------------

@@ -12,7 +12,11 @@ appends one JSON line a round (``round``, ``elapsed_s``, ``round_s``,
 round that w, b and g are finite and raises FloatingPointError;
 ``profile_dir`` traces the first trained round with torch.profiler and
 writes a Chrome trace there (``round<r>.rank<k>.pt.trace.json``);
-``print_ratio`` is parsed and read nowhere, as in JAX; ``distributed=1``
+``print_ratio`` is parsed and read nowhere, as in JAX; ``trace=1`` turns
+the port's tracer on (``tracing.py``) for the rounds and, with
+``log_jsonl``, adds to each round's line the self milliseconds of its
+spans by name (``span_self_ms``) and its counts (``counters``: steps, host
+syncs, kernel launches); ``distributed=1``
 joins the torchrun world (parallel/comm.init_distributed) before any
 tensor is made, on the rank's card.  In a world of several ranks, rank 0
 alone prints, writes the checkpoints and the JSON lines; the other ranks
@@ -27,6 +31,7 @@ import sys
 import time
 from typing import List, Optional
 
+from .. import tracing
 from ..config import ConfigSaver
 from ..data.registry import IteratorConfig, load_csr_source, load_plus_source
 from ..parallel import comm
@@ -59,6 +64,7 @@ class SVDTrainTask:
         self.log_jsonl: Optional[str] = None
         self.profile_dir: Optional[str] = None
         self.debug_checks = 0
+        self.trace = 0
         self.distributed = 0
         self.device_name = "cuda"
 
@@ -91,6 +97,8 @@ class SVDTrainTask:
             self.profile_dir = val
         if name == "debug_checks":
             self.debug_checks = int(val)
+        if name == "trace":
+            self.trace = int(val)
         if name == "distributed":
             self.distributed = int(val)
         if name == "device":
@@ -193,6 +201,8 @@ class SVDTrainTask:
         total_examples = 0
         log_f = open(self.log_jsonl, "a") if self.log_jsonl and comm.rank() == 0 else None
         profiling = bool(self.profile_dir)
+        if self.trace:
+            tracing.enable()
         try:
             while self.start_counter <= self.num_round and cc > 0:
                 cc -= 1
@@ -219,14 +229,22 @@ class SVDTrainTask:
                         f"{eps:,.0f} examples/sec (training only)"
                     )
                     sys.stdout.flush()
+                line = dict(
+                    round=r, elapsed_s=round(elapsed, 3),
+                    round_s=round(self.round_seconds[-1], 3), examples=total_examples,
+                    learning_rate=getattr(self.trainer, "learning_rate", None))
+                if self.trace:
+                    spans, counters = tracing.drain()
+                    line.update(span_self_ms={n: round(ns / 1e6, 3) for n, ns in
+                                              sorted(tracing.self_ns(spans).items())},
+                                counters=counters)
                 if log_f:
-                    log_f.write(json.dumps(dict(
-                        round=r, elapsed_s=round(elapsed, 3),
-                        round_s=round(self.round_seconds[-1], 3), examples=total_examples,
-                        learning_rate=getattr(self.trainer, "learning_rate", None))) + "\n")
+                    log_f.write(json.dumps(line) + "\n")
                     log_f.flush()
                 self.save_model()
         finally:
+            if self.trace:
+                tracing.disable()
             if log_f:
                 log_f.close()
         comm.barrier()  # rank 0's checkpoints are on disk for every rank
