@@ -97,9 +97,15 @@ def kept_scratch(sizes: Dict[str, int], device: torch.device, stream: int) -> Di
     One zeroed allocation per (layout, device, stream), kept from call to
     call: the kernels leave their accumulators cleared, as they found
     them, and write every other part before they read it, and calls on one
-    stream run one after the other."""
+    stream run one after the other.  Under a CUDA graph's capture the call
+    gets a zeroed allocation of its own, not kept: it comes from the graph's
+    pool, which keeps its memory for the graph's replays, whereas a kept
+    buffer could be freed while a graph still holds its address.  No
+    capture runs on the default stream (handle 0), so a call there does not
+    ask."""
     key = (tuple(sizes.items()), device, stream)
-    hit = _SCRATCH.get(key)
+    capturing = stream != 0 and torch.cuda.is_current_stream_capturing()
+    hit = None if capturing else _SCRATCH.get(key)
     if hit is None:
         offsets, total = {}, 0
         for name, size in sizes.items():
@@ -107,7 +113,9 @@ def kept_scratch(sizes: Dict[str, int], device: torch.device, stream: int) -> Di
             total += -(-size // 4) * 4
         buf = torch.zeros((total,), dtype=torch.float32, device=device)
         base = buf.data_ptr()
-        if len(_SCRATCH) >= 3 * MAX_PLANS:
-            _SCRATCH.pop(next(iter(_SCRATCH)))
-        hit = _SCRATCH[key] = (buf, {name: base + 4 * off for name, off in offsets.items()})
+        hit = (buf, {name: base + 4 * off for name, off in offsets.items()})
+        if not capturing:
+            if len(_SCRATCH) >= 3 * MAX_PLANS:
+                _SCRATCH.pop(next(iter(_SCRATCH)))
+            _SCRATCH[key] = hit
     return hit[1]

@@ -217,7 +217,9 @@ def _global_catchup(g, ref_g, cg, step0, lr, consts: TrainConsts, hp):
 
 def _global_step(g, g_idx, g_val, err, cg, lr, consts: TrainConsts, hp):
     """The global-bias update of a step (a small table) with its eager
-    decay (reg_global 0/1); the padding slot stays 0."""
+    decay (reg_global 0/1); the padding slot stays 0, zeroed on the device
+    (no host copy, so the step makes no host sync and can be captured in a
+    CUDA graph, solvers/round_graph.py)."""
     g = _update_global(g, g_idx, g_val, err, lr, hp.exact_global)
     if hp.reg_global < 4:
         if hp.reg_global == 0:
@@ -226,7 +228,7 @@ def _global_step(g, g_idx, g_val, err, cg, lr, consts: TrainConsts, hp):
             g = _soft_threshold(g, lr * consts.wd_g_row * cg)
         else:
             raise ValueError(f"unknown global decay method {hp.reg_global}")
-    g[-1] = 0.0
+    g[-1:].zero_()
     return g
 
 

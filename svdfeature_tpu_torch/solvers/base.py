@@ -18,8 +18,10 @@ batches dense enough that most table tiles are touched, else
 ``train_step_big`` (sorted dedup, kernel K5).  Config key ``big_sweep``
 overrides the auto rule: -1 auto, 0 off, 1 on; the route does not look
 at ``num_factor``, since K4 takes every k the augmented layout holds (a
-row of more than 256 factors in passes).  Checkpoints and prediction
-read the de-augmented state.
+row of more than 256 factors in passes).  On a staged pack on the card
+the rounds after the first replay one CUDA graph of the round's steps
+(solvers/round_graph.py).  Checkpoints and prediction read the
+de-augmented state.
 
 A streaming source (``streaming=1``, data/streaming.StreamingCSRBuffer)
 trains a round a chunk at a time, as the JAX solver does
@@ -74,6 +76,7 @@ from ..parallel import mesh as pmesh
 from ..parallel import mesh_big as pbig
 from ..params import ParameterSet, SVDModelParam, SVDTrainParam, SVDTypeParam
 from ..utils.sparse_feature_array import SparseFeatureArray
+from .round_graph import RoundGraph
 from .streamed import ChunkStream, Staged
 
 DEFAULT_BATCH_SIZE = 1024
@@ -140,6 +143,9 @@ class SVDFeatureTrainer:
         self.hp: Optional[HyperParams] = None
         self._space_allocated = False
         self._pack_cache: Dict[int, Tuple[Dict[str, torch.Tensor], int]] = {}
+        # the CUDA graph of each staged pack's big-table rounds, by the id
+        # of its planes (solvers/round_graph.py)
+        self._graphs: Dict[int, RoundGraph] = {}
         # the last round schedule on the device: a constant learning rate
         # is staged once, not before every round's launch
         self._lrs_staged = (None, None)
@@ -514,6 +520,24 @@ class SVDFeatureTrainer:
             self._lrs_staged = (key, torch.tensor(lrs, dtype=torch.float32, device=key[1]))
         return self._lrs_staged[1]
 
+    def _round_graph(self, stacked: Dict[str, torch.Tensor]) -> Optional[RoundGraph]:
+        """The CUDA graph of the big-table rounds on ``stacked`` under the
+        key of the trainer's table, decay tables and switches, or None where
+        the rounds run eagerly: a table off the card; planes that are not a
+        staged pack of the pack cache (a streamed chunk, a new set of planes
+        each time); the sweep's plain version, whose masks sync the host."""
+        st, hp = self.state, self.hp
+        if not st.w.is_cuda or (hp.sweep_table and not hp.row_dma):
+            return None
+        if not any(stacked is arrays for arrays, _ in self._pack_cache.values()):
+            return None
+        consts = (getattr(self.consts, f.name) for f in dataclasses.fields(self.consts))
+        key = (st.w.data_ptr(), tuple(st.w.shape), hp, *(x.data_ptr() for x in consts))
+        graph = self._graphs.get(id(stacked))
+        if graph is None or graph.key != key:
+            graph = self._graphs[id(stacked)] = RoundGraph(stacked, key)
+        return graph
+
     def _train(self, stacked: Dict[str, torch.Tensor], lrs: List[float]) -> None:
         lr_t = self._staged_lrs(lrs)
         if self.mesh is not None:
@@ -526,22 +550,33 @@ class SVDFeatureTrainer:
         if self.hp.big_table:
             # a host loop of R x T steps (the JAX solver scans the same
             # step, solvers/base.py:245-251); hp.row_dma (use_pallas) sends
-            # their writes through the kernels K4 / K5
+            # their writes through the kernels K4 / K5.  On a staged pack on
+            # the card a round after the first is one CUDA graph of its T
+            # steps (solvers/round_graph.py)
             step = tile_sweep.train_step_sweep if self.hp.sweep_table else big_embed.train_step_big
-            T = stacked["label"].shape[0]
-            if tracing.on:
-                tracing.begin("batches")
-            batches = [{name: x[t] for name, x in stacked.items()} for t in range(T)]
-            if tracing.on:
-                tracing.end()
-            for lr in lr_t:
-                for batch in batches:
+            batches = []
+
+            def run(state: TrainState, lr, counted: bool = True) -> TrainState:
+                if not batches:
                     if tracing.on:
-                        tracing.count("steps")
-                        tracing.begin("step")
-                    self.state = step(self.state, batch, lr, self.consts, self.hp)
+                        tracing.begin("batches")
+                    T = stacked["label"].shape[0]
+                    batches.extend({name: x[t] for name, x in stacked.items()} for t in range(T))
                     if tracing.on:
                         tracing.end()
+                for batch in batches:
+                    if tracing.on:
+                        if counted:
+                            tracing.count("steps")
+                        tracing.begin("step")
+                    state = step(state, batch, lr, self.consts, self.hp)
+                    if tracing.on:
+                        tracing.end()
+                return state
+
+            graph = self._round_graph(stacked)
+            for lr in lr_t:
+                self.state = run(self.state, lr) if graph is None else graph.round(self.state, lr, run)
             return
         # the route is chosen from the configuration, as the JAX solver
         # chooses its Pallas kernel or its jnp path (solvers/base.py:546-555):

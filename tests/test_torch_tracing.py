@@ -11,7 +11,6 @@ count the host's syncs on the card.
 import ast
 import contextlib
 import gzip
-import inspect
 import itertools
 import json
 import pathlib
@@ -314,30 +313,27 @@ def test_host_sync_counter_counts_a_deliberate_item(card):
     assert torch.cuda.get_sync_debug_mode() == 0  # restored
 
 
-def _line_of(fn, text: str) -> str:
-    lines, first = inspect.getsourcelines(fn)
-    (at,) = [first + i for i, line in enumerate(lines) if line.strip() == text]
-    return f"{inspect.getsourcefile(fn)}:{at}"
-
-
 @pytest.mark.cuda
 def test_host_syncs_in_a_batch_4096_dedup_round(card):
-    """A round of 8 sorted-dedup steps at batch 4096 (K5 writes) after a
-    warm round (packing and build done): each step syncs the host once, in
-    ``forward``, where ``_global_step`` zeroes the global table's padding
-    slot with a Python scalar (``g[-1] = 0.0``: a copy from the host)."""
-    from svdfeature_tpu_torch.ops import big_embed
-
+    """Three rounds of 8 sorted-dedup steps at batch 4096 (K5 writes),
+    packed beforehand: the eager round, the round that captures its steps
+    as a CUDA graph and replays it, and a replay.  No round syncs the host:
+    ``_global_step`` zeroes the global table's padding slot on the card,
+    and a replay's enqueue waits for nothing.  Every step and K5 launch is
+    counted once, by the round that runs it."""
     conf = dict(MF, num_user=200_000, num_item=100_000, num_factor=64, batch_size=4096)
     tr = trainer(conf, device="cuda")
     ds = mf_rows(8 * 4096)
-    train(tr, ds, 1, traced=False)
-    spans, counters = train(tr, ds, 1, traced=True)
-    assert counters["steps"] == 8 and counters.get("launches.K5") == 8
-    print("dedup round:", _syncs(counters), tracing.sync_sites)
-    assert _syncs(counters) == {"host_syncs": 8, "host_syncs.forward": 8}, tracing.sync_sites
-    site = "forward " + _line_of(big_embed._global_step, "g[-1] = 0.0")
-    assert tracing.sync_sites == {site: 8}
+    # the packing and the schedule's copy to the card sync the host
+    tr._pack(ds)
+    tr._staged_lrs([tr.learning_rate])
+    spans, counters = train(tr, ds, 3, traced=True)
+    assert counters["steps"] == 24 and counters.get("launches.K5") == 24
+    assert counters["graph.captures"] == 1 and counters["graph.replays"] == 2
+    names = [s.name for s in spans]
+    assert names.count("graph.capture") == 1 and names.count("graph.replay") == 2
+    print("dedup rounds:", _syncs(counters), tracing.sync_sites)
+    assert _syncs(counters) == {} and tracing.sync_sites == {}
 
 
 @pytest.mark.cuda
