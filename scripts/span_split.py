@@ -98,7 +98,7 @@ def one_run(spec, seed: int, seconds: float, mode: str, device: str, rows: int) 
     finally:
         tracing.disable()
         trace.Spans, trace.DeviceTrace, program.launch_counts = plain
-    (setup_spans, _, sites0), (window, counters, sites1) = got["drains"]
+    (setup_spans, setup_counters, sites0), (window, counters, sites1) = got["drains"]
     hs = got["spans"]
     rounds = hs.names.count("update_all")
     enqueue = [e - s for n, s, e in zip(hs.names, hs.starts, hs.ends)
@@ -119,6 +119,7 @@ def one_run(spec, seed: int, seconds: float, mode: str, device: str, rows: int) 
             sync_sites={k: v - sites0.get(k, 0) for k, v in sites1.items()
                         if v > sites0.get(k, 0)},
             counters=counters,
+            setup_counters=setup_counters,
             spans_per_round=len(window) / rounds,
             self_ms_per_round={n: v / rounds / 1e6
                                for n, v in tracing.self_ns(window).items()},

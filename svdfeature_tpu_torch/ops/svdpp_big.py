@@ -27,12 +27,19 @@ the item entries alone, and the pack ships their sorted-dedup layout
 (``i_order``, ``i_si``, ``i_fpos``, ``i_last``), so a step sorts nothing.
 
 The epoch is a host loop over the T steps with the chunk ids on the host
-(as ops/svdpp.train_epoch_plus); a step has no host sync.  K5 launches per
-epoch (``row_dma``): one per step for its entries, one per chunk exit for
-the pool, and with ``carry_users`` one more per chunk exit for the slab
-(``k5_launches``).  The chunk entry at step 0 writes nothing: the
-reference's scan flushes a zero delta and rewrites the slab it just read
-there, which leaves the table as it was.
+(as ops/svdpp.train_epoch_plus); a step has no host sync.  For a staged
+pack everything it reads is fixed: its branches follow the host's chunk
+ids alone, ``lr`` is a device scalar (``_fb_hyper`` derives the feedback
+rate and decays from it on the card), the pool, the overlap and the carry
+plan are the pack's tensors, and K5 updates the table in place.  So the
+SVD++ solver runs a pack's first round eagerly, captures the second whole
+as one CUDA graph and replays it after (solvers/round_graph.py); the
+capture passes ``counted=False`` and a replay counts the epoch's
+``epoch_counts``.  K5 launches per epoch (``row_dma``): one per step for
+its entries, one per chunk exit for the pool, and with ``carry_users`` one
+more per chunk exit for the slab (``k5_launches``).  The chunk entry at
+step 0 writes nothing: the reference's scan flushes a zero delta and
+rewrites the slab it just read there, which leaves the table as it was.
 
 The feedback overlap comes dense (``[C, G+1, G+1]``) or factored
 (``{"diag": [C, G+1], "dup": [C, G+1, Ld]}``, O = diag + dup dupᵀ, exact;
@@ -46,7 +53,8 @@ Traced (tracing.py) as ``chunk.entry`` (``slab.gather`` with the carry,
 then ``merge`` / ``write`` as big_embed's, ``slab.update`` with the carry;
 the entry-stream body's ``dedup_step`` spans; then ``fb.recurrence``) and
 ``chunk.exit`` (``pool.writeback``, ``slab.write``), with the counters
-``chunks`` and ``steps``; none of them reads the card.
+``chunks`` and ``steps``; none of them reads the card.  Spans are
+recorded in eager and capture rounds only: a replay runs no host code.
 """
 
 from __future__ import annotations
@@ -197,11 +205,16 @@ def _update_uslab(uslab: torch.Tensor, f: CarryForward, lr, wd_u_g: torch.Tensor
     uslab[:, k] = new_b
 
 
+def epoch_counts(chunk_id: np.ndarray) -> Dict[str, int]:
+    """The tracer's counters one epoch adds: its ``steps`` and ``chunks``."""
+    return {"steps": len(chunk_id), "chunks": int(np.count_nonzero(_is_first(chunk_id)))}
+
+
 def k5_launches(chunk_id: np.ndarray, carry_users: bool) -> int:
     """K5 launches of one epoch with ``row_dma``: a step's entry write, and
     at each chunk exit the pool writeback (and the slab's write)."""
-    exits = int(np.count_nonzero(_is_first(chunk_id)))
-    return len(chunk_id) + exits * (2 if carry_users else 1)
+    n = epoch_counts(chunk_id)
+    return n["steps"] + n["chunks"] * (2 if carry_users else 1)
 
 
 @torch.no_grad()
@@ -216,13 +229,16 @@ def train_epoch_plus_big(
     hp: HyperParams,
     ph: PlusHyper,
     carry_users: bool = False,
+    counted: bool = True,
 ) -> TrainState:
     """One pass over the ``[T, G*M]`` steps on the augmented table
     (svdfeature_tpu/ops/svdpp_big.train_epoch_plus_big): the recurrence of
     ops/svdpp.train_epoch_plus with table-sized reads and writes through
     the big-table step.  ``state`` is in the augmented layout
     (big_embed.augment_state) with ``hp.big_table``; ``carry_users`` needs
-    ``fb["chunk_users"] [C, G]`` (dummy where a unit names no user)."""
+    ``fb["chunk_users"] [C, G]`` (dummy where a unit names no user).
+    ``counted=False`` (a graph's capture) leaves the ``chunks`` and
+    ``steps`` counters to the replays."""
     if not hp.big_table or hp.sweep_table:
         raise ValueError("the big-table SVD++ epoch takes the augmented dedup layout")
     if carry_users and hp.reg_method >= 4:
@@ -269,7 +285,8 @@ def train_epoch_plus_big(
             if t > 0:
                 chunk_exit(w, pc)
             if tracing.on:
-                tracing.count("chunks")
+                if counted:
+                    tracing.count("chunks")
                 tracing.begin("chunk.entry")
             if carry_users:
                 if tracing.on:
@@ -292,7 +309,8 @@ def train_epoch_plus_big(
                 tracing.end()
         pc = c
         if tracing.on:
-            tracing.count("steps")
+            if counted:
+                tracing.count("steps")
             tracing.begin("step")
         batch = {p: stacked[p][t] for p in planes}
         fb_slot = fb_sum.repeat_interleave(M, dim=0) if M > 1 else fb_sum

@@ -144,7 +144,7 @@ class SVDFeatureTrainer:
         self._space_allocated = False
         self._pack_cache: Dict[int, Tuple[Dict[str, torch.Tensor], int]] = {}
         # the CUDA graph of each staged pack's big-table rounds, by the id
-        # of its planes (solvers/round_graph.py)
+        # of the pack (solvers/round_graph.py; the SVD++ solver's too)
         self._graphs: Dict[int, RoundGraph] = {}
         # the last round schedule on the device: a constant learning rate
         # is staged once, not before every round's launch
@@ -521,21 +521,34 @@ class SVDFeatureTrainer:
         return self._lrs_staged[1]
 
     def _round_graph(self, stacked: Dict[str, torch.Tensor]) -> Optional[RoundGraph]:
-        """The CUDA graph of the big-table rounds on ``stacked`` under the
-        key of the trainer's table, decay tables and switches, or None where
-        the rounds run eagerly: a table off the card; planes that are not a
-        staged pack of the pack cache (a streamed chunk, a new set of planes
-        each time); the sweep's plain version, whose masks sync the host."""
-        st, hp = self.state, self.hp
-        if not st.w.is_cuda or (hp.sweep_table and not hp.row_dma):
+        """The CUDA graph of the big-table rounds on ``stacked``, or None
+        where the rounds run eagerly: planes that are not a staged pack of
+        the pack cache (a streamed chunk, a new set of planes each time);
+        the sweep's plain version, whose masks sync the host; and what
+        ``_keyed_graph`` refuses."""
+        hp = self.hp
+        if hp.sweep_table and not hp.row_dma:
             return None
         if not any(stacked is arrays for arrays, _ in self._pack_cache.values()):
             return None
+        return self._keyed_graph(stacked, (), {"steps": int(stacked["label"].shape[0])})
+
+    def _keyed_graph(self, pack, extra: tuple, counts: Dict[str, int]) -> Optional[RoundGraph]:
+        """The round graph of the staged ``pack`` (its planes and whatever
+        else the rounds read) under the key of the trainer's table, decay
+        tables, switches and ``extra``, made anew where the key has
+        changed; None for a table off the card.  ``counts``: the tracer's
+        counters a replay adds.  A mesh never asks: ``_train`` routes it
+        first."""
+        st = self.state
+        if not st.w.is_cuda:
+            return None
         consts = (getattr(self.consts, f.name) for f in dataclasses.fields(self.consts))
-        key = (st.w.data_ptr(), tuple(st.w.shape), hp, *(x.data_ptr() for x in consts))
-        graph = self._graphs.get(id(stacked))
+        key = (st.w.data_ptr(), tuple(st.w.shape), self.hp, *extra,
+               *(x.data_ptr() for x in consts))
+        graph = self._graphs.get(id(pack))
         if graph is None or graph.key != key:
-            graph = self._graphs[id(stacked)] = RoundGraph(stacked, key)
+            graph = self._graphs[id(pack)] = RoundGraph(pack, key, counts)
         return graph
 
     def _train(self, stacked: Dict[str, torch.Tensor], lrs: List[float]) -> None:

@@ -26,7 +26,11 @@ is one constant id distinct within its chunk and reg_method < 4
 sorted-dedup layout.  The staged pack of a dataset the caller keeps
 (``_pack_plus``) builds that overlap on the training device from the
 staged pool (ops/fb_overlap.py), with the copy's forms and rule; a pair
-epoch, a streamed chunk and a mesh keep the copy's host overlap.
+epoch, a streamed chunk and a mesh keep the copy's host overlap.  On the
+card, a staged pack's first big-table round runs eagerly, its second is
+captured whole as one CUDA graph and each later round is one replay of it
+(solvers/round_graph.py, as the base solver's big rounds); streamed
+chunks, pair epochs and every other route stay eager.
 
 With common_feedback_space=1 the feedback pool rows are user rows, so a
 step's row updates move the pool and the chunk closed form of the
@@ -96,12 +100,13 @@ from ..ops import fb_overlap
 from ..ops.big_embed import make_dedup_layout
 from ..ops.cuda_svdpp import (gate_failure, round_planes, train_rounds_svdpp_kernel,
                               train_rounds_svdpp_reference)
-from ..ops.embed import HyperParams
+from ..ops.embed import HyperParams, TrainState
 from ..ops.svdpp import PlusHyper, predict_batches_plus, train_epoch_plus_refresh
-from ..ops.svdpp_big import LAYOUT_PLANES, train_epoch_plus_big
+from ..ops.svdpp_big import LAYOUT_PLANES, epoch_counts, train_epoch_plus_big
 from ..parallel import mesh as pmesh
 from ..parallel import svdpp_mesh, svdpp_mesh_big
 from .base import SVDFeatureTrainer
+from .round_graph import RoundGraph
 from .streamed import Staged
 
 CPU = torch.device("cpu")
@@ -423,6 +428,19 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             for chunk in ds.chunks()]
         return np.concatenate(out) if out else np.zeros(0, np.float32)
 
+    def _round_graph(self, entry) -> Optional[RoundGraph]:
+        """The CUDA graph of the big-table SVD++ rounds on ``entry``, or None
+        where they run eagerly: an entry that is not a staged pack of the
+        pack cache (a streamed chunk, a freshly packed pair epoch) and a
+        table off the card (``_keyed_graph``).  Planes of a random-order
+        pack take the base solver's rule."""
+        if not isinstance(entry, PlusEntry):
+            return super()._round_graph(entry)
+        if not any(entry is e for e in self._plus_cache.values()):
+            return None
+        extra = (self._plus_hyper(), "chunk_users" in entry.fb)
+        return self._keyed_graph(entry, extra, epoch_counts(entry.chunk_id))
+
     def _kernel_ok(self, stacked: Dict[str, torch.Tensor], fb: Dict[str, torch.Tensor]) -> bool:
         """Whether a round goes through K2: use_pallas is set, no mesh, and
         K2's gate takes the configuration (the JAX solver's
@@ -453,12 +471,19 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             return
         if self.hp.big_table:
             # a host loop of steps per round, writing through K5 with
-            # use_pallas (hp.row_dma); with the carry plan, the user-carry body
+            # use_pallas (hp.row_dma); with the carry plan, the user-carry
+            # body.  On a staged pack on the card a round after the first is
+            # one CUDA graph of the whole epoch (solvers/round_graph.py)
             carry = "chunk_users" in entry.fb
+
+            def run(state: TrainState, lr, counted: bool = True) -> TrainState:
+                return train_epoch_plus_big(
+                    state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap, lr,
+                    self.consts, self.hp, ph, carry_users=carry, counted=counted)
+
+            graph = self._round_graph(entry)
             for lr in self._staged_lrs(lrs):
-                self.state = train_epoch_plus_big(
-                    self.state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap, lr,
-                    self.consts, self.hp, ph, carry_users=carry)
+                self.state = run(self.state, lr) if graph is None else graph.round(self.state, lr, run)
             return
         # K2 where use_pallas is set and its gate passes, else the plain
         # rounds (the JAX solver's Pallas-or-jnp choice)

@@ -342,9 +342,10 @@ def card():
 @pytest.mark.cuda
 def test_host_syncs_in_a_carry_round(card):
     """A carry round on the card after its packing (which syncs: the
-    overlap's sizes, the staging): its chunk entries, steps and chunk
-    exits make no host sync, and K5 launches once a step and twice a
-    chunk exit."""
+    overlap's sizes, the staging) and its first round: its chunk entries,
+    steps and chunk exits make no host sync, and K5 launches once a step
+    and twice a chunk exit.  That round is the round graph's capture (a
+    sync would fail it) and its first replay."""
     from portbench.harness import leaves, program
     from svdfeature_tpu_torch.ops import cuda_scatter
 
