@@ -96,10 +96,10 @@ def pool_from_numpy(fb: Dict[str, np.ndarray], fb_overlap, device: torch.device)
     ``fb_block`` or ``fb_ctx`` ``[C, F]``, with ``ctx_depth [C, M]``; the
     user-carry plan ``chunk_users [C, G]``) and the overlap on ``device``:
     f32 values, everything else (rows, users, contexts, depths) int32.
-    The overlap is the dense ``fb_overlap [C, S, S]``, the factored
-    ``{"diag": [C, S], "dup": [C, S, Ld]}`` of ``pack_plus(...,
-    factored_overlap=True)`` (staged as a dict of f32 tensors), or None
-    (none staged).  Returns (pool, overlap)."""
+    The overlap (a host one: the trainers build theirs on the device,
+    ops/fb_overlap.py) is the dense ``fb_overlap [C, S, S]``, the factored
+    ``{"diag": [C, S], "dup": [C, S, Ld]}`` (staged as a dict of f32
+    tensors), or None (none staged).  Returns (pool, overlap)."""
     pool = {name: (_f32 if name == "fb_val" else _i32)(a, device) for name, a in fb.items()}
     if fb_overlap is None:
         return pool, None

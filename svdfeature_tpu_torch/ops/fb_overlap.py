@@ -1,36 +1,33 @@
-"""The feedback overlap of a staged big-table SVD++ pack, built on the
-training device.
+"""The feedback overlap of a user-group pack, built on the training device:
+the one place the port makes it.
 
 ``data/batching_plus.pack_plus`` (a verbatim copy of the JAX package's)
 ends by computing each chunk's overlap ``O[u, v] = sum_f val_uf * val_vf``
-on the host: the factored ``{"diag", "dup"}`` on big tables
-(``compute_fb_overlap_factored``), which first builds a host ``[G+1, Ld]``
-array a chunk and, where more than G+1 ids are shared within a chunk,
-falls back to the dense ``compute_fb_overlap``: a host ``[G+1, U]`` array
-a chunk (U the chunk's distinct ids) and its product ``P @ P.T``.  With
-SVD++'s own implicit feedback (N(u) = the user's rated items) at KDD-Cup
-scale a chunk of 4096 users holds about 1e6 pool entries over 3e5 ids,
-1.5e5 of them shared: 2.5 GB and 5 GB of host arrays and 10 TFLOP of host
-GEMM a chunk.
+over its pool's slots on the host (``compute_fb_overlap``: a host ``[G+1,
+U]`` array a chunk, U the chunk's distinct ids, and ``P @ P.T``; or the
+factored ``compute_fb_overlap_factored``).  With SVD++'s own implicit
+feedback at KDD-Cup scale a chunk of 4096 users holds about 1e6 pool
+entries over 3e5 ids, 1.5e5 of them shared: 2.5 GB and 5 GB of host arrays
+and 10 TFLOP of host GEMM a chunk.
 
-Here the copy runs as it stands with its overlap step deferred
-(``deferred()``: its two overlap functions answer None for the calls this
-thread makes inside the block), and ``build`` makes the same O from the
-staged pool with torch operations on the pool's device, chunk by chunk,
-by the copy's rule and in its forms:
+The trainers pack with that step deferred (``deferred()``: the copy's two
+overlap functions answer None to this thread inside the block), and
+``build`` makes O where an entry's pool reaches its training device, from
+the staged pool with torch operations there, chunk by chunk, by the
+copy's rule and in its forms:
 
-  - an id held once in a chunk adds ``val^2`` to its user's diagonal;
+  - an id held once in a chunk adds ``val^2`` to its slot's diagonal;
   - the ids held more than once (Ld of them, in ascending order) are the
-    columns of ``dup [G+1, Ld]``, so ``O = diag + dup dupᵀ`` exactly;
-  - the factored pair is returned where the largest Ld of a chunk is at
-    most G+1 (``dup`` padded with zero columns to that Ld), else the dense
-    ``[C, G+1, G+1]``, whose product is taken over blocks of ``COLS``
-    shared ids in float64 (exact counts and sums whatever the process's
-    TF32 setting) and rounded to float32 once.
+    columns of ``dup [S, Ld]``, so ``O = diag + dup dupᵀ`` exactly;
+  - with ``factored`` (big tables) the factored pair is returned where the
+    largest Ld of a chunk is at most S (``dup`` padded with zero columns
+    to that Ld), else the dense ``[C, S, S]``, whose product is taken over
+    blocks of ``COLS`` shared ids in float64 (exact counts and sums
+    whatever the process's TF32 setting) and rounded to float32 once.
 
 The result equals the copy's within float32 summation order
-(tests/test_torch_svdpp_kdd.py).  Traced as the span ``pack.overlap``,
-with the counters ``overlap.dense`` / ``overlap.factored`` (chunks),
+(tests/test_torch_svdpp_kdd.py).  Traced as the span ``pack.overlap`` (on
+the main thread only), with the counters ``overlap.dense`` / ``overlap.factored`` (chunks),
 ``overlap.ld`` (the largest Ld) and ``pool.live`` (live pool entries).
 """
 
@@ -50,39 +47,47 @@ F32 = torch.float32
 COLS = 8192
 
 _deferring = threading.local()
-_install = threading.Lock()
+_HOST = ("compute_fb_overlap", "compute_fb_overlap_factored")
 
 
 def _or_none(host_fn):
-    """``host_fn`` for other threads; None inside a ``deferred()`` block of
-    this one."""
+    """``host_fn``, or None inside a ``deferred()`` block of this thread."""
 
     def overlap(fb_idx, fb_val, fb_block, G):
         if getattr(_deferring, "on", False):
             return None
         return host_fn(fb_idx, fb_val, fb_block, G)
 
+    overlap.defers = True
     return overlap
+
+
+def _install() -> None:
+    """Swap the copy's overlap functions for ``_or_none`` wrappers of
+    themselves (at import, and again where a caller has replaced one)."""
+    for name in _HOST:
+        fn = getattr(batching_plus, name)
+        if not getattr(fn, "defers", False):
+            setattr(batching_plus, name, _or_none(fn))
+
+
+_install()
 
 
 @contextlib.contextmanager
 def deferred():
     """Within the block, ``pack_plus`` called by this thread leaves its
     ``fb_overlap`` None: the copy's ``compute_fb_overlap`` and
-    ``compute_fb_overlap_factored`` answer None to this thread and stay
-    themselves for any other (a streaming producer may pack meanwhile)."""
-    with _install:
-        names = ("compute_fb_overlap", "compute_fb_overlap_factored")
-        saved = {n: getattr(batching_plus, n) for n in names}
-        for n, fn in saved.items():
-            setattr(batching_plus, n, _or_none(fn))
-        _deferring.on = True
-        try:
-            yield
-        finally:
-            _deferring.on = False
-            for n, fn in saved.items():
-                setattr(batching_plus, n, fn)
+    ``compute_fb_overlap_factored`` answer None to this thread and compute
+    for any other (a streaming producer may pack meanwhile).  Nothing is
+    held across the block: threads pack side by side."""
+    _install()
+    outer = getattr(_deferring, "on", False)
+    _deferring.on = True
+    try:
+        yield
+    finally:
+        _deferring.on = outer
 
 
 def _chunk_parts(idx: torch.Tensor, val: torch.Tensor, blk: torch.Tensor, S: int):
@@ -112,26 +117,33 @@ def _dense(diag: torch.Tensor, b: torch.Tensor, col: torch.Tensor, v: torch.Tens
     for j, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
         if lo == hi:
             continue
-        block = torch.zeros((S, COLS), dtype=torch.float64, device=diag.device)
+        block = torch.zeros((S, min(COLS, ld - j * COLS)), dtype=torch.float64,
+                            device=diag.device)
         block.index_put_((b[lo:hi], col[lo:hi] - j * COLS), v[lo:hi], accumulate=True)
         acc.addmm_(block, block.T)
     return acc.to(F32)
 
 
 @torch.no_grad()
-def build(fb: Dict[str, torch.Tensor], G: int) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Each chunk's overlap from the staged pool ``fb`` (``fb_idx``,
-    ``fb_val``, ``fb_block`` ``[C, F]``) on its device: the factored
-    ``{"diag": [C, G+1], "dup": [C, G+1, Ld]}`` where every chunk shares at
-    most G+1 ids, else the dense ``[C, G+1, G+1]``, as ``pack_plus(...,
-    factored_overlap=True)`` gives them."""
+def build(fb: Dict[str, torch.Tensor], G: int, *, factored: bool,
+          slots: str = "fb_block") -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Each chunk's overlap over ``S = G+1`` slots from the staged pool
+    ``fb`` (``fb_idx``, ``fb_val`` and the slot plane ``slots``, ``[C, F]``:
+    ``fb_block``, or ``fb_ctx`` with G the stacked pack's
+    ``ctx_depth.shape[1]``) on its device: with ``factored`` the factored
+    ``{"diag": [C, S], "dup": [C, S, Ld]}`` where every chunk shares at
+    most S ids, else the dense ``[C, S, S]``; the forms of the copy's
+    ``compute_fb_overlap_factored`` and ``compute_fb_overlap``."""
+    # spans are the training (main) thread's; a streaming producer's build only counts
+    main = threading.current_thread() is threading.main_thread()
     if tracing.on:
-        tracing.begin("pack.overlap")
+        if main:
+            tracing.begin("pack.overlap")
     S = G + 1
     parts = [_chunk_parts(i, v, b, S)
-             for i, v, b in zip(fb["fb_idx"], fb["fb_val"], fb["fb_block"])]
+             for i, v, b in zip(fb["fb_idx"], fb["fb_val"], fb[slots])]
     ld = max(p[4] for p in parts)
-    if ld <= S:
+    if factored and ld <= S:
         dup = torch.zeros((len(parts), S, max(ld, 1)), dtype=F32, device=fb["fb_val"].device)
         for c, (_, b, col, v, _) in enumerate(parts):
             dup[c].index_put_((b, col), v, accumulate=True)
@@ -142,5 +154,6 @@ def build(fb: Dict[str, torch.Tensor], G: int) -> Union[torch.Tensor, Dict[str, 
         tracing.count("overlap.factored" if isinstance(out, dict) else "overlap.dense", len(parts))
         tracing.count("overlap.ld", ld)
         tracing.count("pool.live", int((fb["fb_val"] != 0).sum()))
-        tracing.end()
+        if main:
+            tracing.end()
     return out

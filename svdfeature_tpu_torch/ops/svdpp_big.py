@@ -34,7 +34,7 @@ rate and decays from it on the card), the pool, the overlap and the carry
 plan are the pack's tensors, and K5 updates the table in place.  So the
 SVD++ solver runs a pack's first round eagerly, captures the second whole
 as one CUDA graph and replays it after (solvers/round_graph.py); the
-capture passes ``counted=False`` and a replay counts the epoch's
+graph takes back what the capture counted and a replay counts the epoch's
 ``epoch_counts``.  K5 launches per epoch (``row_dma``): one per step for
 its entries, one per chunk exit for the pool, and with ``carry_users`` one
 more per chunk exit for the slab (``k5_launches``).  The chunk entry at
@@ -43,9 +43,9 @@ rewrites the slab it just read there, which leaves the table as it was.
 
 The feedback overlap comes dense (``[C, G+1, G+1]``) or factored
 (``{"diag": [C, G+1], "dup": [C, G+1, Ld]}``, O = diag + dup dupᵀ, exact;
-data/batching_plus.compute_fb_overlap_factored): the dense O is about
-1.7 GB at G = 4096.  Requires common_feedback_space=0 (feedback rows
-disjoint from user rows) and the dedup write path.  The update is in
+ops/fb_overlap.build): the dense O is about 1.7 GB at G = 4096.  Requires
+common_feedback_space=0 (feedback rows disjoint from user rows) and the
+dedup write path.  The update is in
 place on ``state.w``.
 
 Traced (tracing.py) as ``chunk.entry`` (``slab.gather`` with the carry,
@@ -229,16 +229,13 @@ def train_epoch_plus_big(
     hp: HyperParams,
     ph: PlusHyper,
     carry_users: bool = False,
-    counted: bool = True,
 ) -> TrainState:
     """One pass over the ``[T, G*M]`` steps on the augmented table
     (svdfeature_tpu/ops/svdpp_big.train_epoch_plus_big): the recurrence of
     ops/svdpp.train_epoch_plus with table-sized reads and writes through
     the big-table step.  ``state`` is in the augmented layout
     (big_embed.augment_state) with ``hp.big_table``; ``carry_users`` needs
-    ``fb["chunk_users"] [C, G]`` (dummy where a unit names no user).
-    ``counted=False`` (a graph's capture) leaves the ``chunks`` and
-    ``steps`` counters to the replays."""
+    ``fb["chunk_users"] [C, G]`` (dummy where a unit names no user)."""
     if not hp.big_table or hp.sweep_table:
         raise ValueError("the big-table SVD++ epoch takes the augmented dedup layout")
     if carry_users and hp.reg_method >= 4:
@@ -285,8 +282,7 @@ def train_epoch_plus_big(
             if t > 0:
                 chunk_exit(w, pc)
             if tracing.on:
-                if counted:
-                    tracing.count("chunks")
+                tracing.count("chunks")
                 tracing.begin("chunk.entry")
             if carry_users:
                 if tracing.on:
@@ -309,8 +305,7 @@ def train_epoch_plus_big(
                 tracing.end()
         pc = c
         if tracing.on:
-            if counted:
-                tracing.count("steps")
+            tracing.count("steps")
             tracing.begin("step")
         batch = {p: stacked[p][t] for p in planes}
         fb_slot = fb_sum.repeat_interleave(M, dim=0) if M > 1 else fb_sum

@@ -569,7 +569,7 @@ class SVDFeatureTrainer:
             step = tile_sweep.train_step_sweep if self.hp.sweep_table else big_embed.train_step_big
             batches = []
 
-            def run(state: TrainState, lr, counted: bool = True) -> TrainState:
+            def run(state: TrainState, lr) -> TrainState:
                 if not batches:
                     if tracing.on:
                         tracing.begin("batches")
@@ -579,8 +579,7 @@ class SVDFeatureTrainer:
                         tracing.end()
                 for batch in batches:
                     if tracing.on:
-                        if counted:
-                            tracing.count("steps")
+                        tracing.count("steps")
                         tracing.begin("step")
                     state = step(state, batch, lr, self.consts, self.hp)
                     if tracing.on:

@@ -29,7 +29,7 @@ table takes the big SVD++ epoch.
 
 With common_feedback_space=1 (the pool rows are user rows) every round of
 stacked data is the per-batch refresh epoch ops/imfb.train_epoch_imfb, at
-any table size, and the pack computes no context overlap, as in the JAX
+any table size, and no context overlap is built, as in the JAX
 solver (solvers/multi_imfb.py:197, 341, 397-404).
 
 A streaming buffer of stacked data trains a chunk of ``stream_chunk``
@@ -65,7 +65,6 @@ import torch
 from .. import tracing
 from ..convert import gate_from_numpy, pool_from_numpy, stacked_from_numpy
 from ..data.batching_imfb import pack_imfb
-from ..data.batching_plus import compute_fb_overlap
 from ..data.csr import TAG_DEFAULT, PlusDataset
 from ..ops.cuda_imfb import gate_failure, train_rounds_imfb_kernel, train_rounds_imfb_reference
 from ..ops.imfb import predict_batches_imfb, train_epoch_imfb, train_epoch_imfb_big
@@ -83,7 +82,7 @@ class ImfbEntry:
     chunk_id: np.ndarray  # [T] on the host: the launch loop reads it
     # fb_idx / fb_val / fb_ctx [C, F], ctx_depth [C, nseg-1] (not on a mesh)
     fb: Dict[str, torch.Tensor]
-    # [C, nseg, nseg]; None on big tables, under a shared feedback space and on a mesh
+    # [C, nseg, nseg], or None where no epoch reads it (SVDPPFeatureTrainer._overlap)
     fb_overlap: Optional[torch.Tensor]
     enabled: torch.Tensor  # [C, nseg] update gate
     perm: np.ndarray  # dataset row -> packed slot (on a mesh, of the padded layout)
@@ -159,11 +158,10 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         )
 
     def _imfb_entry(self, packed, dev: torch.device) -> ImfbEntry:
-        """A stacked packing's entry on ``dev``, with the per-chunk context
-        overlaps of the closed-form carried aggregates (the big-table and
-        refresh epochs gather every step instead); on a mesh, the slots and
-        the pool padded to the data axis and this rank's columns, the pool
-        and the gates replicated (JAX multi_imfb.py:179-193, 301-330)."""
+        """A stacked packing's entry on ``dev``, its context overlap left to
+        ``_with_overlap``; on a mesh, the slots and the pool padded to the
+        data axis and this rank's columns, the pool and the gates
+        replicated (JAX multi_imfb.py:179-193, 301-330)."""
         arrays = packed.device_arrays()
         chunk_id = arrays.pop("chunk_id")
         enabled = gate_from_numpy(self._imfb_enabled(packed.ctx_depth), dev)
@@ -179,13 +177,19 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
                 stacked=stacked_from_numpy(pmesh.put_process_sharded(arrays, self.mesh), dev),
                 chunk_id=chunk_id, fb=fb, fb_overlap=None, enabled=enabled,
                 perm=(packed.perm // G) * Gp + packed.perm % G)
-        refresh = self.hp.big_table or self.model.param.common_feedback_space
-        overlap = None if refresh else compute_fb_overlap(
-            packed.fb_idx, packed.fb_val, packed.fb_ctx, packed.ctx_depth.shape[1]
-        )
-        fb, overlap_t = pool_from_numpy(packed.fb_arrays(), overlap, dev)
+        fb, _ = pool_from_numpy(packed.fb_arrays(), None, dev)
         return ImfbEntry(stacked=stacked_from_numpy(arrays, dev), chunk_id=chunk_id, fb=fb,
-                         fb_overlap=overlap_t, enabled=enabled, perm=packed.perm)
+                         fb_overlap=None, enabled=enabled, perm=packed.perm)
+
+    def _with_overlap(self, entry):
+        """A stacked entry with the context overlaps (over its contexts and
+        the pad slot) that K3 and the plain rounds read; the big-table
+        epoch reads none.  An all-DEFAULT entry takes the SVD++ one."""
+        if not isinstance(entry, ImfbEntry):
+            return super()._with_overlap(entry)
+        if not self.hp.big_table:
+            entry.fb_overlap = self._overlap(entry.fb, entry.enabled.shape[1] - 1, slots="fb_ctx")
+        return entry
 
     def _pack_plus(self, ds: PlusDataset) -> Union[PlusEntry, ImfbEntry]:
         if self._plain_svdpp(ds):
@@ -195,7 +199,7 @@ class SVDPPMultiIMFBTrainer(SVDPPFeatureTrainer):
         if key not in self._imfb_cache:
             if tracing.on:
                 tracing.begin("pack")
-            entry = self._imfb_entry(self._pack_imfb(ds), self.state.w.device)
+            entry = self._with_overlap(self._imfb_entry(self._pack_imfb(ds), self.state.w.device))
             self._imfb_cache[key] = entry
             self._plan_ids.add(id(entry.stacked["label"]))
             if tracing.on:

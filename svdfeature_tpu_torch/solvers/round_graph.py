@@ -30,10 +30,11 @@ pointers and the step's switches (``hp``; on the SVD++ route also its
 checkpoint loaded, a state made anew) runs eagerly, and the round after it
 captures again.
 
-A capture counts nothing, since it runs nothing: a replay counts what the
-trainer says a round counts (the base round's T ``steps``; the SVD++
-epoch's T ``steps`` and C ``chunks``) and the kernel launches it holds
-(each wrapper's ``.launches``).  With the tracer on, ``graph.captures`` and
+A capture counts nothing, since it runs nothing: what the captured round
+counted is taken back, and a replay counts what the trainer says a round
+counts (the base round's T ``steps``; the SVD++ epoch's T ``steps`` and C
+``chunks``) and the kernel launches it holds (each wrapper's
+``.launches``).  With the tracer on, ``graph.captures`` and
 ``graph.replays`` count, and the spans ``graph.capture`` and
 ``graph.replay`` cover a capture and a replay's enqueue.
 """
@@ -73,8 +74,7 @@ class RoundGraph:
               run: Callable[..., TrainState]) -> TrainState:
         """One round from ``state`` at learning rate ``lr`` (0-d, on the
         card): ``run(state, lr)`` eagerly the first time, else the graph of
-        ``run(state, lr, counted=False)``, captured the first time it is
-        needed."""
+        it, captured the first time it is needed."""
         if not self.warm:
             self.warm = True
             return run(state, lr)
@@ -92,9 +92,10 @@ class RoundGraph:
         wrappers = _wrappers()
         before = [w.launches for w in wrappers]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+        stream = torch.cuda.Stream(dev)
+        with tracing.uncounted(self.counts), torch.cuda.graph(graph, stream=stream):
             out = run(dataclasses.replace(state, g=self.g, step=self.step, ref_g=self.ref_g),
-                      self.lr, counted=False)
+                      self.lr)
             if out.w is not state.w:
                 raise RuntimeError("a captured round must update the table in place")
             self.g.copy_(out.g)

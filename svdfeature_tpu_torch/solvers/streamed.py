@@ -10,9 +10,10 @@ The trainers build a chunk's entry with its tensors on the CPU;
 
 - **stage** (producer thread): each tensor is copied into pinned host
   memory and from there to the device with ``non_blocking=True`` on a side
-  stream of that device (one per device), and an event is recorded after
-  the copies.  The producer thread's current stream is that thread's
-  default stream, so the side stream is set explicitly
+  stream of that device (one per device), the trainer's ``then`` finishes
+  the entry there (the SVD++ family builds its feedback overlap), and an
+  event is recorded after both.  The producer thread's current stream is
+  that thread's default stream, so the side stream is set explicitly
   (``torch.cuda.device`` and ``torch.cuda.stream``): the copy overlaps the
   training stream's work.
 - **claim** (caller's thread, entering ``train_chunk*``): the current
@@ -46,7 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -104,25 +105,24 @@ class ChunkStream:
         self.stats = StreamStats(base_bytes=base)
         self._mark = tracing.now() if tracing.on else 0
 
-    def stage(self, entry, device: torch.device) -> Staged:
-        """``entry`` (its tensors on the CPU) staged on ``device``; on a
-        CUDA device through pinned memory on the device's side stream."""
-        tensors: List[torch.Tensor] = []
-
-        def keep(t: torch.Tensor) -> torch.Tensor:
-            tensors.append(t)
-            return t
-
+    def stage(self, entry, device: torch.device,
+              then: Callable[[Any], Any] = lambda entry: entry) -> Staged:
+        """``entry`` (its tensors on the CPU) staged on ``device`` and
+        finished there by ``then``; on a CUDA device through pinned memory
+        on the device's side stream, ``then`` on that stream too."""
         if device.type != "cuda":
-            out = map_tensors(entry, keep)
-            return Staged(out, tensors, device, None, sum(t.nbytes for t in tensors))
-        side = self._side.get(device)
-        if side is None:
-            side = self._side[device] = torch.cuda.Stream(device=device)
-        with torch.cuda.device(device), torch.cuda.stream(side):
-            out = map_tensors(entry, lambda t: keep(t.pin_memory().to(device, non_blocking=True)))
-            event = torch.cuda.Event()
-            event.record(side)
+            out, event = then(entry), None
+        else:
+            side = self._side.get(device)
+            if side is None:
+                side = self._side[device] = torch.cuda.Stream(device=device)
+            with torch.cuda.device(device), torch.cuda.stream(side):
+                out = then(map_tensors(entry, lambda t: t.pin_memory().to(device,
+                                                                          non_blocking=True)))
+                event = torch.cuda.Event()
+                event.record(side)
+        tensors: List[torch.Tensor] = []
+        map_tensors(out, lambda t: tensors.append(t) or t)
         return Staged(out, tensors, device, event, sum(t.nbytes for t in tensors))
 
     @contextlib.contextmanager

@@ -19,18 +19,20 @@ Tables over 8192 rows (dummy included) take the big-table route of the
 JAX solver (solvers/svdpp.py:318-335, 618-636): the state moves to the
 augmented row layout and each round is ops/svdpp_big.train_epoch_plus_big,
 a host loop of sorted-dedup steps that writes through K5 (``use_pallas``,
-as on the base solver's big route), never the tile sweep.  The pack then
-takes the factored feedback overlap and, where every unit's user segment
-is one constant id distinct within its chunk and reg_method < 4
-(``_carry_users_plan``), the user-carry plan and the items' static
-sorted-dedup layout.  The staged pack of a dataset the caller keeps
-(``_pack_plus``) builds that overlap on the training device from the
-staged pool (ops/fb_overlap.py), with the copy's forms and rule; a pair
-epoch, a streamed chunk and a mesh keep the copy's host overlap.  On the
-card, a staged pack's first big-table round runs eagerly, its second is
-captured whole as one CUDA graph and each later round is one replay of it
-(solvers/round_graph.py, as the base solver's big rounds); streamed
-chunks, pair epochs and every other route stay eager.
+as on the base solver's big route), never the tile sweep.  The entry then
+takes the factored feedback overlap where it is smaller and, where every
+unit's user segment is one constant id distinct within its chunk and
+reg_method < 4 (``_carry_users_plan``), the user-carry plan and the items'
+static sorted-dedup layout.  On the card, a staged pack's first big-table
+round runs eagerly, its second is captured whole as one CUDA graph and
+each later round is one replay of it (solvers/round_graph.py, as the base
+solver's big rounds); streamed chunks, pair epochs and every other route
+stay eager.
+
+``pack_plus`` runs with its host overlap deferred (``_pack_numpy``):
+ops/fb_overlap.build makes it from the staged pool where a pack, the pair
+skeleton or a streamed chunk is staged for training (``_with_overlap``),
+never on a mesh, under a shared feedback space or for a prediction alone.
 
 With common_feedback_space=1 the feedback pool rows are user rows, so a
 step's row updates move the pool and the chunk closed form of the
@@ -120,8 +122,8 @@ class PlusEntry:
     chunk_id: np.ndarray  # [T] on the host: the launch loop reads it
     # fb_idx / fb_val / fb_block [C, F]; chunk_users [C, G] with the carry plan
     fb: Dict[str, torch.Tensor]
-    # [C, G+1, G+1], or {"diag", "dup"} factored on big tables
-    fb_overlap: Union[torch.Tensor, Dict[str, torch.Tensor]]
+    # [C, G+1, G+1], {"diag", "dup"} factored on big tables, or None
+    fb_overlap: Optional[Union[torch.Tensor, Dict[str, torch.Tensor]]]
     perm: np.ndarray  # dataset row -> packed slot (on a mesh, of the padded layout)
 
 
@@ -157,11 +159,6 @@ def _chunk_users_from_slots(uid_slots: np.ndarray, cid: np.ndarray, dummy: int):
 
 
 class SVDPPFeatureTrainer(SVDFeatureTrainer):
-    # the big route's staged pack builds its overlap on the training device
-    # (_pack_plus); a subclass whose entry recomputes the overlap from its
-    # own pool on the host turns it off
-    card_overlap = True
-
     def __init__(self, mtype):
         super().__init__(mtype)
         self.users_per_batch = 128
@@ -252,31 +249,34 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
 
     def _pack_numpy(self, ds: PlusDataset, caps: Optional[dict] = None,
                     sort_blocks: Optional[bool] = None):
-        """``pack_plus`` of ``ds`` at the trainer's layout (numpy only, so a
-        producer thread may run it); a streamed chunk passes the stream's
-        ``caps`` and its own ordering."""
+        """``pack_plus`` of ``ds`` at the trainer's layout without its
+        overlap (numpy only, so a producer thread may run it); a streamed
+        chunk passes the stream's ``caps`` and its own ordering."""
         m = self.model
-        return pack_plus(
-            ds,
-            self.users_per_batch,
-            m.num_rows,
-            m.param.num_global,
-            m.off_user,
-            m.off_item,
-            m.off_ufeedback,
-            feat_user=self.feat_user,
-            feat_item=self.feat_item,
-            num_user=m.param.num_user,
-            num_item=m.param.num_item,
-            num_ufeedback=m.param.num_ufeedback,
-            sort_blocks=bool(self.sort_blocks) if sort_blocks is None else sort_blocks,
-            rows_per_user=self.rows_per_user,
-            # the dense O is O(G^2) per chunk: big tables take the
-            # exact factored form (ops/svdpp_big._ov_mul); the mesh reads
-            # no overlap, so it takes the cheaper one too
-            factored_overlap=self.hp.big_table or self.mesh is not None,
-            **(caps or {}),
-        )
+        with fb_overlap.deferred():
+            return pack_plus(
+                ds, self.users_per_batch, m.num_rows, m.param.num_global, m.off_user,
+                m.off_item, m.off_ufeedback, feat_user=self.feat_user, feat_item=self.feat_item,
+                num_user=m.param.num_user, num_item=m.param.num_item,
+                num_ufeedback=m.param.num_ufeedback, rows_per_user=self.rows_per_user,
+                sort_blocks=bool(self.sort_blocks) if sort_blocks is None else sort_blocks,
+                **(caps or {}))
+
+    def _overlap(self, fb: Dict[str, torch.Tensor], G: int, slots: str = "fb_block"):
+        """The overlap of the staged pool ``fb`` that this route's epochs
+        read, built on its device: dense on small tables (K2, K3, the plain
+        epochs), the copy's rule on big ones; None on a mesh and under a
+        shared feedback space (their epochs gather the pool every step)."""
+        if self.mesh is not None or self.model.param.common_feedback_space:
+            return None
+        return fb_overlap.build(fb, G, factored=self.hp.big_table, slots=slots)
+
+    def _with_overlap(self, entry: PlusEntry) -> PlusEntry:
+        """``entry``, staged for training, with its overlap (``_overlap``;
+        its planes are ``[T, G*M]``)."""
+        G = entry.stacked["label"].shape[1] // self.rows_per_user
+        entry.fb_overlap = self._overlap(entry.fb, G)
+        return entry
 
     def _mesh_entry(self, packed, dev: torch.device) -> PlusEntry:
         """A packed dataset's entry on a mesh (svdfeature_tpu/solvers/
@@ -319,15 +319,13 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             T = packed.i_idx.shape[0]
             layout = make_dedup_layout(packed.i_idx.reshape(T, -1).astype(np.int64))
             arrays.update(zip(LAYOUT_PLANES, layout))
-        fb, overlap = pool_from_numpy(fbd, packed.fb_overlap, dev)
-        if overlap is None:  # deferred by _pack_plus: made here, on dev
-            overlap = fb_overlap.build(fb, packed.num_blocks_local)
+        fb, _ = pool_from_numpy(fbd, None, dev)
         return PlusEntry(stacked=stacked_from_numpy(arrays, dev), chunk_id=chunk_id, fb=fb,
-                         fb_overlap=overlap, perm=packed.perm)
+                         fb_overlap=None, perm=packed.perm)
 
     def _stage_packed(self, packed) -> PlusEntry:
-        """A packed dataset staged on the training device."""
-        entry = self._entry(packed, self.state.w.device)
+        """A packed dataset staged for training, with its overlap."""
+        entry = self._with_overlap(self._entry(packed, self.state.w.device))
         self._plan_ids.add(id(entry.stacked["label"]))
         return entry
 
@@ -339,13 +337,7 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         if key not in self._plus_cache:
             if tracing.on:
                 tracing.begin("pack")
-            if self.card_overlap and self.hp.big_table and self.mesh is None:
-                # the overlap is the big route's costliest host work: _entry
-                # builds it on the training device from the staged pool
-                with fb_overlap.deferred():
-                    packed = self._pack_numpy(ds)
-            else:
-                packed = self._pack_numpy(ds)
+            packed = self._pack_numpy(ds)
             if tracing.on:
                 tracing.count("slots", packed.weight.size)
                 tracing.count("slots.live", int(np.count_nonzero(packed.weight)))
@@ -369,9 +361,10 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
         return self._entry(packed, CPU)
 
     def stage_chunk_plus(self, entry: PlusEntry) -> Staged:
-        """A packed chunk on the training device (producer thread; on a
-        mesh ``_entry`` has kept this rank's columns already)."""
-        return self.chunk_stream.stage(entry, self.state.w.device)
+        """A packed chunk on the training device, its overlap built there
+        after the copies (producer thread; on a mesh ``_entry`` has kept
+        this rank's columns already)."""
+        return self.chunk_stream.stage(entry, self.state.w.device, then=self._with_overlap)
 
     train_chunk_plus = SVDFeatureTrainer.train_chunk
 
@@ -476,10 +469,10 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             # one CUDA graph of the whole epoch (solvers/round_graph.py)
             carry = "chunk_users" in entry.fb
 
-            def run(state: TrainState, lr, counted: bool = True) -> TrainState:
+            def run(state: TrainState, lr) -> TrainState:
                 return train_epoch_plus_big(
                     state, entry.stacked, entry.chunk_id, entry.fb, entry.fb_overlap, lr,
-                    self.consts, self.hp, ph, carry_users=carry, counted=counted)
+                    self.consts, self.hp, ph, carry_users=carry)
 
             graph = self._round_graph(entry)
             for lr in self._staged_lrs(lrs):
@@ -579,12 +572,12 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
                   for a, pad in zip(host_rows, (dummy, 0.0, dummy, 0.0))]
         static = stacked_from_numpy({name: getattr(packed, name)
                                      for name in ("label", "weight", "g_idx", "g_val")}, dev)
-        fb, overlap = pool_from_numpy(packed.fb_arrays(), packed.fb_overlap, dev)
+        fb, _ = pool_from_numpy(packed.fb_arrays(), None, dev)
         self._plan_ids.add(id(static["label"]))
+        G = packed.num_blocks_local
         sk = dict(static=static, tables=tables, chunk_id=packed.chunk_id, fb=fb,
-                  overlap=overlap, slot=packed.perm, T=T, GS=GS, TGS=T * GS, Rr=Rr,
-                  host_rows=host_rows, dummy=dummy, G=packed.num_blocks_local,
-                  M=packed.rows_per_user)
+                  overlap=self._overlap(fb, G), slot=packed.perm, T=T, GS=GS, TGS=T * GS, Rr=Rr,
+                  host_rows=host_rows, dummy=dummy, G=G, M=packed.rows_per_user)
         # K2 where use_pallas is set and its gate passes on the pair planes
         # (item width 2), else the plain rounds; big tables take the big epoch
         probe = dict(static, u_idx=torch.empty((T, GS, 1)), i_idx=torch.empty((T, GS, 2)))
@@ -904,7 +897,8 @@ class SVDPPFeatureTrainer(SVDFeatureTrainer):
             self._apply_pair_layout()
             if self._pair_src is ds and self._pair_future is not None:
                 self._pair_future.result()  # its draw first: one thread on the rng at a time
-            entry = self._stage_packed(self._pack_numpy(ds.epoch_dataset()))
+            entry = self._entry(self._pack_numpy(ds.epoch_dataset()), self.state.w.device,
+                                plan=False)
         elif isinstance(ds, PlusDataset):
             entry = self._pack_plus(ds)
         else:  # random order: the base solver's forward

@@ -34,11 +34,12 @@ warning; the trainers span it (``sync.wait``).
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import itertools
 import time
 import warnings
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Collection, Dict, List, NamedTuple, Tuple
 
 # the flag every span site tests
 on = False
@@ -111,6 +112,17 @@ def add(name: str, start: int, end_ns: int) -> None:
 
 def count(name: str, n: int = 1) -> None:
     _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def uncounted(names: Collection[str]):
+    """Within the block the counters ``names`` count nothing: a CUDA graph's
+    capture, whose work only its replays run."""
+    saved = {n: _counters[n] for n in names if n in _counters}
+    yield
+    for n in names:
+        _counters.pop(n, None)
+    _counters.update(saved)
 
 
 def set_round(r: int) -> None:

@@ -22,9 +22,9 @@ import test_torch_svdpp_big as tbig
 from test_torch_refresh import follow_text
 
 from svdfeature_tpu_torch import convert
-from svdfeature_tpu_torch.data.batching_plus import pack_plus
+from svdfeature_tpu_torch.data.batching_plus import compute_fb_overlap, pack_plus
 from svdfeature_tpu_torch.data.text import load_plus_text
-from svdfeature_tpu_torch.ops import big_embed, cuda_scatter, cuda_svdpp, svdpp_bilinear
+from svdfeature_tpu_torch.ops import big_embed, cuda_scatter, cuda_svdpp, fb_overlap, svdpp_bilinear
 from svdfeature_tpu_torch.ops.embed import HyperParams
 from svdfeature_tpu_torch.ops.svdpp import PlusHyper
 from svdfeature_tpu_torch.ops.svdpp_bilinear import BiHyper
@@ -72,7 +72,10 @@ def bi_inputs(kind="small", M=1, nbf=10, start=0, reg_bi=0, seed=0, hp=None):
     """numpy inputs of one case: state, consts, planes, the filtered pool,
     the overlap, ``up``, a seeded W_bi; 2 rounds at lr 0.01."""
     packed, N, ng, ni, (off_user, off_item) = layout(kind, seed, M)
-    fb, up, overlap = extras_of(SVDBiLinearTrainer, packed, nbf, start)
+    fb, up = extras_of(SVDBiLinearTrainer, packed, nbf, start)
+    # the JAX solver's overlap: recomputed on the host from the filtered pool
+    overlap = compute_fb_overlap(fb["fb_idx"], fb["fb_val"], fb["fb_block"],
+                                 packed.num_blocks_local)
     rng = np.random.RandomState(seed + 1)
     w = rng.normal(0, 0.1, (N, K)).astype(np.float32)
     b = rng.normal(0, 0.01, N).astype(np.float32)
@@ -211,15 +214,19 @@ def test_big_epoch_matches_jax(jx, case):
 
 @pytest.mark.parametrize("kind,start", [("small", 0), ("small", 5), ("shared", 4), ("big", 6)])
 def test_bi_extras_match_jax(jx, kind, start):
-    """The filtered pool, the user properties and the recomputed overlap
-    of a packing equal the JAX solver's."""
+    """The filtered pool and the user properties of a packing equal the JAX
+    solver's, and the overlap built from that pool on the device equals the
+    one it recomputes on the host, within float32 summation order."""
     packed = layout(kind, 2, 2)[0]
     got = extras_of(SVDBiLinearTrainer, packed, 9, start)
     want = extras_of(jx.solver.SVDBiLinearTrainer, packed, 9, start)
     for name in got[0]:
         assert np.array_equal(got[0][name], want[0][name]), name
     assert np.array_equal(got[1], want[1]) and got[1].any()
-    assert np.array_equal(got[2], want[2])
+    pool, _ = convert.pool_from_numpy(got[0], None, CPU)
+    built = fb_overlap.build(pool, packed.num_blocks_local, factored=False)
+    # the copy's f32 product against build()'s float64 one, rounded once
+    np.testing.assert_allclose(built.numpy(), want[2], rtol=1e-6, atol=1e-7)
     if start:
         assert not np.array_equal(got[0]["fb_val"], packed.fb_val)
 

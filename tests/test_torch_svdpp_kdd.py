@@ -112,21 +112,28 @@ def _copy_overlap(idx, val, blk, G):
     return batching_plus.compute_fb_overlap(idx, val, blk, G)
 
 
-@pytest.mark.parametrize("case", ["dense", "factored", "all-empty"])
+@pytest.mark.parametrize("case", ["dense", "factored", "all-empty", "forced-dense", "fb_ctx"])
 def test_card_overlap_equals_the_copy(monkeypatch, case):
-    """Both forms, with an empty chunk among live ones, and a pool with no
-    live entry; the dense product over blocks of 5 shared ids."""
+    """Both forms of the big tables' rule, with an empty chunk among live
+    ones, and a pool with no live entry; the dense form a small table
+    takes where the rule would factor; a stacked pack's context plane
+    (``fb_ctx``, dense); the dense product over blocks of 5 shared ids."""
     monkeypatch.setattr(fb_overlap, "COLS", 5)
     rng = np.random.default_rng(3)
-    G = 16
-    id_range = {"dense": 40, "factored": 100_000, "all-empty": 1}[case]
-    empty = {"dense": (1,), "factored": (2,), "all-empty": (0, 1, 2)}[case]
+    G = 5 if case == "fb_ctx" else 16
+    id_range = {"dense": 40, "factored": 100_000, "all-empty": 1, "forced-dense": 100_000,
+                "fb_ctx": 60}[case]
+    empty = {"dense": (1,), "factored": (2,), "all-empty": (0, 1, 2), "forced-dense": (0,),
+             "fb_ctx": (2,)}[case]
     idx, val, blk = _pool(rng, 3, G, 120, id_range, empty)
-    want = _copy_overlap(idx, val, blk, G)
+    factored = case in ("dense", "factored", "all-empty")
+    slots = "fb_ctx" if case == "fb_ctx" else "fb_block"
+    want = (_copy_overlap(idx, val, blk, G) if factored
+            else batching_plus.compute_fb_overlap(idx, val, blk, G))
     got = fb_overlap.build({"fb_idx": torch.from_numpy(idx), "fb_val": torch.from_numpy(val),
-                            "fb_block": torch.from_numpy(blk)}, G)
-    assert isinstance(got, dict) == isinstance(want, dict) == (case != "dense")
-    if case == "dense":
+                            slots: torch.from_numpy(blk)}, G, factored=factored, slots=slots)
+    assert isinstance(got, dict) == isinstance(want, dict) == (case in ("factored", "all-empty"))
+    if not isinstance(want, dict):
         # the copy's f32 product sums each entry over up to 120 ids in its
         # own order; build() sums in float64 and rounds once
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
@@ -149,52 +156,203 @@ def _groups_text(rng, users, items, fb_bound):
     return "\n".join(rows), "\n".join(fbs)
 
 
-def test_small_table_pack_keeps_the_copy_overlap():
-    """A small table's staged pack takes the copy's host overlap as it
-    was, bit for bit."""
+SMALL = dict(num_user=30, num_item=20, num_ufeedback=20, num_factor=4, base_score=3,
+             users_per_batch=8, rows_per_user=2, sort_blocks=1, device="cpu")
+# a stacked tag stream: a context opened, added to and closed every 6 users
+STACKED_TAGS = (1, 0, 3, 2, 0, 0)  # TAG_START, DEFAULT, MIDDLE, END, DEFAULT, DEFAULT
+
+
+def _small_trainer(kind="svdpp", **extra):
+    """A small-table trainer of the SVD++ family on the CPU (``kind``:
+    svdpp, bilinear, imfb or rank), initialised."""
     from svdfeature_tpu_torch.params import SVDTypeParam
+    from svdfeature_tpu_torch.solvers.bilinear import SVDBiLinearTrainer
+    from svdfeature_tpu_torch.solvers.multi_imfb import SVDPPMultiIMFBTrainer
     from svdfeature_tpu_torch.solvers.svdpp import SVDPPFeatureTrainer
 
-    conf = dict(num_user=30, num_item=20, num_ufeedback=20, num_factor=4, base_score=3,
-                users_per_batch=8, rows_per_user=2, sort_blocks=1, device="cpu")
-    tr = SVDPPFeatureTrainer(SVDTypeParam(format_type=1))
+    cls, mtype = {"svdpp": (SVDPPFeatureTrainer, {}),
+                  "rank": (SVDPPFeatureTrainer, dict(active_type=3)),
+                  "bilinear": (SVDBiLinearTrainer, dict(extend_type=15)),
+                  "imfb": (SVDPPMultiIMFBTrainer, dict(extend_type=2))}[kind]
+    tr = cls(SVDTypeParam(format_type=1, **mtype))
+    conf = dict(SMALL, **extra)
+    if kind == "bilinear":
+        conf.update(num_bi_feedback=6, start_ufeedback=2)
+    if kind == "rank":
+        conf.update(base_score=0.5)
     for n, v in conf.items():
         tr.set_param(n, str(v))
     tr.init_model()
     tr.init_trainer()
-    assert not tr.hp.big_table
+    return tr
+
+
+def _small_ds(stacked=False):
+    from svdfeature_tpu_torch.data.csr import PlusDataset
+
     rows, fbs = _groups_text(np.random.default_rng(5), 30, 20, 20)
     ds = load_plus_text("x", "y", text=rows, feedback_text=fbs)
+    if not stacked:
+        return ds
+    return PlusDataset.from_blocks([type(b)(b.fb_index, b.fb_value, b.data, extend_tag=t)
+                                    for b, t in zip(ds.blocks(), STACKED_TAGS * 5)])
+
+
+def _pair_source():
+    """A PairSource of single-(user, item) rows that the pair skeleton
+    takes (tests/test_torch_rank.py's data, no global features)."""
+    from svdfeature_tpu_torch.data.rank import PairSource
+    from svdfeature_tpu_torch.data.registry import IteratorConfig
+
+    rng = np.random.RandomState(4)
+    rows, fbs = [], []
+    for u in range(16):
+        items = rng.choice(20, min(2 + 7 * (u % 5), 20), replace=False)
+        rows += [f"{float(i < 10)} 0 1 1 {u}:1 {i}:1" for i in items]
+        fbs.append(f"{len(items)} 0")
+    return PairSource(load_plus_text("x", "y", text="\n".join(rows), feedback_text="\n".join(fbs)),
+                      IteratorConfig(), seed=9)
+
+
+def _stream(tmp_path, ds):
+    from svdfeature_tpu_torch.data.buffer import write_plus_buffer
+    from svdfeature_tpu_torch.data.streaming import StreamingPlusBuffer
+
+    write_plus_buffer(str(tmp_path / "groups.buffer"), ds)
+    return StreamingPlusBuffer(str(tmp_path / "groups.buffer"), blocks_per_chunk=16)
+
+
+def _on_mesh(tr):
+    """``tr`` as rank (0, 0) of a 2x1 mesh, for packing alone (no group is
+    made: an entry only slices its planes)."""
+    from svdfeature_tpu_torch.parallel.comm import Mesh
+
+    tr.mesh, tr.mesh_data = Mesh(2, 1, 0, 0, {"model": None, "data": None}, CPU), 2
+    return tr
+
+
+def test_small_table_pack_keeps_the_copy_overlap():
+    """A small table's staged pack takes the dense overlap of the copy's
+    host function, built on the device from the staged pool."""
+    tr = _small_trainer()
+    assert not tr.hp.big_table
+    ds = _small_ds()
     entry = tr._pack_plus(ds)
     packed = tr._pack_numpy(ds)
-    assert torch.equal(entry.fb_overlap, torch.from_numpy(packed.fb_overlap))
+    assert packed.fb_overlap is None  # the pack leaves it to the device
+    want = batching_plus.compute_fb_overlap(packed.fb_idx, packed.fb_val, packed.fb_block,
+                                            packed.num_blocks_local)
+    # the copy's f32 product against build()'s float64 one, rounded once
+    np.testing.assert_allclose(entry.fb_overlap.numpy(), want, rtol=1e-6, atol=1e-7)
 
 
-def test_big_route_pack_runs_no_host_overlap(monkeypatch):
-    """The big route's staged pack never calls the copy's host overlap
-    (its ``[G+1, Ld]`` / ``[G+1, U]`` arrays and its GEMM): with both
-    functions made to raise, the pack still stages the overlap built on
-    the device."""
+ROUTES = ["staged small", "staged big", "streamed chunk", "pair skeleton", "bilinear",
+          "multi-IMFB staged", "mesh entry", "prediction"]
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_big_route_pack_runs_no_host_overlap(monkeypatch, tmp_path, route):
+    """No packing route calls the copy's host overlap (its ``[G+1, Ld]`` /
+    ``[G+1, U]`` arrays and its GEMM): with both functions made to raise,
+    every route still packs, and an entry staged for training holds the
+    overlap ``fb_overlap.build`` made on the device."""
     from portbench.harness import leaves, program
 
     def host_overlap(*args):
         raise AssertionError("the host overlap ran")
 
-    s = tiny_carry.carry("dense")
-    data = kdd_groups.make(s.cfg["conf"], s.traffic, SEED)
-    trainer = program.build_trainer(program.conf_keys(s.cfg, s.traffic, "cpu"),
-                                    leaves.write_checkpoint(s.cfg, leaves.initial(s.cfg, SEED, CPU)))
-    trainer.init_trainer()
-    ds = program.dataset(s.cfg, data["train"])
-    monkeypatch.setattr(batching_plus, "compute_fb_overlap", host_overlap)
-    monkeypatch.setattr(batching_plus, "compute_fb_overlap_factored", host_overlap)
-    entry = trainer._pack_plus(ds)
-    assert entry.fb_overlap.shape == (4, trainer.users_per_batch + 1, trainer.users_per_batch + 1)
+    builds = []
+    build = fb_overlap.build
+
+    def patch():
+        monkeypatch.setattr(batching_plus, "compute_fb_overlap", host_overlap)
+        monkeypatch.setattr(batching_plus, "compute_fb_overlap_factored", host_overlap)
+        monkeypatch.setattr(fb_overlap, "build", lambda *a, **k: builds.append(1) or build(*a, **k))
+
+    if route == "staged big":
+        s = tiny_carry.carry("dense")
+        data = kdd_groups.make(s.cfg["conf"], s.traffic, SEED)
+        trainer = program.build_trainer(
+            program.conf_keys(s.cfg, s.traffic, "cpu"),
+            leaves.write_checkpoint(s.cfg, leaves.initial(s.cfg, SEED, CPU)))
+        trainer.init_trainer()
+        ds = program.dataset(s.cfg, data["train"])
+        patch()
+        entry = trainer._pack_plus(ds)
+        G = trainer.users_per_batch
+        assert entry.fb_overlap.shape == (4, G + 1, G + 1) and builds == [1]
+        return
+    kind = {"pair skeleton": "rank", "bilinear": "bilinear", "multi-IMFB staged": "imfb"}
+    tr = _small_trainer(kind.get(route, "svdpp"))
+    ds = _small_ds(stacked=route == "multi-IMFB staged")
+    built = []
+    if route in ("streamed chunk", "prediction"):
+        src = _stream(tmp_path, ds)
+        with_overlap = tr._with_overlap
+        monkeypatch.setattr(tr, "_with_overlap", lambda e: built.append(with_overlap(e)) or e)
+    patch()
+    if route == "streamed chunk":
+        tracing.enable()
+        tr.update_all(src)
+        tracing.disable()
+        spans, counters = tracing.drain()
+        assert tr.chunk_stream.stats.chunks == len(built) > 1
+        assert all(e.fb_overlap.shape[1:] == (9, 9) for e in built)
+        assert counters["overlap.dense"] == sum(len(e.fb_overlap) for e in built)
+        # the producer thread's builds leave the training thread's spans whole
+        assert {s.name for s in spans} == {"stream.chunk", "stream.wait"}
+        assert all(s.parent == -1 for s in spans)
+    elif route == "prediction":
+        assert len(tr.predict_all(src)) == ds.rows.num_row and built == []
+    elif route == "pair skeleton":
+        src = _pair_source()
+        tr.update_all(src)
+        assert tr._pair_sk is not None and tr._pair_sk["overlap"].dim() == 3
+    elif route == "mesh entry":
+        assert _on_mesh(tr)._stage_packed(tr._pack_numpy(ds)).fb_overlap is None
+    else:
+        entry = tr._pack_plus(ds)
+        nseg = entry.enabled.shape[1] if route == "multi-IMFB staged" else 9
+        assert entry.fb_overlap.shape[1:] == (nseg, nseg)
+        tr.update_all(ds)
+    assert (builds == []) == (route in ("mesh entry", "prediction"))
+
+
+@pytest.mark.parametrize("route", ["mesh", "refresh", "multi-IMFB big", "prediction"])
+def test_no_overlap_where_no_epoch_reads_it(monkeypatch, tmp_path, route):
+    """Mesh entries, the refresh routes' entries (a shared feedback space;
+    multi-IMFB's big-table epoch) and prediction entries stage no overlap
+    and build none."""
+    from svdfeature_tpu_torch.solvers import base as tbase
+
+    calls = []
+    build = fb_overlap.build
+    monkeypatch.setattr(fb_overlap, "build", lambda *a, **k: calls.append(1) or build(*a, **k))
+    if route == "multi-IMFB big":
+        monkeypatch.setattr(tbase, "BIG_TABLE_ROWS", 4)
+    kind = "imfb" if route == "multi-IMFB big" else "svdpp"
+    tr = _small_trainer(kind, **({"common_feedback_space": 1} if route == "refresh" else {}))
+    ds = _small_ds(stacked=route == "multi-IMFB big")
+    if route == "mesh":
+        entries = [_on_mesh(tr)._stage_packed(tr._pack_numpy(ds))]
+    elif route == "prediction":
+        entries = []
+        predict_entry = tr._predict_entry
+        monkeypatch.setattr(tr, "_predict_entry",
+                            lambda st, e: entries.append(e) or predict_entry(st, e))
+        tr.predict_all(_stream(tmp_path, ds))
+        assert len(entries) > 1
+    else:
+        assert tr.hp.big_table == (route == "multi-IMFB big")
+        entries = [tr._pack_plus(ds)]
+        tr.update_all(ds)
+    assert all(e.fb_overlap is None for e in entries) and calls == []
 
 
 def test_deferred_overlap_is_this_threads_alone():
     """Inside ``deferred()`` the copy's overlap answers None to this thread
-    and computes for another; after it the copy's functions are back."""
+    and computes for another; after it the copy's functions are as they
+    were."""
     before = (batching_plus.compute_fb_overlap, batching_plus.compute_fb_overlap_factored)
     idx, val, blk = _pool(np.random.default_rng(1), 2, 8, 40, 30)
     other = {}
@@ -208,6 +366,61 @@ def test_deferred_overlap_is_this_threads_alone():
         assert not t.is_alive()
     assert (batching_plus.compute_fb_overlap, batching_plus.compute_fb_overlap_factored) == before
     np.testing.assert_array_equal(other["O"], before[0](idx, val, blk, 8))
+
+
+def test_deferred_packs_run_side_by_side():
+    """Two threads pack at once: while one is inside its ``deferred()``
+    block, another enters its own and packs to the end; neither waits on
+    the other's whole pack, and both still leave the overlap out."""
+    tr, ds = _small_trainer(), _small_ds()
+    inside, packed = threading.Event(), threading.Event()
+    seen = {}
+
+    def first():
+        with fb_overlap.deferred():
+            inside.set()
+            seen["waited"] = packed.wait(timeout=60)
+            seen["first"] = tr._pack_numpy(ds).fb_overlap
+
+    t = threading.Thread(target=first)
+    t.start()
+    assert inside.wait(timeout=60)
+    seen["second"] = tr._pack_numpy(ds).fb_overlap
+    packed.set()
+    t.join(timeout=60)
+    assert not t.is_alive() and seen == {"waited": True, "first": None, "second": None}
+
+
+def test_deferred_holds_under_thread_stress():
+    """Sixteen threads with a short switch interval, half inside their own
+    ``deferred()`` blocks and half outside: inside, the copy's overlap
+    answers None every time; outside, it computes the copy's, bit for bit."""
+    import sys
+
+    idx, val, blk = _pool(np.random.default_rng(2), 2, 8, 40, 30)
+    want = batching_plus.compute_fb_overlap(idx, val, blk, 8)
+    wrong = []
+
+    def work(inside):
+        for _ in range(40):
+            if inside:
+                with fb_overlap.deferred():
+                    got = batching_plus.compute_fb_overlap(idx, val, blk, 8)
+                    wrong.extend([] if got is None else ["inside"])
+            elif not np.array_equal(batching_plus.compute_fb_overlap(idx, val, blk, 8), want):
+                wrong.append("outside")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i % 2 == 0,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and wrong == []
 
 
 # ---- (c) the cell's generator -------------------------------------------------------------

@@ -169,7 +169,8 @@ def test_tracing_changes_no_trained_bit_svdpp_demo_round():
     for traced in (False, True):
         tr = trainer(SVDPP, fmt=svd_type.USER_GROUP_FORMAT)
         spans, _ = train(tr, ds, 1, traced)
-        assert [s.name for s in spans] == (["pack"] if traced else [])
+        # the pack, with the overlap built inside it (ops/fb_overlap.build)
+        assert [s.name for s in spans] == (["pack.overlap", "pack"] if traced else [])
         states.append(tr.state)
     for name in ("w", "b", "g", "step"):
         assert torch.equal(getattr(states[0], name), getattr(states[1], name)), name
